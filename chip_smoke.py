@@ -5,11 +5,15 @@ toolkit (``nvcc``):
 
     python3 chip_smoke.py [--seed 0]
 
-It builds the port's kernels from ``paddlenlp_tpu_torch/csrc`` and runs these
-phases, each printing one JSON line; any failed check exits non-zero:
+It builds the port's kernels from ``paddlenlp_tpu_torch/csrc`` (one ``nvcc``
+per source, started together) and runs these phases, each printing one JSON
+line; any failed check exits non-zero:
 
 1. device  -- the card's name and power limit (refuses to run without CUDA);
-2. build   -- ``nvcc`` for each kernel source;
+2. build   -- ``nvcc`` for each kernel source, with its registers and spills;
+
+Serving, the paged engine at Qwen2-7B width and depth:
+
 3. kernel  -- the ragged paged-attention kernel against its plain PyTorch
               version at Qwen2-7B attention shapes (28 query heads over 4 KV
               heads, head_dim 128, block 16): one ragged batch of 512-token
@@ -25,7 +29,28 @@ phases, each printing one JSON line; any failed check exits non-zero:
 5. profile -- ``torch.profiler`` over one steady decode call of the engine;
 6. logits  -- one 1024-token request through prefill and 16 decode steps on
               the kernel path against the dense forward over the same tokens;
-7. kernels -- every kernel with its launches on the engine runs and its check.
+
+Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
+
+7. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+              their plain versions, elementwise, at the training path's shape
+              (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
+              in fp32, with segments and a window, and at T = 4095; times
+              against the bound, the plain versions and
+              ``scaled_dot_product_attention``;
+8. train_grad -- Qwen2-1.5B widths, 2 layers, fp32: the loss and every
+              gradient leaf through the kernels against the attention through
+              the plain versions;
+9. train   -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+              Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
+              to one card and 4 steps (each cut printed under ``reduced``),
+              Qwen2-1.5B at full width and depth with random weights and a
+              Markov-chain corpus from ``--seed``; per-step loss, grad norm,
+              time, tokens/s, MFU and peak memory; the saved checkpoint
+              loads back bit for bit;
+10. train_profile -- ``torch.profiler`` over one more training step;
+11. kernels -- every kernel with its launches on the serving and training
+              runs and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object and ``{"ok": true, "device": {...}}``.
@@ -35,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -320,7 +346,7 @@ def phase_profile(torch, np, model, InferenceEngine, SamplingParams, seed):
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     attn_launches = sum(e.count for e in attn)
     res = dict(phase="profile", step="decode call, 8 rows x %d sub-steps" % eng.decode_steps,
-               wall_ms=wall_ms, device_ms=device_ms, device_idle_share=max(0.0, 1 - device_ms / wall_ms),
+               wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
                attention_kernel_ms=attn_ms, attention_launches=attn_launches,
                attention_launch_ms=attn_ms / max(attn_launches, 1),
                attention_launch_bound_ms=sum(kv_bytes) / len(kv_bytes) / HBM_BYTES_PER_S * 1e3,
@@ -390,11 +416,376 @@ def phase_logits(torch, np, model, PagedInferenceModel, init_paged_pool, seed):
     return res
 
 
+# ----------------------------------------------------------------------------- flash attention
+# Qwen/Qwen2-1.5B config.json (https://huggingface.co/Qwen/Qwen2-1.5B/blob/main/config.json)
+QWEN2_1_5B = dict(
+    model_type="qwen2", vocab_size=151936, hidden_size=1536, intermediate_size=8960, num_hidden_layers=28,
+    num_attention_heads=12, num_key_value_heads=2, max_position_embeddings=131072, rms_norm_eps=1e-6,
+    rope_theta=1000000.0, hidden_act="silu", initializer_range=0.02, tie_word_embeddings=True,
+    use_sliding_window=False, sliding_window=131072, max_window_layers=28, bos_token_id=151643,
+    eos_token_id=151643,
+)
+RECIPE = "llm/config/qwen2/pretrain_argument.json"
+
+# (name, dtype, T, segments, window) of every case the flash phase checks; the
+# first is the training path's launch shape: q [2, T, 12, 128] over k/v
+# [2, T, 2, 128] (Qwen2-1.5B attention, micro-batch 2 x 4096), causal
+FLASH_CASES = [("main", "bfloat16", 4096, False, None), ("fp32", "float32", 2048, False, None),
+               ("segments+window", "bfloat16", 2048, True, 512), ("tail", "bfloat16", 4095, False, None)]
+
+
+def flash_case(torch, dtype, T, segments, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, N, K, H = 2, 12, 2, 128
+    q, do = (torch.randn(B, T, N, H, generator=g, device=DEVICE).to(getattr(torch, dtype)) for _ in range(2))
+    k, v = (torch.randn(B, T, K, H, generator=g, device=DEVICE).to(getattr(torch, dtype)) for _ in range(2))
+    seg = None
+    if segments:  # three packed documents a row, boundaries off the 64-row tiles
+        seg = torch.zeros(B, T, dtype=torch.int32, device=DEVICE)
+        seg[:, T // 3 + 5:] = 1
+        seg[:, (2 * T) // 3 + 11:] = 2
+    return q, k, v, do, seg
+
+
+def flash_worst(torch, got, want, dtype):
+    """Worst element of |got - want| over its bound, per tensor (<= 1 passes).
+    bf16 outputs: one bf16 ulp of the value (2**-7 |want|), plus fp32 noise of
+    1e-3 scaled to the tensor's largest element (gradients run from ~1e-6 to
+    ~1); fp32 outputs and lse: summation order only, 1e-4 of the tensor's
+    largest element (at least 1e-4)."""
+    out = {}
+    for name in want:
+        w, x = want[name].float(), got[name].float()
+        big = max(w.abs().max().item(), 1.0)
+        if name == "lse" or dtype == "float32":
+            bound = torch.full_like(w, 1e-4 * big)
+        else:
+            bound = 2**-7 * w.abs() + 1e-3 * big
+        err = (x - w).abs()
+        out[name] = dict(max_abs_err=err.max().item(), worst=(err / bound).max().item(),
+                         finite=bool(torch.isfinite(x).all().item()))
+    return out
+
+
+def flash_bound(torch, fa, q, k, seg, window, what):
+    """Least time of one launch: the bytes it must move (each input read once,
+    each output written once) over HBM bandwidth, or its matmul flops on the
+    visible (row, col) pairs of this input at the card's peak for q's type --
+    the larger. Forward: q.k and p.v; dq: q.k, dO.v and ds.k; dk/dv: q.k,
+    dO.v, p^T.dO and ds^T.q (2 flops a multiply-add)."""
+    B, T, N, H = q.shape
+    K = k.shape[2]
+    pairs = fa._visible(T, T, True, window, seg, q.device).sum().item() * (B if seg is None else 1)
+    item = q.element_size()
+    qn, kn, rows = B * T * N * H, B * T * K * H, B * N * T
+    matmuls, nbytes = {
+        "fwd": (2, (qn + 2 * kn + qn) * item + rows * 4),
+        "bwd_dq": (3, (qn + 2 * kn + qn + qn) * item + 2 * rows * 4),
+        "bwd_dkv": (4, (qn + 2 * kn + qn + 2 * kn) * item + 2 * rows * 4),
+    }[what]
+    if seg is not None:
+        nbytes += seg.numel() * 4
+    flops = matmuls * 2 * N * H * pairs
+    peak = PEAK_FLOPS[str(q.dtype).removeprefix("torch.")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_kernel(torch, fa, seed):
+    """The three flash kernels against their plain versions, elementwise, at
+    the training path's shape and three more; times against the bound, the
+    plain versions and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
+    cases = []
+    for name, dtype, T, segments, window in FLASH_CASES:
+        q, k, v, do, seg = flash_case(torch, dtype, T, segments, seed)
+        opts = dict(segment_ids=seg, causal=True, window=window)
+        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+        delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
+        ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
+        torch.cuda.synchronize()
+        errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
+                           dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
+        del out, lse, dq, dk, dv, ref
+        for t, e in errs.items():
+            check(e["finite"], f"flash {name}: non-finite {t}")
+            check(e["worst"] <= 1.0, f"flash {name}: {t} exceeds its bound (worst element at {e['worst']:.3g}x)")
+        ms = dict(fwd=time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v, **opts), 10, flush),
+                  bwd_dq=time_cuda(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts),
+                                   10, flush),
+                  bwd_dkv=time_cuda(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts),
+                                    10, flush))
+        # the plain backward, like the library's, computes dq, dk and dv in one call
+        plain_fwd = time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, **opts), 2, flush)
+        plain_bwd = time_cuda(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts),
+                              2, flush)
+        bounds = {what: flash_bound(torch, fa, q, k, seg, window, what) for what in ms}
+        library = dict(fwd=None, bwd=None)
+        if seg is None and window is None:  # the yardstick: one library call, never on the path
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+            doh = do.transpose(1, 2).contiguous()
+            with torch.no_grad():
+                library["fwd"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True), 20, flush)
+            # its backward alone: one graph, run again and again without the forward
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+            library["bwd"] = time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                                          retain_graph=True), 20, flush)
+            del qh, kh, vh, doh, lib_out
+        case = dict(case=name, dtype=dtype, q=list(q.shape), kv=list(k.shape), segments=segments, window=window,
+                    errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
+                    plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+                    bound_ms={w: b[0] for w, b in bounds.items()}, bound_by={w: b[1] for w, b in bounds.items()},
+                    library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
+        emit(dict(phase="flash_kernel", **case))
+        cases.append(case)
+        del q, k, v, do, seg, ref_out, ref_lse, delta
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ----------------------------------------------------------------------------- training
+class _PlainFlash:
+    """The flash call through the plain versions on the card (fwd_ref, bwd_ref):
+    the reference the kernels are held against in ``train_grad``."""
+
+    def __init__(self, torch, fa):
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                out, lse = fa.flash_attention_fwd_ref(q, k, v)
+                ctx.save_for_backward(q, k, v, out, lse)
+                return out
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, out, lse = ctx.saved_tensors
+                do = do.contiguous()
+                return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do))
+
+        self.fn = Fn
+
+    def __call__(self, q, k, v, segment_ids=None, window=None):
+        assert segment_ids is None and window is None
+        return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, seed):
+    """Qwen2-1.5B widths, 2 layers, micro-batch 2 x 1024, fp32, save_qkv_attn
+    recompute: the loss and every gradient leaf through the kernels against the
+    same step with the attention through the plain versions."""
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    cfg = Qwen2Config(**{**QWEN2_1_5B, "num_hidden_layers": 2, "recompute": True,
+                         "recompute_granularity": "save_qkv_attn"})
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g, device=DEVICE)
+    results = []
+    for plain in (False, True):
+        model = Qwen2ForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+        leaves = flatten_params(model.params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        before = dict(fa.LAUNCHES)
+        kernel_attention = modeling.dot_product_attention
+        if plain:
+            modeling.dot_product_attention = _PlainFlash(torch, fa)
+        try:
+            loss = causal_lm_loss(model.forward(ids), ids, shift=True)
+            loss.backward()
+        finally:
+            modeling.dot_product_attention = kernel_attention
+        torch.cuda.synchronize()
+        launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        results.append((loss.item(), {k: t.grad for k, t in leaves.items()}, launched))
+        del model, leaves, loss
+    (loss_k, grads_k, launched_k), (loss_p, grads_p, launched_p) = results
+    rel = {k: ((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max().clamp_min(1e-30)).item()
+           for k in grads_p}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    res = dict(phase="train_grad", config="Qwen/Qwen2-1.5B widths, 2 layers", tokens=list(ids.shape),
+               dtype="float32", loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel, loss_rel_tol=1e-5,
+               grad_leaves=len(rel), worst_leaf=max(rel, key=rel.get), worst_leaf_rel_err=max(rel.values()),
+               leaf_rel_tol=1e-4, kernel_launches=launched_k, plain_run_launches=launched_p)
+    emit(res)
+    check(launched_k == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}, f"train_grad: kernel launches {launched_k}")
+    check(launched_p == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, f"train_grad: the plain run launched {launched_p}")
+    check(loss_rel <= 1e-5, f"train_grad: loss rel err {loss_rel} > 1e-5")
+    check(max(rel.values()) <= 1e-4, f"train_grad: {res['worst_leaf']} grad rel err {max(rel.values())} > 1e-4")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def markov_corpus(np, prefix, vocab, seed, MMapIndexedDatasetBuilder, n_docs=512):
+    """Documents from a Markov chain over a 64-token alphabet (each token has 4
+    successors), written as int32: Qwen2 ids reach 151935, past the builder's
+    uint16 default. Returns the token count."""
+    rng = np.random.default_rng(seed)
+    alphabet = rng.choice(vocab, 64, replace=False)
+    succ = rng.integers(0, 64, (64, 4))
+    builder = MMapIndexedDatasetBuilder(prefix, dtype=np.int32)
+    total = 0
+    for _ in range(n_docs):
+        n = int(rng.integers(256, 768))
+        picks = rng.integers(0, 4, n)
+        state = int(rng.integers(0, 64))
+        doc = np.empty(n, np.int64)
+        for i in range(n):
+            doc[i] = state
+            state = int(succ[state, picks[i]])
+        builder.add_document(alphabet[doc])
+        total += n
+    builder.finalize()
+    return total
+
+
+def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder, workdir, seed):
+    """``run_pretrain.main`` on the repo's Qwen2 recipe cut to one card and 4
+    steps, at Qwen2-1.5B's published widths and full depth."""
+    import os
+
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    with open(RECIPE) as f:
+        recipe = json.load(f)
+    model_dir, data_dir, out_dir = (os.path.join(workdir, d) for d in ("model", "data", "out"))
+    os.makedirs(model_dir)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(QWEN2_1_5B, f)
+    corpus_tokens = markov_corpus(np, os.path.join(data_dir, "corpus"), QWEN2_1_5B["vocab_size"], seed,
+                                  MMapIndexedDatasetBuilder)
+    cuts = dict(model_name_or_path=model_dir, tokenizer_name_or_path=None, input_dir=data_dir, output_dir=out_dir,
+                tensor_parallel_degree=1, sharding_parallel_degree=1, pipeline_parallel_degree=1, sharding="",
+                gradient_accumulation_steps=2, max_steps=4, warmup_steps=1, do_eval=False, save_steps=5000,
+                seed=seed)
+    reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items()
+               if k not in ("model_name_or_path", "input_dir", "output_dir", "seed") and recipe.get(k) != v}
+    reduced["model"] = "Qwen/Qwen2-1.5B config.json (recipe: Qwen/Qwen2-7B), random weights from --seed"
+    reduced["data"] = f"{corpus_tokens} tokens of a 64-token Markov chain, int32, from --seed"
+    args = {**recipe, **cuts}
+    args_path = os.path.join(workdir, "pretrain_argument.json")
+    with open(args_path, "w") as f:
+        json.dump(args, f)
+
+    steps = []
+
+    class StepRecorder(TrainerCallback):
+        def on_step_begin(self, *a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, *a, **kw):
+            torch.cuda.synchronize()
+            steps.append(dict(step_s=time.perf_counter() - self.t0,
+                              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=kw.get("step_tokens")))
+
+        def on_log(self, args, state, control, logs=None, **kw):
+            if logs and "grad_norm" in logs:
+                steps[-1].update(loss=logs["loss"], grad_norm=logs["grad_norm"], lr=logs["learning_rate"])
+
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    trainer = run_pretrain.main([args_path], device=DEVICE, callbacks=[StepRecorder()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+
+    model = trainer.model
+    cfg = model.config
+    accum, n_steps = args["gradient_accumulation_steps"], args["max_steps"]
+    step_flops = model.get_model_flops(args["per_device_train_batch_size"] * accum, args["max_seq_length"])
+    for i, s in enumerate(steps):
+        s.update(step=i + 1, tokens_per_s=s["tokens"] / s["step_s"],
+                 mfu=step_flops / s["step_s"] / PEAK_FLOPS["bfloat16"])
+        emit(dict(phase="train_step", **s))
+    losses = [s.get("loss", float("nan")) for s in steps]
+    check(len(steps) == n_steps, f"train: {len(steps)} of {n_steps} steps ran")
+    check(all(math.isfinite(x) for x in losses), f"train: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall ({losses})")
+    per_run = cfg.num_hidden_layers * accum * n_steps
+    check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run},
+          f"train: flash launches {launches}, want {per_run} of each (28 a micro-step)")
+
+    # the checkpoint save_model wrote loads back bit for bit
+    t_load = time.perf_counter()
+    saved = type(model).from_pretrained(out_dir, device=DEVICE, dtype=torch.float32)
+    trained = flatten_params(model.params)
+    loaded = flatten_params(saved.params)
+    check(loaded.keys() == trained.keys() and all(torch.equal(loaded[k], trained[k].detach()) for k in trained),
+          "train: the saved checkpoint does not load back bit for bit")
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith(".safetensors"))
+    del saved, loaded, trained
+    torch.cuda.empty_cache()
+    steady = steps[1:] or steps
+    res = dict(phase="train", entry="paddlenlp_tpu_torch.llm.run_pretrain.main", recipe=RECIPE, reduced=reduced,
+               params=model.num_parameters(), layers=cfg.num_hidden_layers, micro_batch=[2, args["max_seq_length"]],
+               accum=accum, steps=n_steps, wall_s=wall, losses=losses, grad_norms=[s.get("grad_norm") for s in steps],
+               step_s_steady=sum(s["step_s"] for s in steady) / len(steady),
+               tokens_per_s_steady=sum(s["tokens"] for s in steady) / sum(s["step_s"] for s in steady),
+               mfu_steady=step_flops * len(steady) / sum(s["step_s"] for s in steady) / PEAK_FLOPS["bfloat16"],
+               mfu_flops="get_model_flops(4, 4096) a step (6 N tokens + attention) over 989 TFLOP/s",
+               peak_mem_gb=max(s["peak_mem_gb"] for s in steps), kernel_launches=launches,
+               checkpoint=dict(files=files, load_check_s=time.perf_counter() - t_load, bitwise=True))
+    emit(res)
+    return trainer, res
+
+
+def phase_train_profile(torch, trainer):
+    """One training step (2 micro-batches x 28 layers) under torch.profiler:
+    the device's busy and idle share and its time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(iter(trainer.get_train_dataloader()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.training_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+    by_group = {g: 0.0 for g in list(groups) + ["gemm", "other"]}
+    launches = {g: 0 for g in groups}
+    for e in events:
+        ms = e.self_device_time_total / 1e3
+        group = next((g for g, key in groups.items() if key in e.key), None)
+        if group is not None:
+            launches[group] += e.count
+        elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", e.key, re.I):
+            group = "gemm"
+        else:
+            group = "other"
+        by_group[group] += ms
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    res = dict(phase="train_profile", step="1 optimizer step: 2 micro-batches of 2 x 4096, 28 layers", wall_ms=wall_ms,
+               device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms, device_ms_by_group=by_group,
+               flash_launches=launches,
+               top_device_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top])
+    emit(res)
+    return res
+
+
 # ----------------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights and the traffic")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights, the traffic and the corpus")
     args = ap.parse_args(argv)
+
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
@@ -403,11 +794,17 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
+        from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
         from paddlenlp_tpu_torch.experimental import InferenceEngine, PagedInferenceModel, SamplingParams
         from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool, quantize_kv
+        from paddlenlp_tpu_torch.llm import run_pretrain
         from paddlenlp_tpu_torch.ops import _build
+        from paddlenlp_tpu_torch.ops import flash_attention as fa
         from paddlenlp_tpu_torch.ops import paged_attention as pa
+        from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+        from paddlenlp_tpu_torch.trainer import TrainerCallback
         from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
+        from paddlenlp_tpu_torch.transformers.llama import modeling
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout of the repository ({e})", file=sys.stderr)
         return 2
@@ -418,23 +815,25 @@ def main(argv=None) -> int:
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda))
 
-    for stem, source in _build.SOURCES.items():
-        b = _build.build(stem)
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        builds = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
+    for stem, b in builds.items():
         log = b["log"]  # the ptxas report; None when a cached library has no saved log
-        emit(dict(phase="build", source=source, seconds=b["seconds"], cached=b["cached"],
+        emit(dict(phase="build", source=_build.SOURCES[stem], seconds=b["seconds"], cached=b["cached"],
                   registers=None if log is None else sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)}),
                   spills=None if log is None else any(
                       "0 bytes spill stores, 0 bytes spill loads" not in ln
                       for ln in log.splitlines() if "spill stores" in ln)))
 
+    # ---- serving: the paged engine at Qwen2-7B width and depth
     cases = phase_kernel(torch, pa, quantize_kv, args.seed)
 
     cfg = Qwen2Config(**QWEN2_7B)
     t0 = time.perf_counter()
     model = Qwen2ForCausalLM.init_random(cfg, seed=args.seed, device=DEVICE, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(model.params))
-    emit(dict(phase="model", config="Qwen/Qwen2-7B", layers=cfg.num_hidden_layers, params=n_params,
+    emit(dict(phase="model", config="Qwen/Qwen2-7B", layers=cfg.num_hidden_layers, params=model.num_parameters(),
               init_s=time.perf_counter() - t0))
 
     mono = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, None)
@@ -442,6 +841,18 @@ def main(argv=None) -> int:
     phase_profile(torch, np, model, InferenceEngine, SamplingParams, args.seed)
 
     phase_logits(torch, np, model, PagedInferenceModel, init_paged_pool, args.seed)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- training: run_pretrain at Qwen2-1.5B width and depth
+    flash = phase_flash_kernel(torch, fa, args.seed)
+    phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        trainer, train = phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder,
+                                     workdir, args.seed)
+        phase_train_profile(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
 
     main_case = cases[0]  # the bf16 pool the main path runs
     kernels = [dict(
@@ -450,22 +861,28 @@ def main(argv=None) -> int:
         launches=mono["kernel_launches"] + chunked["kernel_launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=main_case["library_ms"])]
-    emit(dict(phase="kernels", kernels=[dict(k, check="pass", cases=len(cases),
-                                             worst_err_over_tol=max(c["worst_err_over_tol"] for c in cases))
-                                        for k in kernels]))
+    checks = [dict(check="pass", cases=len(cases), worst_err_over_tol=max(c["worst_err_over_tol"] for c in cases))]
+    flash_main = flash[0]  # the training path's shape
+    outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
+    for what, line, name in (("fwd", 81, "flash_attention_fwd"), ("bwd_dq", 187, "flash_attention_bwd_dq"),
+                             ("bwd_dkv", 227, "flash_attention_bwd_dkv")):
+        kernels.append(dict(
+            name=name, route="cuda", source="paddlenlp_tpu_torch/csrc/flash_attention.cu",
+            replaces=f"paddlenlp_tpu/ops/pallas/flash_attention.py:{line}", launches=train["kernel_launches"][what],
+            max_abs_err=max(c["errors"][o]["max_abs_err"] for c in flash for o in outputs[what]),
+            ms=flash_main["ms"][what],
+            # the plain and the library backward each compute dq, dk and dv in one call
+            plain_ms=flash_main["plain_fwd_ms"] if what == "fwd" else flash_main["plain_bwd_ms"],
+            bound_ms=flash_main["bound_ms"][what], bound_by=flash_main["bound_by"][what],
+            library_ms=flash_main["library_fwd_ms"] if what == "fwd" else flash_main["library_bwd_ms"]))
+        checks.append(dict(check="pass", cases=len(flash),
+                           worst_err_over_tol=max(c["errors"][o]["worst"] for c in flash for o in outputs[what])))
+    emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

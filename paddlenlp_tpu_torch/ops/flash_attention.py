@@ -1,0 +1,326 @@
+"""Flash attention for training: the CUDA kernels' wrappers, their plain
+versions, the autograd function and the attention dispatcher.
+
+Port of ``paddlenlp_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
+:353, a ``custom_vjp`` over ``_flash_fwd`` :131 and ``_flash_bwd`` :272) and of
+``paddlenlp_tpu/ops/flash_attention.py`` ``dot_product_attention`` (:72).
+The three kernels are in ``paddlenlp_tpu_torch/csrc/flash_attention.cu``:
+
+- :func:`flash_attention_fwd` -> (out, lse), the forward (``_fa_kernel`` :81);
+- :func:`flash_attention_bwd_dq` -> dq (``_bwd_dq_kernel`` :187);
+- :func:`flash_attention_bwd_dkv` -> (dk, dv), summed per KV head over its
+  query group (``_bwd_dkv_kernel`` :227).
+
+Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
+head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
+int32. :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`
+compute the same functions in fp32, step by step; each wrapper takes them only
+for tensors on the CPU. For CUDA tensors it checks the operands and launches
+its kernel, or raises: there is no fallback. ``LAUNCHES`` counts each
+kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["LAUNCHES", "NEG_INF", "dot_product_attention", "flash_attention", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd", "flash_attention_fwd_ref"]
+
+NEG_INF = -1e30
+
+#: kernel launches per kernel since the counters were last set to 0
+LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# where the options outside this port's slice are planned (ROADMAP.md)
+_LATER = {
+    "attention_mask": "padding masks (ROADMAP Queue 1 item 14, breadth)",
+    "bias": "additive attention bias (ROADMAP Queue 1 item 14, breadth)",
+    "use_alibi": "ALiBi (ROADMAP Queue 1 item 14, breadth)",
+    "dropout_rate": "attention dropout (ROADMAP Queue 1 item 15, training left)",
+    "positions": "permuted positions for context parallel (ROADMAP Queue 1 item 15, training left)",
+    "q_offset": "attention over a KV cache (ROADMAP Queue 1 item 14, generation)",
+    "causal": "non-causal attention in the dispatcher (ROADMAP Queue 1 item 14, breadth)",
+}
+
+
+def _check_args(q, k, v, segment_ids, causal, window):
+    """The rejects of ``_flash_fwd`` (:133-139), on every device."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: q must be [B,T,N,H] and k, v [B,S,K,H], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, N, H = q.shape
+    Bk, S, K, Hk = k.shape
+    if Bk != B or Hk != H:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if K < 1 or N % K:
+        raise ValueError(f"flash_attention: {N} query heads do not fold over {K} kv heads")
+    if causal and T != S:
+        raise ValueError(f"causal flash_attention requires T == S (got T={T}, S={S}); "
+                         "cross-length causal (KV cache) goes through the XLA dispatcher path")
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal=True (matches the XLA dispatcher)")
+    if segment_ids is not None and (T != S or tuple(segment_ids.shape) != (B, T)):
+        raise ValueError(f"flash_attention: segment_ids must be [{B}, {T}] with T == S, "
+                         f"got {tuple(segment_ids.shape)} and S={S}")
+
+
+# ---------------------------------------------------------------- plain versions
+def _up(x):
+    """x in fp32, or in float64 where it already is (gradcheck)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _visible(T, S, causal, window, segment_ids, device):
+    """[B or 1, T, S] element visibility (``_visible`` :46)."""
+    rows = torch.arange(T, device=device)[:, None]
+    cols = torch.arange(S, device=device)[None, :]
+    valid = torch.ones(T, S, dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (cols <= rows)
+    if window is not None:
+        valid = valid & (cols > rows - window)
+    valid = valid[None]
+    if segment_ids is not None:
+        valid = valid & (segment_ids[:, :, None] == segment_ids[:, None, :])
+    return valid
+
+
+def _scores(q, k, segment_ids, scale, causal, window):
+    """fp32 scores [B, K, g, T, S] with invisible entries at NEG_INF, and the mask."""
+    B, T, N, H = q.shape
+    S, K = k.shape[1], k.shape[2]
+    qf = _up(q).reshape(B, T, K, N // K, H)  # head n = kh * group + g
+    s = torch.einsum("btkgh,bskh->bkgts", qf, _up(k)) * scale
+    valid = _visible(T, S, causal, window, segment_ids, q.device)[:, None, None]
+    return torch.where(valid, s, torch.full_like(s, NEG_INF)), valid
+
+
+def flash_attention_fwd_ref(q, k, v, segment_ids=None, scale=None, causal=True,
+                            window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward in fp32: (out [B,T,N,H] in q's dtype, lse [B,N,T]
+    fp32). Invisible entries get p = 0, the denominator is ``max(l, 1e-37)``
+    and ``lse = m + log(max(l, 1e-37))``, as the kernel's finalizer (:121-123)."""
+    _check_args(q, k, v, segment_ids, causal, window)
+    B, T, N, H = q.shape
+    K = k.shape[2]
+    scale = H**-0.5 if scale is None else scale
+    s, valid = _scores(q, k, segment_ids, scale, causal, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-37)  # [B, K, g, T, 1]
+    out = torch.einsum("bkgts,bskh->btkgh", p / l, _up(v))
+    lse = (m + torch.log(l))[..., 0].reshape(B, N, T)
+    return out.reshape(B, T, N, H).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, do, lse, delta, segment_ids=None, scale=None, causal=True,
+                            window=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward in fp32 from the saved lse and
+    ``delta = rowsum(dO * O)`` [B,N,T] (:func:`_delta`): ``p = exp(s - lse)``,
+    ``ds = p * (dO v^T - delta) * scale``; dq = ds k, dk = ds^T q and
+    dv = p^T dO, summed over each KV head's query group. Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    _check_args(q, k, v, segment_ids, causal, window)
+    B, T, N, H = q.shape
+    K = k.shape[2]
+    g = N // K
+    scale = H**-0.5 if scale is None else scale
+    s, valid = _scores(q, k, segment_ids, scale, causal, window)
+    lse5 = _up(lse).reshape(B, K, g, T)[..., None]
+    p = torch.where(valid, torch.exp(s - lse5), torch.zeros_like(s))
+    dof = _up(do).reshape(B, T, K, g, H)
+    delta = _up(delta).reshape(B, K, g, T)[..., None]
+    dv = torch.einsum("bkgts,btkgh->bskh", p, dof)
+    dp = torch.einsum("btkgh,bskh->bkgts", dof, _up(v))
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, _up(k)).reshape(B, T, N, H)
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, _up(q).reshape(B, T, K, g, H))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+def _check_cuda_operands(name, tensors, q, k, segment_ids):
+    dev = q.device
+    for tname, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {tname} must be a tensor, got {type(t).__name__}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {tname} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or tensors["v"].dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must share one dtype of {list(_DTYPES)}, "
+                        f"got {q.dtype}, {k.dtype}, {tensors['v'].dtype}")
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"{name}: head_dim must be 64 or 128, got {q.shape[-1]}")
+    if segment_ids is not None:
+        if segment_ids.dtype != torch.int32:
+            raise TypeError(f"{name}: segment_ids must be int32, got {segment_ids.dtype}")
+        if segment_ids.device != dev or not segment_ids.is_contiguous():
+            raise ValueError(f"{name}: segment_ids must be a contiguous tensor on {dev}")
+
+
+def _kernel_fn(symbol: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load("flash_attention"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _geometry(q, k, causal, window):
+    B, T, N, H = q.shape
+    S, K = k.shape[1], k.shape[2]
+    return [B, T, S, N, K, H, int(bool(causal)), -1 if window is None else int(window), _DTYPES[q.dtype]]
+
+
+def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
+    ints = _geometry(q, k, causal, window)
+    H = q.shape[-1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernel_fn(symbol, n_ptr, len(ints))(*ptrs, *ints, float(H**-0.5 if scale is None else scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[what] += 1
+
+
+def _device(name, q):
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA (or its plain version on the CPU), got {q.device}")
+    return True
+
+
+def flash_attention_fwd(q, k, v, segment_ids=None, scale=None, causal=True,
+                        window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward: (out [B,T,N,H] in q's dtype, lse [B,N,T] fp32)."""
+    _check_args(q, k, v, segment_ids, causal, window)
+    if not _device("flash_attention_fwd", q):
+        return flash_attention_fwd_ref(q, k, v, segment_ids, scale, causal, window)
+    _check_cuda_operands("flash_attention_fwd", {"q": q, "k": k, "v": v}, q, k, segment_ids)
+    B, T, N, _H = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, N, T, dtype=torch.float32, device=q.device)
+    _launch("pdnlp_flash_fwd", 6, [_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(out), _ptr(lse)],
+            q, k, causal, window, scale, "fwd")
+    return out, lse
+
+
+def _delta(out, do):
+    """rowsum(dO * O) in fp32, [B, N, T] (computed outside the kernels, as
+    XLA does for the TPU kernels, :279)."""
+    return (_up(do) * _up(out)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, segment_ids=None, scale=None, causal=True,
+                           window=None) -> torch.Tensor:
+    """dq [B,T,N,H] in q's dtype from the saved lse and ``delta = rowsum(dO*O)``
+    [B,N,T] fp32."""
+    _check_args(q, k, v, segment_ids, causal, window)
+    if not _device("flash_attention_bwd_dq", q):
+        return flash_attention_bwd_ref(q, k, v, do, lse, delta, segment_ids, scale, causal, window)[0]
+    _check_cuda_operands("flash_attention_bwd_dq", {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta},
+                         q, k, segment_ids)
+    _check_saved("flash_attention_bwd_dq", q, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("pdnlp_flash_bwd_dq", 8,
+            [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(segment_ids), _ptr(dq)],
+            q, k, causal, window, scale, "bwd_dq")
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, segment_ids=None, scale=None, causal=True,
+                            window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B,S,K,H] in k's dtype, accumulated in fp32 per KV head over
+    its query group."""
+    _check_args(q, k, v, segment_ids, causal, window)
+    if not _device("flash_attention_bwd_dkv", q):
+        return flash_attention_bwd_ref(q, k, v, do, lse, delta, segment_ids, scale, causal, window)[1:]
+    _check_cuda_operands("flash_attention_bwd_dkv", {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta},
+                         q, k, segment_ids)
+    _check_saved("flash_attention_bwd_dkv", q, do, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("pdnlp_flash_bwd_dkv", 9,
+            [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(segment_ids), _ptr(dk), _ptr(dv)],
+            q, k, causal, window, scale, "bwd_dkv")
+    return dk, dv
+
+
+def _check_saved(name, q, do, lse, delta):
+    B, T, N, _H = q.shape
+    if do.dtype != q.dtype or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: do must be {q.dtype} {tuple(q.shape)}, got {do.dtype} {tuple(do.shape)}")
+    for tname, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, N, T):
+            raise ValueError(f"{name}: {tname} must be float32 [{B}, {N}, {T}], got {t.dtype} {tuple(t.shape)}")
+
+
+# ---------------------------------------------------------------- autograd
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of :353: the forward saves (q, k, v, out, lse); the
+    backward computes delta and runs the dq and dk/dv kernels (for CPU
+    tensors, the plain backward once)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, scale, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids, scale, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.opts = (scale, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        scale, causal, window = ctx.opts
+        do = do.contiguous()
+        delta = _delta(out, do)
+        if q.device.type == "cpu":  # the plain backward computes all three at once
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, do, lse, delta, segment_ids, scale, causal, window)
+        else:
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, segment_ids, scale, causal, window)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, segment_ids, scale, causal, window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Differentiable flash attention (the ``flash_attention`` custom_vjp,
+    :353): q [B,T,N,H], k/v [B,S,K,H] -> [B,T,N,H] in q's dtype."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), segment_ids, scale, causal, window)
+
+
+def dot_product_attention(query, key, value, *, attention_mask=None, segment_ids=None, causal: bool = True,
+                          q_offset=0, scale: Optional[float] = None, dropout_rate: float = 0.0,
+                          window: Optional[int] = None, positions=None, use_alibi: bool = False,
+                          bias=None) -> torch.Tensor:
+    """Causal self-attention through the flash kernels, with optional packed-batch
+    ``segment_ids`` [B, T] and a sliding ``window`` (the Pallas path of
+    ``paddlenlp_tpu/ops/flash_attention.py:72``). The dispatcher's other options
+    are not part of the port yet and raise ``NotImplementedError``."""
+    asked = {"attention_mask": attention_mask is not None, "bias": bias is not None, "use_alibi": use_alibi,
+             "dropout_rate": dropout_rate != 0.0, "positions": positions is not None,
+             "q_offset": not (isinstance(q_offset, int) and q_offset == 0), "causal": not causal}
+    for opt, on in asked.items():
+        if on:
+            raise NotImplementedError(f"dot_product_attention: {_LATER[opt]} is not part of the port yet")
+    if query.shape[1] != key.shape[1]:
+        raise NotImplementedError(f"dot_product_attention: T={query.shape[1]} != S={key.shape[1]}: "
+                                  f"{_LATER['q_offset']} is not part of the port yet")
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(device=query.device, dtype=torch.int32).contiguous()
+    return flash_attention(query, key, value, segment_ids, scale, True, window)

@@ -2,20 +2,21 @@
 
 PyTorch port of ``paddlenlp_tpu/transformers/configuration_utils.py``:
 ``PretrainedConfig`` with ``attribute_map`` legacy-key translation, built from a
-dict or a local ``config.json``. The hub downloader and the trainer bridge
-(``LlmMetaConfig``) are not part of the port yet.
+dict or a local ``config.json``, and the trainer-arg bridge ``LlmMetaConfig``.
+The hub downloader is not part of the port.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Tuple
 
 from ..utils.log import logger
 
-__all__ = ["PretrainedConfig", "attribute_map", "CONFIG_NAME"]
+__all__ = ["PretrainedConfig", "LlmMetaConfig", "attribute_map", "CONFIG_NAME"]
 
 CONFIG_NAME = "config.json"
 
@@ -145,3 +146,40 @@ class PretrainedConfig:
 
     def __repr__(self):
         return f"{self.__class__.__name__} {self.to_json_string()}"
+
+
+@dataclasses.dataclass
+class _MetaAttr:
+    name: str
+    dtype: type
+    default: Any
+    doc: str
+
+
+class LlmMetaConfig:
+    """Trainer-arg -> model-config bridge (a copy of the JAX package's
+    ``configuration_utils.py:153``): ``set_llm_config`` copies each declared
+    attr from a ``TrainingArguments`` onto a ``PretrainedConfig``."""
+
+    attrs = [
+        _MetaAttr("tensor_parallel_degree", int, 1, "tp mesh axis degree"),
+        _MetaAttr("sep_parallel_degree", int, 1, "ulysses segment-parallel degree"),
+        _MetaAttr("context_parallel_degree", int, 1, "ring-attention context-parallel degree"),
+        _MetaAttr("pipeline_parallel_degree", int, 1, "pipeline stages"),
+        _MetaAttr("sequence_parallel", bool, False, "megatron sequence parallel inside tp group"),
+        _MetaAttr("tensor_parallel_output", bool, True, "keep logits tp-sharded for fused loss"),
+        _MetaAttr("use_flash_attention", bool, True, "use fused flash attention"),
+        _MetaAttr("recompute", bool, False, "activation rematerialization"),
+        _MetaAttr("recompute_granularity", str, "full",
+                  "full|full_attn|core_attn|save_core_attn|save_qkv_attn|save_attn_mlp|save_dots|offload_attn"),
+        _MetaAttr("no_recompute_layers", list, None, "layer indices excluded from remat"),
+        _MetaAttr("use_scan_layers", bool, True, "stacked [L] decoder params"),
+    ]
+
+    @classmethod
+    def set_llm_config(cls, config: PretrainedConfig, args) -> None:
+        for attr in cls.attrs:
+            value = getattr(args, attr.name, attr.default)
+            if value is None:
+                value = attr.default
+            setattr(config, attr.name, value)

@@ -5,7 +5,9 @@ port keeps the JAX package's parameter layout so both packages hold the same
 tree: HF ``nn.Linear.weight`` ``[out, in]`` becomes ``kernel`` ``[in, out]``
 (transposed), norms' ``.weight`` becomes ``.scale``, embeddings'
 ``.weight`` becomes ``.embedding``, and the decoder layers are stacked on a
-leading ``[L]`` axis under ``model/layers`` (the scanned layout).
+leading ``[L]`` axis under ``model/layers`` (the scanned layout). The reverse
+maps (:meth:`StateDictNameMapping.reverse`, :meth:`StackedLayerMapping.reverse_unstack`)
+write the HF layout back.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ class StateDictNameMapping:
             return src
         return src.T.contiguous()
 
+    def reverse(self, t: torch.Tensor) -> torch.Tensor:
+        """Our tensor -> the checkpoint's."""
+        return t.T.contiguous() if self.action == "transpose" else t.contiguous()
+
 
 @dataclasses.dataclass
 class StackedLayerMapping:
@@ -55,6 +61,11 @@ class StackedLayerMapping:
                 return None
             slices.append(arr.T if self.action == "transpose" else arr)
         return torch.stack(slices, dim=0)
+
+    def reverse_unstack(self, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Our stacked ``[L, ...]`` tensor -> one checkpoint tensor per layer."""
+        return {name: (t[i].T if self.action == "transpose" else t[i]).contiguous()
+                for i, name in enumerate(self.source_names())}
 
 
 def flatten_params(tree, sep: str = "/") -> Dict[str, object]:

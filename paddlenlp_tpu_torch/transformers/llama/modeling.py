@@ -1,16 +1,22 @@
 """LLaMA-family causal LM (LLaMA, Qwen2) in PyTorch.
 
 Port of ``paddlenlp_tpu/transformers/llama/modeling.py:583``
-(``LlamaForCausalLM``) for serving. The model holds its parameters as a nested
-dict of tensors in the JAX package's **scanned** layout: decoder layers are
-stacked on a leading ``[L]`` axis under ``model/layers``, and projection
-kernels are ``[in, out]``. Both packages therefore hold the same tree, the
-paged inference model (``experimental/inference_model.py``) reads it
-directly, and :meth:`LlamaForCausalLM.from_jax_params` is a plain conversion.
+(``LlamaForCausalLM``). The model holds its parameters as a nested dict of
+tensors in the JAX package's **scanned** layout: decoder layers are stacked on
+a leading ``[L]`` axis under ``model/layers``, and projection kernels are
+``[in, out]``. Both packages therefore hold the same tree, the paged inference
+model (``experimental/inference_model.py``) reads it directly, and
+:meth:`LlamaForCausalLM.from_jax_params` is a plain conversion.
 
-``model(input_ids)`` is a plain dense causal forward with no cache: the
-reference the paged path is held against. Training features (remat, ring
-attention, the flash-attention kernels) are not part of the port yet.
+- ``model(input_ids)`` is a plain dense causal forward with no cache and no
+  gradient: the reference the paged path is held against.
+- :meth:`LlamaForCausalLM.forward` is the training forward (``:190-387``,
+  ``:513-518``): differentiable in the (fp32 master) parameters, computed in
+  ``compute_dtype``, attention through the flash kernels
+  (``ops/flash_attention.py``), with the remat policies ``"full"`` and
+  ``"save_qkv_attn"`` as ``torch.utils.checkpoint`` segments.
+- :meth:`LlamaForCausalLM.save_pretrained` writes the HF layout
+  (``model_utils.py:285``).
 """
 
 from __future__ import annotations
@@ -22,16 +28,24 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ...ops.flash_attention import dot_product_attention
 from ...ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
-from ...utils.safetensors_io import SafeFile
-from ..conversion_utils import auto_name_mappings, convert_state_dict, flatten_params, unflatten_params
+from ...utils.log import logger
+from ...utils.safetensors_io import SafeFile, save_file, shard_checkpoint
+from ..conversion_utils import (StackedLayerMapping, auto_name_mappings, convert_state_dict, flatten_params,
+                                unflatten_params)
 from .configuration import LlamaConfig
 
 __all__ = ["LlamaForCausalLM", "layer_params", "rms_norm"]
 
 SAFE_WEIGHTS_NAME = "model.safetensors"
 SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+
+#: recompute granularities of the training forward; the JAX package's others
+#: (``_remat_policy`` :336) are not part of the port yet
+RECOMPUTE_GRANULARITIES = ("full", "save_qkv_attn")
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,6 +87,9 @@ class LlamaForCausalLM:
     def __init__(self, config, params: dict):
         self.config = config
         self.params = params
+        #: dtype the training forward computes in (the JAX module's ``dtype``);
+        #: None computes in the parameters' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
 
     # ------------------------------------------------------------------ layout
     @staticmethod
@@ -227,3 +244,126 @@ class LlamaForCausalLM:
         if "lm_head" in self.params:
             return h @ self.params["lm_head"]["kernel"].to(dtype)
         return h @ embed.T.to(dtype)
+
+    # ------------------------------------------------------------------ training forward
+    def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
+                segment_ids=None, attention_mask=None) -> torch.Tensor:
+        """Differentiable causal forward over ``input_ids`` [B, T]: logits
+        [B, T, V] in ``compute_dtype``. Kernels and biases are cast to the
+        compute dtype, norms stay fp32, and the tied head is ``h @ embed.T``
+        (the JAX ``dtype=compute, param_dtype=float32`` model). With
+        ``config.recompute``, ``recompute_granularity`` ``"full"`` recomputes
+        each layer in the backward and ``"save_qkv_attn"`` keeps only the
+        post-rope q/k/v and the attention output: the flash call sits between
+        two checkpointed segments."""
+        cfg = self.config
+        params = self.params if params is None else params
+        if attention_mask is not None:
+            raise NotImplementedError("forward: padding attention masks are not part of the port yet "
+                                      "(ROADMAP Queue 1 item 14)")
+        if getattr(cfg, "attention_dropout", 0.0):
+            raise NotImplementedError("forward: attention dropout is not part of the port yet "
+                                      "(ROADMAP Queue 1 item 15)")
+        recompute = bool(getattr(cfg, "recompute", False))
+        granularity = getattr(cfg, "recompute_granularity", "full")
+        if recompute and granularity not in RECOMPUTE_GRANULARITIES:
+            raise NotImplementedError(f"recompute_granularity {granularity!r} is not part of the port yet "
+                                      f"(ROADMAP Queue 1 item 15); it has {RECOMPUTE_GRANULARITIES}")
+        m = params["model"]
+        embed = m["embed_tokens"]["embedding"]
+        dtype = self.compute_dtype or embed.dtype
+        B, T = input_ids.shape
+        N, K, H = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        eps = cfg.rms_norm_eps
+        table = embed.to(dtype)
+        h = F.embedding(input_ids.long(), table)
+        if getattr(cfg, "scale_embeddings", False):
+            h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype)
+        inv_freq = torch.from_numpy(rope_frequencies(H, cfg.rope_theta, cfg.rope_scaling)).to(h.device)
+        if position_ids is None:
+            position_ids = torch.arange(T, device=h.device)[None, :].expand(B, T)
+        cos, sin = rope_tables(position_ids.to(h.device), inv_freq)
+        window = getattr(cfg, "sliding_window", None)
+
+        # one cast of each stacked leaf, then per-layer views: the backward
+        # stacks the layers' grads once instead of scattering into [L, ...]
+        per_layer = {path: (leaf if path.endswith("/scale") else leaf.to(dtype)).unbind(0)
+                     for path, leaf in flatten_params(m["layers"]).items()}
+
+        def dense(lp, name, x):
+            y = x @ lp[name + "/kernel"]
+            bias = lp.get(name + "/bias")
+            return y if bias is None else y + bias
+
+        def attn_in(h, lp):
+            x = rms_norm(h, lp["input_layernorm/scale"], eps)
+            q = dense(lp, "self_attn/q_proj", x).reshape(B, T, N, H)
+            k = dense(lp, "self_attn/k_proj", x).reshape(B, T, K, H)
+            v = dense(lp, "self_attn/v_proj", x).reshape(B, T, K, H)
+            q, k = apply_rotary_pos_emb(q, k, cos, sin)
+            return q, k, v
+
+        def attn_core(q, k, v):
+            return dot_product_attention(q, k, v, segment_ids=segment_ids, window=window)
+
+        def attn_out_mlp(h, o, lp):
+            h = h + dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
+            x = rms_norm(h, lp["post_attention_layernorm/scale"], eps)
+            return h + dense(lp, "mlp/down_proj", F.silu(dense(lp, "mlp/gate_proj", x)) * dense(lp, "mlp/up_proj", x))
+
+        def layer(h, lp):
+            return attn_out_mlp(h, attn_core(*attn_in(h, lp)), lp)
+
+        for i in range(cfg.num_hidden_layers):
+            lp = {path: ts[i] for path, ts in per_layer.items()}
+            if not recompute:
+                h = layer(h, lp)
+            elif granularity == "full":
+                h = checkpoint(layer, h, lp, use_reentrant=False)
+            else:  # save_qkv_attn
+                q, k, v = checkpoint(attn_in, h, lp, use_reentrant=False)
+                h = checkpoint(attn_out_mlp, h, attn_core(q, k, v), lp, use_reentrant=False)
+        h = rms_norm(h, m["norm"]["scale"], eps)
+        if "lm_head" in params:
+            return h @ params["lm_head"]["kernel"].to(dtype)
+        return h @ table.T
+
+    # ------------------------------------------------------------------ accounting
+    def num_parameters(self, params: Optional[dict] = None) -> int:
+        params = self.params if params is None else params
+        return int(sum(t.numel() for t in flatten_params(params).values()))
+
+    def get_model_flops(self, batch_size: int, seq_length: int) -> float:
+        """Training flops of one step (``modeling.py:675``): 6·N·tokens for the
+        matmuls plus the causal attention term, forward and backward."""
+        cfg = self.config
+        n = self.num_parameters()
+        return 6.0 * n * batch_size * seq_length + 6.0 * cfg.num_hidden_layers * cfg.head_dim * \
+            cfg.num_attention_heads * (seq_length**2) * batch_size
+
+    # ------------------------------------------------------------------ saving
+    def save_pretrained(self, save_directory: str, max_shard_size: int = 5 * 1024**3, params: Optional[dict] = None):
+        """Write ``config.json`` and the HF layout (HF keys, ``[out, in]``
+        Linear weights, one key per layer), sharded at ``max_shard_size``
+        bytes with an index, in the parameters' dtype (``model_utils.py:285``)."""
+        os.makedirs(save_directory, exist_ok=True)
+        params = self.params if params is None else params
+        flat = flatten_params(params)
+        self.config.dtype = str(next(iter(flat.values())).dtype).removeprefix("torch.")
+        self.config.architectures = [type(self).__name__]
+        self.config.save_pretrained(save_directory)
+        tensors: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for mapping in auto_name_mappings({k: tuple(v.shape) for k, v in flat.items()}):
+                leaf = flat[mapping.target_name].detach().cpu()
+                if isinstance(mapping, StackedLayerMapping):
+                    tensors.update(mapping.reverse_unstack(leaf))
+                else:
+                    tensors[mapping.source_name] = mapping.reverse(leaf)
+        shards, index = shard_checkpoint(tensors, max_shard_size, SAFE_WEIGHTS_NAME)
+        for fname, shard in shards:
+            save_file(shard, os.path.join(save_directory, fname), metadata={"format": "np"})
+        if index is not None:
+            with open(os.path.join(save_directory, SAFE_WEIGHTS_INDEX_NAME), "w") as f:
+                json.dump(index, f, indent=2)
+        logger.info(f"model saved to {save_directory}")

@@ -4,15 +4,17 @@ PyTorch port of ``paddlenlp_tpu/utils/safetensors_io.py``: the same header
 parser with ``numpy.memmap``-backed tensors, so a tensor can be sliced without
 materializing it. numpy has no bfloat16, so BF16 tensors are read as their raw
 ``uint16`` bits and :meth:`SafeFile.get_torch` reinterprets them as
-``torch.bfloat16``. The port reads checkpoints and writes none, so the
-writer half of the JAX module is not copied.
+``torch.bfloat16``. The writer half (:func:`save_file`,
+:func:`shard_checkpoint`) takes numpy arrays or CPU torch tensors and writes
+``torch.bfloat16`` as BF16.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +24,8 @@ __all__ = [
     "SafeSlice",
     "load_file",
     "safe_keys",
+    "save_file",
+    "shard_checkpoint",
 ]
 
 _DTYPES = {
@@ -39,6 +43,9 @@ _DTYPES = {
     "U32": np.uint32,
     "U64": np.uint64,
 }
+
+_DTYPE_NAMES = {np.dtype(v): k for k, v in _DTYPES.items() if k != "BF16"}
+
 
 def _decode_dtype(name: str):
     dt = _DTYPES.get(name)
@@ -141,3 +148,65 @@ def load_file(path: str, keys: Optional[List[str]] = None) -> Dict[str, np.ndarr
     for k in keys if keys is not None else sf.keys():
         out[k] = sf.get_tensor(k)
     return out
+
+
+def _as_numpy(x: Union[np.ndarray, torch.Tensor]) -> Tuple[np.ndarray, str]:
+    """(the array in C order, its safetensors dtype name)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "BF16"
+        x = t.numpy()
+    arr = np.ascontiguousarray(x)
+    name = _DTYPE_NAMES.get(arr.dtype)
+    if name is None:
+        raise ValueError(f"unsupported dtype for safetensors: {arr.dtype}")
+    return arr, name
+
+
+def save_file(tensors: Dict[str, Union[np.ndarray, torch.Tensor]], path: str,
+              metadata: Optional[Dict[str, str]] = None):
+    """Write a safetensors file (streams tensor by tensor, then renames into place)."""
+    header: Dict[str, dict] = {}
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    offset = 0
+    arrays = []
+    for name, x in tensors.items():
+        shape = list(x.shape)
+        arr, dtype = _as_numpy(x)
+        arrays.append(arr)
+        header[name] = {"dtype": dtype, "shape": shape, "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * ((-(8 + len(blob))) % 8)  # 8-byte aligned data, as the upstream format
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for arr in arrays:
+            f.write(memoryview(arr.reshape(-1)).cast("B"))
+    os.replace(tmp, path)
+
+
+def shard_checkpoint(tensors: Dict[str, Union[np.ndarray, torch.Tensor]], max_shard_size: int = 5 * 1024**3,
+                     weights_name: str = "model.safetensors"):
+    """Split a state dict into shards of at most ``max_shard_size`` bytes:
+    ``([(filename, shard), ...], index or None)`` (a single shard needs no index)."""
+    shards: List[dict] = [{}]
+    sizes = [0]
+    for name, x in tensors.items():
+        nbytes = x.numel() * x.element_size() if isinstance(x, torch.Tensor) else np.asarray(x).nbytes
+        if sizes[-1] + nbytes > max_shard_size and sizes[-1] > 0:
+            shards.append({})
+            sizes.append(0)
+        shards[-1][name] = x
+        sizes[-1] += nbytes
+    if len(shards) == 1:
+        return [(weights_name, shards[0])], None
+    stem, ext = os.path.splitext(weights_name)
+    n = len(shards)
+    named = [(f"{stem}-{i + 1:05d}-of-{n:05d}{ext}", shard) for i, shard in enumerate(shards)]
+    weight_map = {key: fname for fname, shard in named for key in shard}
+    return named, {"metadata": {"total_size": int(sum(sizes))}, "weight_map": weight_map}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (``nvcc``) and is
 marked ``cuda``; without CUDA they skip. This file imports neither JAX nor the
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from paddlenlp_tpu_torch.experimental import InferenceEngine, SamplingParams
+from paddlenlp_tpu_torch.ops import flash_attention as fa
 from paddlenlp_tpu_torch.ops import paged_attention as pa
+from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
 from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +119,111 @@ def test_engine_kernel_path_matches_plain_path(dev):
             assert (pa.LAUNCHES > 0) == kernel
     for chunk in (None, 8):
         assert outs[True, chunk] == outs[False, chunk]
+
+
+# ----------------------------------------------------------------- flash attention
+def _flash_case(dev, dtype, B, T, N, K, H, segments, seed=0):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((B, T, N, H), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, T, K, H), dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    seg = None
+    if segments:  # packed documents with boundaries off the 64-row tiles
+        seg = torch.zeros(B, T, dtype=torch.int32)
+        seg[:, T // 3:] = 1
+        seg[:, T // 2 + 7:] = 2
+        seg = seg.to(dev)
+    return q, k, v, do, seg
+
+
+def _close(got, want, dtype):
+    # fp32: summation order only; bf16: two roundings of fp32 values, at most
+    # one ulp (2**-7 * |x|) apart, plus fp32 noise scaled to the tensor
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=1e-4)
+    else:
+        atol = 1e-3 * max(want.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=2**-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T,N,K,H,causal,window,segments", [
+    (200, 6, 1, 128, True, None, False),   # group 6, T not a multiple of the tile
+    (256, 4, 2, 64, True, None, False),    # group 2, H 64
+    (129, 7, 1, 64, False, None, False),   # group 7, full attention
+    (333, 2, 2, 128, True, 100, True),     # group 1, window + segments
+])
+def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
+    q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    delta = fa._delta(ref_out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, seg, causal=causal, window=window)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, seg, causal=causal, window=window)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, seg, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape, name
+        _close(got, w, dtype)
+
+
+def test_flash_autograd_counts_launches(dev):
+    q, k, v, do, _ = _flash_case(dev, torch.bfloat16, 1, 100, 4, 2, 128, False)
+    q.requires_grad_(True)
+    before = dict(fa.LAUNCHES)
+    fa.flash_attention(q, k.requires_grad_(True), v.requires_grad_(True)).backward(do)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+
+
+def test_flash_wrapper_rejects_bad_operands(dev):
+    q, k, v, _, _ = _flash_case(dev, torch.bfloat16, 1, 64, 4, 2, 128, False)
+    before = dict(fa.LAUNCHES)
+    for args in [(q.half(), k.half(), v.half()), (q[..., :96].contiguous(), k[..., :96].contiguous(),
+                                                 v[..., :96].contiguous()),
+                 (q.transpose(1, 2), k, v), (q, k.float(), v)]:
+        with pytest.raises((TypeError, ValueError)):
+            fa.flash_attention_fwd(*args)
+    assert fa.LAUNCHES == before
+
+
+def test_train_step_through_kernels_equals_plain(dev):
+    """At fp32, the loss and every gradient leaf of a Trainer micro-step
+    through the kernels equal those through the plain versions (the CPU
+    path): loss rel 1e-5, each leaf within 1e-4 of its largest element. A
+    full step then launches each kernel once per layer and micro-batch."""
+    cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2, head_dim=64, tie_word_embeddings=True,
+                      recompute=True, recompute_granularity="save_qkv_attn")
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 256, (4, 96)).astype(np.int32)}
+    batch["labels"] = batch["input_ids"].copy()
+    args = TrainingArguments(output_dir="unused", per_device_train_batch_size=2, gradient_accumulation_steps=2,
+                             learning_rate=1e-3, max_steps=1, save_strategy="no", weight_decay=0.01)
+    results = {}
+    for device in ("cpu", dev):
+        model = Qwen2ForCausalLM.init_random(cfg, seed=0, device="cpu", dtype=torch.float32)
+        model.params = _to(model.params, device)
+        trainer = Trainer(model=model, args=args)
+        for leaf in trainer.params.values():
+            leaf.requires_grad_(True)
+        loss = trainer.compute_loss(trainer._to_device(batch))
+        loss.backward()
+        results[str(device)] = (loss.item(), {k: t.grad.cpu() for k, t in trainer.params.items()})
+        if device != "cpu":
+            trainer.create_optimizer_and_scheduler(1)
+            before = dict(fa.LAUNCHES)
+            trainer.training_step(batch)
+            assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results["cpu"], results[str(dev)]
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for name in g_cpu:
+        scale = g_cpu[name].abs().max().item()
+        assert (g_gpu[name] - g_cpu[name]).abs().max().item() <= 1e-4 * scale, name
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,0 +1,188 @@
+"""The port's flash attention against the JAX package's Pallas kernels.
+
+The same numpy inputs (from a seed) go through the Pallas kernels in
+interpret mode (``flash_attention(..., interpret=True)``, ``_flash_fwd`` for
+the logsumexp, ``jax.vjp`` for the gradients) and through the port's plain
+versions (``flash_attention_fwd_ref``/``flash_attention_bwd_ref``) and its
+``torch.autograd.Function`` on the CPU. Tolerances are the JAX kernel tests'
+own (``tests/ops/test_pallas_flash.py``): atol 2e-5 on the forward (fp32,
+summation order only), atol 5e-4 / rtol 1e-3 on the gradients.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddlenlp_tpu.ops.pallas.flash_attention import _flash_fwd
+from paddlenlp_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+from paddlenlp_tpu_torch.ops import flash_attention as fa
+
+FWD_ATOL = 2e-5
+GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
+
+# (B, T, N, K, H, causal, window, segments): causal and full; GQA groups 1, 2, 3;
+# T = 200 (partial edge blocks) and 384 with 128-blocks (several blocks); segments;
+# a window; head_dim 64
+CASES = [
+    (1, 200, 2, 2, 64, True, None, False),
+    (1, 200, 4, 2, 64, False, None, False),
+    (1, 384, 6, 2, 32, True, None, False),
+    (2, 128, 3, 1, 64, True, None, True),
+    (1, 384, 4, 4, 32, True, 100, False),
+    (1, 200, 4, 2, 64, True, 64, True),
+]
+IDS = ["causal-g1-T200", "full-g2-T200", "causal-g3-T384", "segments-g3", "window-T384", "window-segments-T200"]
+
+
+def _inputs(B, T, N, K, H, segments, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, N, H), dtype=np.float32)
+    k = rng.standard_normal((B, T, K, H), dtype=np.float32)
+    v = rng.standard_normal((B, T, K, H), dtype=np.float32)
+    do = rng.standard_normal((B, T, N, H), dtype=np.float32)
+    seg = None
+    if segments:  # three packed documents per row, boundaries off the 128-blocks
+        seg = np.zeros((B, T), np.int32)
+        seg[:, T // 3:] = 1
+        seg[:, (2 * T) // 3 + 5:] = 2
+    return q, k, v, do, seg
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(B, T, N, K, H, causal, window, segments):
+    """The Pallas kernels in interpret mode on one case's inputs, in one jit:
+    (out, lse) of ``_flash_fwd`` and (dq, dk, dv) of ``jax.vjp`` of
+    ``flash_attention``."""
+    q, k, v, do, seg = _inputs(B, T, N, K, H, segments)
+
+    def run(q_, k_, v_, seg_, do_):
+        fwd = _flash_fwd(q_, k_, v_, seg_, H**-0.5, causal, window, 128, 128, True)
+        _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, seg_, None, causal, window, 128, 128, True), q_, k_, v_)
+        return fwd, vjp(do_)
+
+    return jax.device_get(jax.jit(run)(_j(q), _j(k), _j(v), _j(seg), _j(do)))
+
+
+@pytest.mark.parametrize("B,T,N,K,H,causal,window,segments", CASES, ids=IDS)
+def test_forward_matches_pallas(B, T, N, K, H, causal, window, segments):
+    q, k, v, _do, seg = _inputs(B, T, N, K, H, segments)
+    (want_out, want_lse), _ = _pallas(B, T, N, K, H, causal, window, segments)
+    got_out, got_lse = fa.flash_attention_fwd_ref(_t(q), _t(k), _t(v), _t(seg), causal=causal, window=window)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse).reshape(B, N, T), atol=FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,T,N,K,H,causal,window,segments", CASES, ids=IDS)
+def test_backward_matches_pallas_vjp(B, T, N, K, H, causal, window, segments):
+    q, k, v, do, seg = _inputs(B, T, N, K, H, segments)
+    _, want = _pallas(B, T, N, K, H, causal, window, segments)
+    out, lse = fa.flash_attention_fwd_ref(_t(q), _t(k), _t(v), _t(seg), causal=causal, window=window)
+    delta = fa._delta(out, _t(do))
+    got = fa.flash_attention_bwd_ref(_t(q), _t(k), _t(v), _t(do), lse, delta, _t(seg), causal=causal,
+                                     window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+    # the dq and dk/dv wrappers take the plain version for CPU tensors
+    dq = fa.flash_attention_bwd_dq(_t(q), _t(k), _t(v), _t(do), lse, delta, _t(seg), causal=causal, window=window)
+    dk, dv = fa.flash_attention_bwd_dkv(_t(q), _t(k), _t(v), _t(do), lse, delta, _t(seg), causal=causal,
+                                        window=window)
+    for g, w in zip((dq, dk, dv), got):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_autograd_function_matches_plain_versions():
+    q, k, v, do, seg = _inputs(2, 96, 6, 2, 64, True, seed=1)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    launches = dict(fa.LAUNCHES)
+    out = fa.flash_attention(qt, kt, vt, _t(seg), window=40)
+    out.backward(_t(do))
+    ref_out, lse = fa.flash_attention_fwd_ref(_t(q), _t(k), _t(v), _t(seg), window=40)
+    ref = fa.flash_attention_bwd_ref(_t(q), _t(k), _t(v), _t(do), lse, fa._delta(ref_out, _t(do)), _t(seg),
+                                     window=40)
+    torch.testing.assert_close(out.detach(), ref_out, atol=0, rtol=0)
+    for t, r in zip((qt, kt, vt), ref):
+        torch.testing.assert_close(t.grad, r, atol=0, rtol=0)
+    assert fa.LAUNCHES == launches  # the plain versions launch no kernel
+
+
+def test_gradcheck_float64():
+    # fast mode (random projections of the Jacobian) on a tiny GQA shape: the
+    # full Jacobian's hundreds of tiny forwards crawl under a loaded test run
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_(True)
+               for s in ((1, 6, 4, 4), (1, 6, 2, 4), (1, 6, 2, 4)))
+    seg = torch.tensor([[0, 0, 0, 1, 1, 1]], dtype=torch.int32)
+    assert torch.autograd.gradcheck(lambda a, b, c: fa.flash_attention(a, b, c, seg, window=2), (q, k, v),
+                                    fast_mode=True)
+    assert torch.autograd.gradcheck(lambda a, b, c: fa.flash_attention(a, b, c, causal=False), (q, k, v),
+                                    fast_mode=True)
+
+
+def test_rejects_like_the_pallas_kernel():
+    q = torch.zeros(1, 8, 2, 64)
+    kv = torch.zeros(1, 12, 2, 64)
+    with pytest.raises(ValueError, match="T == S"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="causal=True"):
+        fa.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError, match="fold"):
+        fa.flash_attention(torch.zeros(1, 8, 3, 64), q, q)
+
+
+@pytest.mark.parametrize("option", [dict(attention_mask=torch.ones(1, 8)), dict(bias=torch.zeros(1, 1, 8, 8)),
+                                    dict(use_alibi=True), dict(dropout_rate=0.1), dict(positions=torch.arange(8)),
+                                    dict(q_offset=4), dict(causal=False)],
+                         ids=["mask", "bias", "alibi", "dropout", "positions", "q_offset", "non-causal"])
+def test_dispatcher_options_outside_the_slice_raise(option):
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.dot_product_attention(q, q, q, **option)
+
+
+def test_dispatcher_segments_and_window():
+    q, k, v, _do, seg = _inputs(1, 128, 4, 2, 32, True, seed=3)
+    got = fa.dot_product_attention(_t(q), _t(k), _t(v), segment_ids=_t(seg).long(), window=50)
+    want = jax_flash(_j(q), _j(k), _j(v), _j(seg), None, True, 50, 128, 128, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_ATOL, rtol=0)
+
+
+def test_chip_smoke_flash_check_catches_mutations(monkeypatch):
+    """``chip_smoke.py``'s elementwise check (``flash_worst``) passes the plain
+    version against itself and fails a kernel whose causal mask is shifted by
+    one position or whose backward drops delta, at the training path's head
+    layout in bf16 (a dry run of the card's check on the CPU)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(6)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 256, 12, 128), dtype=np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 256, 2, 128), dtype=np.float32)).bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_fwd_ref(q, k, v)
+    grads = fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do))
+    want = dict(out=out, lse=lse, dq=grads[0], dk=grads[1], dv=grads[2])
+    clean = chip_smoke.flash_worst(torch, want, want, "bfloat16")
+    assert max(e["worst"] for e in clean.values()) == 0.0
+
+    visible = fa._visible
+    for shift in (1, -1):
+        monkeypatch.setattr(fa, "_visible", lambda T, S, causal, window, seg, dev, s=shift: visible(
+            T, S, False, None, seg, dev) & (torch.arange(S)[None, :] <= torch.arange(T)[:, None] + s)[None])
+        m_out, m_lse = fa.flash_attention_fwd_ref(q, k, v)
+        worst = chip_smoke.flash_worst(torch, dict(out=m_out, lse=m_lse), dict(out=out, lse=lse), "bfloat16")
+        assert worst["out"]["worst"] > 1 and worst["lse"]["worst"] > 1, (shift, worst)
+    monkeypatch.setattr(fa, "_visible", visible)
+    no_delta = fa.flash_attention_bwd_ref(q, k, v, do, lse, torch.zeros(1, 12, 256))
+    worst = chip_smoke.flash_worst(torch, dict(dq=no_delta[0], dk=no_delta[1]), dict(dq=grads[0], dk=grads[1]),
+                                   "bfloat16")
+    assert worst["dq"]["worst"] > 1 and worst["dk"]["worst"] > 1, worst
