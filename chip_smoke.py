@@ -35,25 +35,31 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 7. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
-              in fp32, with segments and a window, and at T = 4095; times
+              in fp32, with segments and a window, and at T = 4095; bf16 takes
+              the forward and dk/dv through the Hopper tensor-core kernels
+              (``flash_attention_sm90.cu``), fp32 through the SIMT kernels
+              (``flash_attention.cu``), and each case checks its route; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-8. train_grad -- Qwen2-1.5B widths, 2 layers, fp32: the loss and every
-              gradient leaf through the kernels against the attention through
-              the plain versions;
+8. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+              leaf through the kernels against the attention through the
+              plain versions, in fp32 (the SIMT kernels) and at bf16 compute
+              (the Hopper forward and dk/dv), with the bf16-vs-fp32 control;
 9. train   -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
               Markov-chain corpus from ``--seed``; per-step loss, grad norm,
-              time, tokens/s, MFU and peak memory; the saved checkpoint
-              loads back bit for bit;
+              time, tokens/s, MFU and peak memory; the forward and dk/dv
+              launches all on the Hopper route; the saved checkpoint loads
+              back bit for bit;
 10. train_profile -- ``torch.profiler`` over one more training step;
 11. kernels -- every kernel with its launches on the serving and training
-              runs and its check.
+              runs (each flash kernel's on its own route) and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
-object and ``{"ok": true, "device": {...}}``.
+object (six rows: the paged kernel; the flash forward on the Hopper and the
+SIMT route; dq; dk/dv on both routes) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -502,6 +508,7 @@ def phase_flash_kernel(torch, fa, seed):
     for name, dtype, T, segments, window in FLASH_CASES:
         q, k, v, do, seg = flash_case(torch, dtype, T, segments, seed)
         opts = dict(segment_ids=seg, causal=True, window=window)
+        sm90_before = dict(fa.LAUNCHES_SM90)
         out, lse = fa.flash_attention_fwd(q, k, v, **opts)
         ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
         delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
@@ -509,6 +516,12 @@ def phase_flash_kernel(torch, fa, seed):
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
         ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
         torch.cuda.synchronize()
+        # bf16: the forward and dk/dv on the Hopper route; fp32: the SIMT kernels
+        route = "sm90" if dtype == "bfloat16" else "simt"
+        sm90 = {w: fa.LAUNCHES_SM90[w] - sm90_before[w] for w in sm90_before}
+        want_sm90 = int(route == "sm90")
+        check(sm90 == {"fwd": want_sm90, "bwd_dkv": want_sm90}, f"flash {name}: {route} case took the Hopper route "
+                                                               f"{sm90} times")
         errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
                            dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
         del out, lse, dq, dk, dv, ref
@@ -537,8 +550,8 @@ def phase_flash_kernel(torch, fa, seed):
             library["bwd"] = time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                                           retain_graph=True), 20, flush)
             del qh, kh, vh, doh, lib_out
-        case = dict(case=name, dtype=dtype, q=list(q.shape), kv=list(k.shape), segments=segments, window=window,
-                    errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
+        case = dict(case=name, dtype=dtype, route=route, q=list(q.shape), kv=list(k.shape), segments=segments,
+                    window=window, errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
                     plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
                     bound_ms={w: b[0] for w, b in bounds.items()}, bound_by={w: b[1] for w, b in bounds.items()},
                     library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
@@ -577,50 +590,107 @@ class _PlainFlash:
         return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
 
 
-def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, seed):
-    """Qwen2-1.5B widths, 2 layers, micro-batch 2 x 1024, fp32, save_qkv_attn
-    recompute: the loss and every gradient leaf through the kernels against the
-    same step with the attention through the plain versions."""
+# bf16 compute, model level: the loss and every gradient leaf through the
+# kernels against the same step through the plain versions, both in bf16 (a
+# leaf's error is |got - want| / |want| over the whole leaf; "all" over every
+# leaf at once). Two bf16 runs that differ in any rounding drift apart by a
+# good share of bf16's own error, so the leaf bounds sit between the
+# kernels' readings (leaf <= 0.0101, all 0.0082) and the bf16-vs-fp32
+# control's (leaf >= 0.0201, all >= 0.0190) over seeds 0-3 on an H100
+# (PERF.md), and each run checks that its control still falls outside them.
+# The loss moves ~1e-5 under any change of rounding (kernels 5e-6-1.7e-5,
+# control 1.2e-5-5.8e-5): its bound only catches gross errors.
+BF16_STEP_TOL = dict(loss_rel=1e-4, leaf_rel=1.4e-2, all_rel=1.2e-2)
+
+
+def _grad_step(torch, fa, modeling, cfg, Qwen2ForCausalLM, causal_lm_loss, ids, seed, dtype, plain):
+    """One forward and backward of a fresh model (fp32 master weights, compute
+    in ``dtype``) with the attention through the kernels or, if ``plain``,
+    the plain versions: (loss, {leaf: grad}, launches, Hopper-route launches)."""
     from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
 
+    model = Qwen2ForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+    model.compute_dtype = getattr(torch, dtype)
+    leaves = flatten_params(model.params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    before, sm90_before = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    kernel_attention = modeling.dot_product_attention
+    if plain:
+        modeling.dot_product_attention = _PlainFlash(torch, fa)
+    try:
+        loss = causal_lm_loss(model.forward(ids), ids, shift=True)
+        loss.backward()
+    finally:
+        modeling.dot_product_attention = kernel_attention
+    torch.cuda.synchronize()
+    return (loss.item(), {k: t.grad for k, t in leaves.items()}, {n: fa.LAUNCHES[n] - before[n] for n in before},
+            {n: fa.LAUNCHES_SM90[n] - sm90_before[n] for n in sm90_before})
+
+
+def _step_errors(got, want):
+    """How far step ``got`` is from step ``want``: the loss's relative error;
+    each leaf's worst element over its largest (``leaf_max``, the fp32 gate's
+    measure) and its error norm over its norm (``leaf``); and the error norm
+    of every leaf at once over their norm (``all``)."""
+    leaf_max, leaf, diff2, norm2 = {}, {}, 0.0, 0.0
+    for k, w in want[1].items():
+        d = got[1][k] - w
+        leaf_max[k] = (d.abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        dn, wn = d.double().norm().item(), w.double().norm().item()
+        leaf[k] = dn / max(wn, 1e-30)
+        diff2, norm2 = diff2 + dn**2, norm2 + wn**2
+    worst = lambda r: dict(worst_leaf=max(r, key=r.get), rel_err=max(r.values()))  # noqa: E731
+    return dict(loss_rel_err=abs(got[0] - want[0]) / abs(want[0]), leaf_max=worst(leaf_max), leaf=worst(leaf),
+                all_rel_err=(diff2 / norm2)**0.5)
+
+
+def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, seed):
+    """Qwen2-1.5B widths, 2 layers, micro-batch 2 x 1024, save_qkv_attn
+    recompute: the loss and every gradient leaf through the kernels against the
+    same step with the attention through the plain versions, in fp32 (the SIMT
+    kernels, to summation order) and at bf16 compute (the training path's
+    route, to ``BF16_STEP_TOL``, which the bf16-vs-fp32 control must exceed)."""
     cfg = Qwen2Config(**{**QWEN2_1_5B, "num_hidden_layers": 2, "recompute": True,
                          "recompute_granularity": "save_qkv_attn"})
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g, device=DEVICE)
-    results = []
-    for plain in (False, True):
-        model = Qwen2ForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
-        leaves = flatten_params(model.params)
-        for t in leaves.values():
-            t.requires_grad_(True)
-        before = dict(fa.LAUNCHES)
-        kernel_attention = modeling.dot_product_attention
-        if plain:
-            modeling.dot_product_attention = _PlainFlash(torch, fa)
-        try:
-            loss = causal_lm_loss(model.forward(ids), ids, shift=True)
-            loss.backward()
-        finally:
-            modeling.dot_product_attention = kernel_attention
-        torch.cuda.synchronize()
-        launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
-        results.append((loss.item(), {k: t.grad for k, t in leaves.items()}, launched))
-        del model, leaves, loss
-    (loss_k, grads_k, launched_k), (loss_p, grads_p, launched_p) = results
-    rel = {k: ((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max().clamp_min(1e-30)).item()
-           for k in grads_p}
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    res = dict(phase="train_grad", config="Qwen/Qwen2-1.5B widths, 2 layers", tokens=list(ids.shape),
-               dtype="float32", loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel, loss_rel_tol=1e-5,
-               grad_leaves=len(rel), worst_leaf=max(rel, key=rel.get), worst_leaf_rel_err=max(rel.values()),
-               leaf_rel_tol=1e-4, kernel_launches=launched_k, plain_run_launches=launched_p)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for plain in (False, True):
+            runs[dtype, plain] = _grad_step(torch, fa, modeling, cfg, Qwen2ForCausalLM, causal_lm_loss, ids, seed,
+                                            dtype, plain)
+            torch.cuda.empty_cache()
+    fp32 = _step_errors(runs["float32", False], runs["float32", True])
+    bf16 = _step_errors(runs["bfloat16", False], runs["bfloat16", True])
+    control = _step_errors(runs["bfloat16", True], runs["float32", True])
+    launches = {dtype: dict(kernels=runs[dtype, False][2], kernels_sm90=runs[dtype, False][3],
+                            plain=runs[dtype, True][2]) for dtype in ("float32", "bfloat16")}
+    res = dict(phase="train_grad", config="Qwen/Qwen2-1.5B widths, 2 layers", tokens=list(ids.shape), seed=seed,
+               loss={f"{dtype}_{'plain' if plain else 'kernels'}": r[0] for (dtype, plain), r in runs.items()},
+               grad_leaves=len(runs["float32", True][1]),
+               fp32=dict(fp32, loss_rel_tol=1e-5, leaf_max_rel_tol=1e-4),
+               bf16=dict(bf16, tol=BF16_STEP_TOL), bf16_vs_fp32_control=control, launches=launches)
     emit(res)
-    check(launched_k == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}, f"train_grad: kernel launches {launched_k}")
-    check(launched_p == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, f"train_grad: the plain run launched {launched_p}")
-    check(loss_rel <= 1e-5, f"train_grad: loss rel err {loss_rel} > 1e-5")
-    check(max(rel.values()) <= 1e-4, f"train_grad: {res['worst_leaf']} grad rel err {max(rel.values())} > 1e-4")
-    del grads_k, grads_p
+    del runs
     torch.cuda.empty_cache()
+    one_each = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+    for dtype, want_sm90 in (("float32", 0), ("bfloat16", 2)):
+        n = launches[dtype]
+        check(n["kernels"] == one_each, f"train_grad {dtype}: kernel launches {n['kernels']}")
+        check(n["kernels_sm90"] == {"fwd": want_sm90, "bwd_dkv": want_sm90},
+              f"train_grad {dtype}: Hopper-route launches {n['kernels_sm90']}")
+        check(n["plain"] == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, f"train_grad {dtype}: the plain run launched")
+    check(fp32["loss_rel_err"] <= 1e-5, f"train_grad fp32: loss rel err {fp32['loss_rel_err']} > 1e-5")
+    check(fp32["leaf_max"]["rel_err"] <= 1e-4, f"train_grad fp32: {fp32['leaf_max']} > 1e-4")
+    check(bf16["loss_rel_err"] <= BF16_STEP_TOL["loss_rel"],
+          f"train_grad bf16: kernels vs plain loss rel err {bf16['loss_rel_err']} > {BF16_STEP_TOL['loss_rel']}")
+    for key, got, ctl in (("leaf_rel", bf16["leaf"]["rel_err"], control["leaf"]["rel_err"]),
+                          ("all_rel", bf16["all_rel_err"], control["all_rel_err"])):
+        tol = BF16_STEP_TOL[key]
+        check(got <= tol, f"train_grad bf16: kernels vs plain {key} {got} > {tol}")
+        check(ctl > tol, f"train_grad: the bf16-vs-fp32 control's {key} {ctl} is inside {tol}: "
+                         "the bound would not tell the kernels from bf16 rounding")
     return res
 
 
@@ -692,13 +762,14 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
             if logs and "grad_norm" in logs:
                 steps[-1].update(loss=logs["loss"], grad_norm=logs["grad_norm"], lr=logs["learning_rate"])
 
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90):
+        for name in counts:
+            counts[name] = 0
     t0 = time.perf_counter()
     trainer = run_pretrain.main([args_path], device=DEVICE, callbacks=[StepRecorder()])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
 
     model = trainer.model
     cfg = model.config
@@ -715,6 +786,8 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
     per_run = cfg.num_hidden_layers * accum * n_steps
     check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run},
           f"train: flash launches {launches}, want {per_run} of each (28 a micro-step)")
+    check(sm90 == {"fwd": per_run, "bwd_dkv": per_run},
+          f"train: Hopper-route launches {sm90}, want {per_run} each of the forward and dk/dv")
 
     # the checkpoint save_model wrote loads back bit for bit
     t_load = time.perf_counter()
@@ -734,7 +807,7 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
                tokens_per_s_steady=sum(s["tokens"] for s in steady) / sum(s["step_s"] for s in steady),
                mfu_steady=step_flops * len(steady) / sum(s["step_s"] for s in steady) / PEAK_FLOPS["bfloat16"],
                mfu_flops="get_model_flops(4, 4096) a step (6 N tokens + attention) over 989 TFLOP/s",
-               peak_mem_gb=max(s["peak_mem_gb"] for s in steps), kernel_launches=launches,
+               peak_mem_gb=max(s["peak_mem_gb"] for s in steps), kernel_launches=launches, sm90_launches=sm90,
                checkpoint=dict(files=files, load_check_s=time.perf_counter() - t_load, bitwise=True))
     emit(res)
     return trainer, res
@@ -755,7 +828,9 @@ def phase_train_profile(torch, trainer):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+    # the first group whose name a kernel's contains takes it: the Hopper ones first
+    groups = {"flash_fwd_sm90": "flash_fwd_kernel_sm90", "flash_bwd_dkv_sm90": "flash_bwd_dkv_kernel_sm90",
+              "flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
               "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
     by_group = {g: 0.0 for g in list(groups) + ["gemm", "other"]}
     launches = {g: 0 for g in groups}
@@ -825,6 +900,8 @@ def main(argv=None) -> int:
                   spills=None if log is None else any(
                       "0 bytes spill stores, 0 bytes spill loads" not in ln
                       for ln in log.splitlines() if "spill stores" in ln)))
+    fresh = builds["flash_attention_sm90"]
+    check(fresh["cached"] or fresh["seconds"] < 60, f"build: flash_attention_sm90.cu took {fresh['seconds']:.0f} s")
 
     # ---- serving: the paged engine at Qwen2-7B width and depth
     cases = phase_kernel(torch, pa, quantize_kv, args.seed)
@@ -846,7 +923,7 @@ def main(argv=None) -> int:
 
     # ---- training: run_pretrain at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
-    phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
+    grad = phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
         trainer, train = phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder,
                                      workdir, args.seed)
@@ -862,21 +939,36 @@ def main(argv=None) -> int:
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=main_case["library_ms"])]
     checks = [dict(check="pass", cases=len(cases), worst_err_over_tol=max(c["worst_err_over_tol"] for c in cases))]
-    flash_main = flash[0]  # the training path's shape
+    # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
+    # and the SIMT kernels (fp32: times from the fp32 case); dq is SIMT on
+    # both. Launches are the train run's on each route: the main path never
+    # takes the SIMT forward or dk/dv, which the fp32 train_grad step checks
+    by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
-    for what, line, name in (("fwd", 81, "flash_attention_fwd"), ("bwd_dq", 187, "flash_attention_bwd_dq"),
-                             ("bwd_dkv", 227, "flash_attention_bwd_dkv")):
+    rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
+            ("bwd_dq", "simt", 187, "flash_attention_bwd_dq"),
+            ("bwd_dkv", "sm90", 227, "flash_attention_bwd_dkv_sm90"),
+            ("bwd_dkv", "simt", 227, "flash_attention_bwd_dkv")]
+    for what, route, line, name in rows:
+        dq = what == "bwd_dq"
+        timed = by_case["main" if dq or route == "sm90" else "fp32"]
+        checked = [c for c in flash if dq or c["route"] == route]
+        sm90 = train["sm90_launches"].get(what, 0)
+        launches = sm90 if route == "sm90" else train["kernel_launches"][what] - sm90
+        check_launches = None if route == "sm90" else grad["launches"]["float32"]["kernels"][what]
         kernels.append(dict(
-            name=name, route="cuda", source="paddlenlp_tpu_torch/csrc/flash_attention.cu",
-            replaces=f"paddlenlp_tpu/ops/pallas/flash_attention.py:{line}", launches=train["kernel_launches"][what],
-            max_abs_err=max(c["errors"][o]["max_abs_err"] for c in flash for o in outputs[what]),
-            ms=flash_main["ms"][what],
+            name=name, route="cuda",
+            source="paddlenlp_tpu_torch/csrc/flash_attention" + ("_sm90.cu" if route == "sm90" else ".cu"),
+            replaces=f"paddlenlp_tpu/ops/pallas/flash_attention.py:{line}", launches=launches,
+            max_abs_err=max(c["errors"][o]["max_abs_err"] for c in checked for o in outputs[what]),
+            ms=timed["ms"][what],
             # the plain and the library backward each compute dq, dk and dv in one call
-            plain_ms=flash_main["plain_fwd_ms"] if what == "fwd" else flash_main["plain_bwd_ms"],
-            bound_ms=flash_main["bound_ms"][what], bound_by=flash_main["bound_by"][what],
-            library_ms=flash_main["library_fwd_ms"] if what == "fwd" else flash_main["library_bwd_ms"]))
-        checks.append(dict(check="pass", cases=len(flash),
-                           worst_err_over_tol=max(c["errors"][o]["worst"] for c in flash for o in outputs[what])))
+            plain_ms=timed["plain_fwd_ms"] if what == "fwd" else timed["plain_bwd_ms"],
+            bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
+            library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
+        checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"], launched_by="train",
+                           check_launches=check_launches,
+                           worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,11 @@
 // Flash attention for training on Hopper (sm_90a), CUDA C++ with plain C entries:
-// the forward, the dq backward and the dk/dv backward.
+// the forward, the dq backward and the dk/dv backward on CUDA cores.
+//
+// Routes: the forward and dk/dv here take fp32 operands only; bf16 ones, the
+// training path's, go to the tensor-core kernels of flash_attention_sm90.cu.
+// The fp32 route stays here on purpose: the fp32 gates (1e-4 elementwise,
+// loss rel 1e-5, gradient leaves 1e-4) need fp32 products, which bf16 or TF32
+// operands cannot give, so this is the precise check. dq takes both types.
 //
 // Replaces the Pallas TPU kernels of paddlenlp_tpu/ops/pallas/flash_attention.py:
 // `_fa_kernel` (:81, launched by `_flash_fwd` :131), `_bwd_dq_kernel` (:187) and
@@ -14,8 +20,8 @@
 // group inside one thread block, so there are no atomics and no group sum.
 //
 // Layouts: q, out, dO, dq [B, T, N, H]; k, v, dk, dv [B, S, K, H]; lse, delta
-// [B, N, T] fp32; seg [B, T] int32 (or null). Inputs fp32 or bf16, all of one
-// type; out and dq in q's type, dk and dv cast to k's type on store.
+// [B, N, T] fp32; seg [B, T] int32 (or null). Inputs all of one type; out and
+// dq in q's type, dk and dv cast to k's type on store.
 //
 // What bounds it on an H100: operations. At the training path's shape (q
 // [2, 4096, 12, 128] bf16, causal) the forward does ~1.0e11 flops on ~60 MB,
@@ -28,8 +34,7 @@
 // the last tile it can see and starts at the window's first (the TPU kernel's
 // `_block_runs` skip, :71), and the dk/dv loop walks only the query tiles
 // that see its kv tile. Every global load past T or S is bound-checked and
-// zero-filled, so no padding row's lse, delta or dO reaches a sum. Not yet:
-// tensor cores (mma/wgmma), TMA, double buffering.
+// zero-filled, so no padding row's lse, delta or dO reaches a sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -486,20 +491,17 @@ bool bad_geometry(int B, int T, int S, int N, int K, int H, int dtype) {
 
 // Each entry launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported dtype, head_dim or geometry).
-// dtype 0 = fp32, 1 = bf16 (q, k, v, dO and the outputs); window < 0: none;
-// seg may be null.
+// dtype 0 = fp32, 1 = bf16 (q, k, v, dO and the outputs; dq only); window < 0:
+// none; seg may be null.
 extern "C" int pdnlp_flash_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
                                int B, int T, int S, int N, int K, int H, int causal, int window, int dtype,
                                float scale, void* stream) {
-  if (bad_geometry(B, T, S, N, K, H, dtype)) return cudaErrorInvalidValue;
+  if (bad_geometry(B, T, S, N, K, H, dtype) || dtype != 0) return cudaErrorInvalidValue;  // bf16: the sm90 source
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return H == 64 ? launch_fwd<float, 64>(q, k, v, seg, out, lse, B, g, s)
-                   : launch_fwd<float, 128>(q, k, v, seg, out, lse, B, g, s);
-  return H == 64 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, seg, out, lse, B, g, s)
-                 : launch_fwd<__nv_bfloat16, 128>(q, k, v, seg, out, lse, B, g, s);
+  return H == 64 ? launch_fwd<float, 64>(q, k, v, seg, out, lse, B, g, s)
+                 : launch_fwd<float, 128>(q, k, v, seg, out, lse, B, g, s);
 }
 
 extern "C" int pdnlp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -520,13 +522,10 @@ extern "C" int pdnlp_flash_bwd_dkv(const void* q, const void* k, const void* v, 
                                    const void* delta, const void* seg, void* dk, void* dv, int B, int T, int S,
                                    int N, int K, int H, int causal, int window, int dtype, float scale,
                                    void* stream) {
-  if (bad_geometry(B, T, S, N, K, H, dtype)) return cudaErrorInvalidValue;
+  if (bad_geometry(B, T, S, N, K, H, dtype) || dtype != 0) return cudaErrorInvalidValue;  // bf16: the sm90 source
   if (B == 0 || S == 0 || K == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return H == 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s)
-                   : launch_dkv<float, 128>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
-  return H == 64 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s)
-                 : launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
+  return H == 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s)
+                 : launch_dkv<float, 128>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
 }

@@ -25,12 +25,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: the kernel sources the port builds (stem -> file under csrc/)
-SOURCES = {"paged_attention": "paged_attention.cu", "flash_attention": "flash_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu", "flash_attention": "flash_attention.cu",
+           "flash_attention_sm90": "flash_attention_sm90.cu"}
 
 #: Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels;
-#: -Xptxas -v records registers, shared memory and spills in the build log
+#: -Xptxas -v records registers, shared memory and spills in the build log;
+#: -ldl: flash_attention_sm90.cu takes cuTensorMapEncodeTiled from libcuda (dlopen)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

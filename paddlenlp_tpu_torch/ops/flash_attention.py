@@ -4,12 +4,19 @@ versions, the autograd function and the attention dispatcher.
 Port of ``paddlenlp_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 :353, a ``custom_vjp`` over ``_flash_fwd`` :131 and ``_flash_bwd`` :272) and of
 ``paddlenlp_tpu/ops/flash_attention.py`` ``dot_product_attention`` (:72).
-The three kernels are in ``paddlenlp_tpu_torch/csrc/flash_attention.cu``:
+The kernels are in ``paddlenlp_tpu_torch/csrc/``:
 
 - :func:`flash_attention_fwd` -> (out, lse), the forward (``_fa_kernel`` :81);
 - :func:`flash_attention_bwd_dq` -> dq (``_bwd_dq_kernel`` :187);
 - :func:`flash_attention_bwd_dkv` -> (dk, dv), summed per KV head over its
   query group (``_bwd_dkv_kernel`` :227).
+
+Two routes. bf16 operands, the training path's, take the forward and dk/dv
+through the Hopper tensor-core kernels of ``flash_attention_sm90.cu`` (TMA
+tile ring, ``wgmma``); dq, and every kernel for fp32 operands, run the SIMT
+kernels of ``flash_attention.cu``. The fp32 route is kept on purpose: its
+fp32 products are what the fp32 gates (1e-4) hold to, which bf16 operands
+cannot meet.
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
 head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
@@ -17,7 +24,8 @@ int32. :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`
 compute the same functions in fp32, step by step; each wrapper takes them only
 for tensors on the CPU. For CUDA tensors it checks the operands and launches
 its kernel, or raises: there is no fallback. ``LAUNCHES`` counts each
-kernel's launches.
+kernel's launches on either route and ``LAUNCHES_SM90`` those of the
+Hopper route alone.
 """
 
 from __future__ import annotations
@@ -29,13 +37,19 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "NEG_INF", "dot_product_attention", "flash_attention", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd", "flash_attention_fwd_ref"]
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "dot_product_attention", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd",
+           "flash_attention_fwd_ref"]
 
 NEG_INF = -1e30
 
 #: kernel launches per kernel since the counters were last set to 0
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+#: the launches of those that took the Hopper bf16 route (flash_attention_sm90.cu)
+LAUNCHES_SM90 = {"fwd": 0, "bwd_dkv": 0}
+
+# the kernels that flash_attention_sm90.cu has for bf16 operands
+_SM90_KERNELS = ("fwd", "bwd_dkv")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -168,8 +182,8 @@ def _check_cuda_operands(name, tensors, q, k, segment_ids):
             raise ValueError(f"{name}: segment_ids must be a contiguous tensor on {dev}")
 
 
-def _kernel_fn(symbol: str, n_ptr: int, n_int: int):
-    fn = getattr(_build.load("flash_attention"), symbol)
+def _kernel_fn(stem: str, symbol: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load(stem), symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -187,14 +201,22 @@ def _geometry(q, k, causal, window):
 
 
 def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
+    """Launch ``what`` on its route: the Hopper kernel for bf16 forward and
+    dk/dv, else the SIMT kernel. A refused launch raises; nothing runs in its
+    place."""
+    sm90 = q.dtype == torch.bfloat16 and what in _SM90_KERNELS
+    stem, symbol = ("flash_attention_sm90", symbol + "_sm90") if sm90 else ("flash_attention", symbol)
     ints = _geometry(q, k, causal, window)
     H = q.shape[-1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel_fn(symbol, n_ptr, len(ints))(*ptrs, *ints, float(H**-0.5 if scale is None else scale), stream)
+        rc = _kernel_fn(stem, symbol, n_ptr, len(ints))(*ptrs, *ints, float(H**-0.5 if scale is None else scale),
+                                                         stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed ({symbol}): CUDA error {rc}")
     LAUNCHES[what] += 1
+    if sm90:
+        LAUNCHES_SM90[what] += 1
 
 
 def _device(name, q):

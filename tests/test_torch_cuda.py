@@ -7,6 +7,8 @@ JAX package, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -151,9 +153,14 @@ def _close(got, want, dtype):
     (256, 4, 2, 64, True, None, False),    # group 2, H 64
     (129, 7, 1, 64, False, None, False),   # group 7, full attention
     (333, 2, 2, 128, True, 100, True),     # group 1, window + segments
+    (1024, 12, 2, 128, True, None, False),  # the training path's heads, group 6, at a smaller T
+    (300, 12, 2, 128, False, None, False),  # full attention, T not a multiple of 128
 ])
 def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
+    """bf16 runs the forward and dk/dv through the Hopper kernels
+    (``LAUNCHES_SM90``), fp32 through the SIMT kernels; dq is SIMT for both."""
     q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
+    sm90 = dict(fa.LAUNCHES_SM90)
     out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -167,14 +174,85 @@ def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segme
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == w.shape, name
         _close(got, w, dtype)
+    moved = 1 if dtype == torch.bfloat16 else 0
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dkv": moved}
 
 
-def test_flash_autograd_counts_launches(dev):
-    q, k, v, do, _ = _flash_case(dev, torch.bfloat16, 1, 100, 4, 2, 128, False)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_flash_autograd_counts_launches(dev, dtype):
+    """``LAUNCHES`` counts each kernel once on either route; ``LAUNCHES_SM90``
+    moves by one forward and one dk/dv for bf16 and stays for fp32."""
+    q, k, v, do, _ = _flash_case(dev, dtype, 1, 100, 4, 2, 128, False)
     q.requires_grad_(True)
-    before = dict(fa.LAUNCHES)
+    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
     fa.flash_attention(q, k.requires_grad_(True), v.requires_grad_(True)).backward(do)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    moved = 1 if dtype == torch.bfloat16 else 0
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dkv": moved}
+
+
+@pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
+def test_flash_sm90_failed_launch_raises(dev, monkeypatch, fault):
+    """A refused launch on the Hopper route raises RuntimeError: neither
+    counter moves, and neither the SIMT kernel nor the plain version runs in
+    its place."""
+    q, k, v, do, _ = _flash_case(dev, torch.bfloat16, 1, 128, 4, 2, 128, False)
+    if fault == "entry returns an error":
+        real = fa._kernel_fn
+        monkeypatch.setattr(fa, "_kernel_fn", lambda stem, symbol, n_ptr, n_int: (
+            (lambda *args: 700) if stem == "flash_attention_sm90" else real(stem, symbol, n_ptr, n_int)))
+    else:  # a contiguous view 2 bytes into its buffer: libcuda refuses its tensor map
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        buf[1:].view(q.shape).copy_(q)
+        q = buf[1:].view(q.shape)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran in place of the kernel")
+
+    monkeypatch.setattr(fa, "flash_attention_fwd_ref", plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd_ref", plain)
+    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    with pytest.raises(RuntimeError, match="_sm90"):
+        fa.flash_attention_fwd(q, k, v)
+    lse = torch.zeros(1, 4, 128, device=dev)
+    with pytest.raises(RuntimeError, match="_sm90"):
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before and fa.LAUNCHES_SM90 == sm90
+
+
+@pytest.mark.parametrize("T", [1024, 4096])
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_flash_sm90_gate_headroom_over_seeds(dev, seed, T):
+    """The Hopper forward and dk/dv against the plain versions under
+    ``chip_smoke.py``'s elementwise gate, on its ``main`` inputs (q [2, T, 12,
+    128] over k/v [2, T, 2, 128], causal) from seeds other than its own. Prints
+    each worst element over its bound."""
+    import chip_smoke
+
+    q, k, v, do, _ = chip_smoke.flash_case(torch, "bfloat16", T, False, seed)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v)
+    delta = fa._delta(ref_out, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta)
+    _dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta)
+    worst = chip_smoke.flash_worst(torch, dict(out=out, lse=lse, dk=dk, dv=dv),
+                                   dict(out=ref_out, lse=ref_lse, dk=ref_dk, dv=ref_dv), "bfloat16")
+    print(json.dumps(dict(seed=seed, T=T, worst={name: e["worst"] for name, e in worst.items()})))
+    for name, e in worst.items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_chip_smoke_train_grad_other_seeds(dev, seed):
+    """``chip_smoke.py``'s ``train_grad`` phase (Qwen2-1.5B widths, 2 layers;
+    fp32 and bf16 compute, kernels vs plain, the bf16-vs-fp32 control) from
+    seeds other than its own: its bounds hold, and it prints its readings."""
+    import chip_smoke
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.transformers.llama import modeling
+
+    chip_smoke.phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, seed)
 
 
 def test_flash_wrapper_rejects_bad_operands(dev):
@@ -192,7 +270,9 @@ def test_train_step_through_kernels_equals_plain(dev):
     """At fp32, the loss and every gradient leaf of a Trainer micro-step
     through the kernels equal those through the plain versions (the CPU
     path): loss rel 1e-5, each leaf within 1e-4 of its largest element. A
-    full step then launches each kernel once per layer and micro-batch."""
+    full step then launches each kernel once per layer and micro-batch, on
+    the SIMT route in fp32 and with the forward and dk/dv on the Hopper route
+    in bf16."""
     cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, head_dim=64, tie_word_embeddings=True,
                       recompute=True, recompute_granularity="save_qkv_attn")
@@ -213,9 +293,16 @@ def test_train_step_through_kernels_equals_plain(dev):
         results[str(device)] = (loss.item(), {k: t.grad.cpu() for k, t in trainer.params.items()})
         if device != "cpu":
             trainer.create_optimizer_and_scheduler(1)
-            before = dict(fa.LAUNCHES)
+            before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
             trainer.training_step(batch)
             assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+            assert fa.LAUNCHES_SM90 == sm90  # fp32: the SIMT kernels
+            # bf16 compute (run_pretrain's `dtype`): the forward and dk/dv take the Hopper route
+            model.compute_dtype = torch.bfloat16
+            before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+            trainer.training_step(batch)
+            assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+            assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 4, "bwd_dkv": 4}
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results["cpu"], results[str(dev)]
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in g_cpu:

@@ -186,3 +186,75 @@ def test_chip_smoke_flash_check_catches_mutations(monkeypatch):
     worst = chip_smoke.flash_worst(torch, dict(dq=no_delta[0], dk=no_delta[1]), dict(dq=grads[0], dk=grads[1]),
                                    "bfloat16")
     assert worst["dq"]["worst"] > 1 and worst["dk"]["worst"] > 1, worst
+
+
+def _bf16(x, parts):
+    """x through bf16 operands: one rounding, or (``parts=2``) the sum of a
+    bf16 high part and the bf16 rounding of what it left out."""
+    hi = x.bfloat16().float()
+    return hi if parts == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts, block_kv=128):
+    """The Hopper bf16 kernels' roundings, step by step in torch: the forward's
+    online softmax over 128-column kv tiles with P as ``parts`` bf16 operands
+    of P.V (the row sum keeps fp32 P); dk/dv with P^T and dS^T (from fp32 P^T)
+    as ``parts`` bf16 operands of their products. Products of bf16 operands
+    accumulate in fp32, as the tensor cores do."""
+    B, T, N, H = q.shape
+    K = k.shape[2]
+    g = N // K
+    scale = H**-0.5
+    s, valid = fa._scores(q, k, seg, scale, True, window)  # [B, K, g, T, S] fp32
+    vf, dof = v.float(), do.float().reshape(B, T, K, g, H)
+    m = torch.full(s.shape[:-1] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, K, g, T, H)
+    for c0 in range(0, T, block_kv):
+        st, vt = s[..., c0:c0 + block_kv], valid[..., c0:c0 + block_kv]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.where(vt, torch.exp(st - m_new), torch.zeros_like(st))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgts,bskh->bkgth", _bf16(p, parts), vf[:, c0:c0 + block_kv])
+        m = m_new
+    l = l.clamp_min(1e-37)
+    out = (acc / l).permute(0, 3, 1, 2, 4).reshape(B, T, N, H).bfloat16()
+    lse_k = (m + torch.log(l))[..., 0].reshape(B, N, T)
+    p = torch.where(valid, torch.exp(s - lse.reshape(B, K, g, T)[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("btkgh,bskh->bkgts", dof, vf)
+    ds = p * (dp - delta.reshape(B, K, g, T)[..., None]) * scale
+    dv = torch.einsum("bkgts,btkgh->bskh", _bf16(p, parts), dof).bfloat16()
+    dk = torch.einsum("bkgts,btkgh->bskh", _bf16(ds, parts), q.float().reshape(B, T, K, g, H)).bfloat16()
+    return dict(out=out, lse=lse_k, dk=dk, dv=dv)
+
+
+@pytest.mark.parametrize("segments,window", [(False, None), (True, 100)], ids=["causal", "segments+window"])
+def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
+    """The Hopper kernels' bf16 operands stay inside the card's elementwise
+    gate against the fp32 plain versions: ``2**-7 |ref| + 1e-3 max|ref|`` per
+    element, the ``flash_worst`` rule of ``chip_smoke.py``, at the training
+    path's heads (group 6, head_dim 128), T 256. The kernels give P, P^T and
+    dS^T as two bf16 parts each (high and residual): one rounding exceeds the
+    gate on dk and dv and leaves out close to it (printed beside)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(7)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 256, 12, 128), dtype=np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 256, 2, 128), dtype=np.float32)).bfloat16() for _ in range(2))
+    seg = None
+    if segments:
+        seg = torch.zeros(1, 256, dtype=torch.int32)
+        seg[:, 90:] = 1
+        seg[:, 181:] = 2
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, window=window)
+    delta = fa._delta(out, do)
+    _dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, seg, window=window)
+    want = dict(out=out, lse=lse, dk=dk, dv=dv)
+    worst = {}
+    for parts in (2, 1):
+        got = _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts)
+        worst[parts] = chip_smoke.flash_worst(torch, got, want, "bfloat16")
+        print(f"bf16 parts {parts}:", {name: round(e["worst"], 3) for name, e in worst[parts].items()})
+    for name, e in worst[2].items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
