@@ -14,21 +14,29 @@ line; any failed check exits non-zero:
 
 Serving, the paged engine at Qwen2-7B width and depth:
 
-3. kernel  -- the ragged paged-attention kernel against its plain PyTorch
+3. kernel  -- the ragged paged-attention kernels against their plain PyTorch
               version at Qwen2-7B attention shapes (28 query heads over 4 KV
               heads, head_dim 128, block 16): one ragged batch of 512-token
               prefill chunks, decode rows at contexts up to 4096 and a dead
               row, with bf16 queries over bf16, int8 and fp8 pools and with
-              fp32 queries over an fp32 pool; and the monolithic-prefill shape,
-              2048 query tokens at contexts up to 2048; times against the
-              card's bound, the plain version and ``scaled_dot_product_attention``;
+              fp32 queries over an fp32 pool; the monolithic-prefill shape,
+              2048 query tokens at contexts up to 2048; and the engine's
+              decode call, 8 rows of one token at contexts 256-2112. bf16 over
+              bf16 takes the Hopper kernel (``paged_attention_sm90.cu``, split
+              kv walk in decode), the rest the SIMT kernel
+              (``paged_attention.cu``), and each case checks its route; the
+              Hopper cases give bitwise equal results over two launches;
+              times against the card's bound, the plain version and
+              ``scaled_dot_product_attention``;
 4. engine  -- ``InferenceEngine`` serving 8 requests on Qwen2-7B at its
               published widths and depth with random bf16 weights from
               ``--seed``, once with monolithic prefill and once with 512-token
-              chunks, through the kernel;
-5. profile -- ``torch.profiler`` over one steady decode call of the engine;
+              chunks, every attention launch on the Hopper route;
+5. profile -- ``torch.profiler`` over one steady decode call of the engine
+              (its launches on the Hopper route too);
 6. logits  -- one 1024-token request through prefill and 16 decode steps on
-              the kernel path against the dense forward over the same tokens;
+              the kernel path (fp32: the SIMT kernel; bf16: the Hopper one)
+              against the dense forward over the same tokens;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
@@ -36,30 +44,31 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
-              the forward and dk/dv through the Hopper tensor-core kernels
+              all three through the Hopper tensor-core kernels
               (``flash_attention_sm90.cu``), fp32 through the SIMT kernels
-              (``flash_attention.cu``), and each case checks its route; times
+              (``flash_attention.cu``), and each case checks its route; the
+              bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
 8. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
-              (the Hopper forward and dk/dv), with the bf16-vs-fp32 control;
+              (the Hopper kernels), with the bf16-vs-fp32 control;
 9. train   -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
               Markov-chain corpus from ``--seed``; per-step loss, grad norm,
-              time, tokens/s, MFU and peak memory; the forward and dk/dv
+              time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
 10. train_profile -- ``torch.profiler`` over one more training step;
 11. kernels -- every kernel with its launches on the serving and training
-              runs (each flash kernel's on its own route) and its check.
+              runs, each on its own route, and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
-object (six rows: the paged kernel; the flash forward on the Hopper and the
-SIMT route; dq; dk/dv on both routes) and ``{"ok": true, "device": {...}}``.
+object (eight rows: the paged kernel, the flash forward, dq and dk/dv, each on
+the Hopper and on the SIMT route) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -117,17 +126,21 @@ def nvidia_smi() -> str:
 
 
 # ----------------------------------------------------------------------------- kernel
-# (query tokens per row, q_start, q_lens) of the two launch shapes the engine gives the kernel
+# (query tokens per row, q_start, q_lens) of the three launch shapes the engine gives the kernel
 BATCHES = {
     # chunked/mixed step: 3 chunks of 512 (contexts 512/1024/2048), 4 decodes
     # (contexts 256/1024/2048/4096), 1 dead row
     "ragged": (512, [0, 512, 1536, 255, 1023, 2047, 4095, 0], [512, 512, 512, 1, 1, 1, 1, 0]),
     # monolithic prefill of 2048 tokens, and a 1024-token suffix after a cached 1024-token prefix
     "prefill": (2048, [0, 1024], [2048, 1024]),
+    # the decode call: 8 rows of one token at contexts 256-2112 (prompts of
+    # 256-2048 tokens and up to 64 new ones), the launch the engine makes most
+    "decode": (1, [255, 511, 767, 1023, 1279, 1535, 1791, 2111], [1] * 8),
 }
-# (batch, query dtype, pool) of every case the kernel phase checks; the first is the main path's
+# (batch, query dtype, pool) of every case the kernel phase checks: bf16
+# queries over a bf16 pool, the main path's types, take the Hopper kernel
 CASES = [("ragged", "bfloat16", "bf16"), ("ragged", "bfloat16", "int8"), ("ragged", "bfloat16", "fp8"),
-         ("ragged", "float32", "fp32"), ("prefill", "bfloat16", "bf16")]
+         ("ragged", "float32", "fp32"), ("prefill", "bfloat16", "bf16"), ("decode", "bfloat16", "bf16")]
 
 
 def kernel_case(torch, quantize_kv, batch, q_dtype, kv, seed):
@@ -205,10 +218,17 @@ def phase_kernel(torch, pa, quantize_kv, seed):
     cases = []
     for batch, q_dtype, kv in CASES:
         args = kernel_case(torch, quantize_kv, batch, q_dtype, kv, seed)
+        route = "sm90" if (q_dtype, kv) == ("bfloat16", "bf16") else "simt"
+        sm90_before = pa.LAUNCHES_SM90
         out = pa.ragged_paged_attention(**args)
+        sm90 = pa.LAUNCHES_SM90 - sm90_before
+        again = pa.ragged_paged_attention(**args)
         ref = pa.ragged_paged_attention_ref(**args)
         torch.cuda.synchronize()
         name = f"{batch} q {q_dtype} pool {kv}"
+        check(sm90 == (route == "sm90"), f"kernel {name}: a {route} case took the Hopper route {sm90} times")
+        # no atomics on the Hopper route: the same inputs give the same bits
+        check(route == "simt" or torch.equal(out, again), f"kernel {name}: two launches differ")
         rtol, atol = KERNEL_TOL[q_dtype]
         err = (out.float() - ref.float()).abs()
         worst = (err / (rtol * ref.float().abs() + atol)).max().item()  # <= 1 passes
@@ -238,13 +258,13 @@ def phase_kernel(torch, pa, quantize_kv, seed):
         library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask, enable_gqa=True), 20, flush)
         bound_ms, bound_by = kernel_bound(args)
-        case = dict(batch=batch, q=q_dtype, pool=kv, max_abs_err=err.max().item(), rtol=rtol, atol=atol,
+        case = dict(batch=batch, q=q_dtype, pool=kv, route=route, max_abs_err=err.max().item(), rtol=rtol, atol=atol,
                     worst_err_over_tol=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
                     shapes=dict(q=list(args["q"].shape), pool=list(args["pool_k"].shape)))
         emit(dict(phase="kernel", **case))
         cases.append(case)
-        del args, out, ref, err, kg, vg, mask
+        del args, out, again, ref, err, kg, vg, mask
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -275,22 +295,37 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
             return SamplingParams(max_new_tokens=64, do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
         return SamplingParams(max_new_tokens=64)
 
+    # the launches by shape: one query token a row (the decode call) or more
+    # (prefills, chunks and mixed steps), counted on the way into the wrapper
+    model_module = sys.modules[type(eng.infer).__module__]
+    wrapper = model_module.ragged_paged_attention
+    by_shape = {"decode": 0, "prefill_or_mixed": 0}
+
+    def counted(q, *args, **kwargs):
+        by_shape["decode" if q.shape[1] == 1 else "prefill_or_mixed"] += 1
+        return wrapper(q, *args, **kwargs)
+
     done = []
     torch.cuda.synchronize()
-    pa.LAUNCHES = 0
-    t0 = time.perf_counter()
-    # wave 1: one request with the shared prefix finishes and registers its
-    # blocks; wave 2: the other 7 arrive together and 3 of them hit the cache
-    eng.add_request(prompts[0], sp(0))
-    while eng.has_work():
-        done += eng.step()
-    for i in range(1, 8):
-        eng.add_request(prompts[i], sp(i))
-    while eng.has_work():
-        done += eng.step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = pa.LAUNCHES
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    model_module.ragged_paged_attention = counted
+    try:
+        t0 = time.perf_counter()
+        # wave 1: one request with the shared prefix finishes and registers its
+        # blocks; wave 2: the other 7 arrive together and 3 of them hit the cache
+        eng.add_request(prompts[0], sp(0))
+        while eng.has_work():
+            done += eng.step()
+        for i in range(1, 8):
+            eng.add_request(prompts[i], sp(i))
+        while eng.has_work():
+            done += eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        model_module.ragged_paged_attention = wrapper
+    launches, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    check(sum(by_shape.values()) == launches, f"engine: {by_shape} counted, {launches} launched")
     check(len(done) == 8, f"engine: {len(done)} of 8 requests finished")
     out_tokens = sum(len(r.output_ids) for r in done)
     vocab = model.config.vocab_size
@@ -302,12 +337,13 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
     tpot = [r.decode_time / (len(r.output_ids) - 1) * 1e3 for r in done if len(r.output_ids) > 1]
     stats = eng.stats()
     check(launches > 0, "engine: the kernel was never launched")
+    check(sm90 == launches, f"engine: {sm90} of {launches} launches on the Hopper route")
     check(stats["prefix_cache"]["hits"] > 0, "engine: no prefix-cache hit")
     check(eng.ledger.verify_conservation(), "engine: goodput ledger conservation broken")
     res = dict(phase="engine", prefill="chunked" if chunk else "monolithic", chunk_tokens=chunk or 0,
                requests=len(done), output_tokens=out_tokens, wall_s=wall, tokens_per_s=out_tokens / wall,
                ttft_ms_p50=pct(ttft, 0.5), ttft_ms_p99=pct(ttft, 0.99), tpot_ms_p50=pct(tpot, 0.5),
-               tpot_ms_p99=pct(tpot, 0.99), kernel_launches=launches,
+               tpot_ms_p99=pct(tpot, 0.99), kernel_launches=launches, sm90_launches=sm90, launches_by_shape=by_shape,
                forwards=launches // model.config.num_hidden_layers, engine_steps=eng.ledger.steps,
                prefix_cache_hits=stats["prefix_cache"]["hits"],
                prefix_cached_tokens=stats["prefix_cache"]["cached_tokens"],
@@ -319,7 +355,7 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
     return res
 
 
-def phase_profile(torch, np, model, InferenceEngine, SamplingParams, seed):
+def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
     """Where one steady-state decode call goes (8 requests, ``decode_steps``
     sub-steps): ``torch.profiler`` over the engine step after admission,
     device time by kernel and the device's idle share of the step."""
@@ -338,22 +374,26 @@ def phase_profile(torch, np, model, InferenceEngine, SamplingParams, seed):
     fed = [r.total_len - 1 for r in eng.slots if r is not None]
     kv_bytes = [sum(((p + s) // bs + 1) * bs for p in fed) * cfg.num_key_value_heads * cfg.head_dim * 2 * 2
                 for s in range(eng.decode_steps)]
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    check(pa.LAUNCHES_SM90 == pa.LAUNCHES > 0,
+          f"profile: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
     # kernels and copies only: host ops and annotation ranges carry the
     # device time of the kernels they launched as well
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    attn = [e for e in events if "ragged_paged_attention" in e.key]
+    # both routes' kernels, and the Hopper route's merge of kv partitions
+    attn = [e for e in events if "paged_attention" in e.key]
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
-    attn_launches = sum(e.count for e in attn)
+    attn_launches = sum(e.count for e in attn if "merge" not in e.key)
     res = dict(phase="profile", step="decode call, 8 rows x %d sub-steps" % eng.decode_steps,
                wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
-               attention_kernel_ms=attn_ms, attention_launches=attn_launches,
+               attention_kernel_ms=attn_ms, attention_launches=attn_launches, sm90_launches=pa.LAUNCHES_SM90,
                attention_launch_ms=attn_ms / max(attn_launches, 1),
                attention_launch_bound_ms=sum(kv_bytes) / len(kv_bytes) / HBM_BYTES_PER_S * 1e3,
                context_tokens=fed,
@@ -394,15 +434,20 @@ def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dty
     return torch.cat(rows, dim=0), fed
 
 
-def phase_logits(torch, np, model, PagedInferenceModel, init_paged_pool, seed):
+def phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, seed):
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, model.config.vocab_size, 1024).tolist()
     n_decode = 16
+    launches = {}
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
     got32, fed = paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, torch.float32, n_decode)
+    launches["float32"] = dict(kernels=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
     # the bf16 run is fed the fp32 run's tokens: its own greedy choices may
     # flip on a near-tie and then condition later positions on other inputs
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
     got16, _ = paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, torch.bfloat16, n_decode,
                             feed=fed)
+    launches["bfloat16"] = dict(kernels=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
     # the dense reference: fp32 layer by layer from the same (bf16) weights
     ref = model(torch.tensor([fed], device=DEVICE), dtype=torch.float32)[0]
     ref = ref[len(prompt) - 1: len(prompt) + n_decode]
@@ -414,8 +459,12 @@ def phase_logits(torch, np, model, PagedInferenceModel, init_paged_pool, seed):
     res = dict(phase="logits", positions=n_decode + 1, prompt_tokens=len(prompt), ref_max_abs=scale,
                fp32_max_abs_err=err32, fp32_rel_err=err32 / scale, fp32_rel_tol=LOGITS_REL_TOL,
                bf16_max_abs_err=err16, bf16_rel_err=err16 / scale, bf16_min_cosine=cos16,
-               bf16_top1_agree=top1_16)
+               bf16_top1_agree=top1_16, launches=launches)
     emit(res)
+    per_run = (1 + n_decode) * model.config.num_hidden_layers
+    check(launches == {"float32": dict(kernels=per_run, sm90=0), "bfloat16": dict(kernels=per_run, sm90=per_run)},
+          f"logits: launches {launches}, want {per_run} a run, the fp32 run's on SIMT and the bf16 run's on the "
+          "Hopper route")
     check(torch.isfinite(got32).all().item() and torch.isfinite(got16).all().item(), "logits: non-finite")
     check(err32 / scale <= LOGITS_REL_TOL, f"logits: fp32 paged vs dense rel err {err32 / scale} > {LOGITS_REL_TOL}")
     check(cos16 >= 0.99, f"logits: bf16 paged vs fp32 dense min cosine {cos16} < 0.99")
@@ -514,14 +563,18 @@ def phase_flash_kernel(torch, fa, seed):
         delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
         dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
-        ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
-        torch.cuda.synchronize()
-        # bf16: the forward and dk/dv on the Hopper route; fp32: the SIMT kernels
+        # bf16: all three on the Hopper route; fp32: the SIMT kernels
         route = "sm90" if dtype == "bfloat16" else "simt"
         sm90 = {w: fa.LAUNCHES_SM90[w] - sm90_before[w] for w in sm90_before}
+        dq_again = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
+        ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
+        torch.cuda.synchronize()
         want_sm90 = int(route == "sm90")
-        check(sm90 == {"fwd": want_sm90, "bwd_dkv": want_sm90}, f"flash {name}: {route} case took the Hopper route "
-                                                               f"{sm90} times")
+        check(sm90 == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
+              f"flash {name}: {route} case took the Hopper route {sm90} times")
+        # each block owns its rows of dq: no atomics, the same bits twice
+        check(route == "simt" or torch.equal(dq, dq_again), f"flash {name}: two dq launches differ")
+        del dq_again
         errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
                            dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
         del out, lse, dq, dk, dv, ref
@@ -678,7 +731,7 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     for dtype, want_sm90 in (("float32", 0), ("bfloat16", 2)):
         n = launches[dtype]
         check(n["kernels"] == one_each, f"train_grad {dtype}: kernel launches {n['kernels']}")
-        check(n["kernels_sm90"] == {"fwd": want_sm90, "bwd_dkv": want_sm90},
+        check(n["kernels_sm90"] == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
               f"train_grad {dtype}: Hopper-route launches {n['kernels_sm90']}")
         check(n["plain"] == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, f"train_grad {dtype}: the plain run launched")
     check(fp32["loss_rel_err"] <= 1e-5, f"train_grad fp32: loss rel err {fp32['loss_rel_err']} > 1e-5")
@@ -786,8 +839,7 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
     per_run = cfg.num_hidden_layers * accum * n_steps
     check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run},
           f"train: flash launches {launches}, want {per_run} of each (28 a micro-step)")
-    check(sm90 == {"fwd": per_run, "bwd_dkv": per_run},
-          f"train: Hopper-route launches {sm90}, want {per_run} each of the forward and dk/dv")
+    check(sm90 == launches, f"train: Hopper-route launches {sm90}, want all {launches}")
 
     # the checkpoint save_model wrote loads back bit for bit
     t_load = time.perf_counter()
@@ -829,9 +881,9 @@ def phase_train_profile(torch, trainer):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     # the first group whose name a kernel's contains takes it: the Hopper ones first
-    groups = {"flash_fwd_sm90": "flash_fwd_kernel_sm90", "flash_bwd_dkv_sm90": "flash_bwd_dkv_kernel_sm90",
-              "flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
-              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+    groups = {"flash_fwd_sm90": "flash_fwd_kernel_sm90", "flash_bwd_dq_sm90": "flash_bwd_dq_kernel_sm90",
+              "flash_bwd_dkv_sm90": "flash_bwd_dkv_kernel_sm90", "flash_fwd": "flash_fwd_kernel",
+              "flash_bwd_dq": "flash_bwd_dq_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
     by_group = {g: 0.0 for g in list(groups) + ["gemm", "other"]}
     launches = {g: 0 for g in groups}
     for e in events:
@@ -915,9 +967,9 @@ def main(argv=None) -> int:
 
     mono = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, None)
     chunked = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, 512)
-    phase_profile(torch, np, model, InferenceEngine, SamplingParams, args.seed)
+    phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed)
 
-    phase_logits(torch, np, model, PagedInferenceModel, init_paged_pool, args.seed)
+    logits = phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -931,28 +983,43 @@ def main(argv=None) -> int:
     del trainer
     torch.cuda.empty_cache()
 
-    main_case = cases[0]  # the bf16 pool the main path runs
-    kernels = [dict(
-        name="ragged_paged_attention", route="cuda", source="paddlenlp_tpu_torch/csrc/paged_attention.cu",
-        replaces="paddlenlp_tpu/ops/pallas/paged_attention.py:56",
-        launches=mono["kernel_launches"] + chunked["kernel_launches"],
-        max_abs_err=max(c["max_abs_err"] for c in cases), ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"], library_ms=main_case["library_ms"])]
-    checks = [dict(check="pass", cases=len(cases), worst_err_over_tol=max(c["worst_err_over_tol"] for c in cases))]
+    # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
+    # the decode call, the launch the engine makes most) and the SIMT kernel
+    # (the other pools: times at the fp32 case). Launches are the engine
+    # runs' on each route: the main path never takes the SIMT kernel, which
+    # the fp32 logits run checks
+    by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
+    kernels, checks = [], []
+    for route, timed_case, name, source in (
+            ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", "paged_attention_sm90.cu"),
+            ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", "paged_attention.cu")):
+        timed = by_batch[timed_case]
+        checked = [c for c in cases if c["route"] == route]
+        sm90 = mono["sm90_launches"] + chunked["sm90_launches"]
+        launches = sm90 if route == "sm90" else mono["kernel_launches"] + chunked["kernel_launches"] - sm90
+        kernels.append(dict(
+            name=name, route="cuda", source=f"paddlenlp_tpu_torch/csrc/{source}",
+            replaces="paddlenlp_tpu/ops/pallas/paged_attention.py:56", launches=launches,
+            max_abs_err=max(c["max_abs_err"] for c in checked), ms=timed["ms"], plain_ms=timed["plain_ms"],
+            bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=timed["library_ms"]))
+        checks.append(dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case), launched_by="engine",
+                           launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
+                                              for k in mono["launches_by_shape"]} if route == "sm90" else None,
+                           check_launches=None if route == "sm90" else logits["launches"]["float32"]["kernels"],
+                           worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked)))
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
-    # and the SIMT kernels (fp32: times from the fp32 case); dq is SIMT on
-    # both. Launches are the train run's on each route: the main path never
-    # takes the SIMT forward or dk/dv, which the fp32 train_grad step checks
+    # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
+    # train run's on each route: the main path never takes the SIMT kernels,
+    # which the fp32 train_grad step checks
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
-            ("bwd_dq", "simt", 187, "flash_attention_bwd_dq"),
+            ("bwd_dq", "sm90", 187, "flash_attention_bwd_dq_sm90"), ("bwd_dq", "simt", 187, "flash_attention_bwd_dq"),
             ("bwd_dkv", "sm90", 227, "flash_attention_bwd_dkv_sm90"),
             ("bwd_dkv", "simt", 227, "flash_attention_bwd_dkv")]
     for what, route, line, name in rows:
-        dq = what == "bwd_dq"
-        timed = by_case["main" if dq or route == "sm90" else "fp32"]
-        checked = [c for c in flash if dq or c["route"] == route]
+        timed = by_case["main" if route == "sm90" else "fp32"]
+        checked = [c for c in flash if c["route"] == route]
         sm90 = train["sm90_launches"].get(what, 0)
         launches = sm90 if route == "sm90" else train["kernel_launches"][what] - sm90
         check_launches = None if route == "sm90" else grad["launches"]["float32"]["kernels"][what]

@@ -1,11 +1,11 @@
 // Flash attention for training on Hopper (sm_90a), CUDA C++ with plain C entries:
 // the forward, the dq backward and the dk/dv backward on CUDA cores.
 //
-// Routes: the forward and dk/dv here take fp32 operands only; bf16 ones, the
+// Routes: all three kernels here take fp32 operands only; bf16 ones, the
 // training path's, go to the tensor-core kernels of flash_attention_sm90.cu.
 // The fp32 route stays here on purpose: the fp32 gates (1e-4 elementwise,
 // loss rel 1e-5, gradient leaves 1e-4) need fp32 products, which bf16 or TF32
-// operands cannot give, so this is the precise check. dq takes both types.
+// operands cannot give, so this is the precise check.
 //
 // Replaces the Pallas TPU kernels of paddlenlp_tpu/ops/pallas/flash_attention.py:
 // `_fa_kernel` (:81, launched by `_flash_fwd` :131), `_bwd_dq_kernel` (:187) and
@@ -36,7 +36,6 @@
 // that see its kv tile. Every global load past T or S is bound-checked and
 // zero-filled, so no padding row's lse, delta or dO reaches a sum.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,15 +53,11 @@ template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>
 __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 struct Geometry {
   int T, S, N, K, causal, window;  // window < 0: none
@@ -491,8 +486,8 @@ bool bad_geometry(int B, int T, int S, int N, int K, int H, int dtype) {
 
 // Each entry launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported dtype, head_dim or geometry).
-// dtype 0 = fp32, 1 = bf16 (q, k, v, dO and the outputs; dq only); window < 0:
-// none; seg may be null.
+// dtype must be 0 (fp32: q, k, v, dO and the outputs); window < 0: none; seg
+// may be null.
 extern "C" int pdnlp_flash_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
                                int B, int T, int S, int N, int K, int H, int causal, int window, int dtype,
                                float scale, void* stream) {
@@ -507,15 +502,12 @@ extern "C" int pdnlp_flash_fwd(const void* q, const void* k, const void* v, cons
 extern "C" int pdnlp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                   const void* delta, const void* seg, void* dq, int B, int T, int S, int N, int K,
                                   int H, int causal, int window, int dtype, float scale, void* stream) {
-  if (bad_geometry(B, T, S, N, K, H, dtype)) return cudaErrorInvalidValue;
+  if (bad_geometry(B, T, S, N, K, H, dtype) || dtype != 0) return cudaErrorInvalidValue;  // bf16: the sm90 source
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return H == 64 ? launch_dq<float, 64>(q, k, v, dout, lse, delta, seg, dq, B, g, s)
-                   : launch_dq<float, 128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
-  return H == 64 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, seg, dq, B, g, s)
-                 : launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
+  return H == 64 ? launch_dq<float, 64>(q, k, v, dout, lse, delta, seg, dq, B, g, s)
+                 : launch_dq<float, 128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
 }
 
 extern "C" int pdnlp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,

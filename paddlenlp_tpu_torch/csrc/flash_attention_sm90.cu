@@ -1,10 +1,11 @@
 // Flash attention for training on Hopper tensor cores (sm_90a), bf16, CUDA C++
-// with plain C entries: the forward and the dk/dv backward.
+// with plain C entries: the forward, the dq backward and the dk/dv backward.
 //
 // Replaces, for bf16 operands, the Pallas TPU kernels of
 // paddlenlp_tpu/ops/pallas/flash_attention.py: `_fa_kernel` (:81, launched at
-// :157 by `_flash_fwd` :131) and `_bwd_dkv_kernel` (:227, launched at :317 by
-// `_flash_bwd` :272). Same function as the SIMT kernels of flash_attention.cu,
+// :157 by `_flash_fwd` :131), `_bwd_dq_kernel` (:187, launched at :293 by
+// `_flash_bwd` :272) and `_bwd_dkv_kernel` (:227, launched at :317). Same
+// function as the SIMT kernels of flash_attention.cu,
 // which stay the route for fp32 operands: the fp32 gates (1e-4 elementwise,
 // loss rel 1e-5, gradient leaves 1e-4) cannot hold with bf16 operands in the
 // products, so the fp32 path is the precise check and this file is the main
@@ -13,31 +14,33 @@
 // masking with invisible entries forced to p = 0; the forward divides by
 // max(l, 1e-37) and stores lse = m + log(max(l, 1e-37)) as a natural log
 // (the softmax runs in exp2 with scale * log2(e) folded into one FMA; m is
-// the unscaled row max, so lse takes m * scale); dk/dv recompute
-// p = exp(s - lse), ds = p (dP - delta) scale and sum over each kv head's
-// whole query group inside one block, with no atomics.
+// the unscaled row max, so lse takes m * scale); dq and dk/dv recompute
+// p = exp(s - lse) and ds = p (dP - delta) scale; dk/dv sum over each kv
+// head's whole query group inside one block, with no atomics.
 //
-// Layouts: q, out, dO [B, T, N, H] bf16; k, v, dk, dv [B, S, K, H] bf16; lse,
+// Layouts: q, out, dO, dq [B, T, N, H] bf16; k, v, dk, dv [B, S, K, H] bf16; lse,
 // delta [B, N, T] fp32; seg [B, T] int32 (or null); H 64 or 128.
 //
 // What bounds it on an H100: operations. At the training path's shape (q
 // [2, 4096, 12, 128] over k/v [2, 4096, 2, 128], causal) the forward needs
-// 0.104 ms and dk/dv 0.209 ms at the 989 TFLOP/s bf16 peak. Design:
+// 0.104 ms, dq 0.156 ms and dk/dv 0.209 ms at the 989 TFLOP/s bf16 peak.
+// Design:
 // - bf16 tiles arrive by TMA (a 4-D tensor map over [B, T, heads, H], so rows
 //   past T inside one batch are zero-filled by the hardware) into a ring of
 //   shared-memory stages with one mbarrier pair (full, empty) per stage; a
 //   producer warp keeps the ring filled while the consumer warpgroups compute.
 //   Tiles are 64-column panels with the 128-byte swizzle that wgmma reads.
 // - Products are `wgmma` bf16 -> fp32. S = Q K^T and, in dk/dv, S^T = K Q^T
-//   and dP^T = V dO^T take both operands from shared memory, K-major. P, P^T
-//   and dS^T become bf16 in registers and are the A operand from registers;
-//   V, dO and Q are the B operand MN-major (the transpose bit), so nothing
-//   goes back to shared memory for a transpose. P, P^T and dS^T go in as two
+//   and dP^T = V dO^T, and in dq dP = dO V^T, take both operands from shared
+//   memory, K-major. P, P^T, dS^T and dS become bf16 in registers and are the
+//   A operand from registers; V, dO, Q and (in dq) K are the B operand
+//   MN-major (the transpose bit), so nothing goes back to shared memory for a
+//   transpose. P, P^T, dS^T and dS go in as two
 //   bf16 parts (the rounding and the rounding of its residual, two products
 //   each): one rounding exceeds the card's elementwise gate on dk and dv and
 //   leaves out within a few percent of it (tests/test_torch_flash_attention.py
 //   emulates both on the CPU).
-// - Both kernels run two consumer warpgroups at 240 registers a thread,
+// - All three kernels run two consumer warpgroups at 240 registers a thread,
 //   taken with `setmaxnreg` from the producer warpgroup, which keeps 24.
 //   The two take turns (named barriers) to start the first products of each
 //   step, so they run out of phase: one's exp and rounding overlap the
@@ -56,6 +59,13 @@
 //   loop stays inside the block (deterministic); the kv tile is the slowest
 //   grid dimension, so under the causal mask the blocks of tile 0, which walk
 //   group x n_q query tiles, start first and the short ones fill the tail.
+// - dq: the forward's shape. One block per (128 query rows, head, batch), the
+//   last query tile first; Q and dO resident (loaded once by TMA), each row's
+//   lse * log2(e), delta and segment id in the registers of the threads that
+//   own it; 64-row K and V tiles stream through a 4-stage ring, tiles wholly
+//   invisible never loaded. Each warpgroup runs S and dP for its 64 rows, the
+//   mask only on tiles that are not wholly visible, dS in registers, and
+//   dq += dS K; one bf16 store a row at the end: no atomics, deterministic.
 // - Rows at or past T never reach a sum: their loads are zero, their lse and
 //   delta 0, and they are never stored.
 
@@ -742,6 +752,214 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
   }
 }
 
+// ------------------------------------------------------------------ backward: dq
+constexpr int DQ_BQ = 128;  // query rows of a block: two consumer warpgroups of 64
+constexpr int DQ_BKV = 64;  // kv rows of a tile: S, dP and dS of 64 columns fit beside the dq sums
+constexpr int DQ_STAGES = 4;
+constexpr int DQ_THREADS = 384;  // warpgroups 0-1 consume, warp 8 of warpgroup 2 produces
+
+template <int H>
+struct DqSmem {
+  static constexpr int TILE_Q = DQ_BQ * H * 2, TILE_KV = DQ_BKV * H * 2;  // bytes, multiples of 1024
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + TILE_Q;
+  static constexpr size_t k = dout + TILE_Q;
+  static constexpr size_t v = k + DQ_STAGES * TILE_KV;
+  static constexpr size_t seg = v + DQ_STAGES * TILE_KV;  // kv segment ids of each stage
+  static constexpr size_t bar = seg + DQ_STAGES * DQ_BKV * 4;  // q_full, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = bar + (1 + 2 * DQ_STAGES) * 8 + 1024;  // + alignment slack
+};
+
+template <int H>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, Geometry g) {
+  using L = DqSmem<H>;
+  constexpr int PANELS = H / PANEL;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* q_s = smem + L::q;
+  uint8_t* do_s = smem + L::dout;
+  uint8_t* k_s = smem + L::k;
+  uint8_t* v_s = smem + L::v;
+  int* seg_s = reinterpret_cast<int*>(smem + L::seg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  // the last query tile first: under the causal mask it walks the most kv tiles
+  const int n = blockIdx.x, b = blockIdx.y, q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;
+  const int kh = n / (g.N / g.K);
+  int j_lo = 0, j_hi = (g.S + DQ_BKV - 1) / DQ_BKV;
+  if (g.causal) {
+    j_hi = min(j_hi, (min(q0 + DQ_BQ, g.T) - 1) / DQ_BKV + 1);
+    if (g.window >= 0) j_lo = max(0, q0 - g.window + 1) / DQ_BKV;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes; lane 0 also expects the TMA bytes
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 8) {  // ---- producer warpgroup: gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != 8) return;
+    // warp 8: Q and dO once, then K, V and kv segment ids through the ring
+    if (lane == 0) {
+      mbar_arrive_tx(q_full, 2 * L::TILE_Q);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load(q_s + p * DQ_BQ * 128, &tm_q, q_full, p * PANEL, n, q0, b);
+        tma_load(do_s + p * DQ_BQ * 128, &tm_do, q_full, p * PANEL, n, q0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int jt = j_lo; jt < j_hi; ++jt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      const int k0 = jt * DQ_BKV;
+      if (seg != nullptr) {
+        int* sk = seg_s + stage * DQ_BKV;
+        for (int i = lane; i < DQ_BKV; i += 32) sk[i] = k0 + i < g.S ? seg[static_cast<size_t>(b) * g.T + k0 + i] : -1;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[stage], 2 * L::TILE_KV);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p) {
+          tma_load(k_s + stage * L::TILE_KV + p * DQ_BKV * 128, &tm_k, &full[stage], p * PANEL, kh, k0, b);
+          tma_load(v_s + stage * L::TILE_KV + p * DQ_BKV * 128, &tm_v, &full[stage], p * PANEL, kh, k0, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == DQ_STAGES) stage = 0, phase ^= 1;
+    }
+  } else {  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4;
+    const int r = 16 * (warp % 4) + lane / 4;  // this thread's rows r and r + 8 of the 64
+    const int row0 = q0 + wg * 64 + r, row1 = row0 + 8;
+    const int wr0 = q0 + wg * 64, wr1 = wr0 + 63;
+    const int cq = 2 * (lane % 4);  // this thread's first column in each group of 8
+    // each row's segment id, lse * log2(e) and delta, kept with it; rows past
+    // T read none (their Q and dO are zero-filled, their p masked, their dq
+    // never stored)
+    int sq0 = -2, sq1 = -2;
+    float l2_0 = 0.f, l2_1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+    const size_t rows = (static_cast<size_t>(b) * g.N + n) * g.T;
+    if (row0 < g.T) {
+      l2_0 = lse[rows + row0] * LOG2E;
+      dl0 = delta[rows + row0];
+      if (seg != nullptr) sq0 = seg[static_cast<size_t>(b) * g.T + row0];
+    }
+    if (row1 < g.T) {
+      l2_1 = lse[rows + row1] * LOG2E;
+      dl1 = delta[rows + row1];
+      if (seg != nullptr) sq1 = seg[static_cast<size_t>(b) * g.T + row1];
+    }
+    const float sl2 = g.scale * LOG2E;
+    float acc[H / 2];
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+    const uint8_t* q_wg = q_s + wg * 64 * 128;
+    const uint8_t* do_wg = do_s + wg * 64 * 128;
+    mbar_wait(q_full, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int jt = j_lo; jt < j_hi; ++jt) {
+      const int k0 = jt * DQ_BKV;
+      mbar_wait(&full[stage], phase);
+      const uint8_t* k_t = k_s + stage * L::TILE_KV;
+      const uint8_t* v_t = v_s + stage * L::TILE_KV;
+
+      // S = Q K^T and dP = dO V^T, 64 x 64 each: rows r / r + 8, columns 8 j + cq + {0, 1}
+      float s[DQ_BKV / 2], dp[DQ_BKV / 2];
+      const int u = 2 * (jt - j_lo) + wg;  // turns alternate over the 2 (j_hi - j_lo) steps
+      if (u > 0) turn_wait(wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const int off = (kk % 4) * 32;  // 16 columns = 32 bytes into a panel
+        wgmma_ss<DQ_BKV>(s, desc(q_wg + (kk / 4) * DQ_BQ * 128 + off, 16),
+                         desc(k_t + (kk / 4) * DQ_BKV * 128 + off, 16), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss<DQ_BKV>(dp, desc(do_wg + (kk / 4) * DQ_BQ * 128 + off, 16),
+                         desc(v_t + (kk / 4) * DQ_BKV * 128 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      if (u + 1 < 2 * (j_hi - j_lo)) turn_pass(wg);
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta) scale, into dp
+      const bool all_vis = seg == nullptr && all_visible(g, wr0, wr1, k0, k0 + DQ_BKV - 1);
+      const int* sk = seg_s + stage * DQ_BKV;
+#pragma unroll
+      for (int j = 0; j < DQ_BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + cq + e, col = k0 + c;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(s[i], sl2, -(h ? l2_1 : l2_0)));
+            if (!all_vis) {
+              const bool vis = visible(g, h ? row1 : row0, col) && (seg == nullptr || sk[c] == (h ? sq1 : sq0));
+              if (!vis) p = 0.f;
+            }
+            dp[i] = p * (dp[i] - (h ? dl1 : dl0)) * g.scale;
+          }
+        }
+      // dq += dS K: dS is the A operand from registers in two bf16 parts
+      // (high, residual), as P and dS^T in dk/dv; K [kv, H] is the B operand
+      // MN-major, 16 kv rows = 2048 bytes
+      uint32_t d_hi[DQ_BKV / 16][4], d_lo[DQ_BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_BKV / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1], d_hi[kk][i], d_lo[kk][i]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BKV / 16; ++kk) {
+        wgmma_rs<H>(acc, d_hi[kk], desc(k_t + kk * 16 * 128, DQ_BKV * 128));
+        wgmma_rs<H>(acc, d_lo[kk], desc(k_t + kk * 16 * 128, DQ_BKV * 128));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[stage]);
+      if (++stage == DQ_STAGES) stage = 0, phase ^= 1;
+    }
+
+    // one bf16 store of each row this block owns: no atomics
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+      if (row < g.T) {
+        __nv_bfloat16* op = dq + (static_cast<size_t>(b) * g.T + row) * g.N * H + static_cast<size_t>(n) * H + cq;
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -827,6 +1045,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int H>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* delta, const void* seg, void* dq, int B, const Geometry& g, cudaStream_t s) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  auto kernel = flash_bwd_dq_kernel_sm90<H>;
+  cudaError_t err = opt_in(kernel, DqSmem<H>::bytes, done);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, q, B, g.T, g.N, H, DQ_BQ) || !make_map(&tk, k, B, g.S, g.K, H, DQ_BKV) ||
+      !make_map(&tv, v, B, g.S, g.K, H, DQ_BKV) || !make_map(&tdo, dout, B, g.T, g.N, H, DQ_BQ))
+    return cudaErrorInvalidValue;
+  dim3 grid(g.N, B, (g.T + DQ_BQ - 1) / DQ_BQ);
+  kernel<<<grid, DQ_THREADS, DqSmem<H>::bytes, s>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                                                    static_cast<const float*>(delta), static_cast<const int*>(seg),
+                                                    static_cast<__nv_bfloat16*>(dq), g);
+  return cudaGetLastError();
+}
+
 bool bad_geometry(int B, int T, int S, int N, int K, int H, int dtype) {
   return B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128) || dtype != 1 || B > 65535 ||
          N > 65535 || T > 65535 * FWD_BQ || S > 65535 * DKV_BKV;
@@ -847,6 +1083,18 @@ extern "C" int pdnlp_flash_fwd_sm90(const void* q, const void* k, const void* v,
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return H == 64 ? launch_fwd<64>(q, k, v, seg, out, lse, B, g, s) : launch_fwd<128>(q, k, v, seg, out, lse, B, g, s);
+}
+
+extern "C" int pdnlp_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                                       const void* lse, const void* delta, const void* seg, void* dq, int B, int T,
+                                       int S, int N, int K, int H, int causal, int window, int dtype, float scale,
+                                       void* stream) {
+  if (bad_geometry(B, T, S, N, K, H, dtype)) return cudaErrorInvalidValue;
+  if (B == 0 || T == 0 || N == 0) return cudaSuccess;
+  const Geometry g{T, S, N, K, causal, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return H == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, B, g, s)
+                 : launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
 }
 
 extern "C" int pdnlp_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,

@@ -1,5 +1,10 @@
 // Ragged paged attention for Hopper (sm_90a), CUDA C++ with a plain C entry.
 //
+// Route: fp32 queries or pools and int8 / fp8 pools; bf16 queries over a bf16
+// pool, the serving path's types, go to the tensor-core kernel of
+// paged_attention_sm90.cu. fp32 stays here on purpose: its fp32 products are
+// what the fp32 logits gate (rel 1e-4) holds to.
+//
 // Replaces the Pallas TPU kernel paddlenlp_tpu/ops/pallas/paged_attention.py
 // `_kernel` (:56), launched by `ragged_paged_attention` (:105). One launch
 // computes attention for a ragged batch read from the paged KV pool through
@@ -23,9 +28,9 @@
 // each warp owns 8 query rows, interleaved so that a decode tile's few rows
 // (one per query head of the group) run on different warps, and keeps their
 // (m, l, acc) in registers, with lane c scoring KV column c against a
-// broadcast query row. Simple and right first: the KV tile is loaded once
-// per block and shared by its 64 rows, but there is no wgmma, TMA, double
-// buffering or split-KV yet.
+// broadcast query row. Simple: the KV tile is loaded once per block and
+// shared by its 64 rows, with no tensor cores, asynchronous copies or split
+// kv walk; the serving path's bf16 pair has those in paged_attention_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -33,6 +38,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -243,8 +249,11 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* pool_k, const v
       return launch<QT, float, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
                                          N, K, bs, mb, scale, s);
     case 1:
-      return launch<QT, __nv_bfloat16, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale,
-                                                 out, B, T, N, K, bs, mb, scale, s);
+      if constexpr (std::is_same<QT, __nv_bfloat16>::value)  // bf16 over bf16: the sm90 source
+        return cudaErrorInvalidValue;
+      else
+        return launch<QT, __nv_bfloat16, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale,
+                                                   out, B, T, N, K, bs, mb, scale, s);
     case 2:
       return launch<QT, int8_t, H, true>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
                                          N, K, bs, mb, scale, s);
@@ -276,7 +285,8 @@ cudaError_t dispatch_h(int H, int kv_dtype, const void* q, const void* pool_k, c
 // (kv_dtype 0 = fp32, 1 = bf16, 2 = int8, 3 = fp8-e4m3; 2 and 3 read the fp32
 // scales k_scale/v_scale [nb, K, bs, 1]); tables [B, mb], q_start/q_lens [B]
 // int32; out [B, T, N, H] in q's dtype. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported dtype or H).
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported dtype or H,
+// bf16 q over a bf16 pool included: that pair runs paged_attention_sm90.cu).
 extern "C" int pdnlp_ragged_paged_attention(const void* q, const void* pool_k, const void* pool_v,
                                             const void* tables, const void* q_start, const void* q_lens,
                                             const void* k_scale, const void* v_scale, void* out, int B, int T,

@@ -11,12 +11,12 @@ The kernels are in ``paddlenlp_tpu_torch/csrc/``:
 - :func:`flash_attention_bwd_dkv` -> (dk, dv), summed per KV head over its
   query group (``_bwd_dkv_kernel`` :227).
 
-Two routes. bf16 operands, the training path's, take the forward and dk/dv
-through the Hopper tensor-core kernels of ``flash_attention_sm90.cu`` (TMA
-tile ring, ``wgmma``); dq, and every kernel for fp32 operands, run the SIMT
-kernels of ``flash_attention.cu``. The fp32 route is kept on purpose: its
-fp32 products are what the fp32 gates (1e-4) hold to, which bf16 operands
-cannot meet.
+Two routes, chosen by dtype alone. bf16 operands, the training path's, take
+all three through the Hopper tensor-core kernels of
+``flash_attention_sm90.cu`` (TMA tile ring, ``wgmma``); fp32 operands run
+the SIMT kernels of ``flash_attention.cu``. The fp32 route is kept on
+purpose: its fp32 products are what the fp32 gates (1e-4) hold to, which
+bf16 operands cannot meet.
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
 head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
@@ -46,10 +46,7 @@ NEG_INF = -1e30
 #: kernel launches per kernel since the counters were last set to 0
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: the launches of those that took the Hopper bf16 route (flash_attention_sm90.cu)
-LAUNCHES_SM90 = {"fwd": 0, "bwd_dkv": 0}
-
-# the kernels that flash_attention_sm90.cu has for bf16 operands
-_SM90_KERNELS = ("fwd", "bwd_dkv")
+LAUNCHES_SM90 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -201,10 +198,10 @@ def _geometry(q, k, causal, window):
 
 
 def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
-    """Launch ``what`` on its route: the Hopper kernel for bf16 forward and
-    dk/dv, else the SIMT kernel. A refused launch raises; nothing runs in its
+    """Launch ``what`` on its route: the Hopper kernel for bf16 operands,
+    the SIMT kernel for fp32. A refused launch raises; nothing runs in its
     place."""
-    sm90 = q.dtype == torch.bfloat16 and what in _SM90_KERNELS
+    sm90 = q.dtype == torch.bfloat16
     stem, symbol = ("flash_attention_sm90", symbol + "_sm90") if sm90 else ("flash_attention", symbol)
     ints = _geometry(q, k, causal, window)
     H = q.shape[-1]

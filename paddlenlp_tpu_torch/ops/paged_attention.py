@@ -4,30 +4,48 @@ Port of ``paddlenlp_tpu/ops/pallas/paged_attention.py``. One call computes
 attention for a ragged batch in which each sequence feeds ``q_lens[b]`` new
 query tokens starting at absolute position ``q_start[b]`` (a prefill chunk, a
 decode token, or nothing), reading its KV from the paged pool through
-``block_tables[b]``. The kernel is ``paddlenlp_tpu_torch/csrc/paged_attention.cu``;
-:func:`ragged_paged_attention_ref` computes the same function in plain PyTorch.
+``block_tables[b]``. :func:`ragged_paged_attention_ref` computes the same
+function in plain PyTorch.
+
+Two kernels, the route chosen by dtype alone. bf16 queries over a bf16 pool,
+the serving path's types, take the Hopper tensor-core kernel of
+``paddlenlp_tpu_torch/csrc/paged_attention_sm90.cu`` (``cp.async`` gather
+ring, ``wgmma``; when the grid is small, as in decode, the kv walk is split
+into :func:`kv_partitions` and a second kernel merges them in order); every
+other pair (fp32 queries or pool, int8 and fp8 pools) takes the SIMT kernel
+of ``paddlenlp_tpu_torch/csrc/paged_attention.cu``, and fp32 is the precise
+check.
 
 :func:`ragged_paged_attention` takes the plain version only for tensors on the
-CPU. For CUDA tensors it checks the operands and launches the kernel, or
-raises: there is no fallback. ``LAUNCHES`` counts kernel launches.
+CPU. For CUDA tensors it checks the operands and launches its kernel, or
+raises: there is no fallback. ``LAUNCHES`` counts kernel launches on either
+route and ``LAUNCHES_SM90`` those of the Hopper route alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "NEG_INF", "paged_decode_attention", "ragged_paged_attention",
-           "ragged_paged_attention_ref"]
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "kv_partitions", "paged_decode_attention",
+           "ragged_paged_attention", "ragged_paged_attention_ref"]
 
 NEG_INF = -1e30
 
 #: kernel launches since the counter was last set to 0 (by a caller that
 #: wants to know whether a run went through the kernel)
 LAUNCHES = 0
+#: the launches of those that took the Hopper route (paged_attention_sm90.cu)
+LAUNCHES_SM90 = 0
+
+KV_TILE = 64  # kv positions of the Hopper kernel's tile, the unit of a partition
+ROW_TILE = 64  # folded query rows of its block
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -122,9 +140,37 @@ def _check_cuda_operands(q, pool_k, pool_v, block_tables, q_start, q_lens, k_sca
                                  f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _kernel_fn():
-    lib = _build.load("paged_attention")
-    fn = lib.pdnlp_ragged_paged_attention
+def kv_partitions(B, T, N, K, max_blocks, block_size, sms=H100_SMS) -> Tuple[int, int]:
+    """How the Hopper kernel splits the kv walk of each (row tile, kv head,
+    sequence): ``(parts, part_len)``, partition p covering kv positions
+    ``[p * part_len, (p + 1) * part_len)``, ``part_len`` a multiple of
+    :data:`KV_TILE` and ``parts * part_len`` at least the tables' capacity.
+
+    A launch whose blocks already put two on every SM (prefill chunks) takes
+    one partition and no merge. Otherwise (decode: 8 rows x 4 kv heads give
+    32 blocks) the capacity is cut so that the grid holds about 8 blocks an
+    SM: a block whose partition starts past its rows' context exits at once,
+    and the engine's decode contexts (256-2,112 of 4,096) fill about a
+    third of their tables, which leaves ~2 live blocks an SM. Shapes only:
+    the contexts are on the device, and reading them would cost a sync."""
+    tiles = -(-T * (N // K) // ROW_TILE) * K * B
+    cap = max_blocks * block_size
+    if tiles >= 2 * sms:
+        return 1, -(-cap // KV_TILE) * KV_TILE
+    want = max(1, min(-(-8 * sms // tiles), -(-cap // KV_TILE)))
+    part_len = -(-cap // (want * KV_TILE)) * KV_TILE
+    return -(-cap // part_len), part_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _kernel_fn(sm90: bool):
+    """The entry of the route's library: both take 9 pointers and 9 ints."""
+    lib = _build.load("paged_attention_sm90" if sm90 else "paged_attention")
+    fn = lib.pdnlp_ragged_paged_attention_sm90 if sm90 else lib.pdnlp_ragged_paged_attention
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -139,8 +185,9 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     or fp8-e4m3; the quantized ones with k_scale/v_scale [nb, K, bs, 1] fp32);
     block_tables [B, max_blocks], q_start/q_lens [B], all int32. Query token t
     of row b attends kv positions ``[0, q_start[b] + t]``; returns
-    [B, T, N, H] in q's dtype with rows ``t >= q_lens[b]`` zeroed."""
-    global LAUNCHES
+    [B, T, N, H] in q's dtype with rows ``t >= q_lens[b]`` zeroed. bf16 q
+    over a bf16 pool runs the Hopper kernel, every other pair the SIMT one."""
+    global LAUNCHES, LAUNCHES_SM90
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, pool_k, pool_v, block_tables, q_start, q_lens, scale,
                                           k_scale, v_scale)
@@ -150,18 +197,34 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     _check_cuda_operands(q, pool_k, pool_v, block_tables, q_start, q_lens, k_scale, v_scale)
     B, T, N, H = q.shape
     _nb, K, bs, _ = pool_k.shape
+    mb = block_tables.shape[1]
+    sm90 = q.dtype == torch.bfloat16 and pool_k.dtype == torch.bfloat16
+    scale = float(H**-0.5 if scale is None else scale)
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel_fn()(
-            ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
-            ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, block_tables.shape[1],
-            _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], float(H**-0.5 if scale is None else scale),
-            stream)
+        if sm90:
+            parts, part_len = kv_partitions(B, T, N, K, mb, bs, _sm_count(q.device.index or 0))
+            part_o = part_ml = None
+            if parts > 1:  # each partition's unnormalised rows and their (max, sum), for the merge
+                rows = B * K * parts * T * (N // K)
+                part_o = torch.empty(rows * H, dtype=torch.float32, device=q.device)
+                part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+            rc = _kernel_fn(True)(
+                ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens), ptr(out),
+                ptr(part_o), ptr(part_ml), B, T, N, K, H, bs, mb, parts, part_len, scale, stream)
+        else:
+            rc = _kernel_fn(False)(
+                ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
+                ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, mb,
+                _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], scale, stream)
     if rc != 0:
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
+        symbol = "pdnlp_ragged_paged_attention" + ("_sm90" if sm90 else "")
+        raise RuntimeError(f"ragged_paged_attention kernel launch failed ({symbol}): CUDA error {rc}")
     LAUNCHES += 1
+    if sm90:
+        LAUNCHES_SM90 += 1
     return out
 
 

@@ -60,11 +60,14 @@ def _case(dev, q_dtype, kv_dtype, H, bs, group, K=2, seed=0):
     (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8)])
 @pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
 def test_kernel_matches_plain(dev, q_dtype, kv_dtype, H, bs, group):
+    """bf16 over bf16 takes the Hopper kernel (``LAUNCHES_SM90``), the rest the SIMT one."""
     args = _case(dev, q_dtype, kv_dtype, H, bs, group)
     q, pk, pv, tables, q_start, q_lens, ks, vs = args
+    sm90 = pa.LAUNCHES_SM90
     got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
+    assert pa.LAUNCHES_SM90 - sm90 == int(q_dtype == kv_dtype == torch.bfloat16)
     # fp32 output: summation order only; bf16 output: two roundings of fp32
     # values that differ in summation order, at most one ulp (2**-7 * |x|) apart
     atol, rtol = (2e-5, 0.0) if q_dtype == torch.float32 else (1e-3, 2**-7)
@@ -74,14 +77,72 @@ def test_kernel_matches_plain(dev, q_dtype, kv_dtype, H, bs, group):
     assert torch.all(got[2, 1:] == 0)  # decode row padding: exact zeros
 
 
-def test_decode_wrapper_and_launch_count(dev):
-    q, pk, pv, tables, q_start, _q_lens, _, _ = _case(dev, torch.float32, torch.float32, 128, 16, 7)
-    before = pa.LAUNCHES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decode_wrapper_and_launch_count(dev, dtype):
+    q, pk, pv, tables, q_start, _q_lens, _, _ = _case(dev, dtype, dtype, 128, 16, 7)
+    before, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
     a = pa.paged_decode_attention(q[:, 0].contiguous(), pk, pv, tables, q_start)
     b = pa.ragged_paged_attention(q[:, :1].contiguous(), pk, pv, tables, q_start,
                                   torch.ones(4, dtype=torch.int32, device=dev))[:, 0]
     assert pa.LAUNCHES == before + 2
+    assert pa.LAUNCHES_SM90 == sm90 + (2 if dtype == torch.bfloat16 else 0)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["kv-partitions", "one-partition"])
+@pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
+def test_paged_sm90_route_matches_plain(dev, monkeypatch, H, bs, group, split):
+    """The Hopper kernel with its kv walk split (the partitions of
+    ``kv_partitions``: this small grid splits) and whole (one partition, as a
+    full grid takes): the ragged batch of ``_case`` plus a decode row whose
+    context ends on a partition boundary, a decode row one past it and a
+    q_lens 0 row; dead rows exact zeros, two launches the same bits."""
+    q, pk, pv, tables, q_start, q_lens, _, _ = _case(dev, torch.bfloat16, torch.bfloat16, H, bs, group)
+    B, T, N, _ = q.shape
+    mb = tables.shape[1]
+    parts, part_len = pa.kv_partitions(B + 3, T, N, N // group, mb, bs, pa._sm_count(dev.index or 0))
+    assert parts > 1
+    if not split:
+        monkeypatch.setattr(pa, "kv_partitions", lambda *a, **kw: (1, -(-mb * bs // 64) * 64))
+    more = torch.tensor([[part_len - 1, 1], [part_len, 1], [5, 0]], dtype=torch.int32, device=dev)
+    q = torch.cat([q, torch.randn(3, T, N, H, device=dev, generator=torch.Generator(dev).manual_seed(1)).bfloat16()])
+    tables = torch.cat([tables, tables[:3].flip(1)])
+    q_start, q_lens = torch.cat([q_start, more[:, 0]]), torch.cat([q_lens, more[:, 1]])
+    sm90 = pa.LAUNCHES_SM90
+    got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
+    again = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_SM90 == sm90 + 2
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2**-7)
+    assert torch.equal(got, again)
+    for b, qlen in enumerate(q_lens.tolist()):
+        assert torch.all(got[b, qlen:] == 0), b
+
+
+@pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
+def test_paged_sm90_failed_launch_raises(dev, monkeypatch, fault):
+    """A refused launch on the Hopper route raises RuntimeError: neither
+    counter moves, and neither the SIMT kernel nor the plain version runs in
+    its place."""
+    q, pk, pv, tables, q_start, q_lens, _, _ = _case(dev, torch.bfloat16, torch.bfloat16, 128, 16, 7)
+    if fault == "entry returns an error":
+        real = pa._kernel_fn
+        monkeypatch.setattr(pa, "_kernel_fn", lambda sm90: (lambda *args: 700) if sm90 else real(sm90))
+    else:  # a contiguous view 2 bytes into its buffer
+        buf = torch.empty(pk.numel() + 1, dtype=pk.dtype, device=dev)
+        buf[1:].view(pk.shape).copy_(pk)
+        pk = buf[1:].view(pk.shape)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran in place of the kernel")
+
+    monkeypatch.setattr(pa, "ragged_paged_attention_ref", plain)
+    before, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    with pytest.raises(RuntimeError, match="_sm90"):
+        pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == before and pa.LAUNCHES_SM90 == sm90
 
 
 def test_wrapper_rejects_bad_operands(dev):
@@ -157,8 +218,8 @@ def _close(got, want, dtype):
     (300, 12, 2, 128, False, None, False),  # full attention, T not a multiple of 128
 ])
 def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
-    """bf16 runs the forward and dk/dv through the Hopper kernels
-    (``LAUNCHES_SM90``), fp32 through the SIMT kernels; dq is SIMT for both."""
+    """bf16 runs the forward, dq and dk/dv through the Hopper kernels
+    (``LAUNCHES_SM90``), fp32 through the SIMT kernels."""
     q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
     sm90 = dict(fa.LAUNCHES_SM90)
     out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
@@ -175,20 +236,20 @@ def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segme
         assert got.dtype == dtype and got.shape == w.shape, name
         _close(got, w, dtype)
     moved = 1 if dtype == torch.bfloat16 else 0
-    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dkv": moved}
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dq": moved, "bwd_dkv": moved}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_flash_autograd_counts_launches(dev, dtype):
     """``LAUNCHES`` counts each kernel once on either route; ``LAUNCHES_SM90``
-    moves by one forward and one dk/dv for bf16 and stays for fp32."""
+    moves by one forward, one dq and one dk/dv for bf16 and stays for fp32."""
     q, k, v, do, _ = _flash_case(dev, dtype, 1, 100, 4, 2, 128, False)
     q.requires_grad_(True)
     before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
     fa.flash_attention(q, k.requires_grad_(True), v.requires_grad_(True)).backward(do)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
     moved = 1 if dtype == torch.bfloat16 else 0
-    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dkv": moved}
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dq": moved, "bwd_dkv": moved}
 
 
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
@@ -216,6 +277,8 @@ def test_flash_sm90_failed_launch_raises(dev, monkeypatch, fault):
         fa.flash_attention_fwd(q, k, v)
     lse = torch.zeros(1, 4, 128, device=dev)
     with pytest.raises(RuntimeError, match="_sm90"):
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, lse)
+    with pytest.raises(RuntimeError, match="_sm90"):
         fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before and fa.LAUNCHES_SM90 == sm90
@@ -224,7 +287,7 @@ def test_flash_sm90_failed_launch_raises(dev, monkeypatch, fault):
 @pytest.mark.parametrize("T", [1024, 4096])
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
 def test_flash_sm90_gate_headroom_over_seeds(dev, seed, T):
-    """The Hopper forward and dk/dv against the plain versions under
+    """The Hopper forward, dq and dk/dv against the plain versions under
     ``chip_smoke.py``'s elementwise gate, on its ``main`` inputs (q [2, T, 12,
     128] over k/v [2, T, 2, 128], causal) from seeds other than its own. Prints
     each worst element over its bound."""
@@ -234,10 +297,11 @@ def test_flash_sm90_gate_headroom_over_seeds(dev, seed, T):
     out, lse = fa.flash_attention_fwd(q, k, v)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v)
     delta = fa._delta(ref_out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta)
-    _dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta)
-    worst = chip_smoke.flash_worst(torch, dict(out=out, lse=lse, dk=dk, dv=dv),
-                                   dict(out=ref_out, lse=ref_lse, dk=ref_dk, dv=ref_dv), "bfloat16")
+    ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta)
+    worst = chip_smoke.flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
+                                   dict(out=ref_out, lse=ref_lse, dq=ref_dq, dk=ref_dk, dv=ref_dv), "bfloat16")
     print(json.dumps(dict(seed=seed, T=T, worst={name: e["worst"] for name, e in worst.items()})))
     for name, e in worst.items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
@@ -271,8 +335,7 @@ def test_train_step_through_kernels_equals_plain(dev):
     through the kernels equal those through the plain versions (the CPU
     path): loss rel 1e-5, each leaf within 1e-4 of its largest element. A
     full step then launches each kernel once per layer and micro-batch, on
-    the SIMT route in fp32 and with the forward and dk/dv on the Hopper route
-    in bf16."""
+    the SIMT route in fp32 and on the Hopper route in bf16."""
     cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, head_dim=64, tie_word_embeddings=True,
                       recompute=True, recompute_granularity="save_qkv_attn")
@@ -297,12 +360,12 @@ def test_train_step_through_kernels_equals_plain(dev):
             trainer.training_step(batch)
             assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
             assert fa.LAUNCHES_SM90 == sm90  # fp32: the SIMT kernels
-            # bf16 compute (run_pretrain's `dtype`): the forward and dk/dv take the Hopper route
+            # bf16 compute (run_pretrain's `dtype`): all three take the Hopper route
             model.compute_dtype = torch.bfloat16
             before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
             trainer.training_step(batch)
             assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
-            assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 4, "bwd_dkv": 4}
+            assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results["cpu"], results[str(dev)]
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in g_cpu:

@@ -199,8 +199,9 @@ def _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts, block_kv
     """The Hopper bf16 kernels' roundings, step by step in torch: the forward's
     online softmax over 128-column kv tiles with P as ``parts`` bf16 operands
     of P.V (the row sum keeps fp32 P); dk/dv with P^T and dS^T (from fp32 P^T)
-    as ``parts`` bf16 operands of their products. Products of bf16 operands
-    accumulate in fp32, as the tensor cores do."""
+    as ``parts`` bf16 operands of their products; dq with dS (from fp32 P) as
+    ``parts`` bf16 operands of dS.K. Products of bf16 operands accumulate in
+    fp32, as the tensor cores do."""
     B, T, N, H = q.shape
     K = k.shape[2]
     g = N // K
@@ -226,7 +227,8 @@ def _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts, block_kv
     ds = p * (dp - delta.reshape(B, K, g, T)[..., None]) * scale
     dv = torch.einsum("bkgts,btkgh->bskh", _bf16(p, parts), dof).bfloat16()
     dk = torch.einsum("bkgts,btkgh->bskh", _bf16(ds, parts), q.float().reshape(B, T, K, g, H)).bfloat16()
-    return dict(out=out, lse=lse_k, dk=dk, dv=dv)
+    dq = torch.einsum("bkgts,bskh->btkgh", _bf16(ds, parts), k.float()).reshape(B, T, N, H).bfloat16()
+    return dict(out=out, lse=lse_k, dq=dq, dk=dk, dv=dv)
 
 
 @pytest.mark.parametrize("segments,window", [(False, None), (True, 100)], ids=["causal", "segments+window"])
@@ -236,7 +238,8 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
     element, the ``flash_worst`` rule of ``chip_smoke.py``, at the training
     path's heads (group 6, head_dim 128), T 256. The kernels give P, P^T and
     dS^T as two bf16 parts each (high and residual): one rounding exceeds the
-    gate on dk and dv and leaves out close to it (printed beside)."""
+    gate on dk and dv and leaves out close to it (printed beside). dq takes
+    dS as two parts too, and is held to the same gate."""
     import chip_smoke
 
     rng = np.random.default_rng(7)
@@ -249,8 +252,8 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
         seg[:, 181:] = 2
     out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, window=window)
     delta = fa._delta(out, do)
-    _dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, seg, window=window)
-    want = dict(out=out, lse=lse, dk=dk, dv=dv)
+    dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, seg, window=window)
+    want = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
     worst = {}
     for parts in (2, 1):
         got = _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts)

@@ -7,6 +7,8 @@ same masked softmax in fp32 and differ only in summation order (online softmax
 over blocks in the kernel, one softmax over the gathered row in the port).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,3 +107,136 @@ def test_cpu_wrapper_takes_the_plain_version():
     got = pa.ragged_paged_attention(*args)
     assert pa.LAUNCHES == before
     torch.testing.assert_close(got, pa.ragged_paged_attention_ref(*args), atol=0, rtol=0)
+
+
+# ----------------------------------------------------------------- the Hopper route's arithmetic
+def _bf16(x, parts):
+    """x through bf16 operands: one rounding, or the sum of a bf16 high part
+    and the bf16 rounding of what it left out (``parts=2``); ``parts=0``
+    leaves x unrounded."""
+    if parts == 0:
+        return x
+    hi = x.bfloat16().float()
+    return hi if parts == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts=2, tile=64):
+    """``paged_attention_sm90.cu`` step by step in torch: every (sequence, kv
+    head) folds its query heads into rows t * group + g; each kv partition
+    walks its 64-position tiles up to its rows' highest live position with an
+    online softmax in fp32 (exp2 of scores times scale * log2(e)), P in
+    ``p_parts`` bf16 operands of P.V and the row sum of fp32 P, and keeps
+    (max, sum, unnormalised rows); the partitions then merge in fp32 in
+    partition order. Products accumulate in fp32, as the tensor cores do."""
+    B, T, N, H = q.shape
+    _nb, K, bs, _ = pk.shape
+    group, cap = N // K, tables.shape[1] * bs
+    sl2 = H**-0.5 * math.log2(math.e)
+    out = torch.zeros(B, T, N, H)
+    for b in range(B):
+        qlen = min(int(q_lens[b]), T)
+        if qlen == 0:
+            continue
+        blocks = tables[b].long()
+        for kh in range(K):
+            k = pk[blocks, kh].reshape(cap, H).float()
+            v = pv[blocks, kh].reshape(cap, H).float()
+            rows = q[b, :qlen, kh * group:(kh + 1) * group].reshape(qlen * group, H).float()
+            lim = torch.clamp_max(int(q_start[b]) + torch.arange(qlen).repeat_interleave(group), cap - 1)
+            hi = int(lim.max())
+            ms, ls, os_ = [], [], []
+            for p in range(parts):
+                if p * part_len > hi:
+                    break
+                m = torch.full((len(rows),), pa.NEG_INF)
+                l = torch.zeros(len(rows))
+                o = torch.zeros(len(rows), H)
+                for c0 in range(p * part_len, min((p + 1) * part_len, hi + 1), tile):
+                    s = rows @ k[c0:c0 + tile].T
+                    s = torch.where(torch.arange(c0, c0 + tile)[None, :] <= lim[:, None], s,
+                                    torch.full_like(s, pa.NEG_INF))
+                    mn = torch.maximum(m, s.amax(-1))
+                    mu = torch.where(mn == pa.NEG_INF, torch.zeros_like(mn), mn * sl2)
+                    a = torch.exp2(m * sl2 - mu)
+                    pr = torch.exp2(s * sl2 - mu[:, None])
+                    l = l * a + pr.sum(-1)
+                    o = o * a[:, None] + _bf16(pr, p_parts) @ v[c0:c0 + tile]
+                    m = mn
+                ms.append(torch.where(m == pa.NEG_INF, m, m * sl2))
+                ls.append(l)
+                os_.append(o)
+            mu = torch.stack(ms).amax(0)
+            acc, den = torch.zeros(len(rows), H), torch.zeros(len(rows))
+            for m, l, o in zip(ms, ls, os_):  # in partition order
+                w = torch.exp2(m - mu)
+                den = den + w * l
+                acc = acc + w[:, None] * o
+            res = acc / torch.clamp_min(den, 1e-37)[:, None]
+            out[b, :qlen, kh * group:(kh + 1) * group] = res.reshape(qlen, group, H)
+    return out
+
+
+def _serving_batch(seed, dtype):
+    """Qwen2-7B's fold at a small width: group 7 (14 query heads over 2 kv
+    heads), head_dim 128, block 16, tables of 2,048 positions; decode rows at
+    contexts 256, 1,024 and 2,048, a 6-token chunk at 2,000, a dead row."""
+    q, pk, pv, tables = _inputs(seed, B=5, T=6, N=14, K=2, H=128, nb=641, bs=16, mb=128)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
+    return (t(q), t(pk), t(pv), torch.from_numpy(tables), torch.tensor([255, 1023, 2047, 2000, 7], dtype=torch.int32),
+            torch.tensor([1, 1, 1, 6, 0], dtype=torch.int32))
+
+
+def test_sm90_roundings_and_partitions_fit_the_chip_gate():
+    """The Hopper route's arithmetic (kv partitions from ``kv_partitions`` at
+    this launch's shape, P in two bf16 parts, the fp32 merge in partition
+    order) against the plain version under ``chip_smoke.py``'s elementwise
+    gate for bf16 outputs; dead rows exact zeros. One bf16 part of P is
+    printed beside."""
+    import chip_smoke
+
+    q, pk, pv, tables, q_start, q_lens = _serving_batch(8, torch.bfloat16)
+    parts, part_len = pa.kv_partitions(5, 6, 14, 2, 128, 16)
+    assert parts > 1  # this decode-heavy launch takes the split walk
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens).float()
+    rtol, atol = chip_smoke.KERNEL_TOL["bfloat16"]
+    worst = {}
+    for p_parts in (2, 1):
+        got = _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts).bfloat16().float()
+        worst[p_parts] = ((got - want).abs() / (rtol * want.abs() + atol)).max().item()
+        if p_parts == 2:
+            assert torch.all(got[4] == 0) and torch.all(got[:3, 1:] == 0)
+    print("paged sm90 worst over the gate:", {f"P in {k} bf16 parts": round(w, 3) for k, w in worst.items()})
+    assert worst[2] <= 1.0
+
+
+@pytest.mark.parametrize("parts", range(1, 9))
+def test_sm90_partition_merge_is_exact(parts):
+    """The partitions' merge alone: fp32 inputs and P unrounded, split into 1
+    to 8 partitions, equal the plain version to 1e-6."""
+    q, pk, pv, tables, q_start, q_lens = _serving_batch(9, torch.float32)
+    part_len = -(-2048 // (parts * 64)) * 64
+    got = _sm90_emulation(q, pk, pv, tables, q_start, q_lens, -(-2048 // part_len), part_len, p_parts=0)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_kv_partitions():
+    """Engine decode (8 rows x 4 kv heads, tables of 4,096 positions) splits
+    into partitions that leave >= 2 live blocks on each of 132 SMs at contexts
+    256-2,112; prefill chunks fill the grid and take one partition; every
+    split covers the tables' capacity in whole 64-position tiles."""
+    parts, part_len = pa.kv_partitions(8, 1, 28, 4, 256, 16)
+    assert (parts, part_len) == (32, 128)
+    contexts = np.linspace(256, 2112, 8).astype(int)
+    live = sum(-(-int(c) // part_len) for c in contexts) * 4
+    assert live >= 2 * 132, live
+    assert pa.kv_partitions(8, 512, 28, 4, 256, 16) == (1, 4096)
+    assert pa.kv_partitions(2, 2048, 28, 4, 256, 16) == (1, 4096)
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        B, T, K = (int(x) for x in rng.integers(1, 9, 3))
+        N, mb, bs = K * int(rng.integers(1, 8)), int(rng.integers(1, 300)), int(rng.integers(1, 65))
+        parts, part_len = pa.kv_partitions(B, T, N, K, mb, bs)
+        assert part_len % 64 == 0 and parts >= 1 and parts * part_len >= mb * bs > (parts - 1) * part_len
+        tiles = -(-T * (N // K) // 64) * K * B
+        assert parts == 1 or tiles * parts <= 8 * 132 + tiles, (B, T, N, K, mb, bs, parts)
