@@ -37,10 +37,21 @@ Serving, the paged engine at Qwen2-7B width and depth:
 6. logits  -- one 1024-token request through prefill and 16 decode steps on
               the kernel path (fp32: the SIMT kernel; bf16: the Hopper one)
               against the dense forward over the same tokens;
+7. serve   -- ``paddlenlp_tpu_torch.serving.ServingServer`` over the same
+              model on 127.0.0.1: greedy streams over HTTP (non-streaming
+              and SSE) equal to ``InferenceEngine.generate``; the engine
+              phase's 8 requests from 8 client threads at once (4 SSE) with
+              client-side TTFT/TPOT beside the engine's own, a two-turn chat
+              whose second turn reuses the first's KV, an abort mid-stream;
+              ``/metrics``, ``/health``, ``/debug/efficiency``,
+              ``/debug/trace`` and a ``/debug/profile`` capture holding the
+              paged kernel; two in-process weight swaps with their canary
+              digests and a refused uncommitted checkpoint; every paged
+              launch on the Hopper route;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-7. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+8. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -50,11 +61,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-8. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+9. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-9. train   -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+10. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -62,9 +73,10 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
-10. train_profile -- ``torch.profiler`` over one more training step;
-11. kernels -- every kernel with its launches on the serving and training
-              runs, each on its own route, and its check.
+11. train_profile -- ``torch.profiler`` over one more training step;
+12. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs and the serve phase) and the training run, each on
+              its own route, and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object (eight rows: the paged kernel, the flash forward, dq and dk/dv, each on
@@ -74,11 +86,14 @@ the Hopper and on the SIMT route) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 # Qwen/Qwen2-7B config.json (https://huggingface.co/Qwen/Qwen2-7B/blob/main/config.json)
@@ -468,6 +483,303 @@ def phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, see
     check(torch.isfinite(got32).all().item() and torch.isfinite(got16).all().item(), "logits: non-finite")
     check(err32 / scale <= LOGITS_REL_TOL, f"logits: fp32 paged vs dense rel err {err32 / scale} > {LOGITS_REL_TOL}")
     check(cos16 >= 0.99, f"logits: bf16 paged vs fp32 dense min cosine {cos16} < 0.99")
+    return res
+
+
+# ----------------------------------------------------------------------------- serve
+def http_call(port, method, path, payload=None, timeout=600):
+    """One HTTP exchange with the server: (status, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if payload is None else json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_json(port, method, path, payload=None, timeout=600):
+    status, body = http_call(port, method, path, payload, timeout)
+    return status, json.loads(body)
+
+
+def http_stream(port, path, payload, on_token=None, timeout=600):
+    """SSE request; returns (token ids, finish reason, final usage, arrival
+    time of each token, ``time.time()``, the clock the engine stamps).
+    ``on_token(completion id)`` runs after the first token arrived."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(dict(payload, stream=True)),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"serve: stream answered {resp.status}")
+        toks, times, finish, usage = [], [], None, None
+        for line in resp:
+            line = line.strip()
+            if line == b"data: [DONE]":
+                return toks, finish, usage, times
+            if not line.startswith(b"data: "):
+                continue
+            chunk = json.loads(line[6:])
+            choice = chunk["choices"][0]
+            tok = choice.get("token", choice.get("delta", {}).get("token"))
+            if tok is not None:
+                toks.append(tok)
+                times.append(time.time())
+                if on_token is not None:
+                    on_token(chunk["id"])
+                    on_token = None
+            if choice.get("finish_reason") is not None:
+                finish, usage = choice["finish_reason"], chunk.get("usage")
+        raise AssertionError("serve: stream closed without [DONE]")
+    finally:
+        conn.close()
+
+
+def phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, seed):
+    """``ServingServer`` over ``InferenceEngine`` at Qwen2-7B on 127.0.0.1:
+    (a) parity of greedy streams with ``InferenceEngine.generate``; (b) the
+    engine phase's 8-request mix from 8 client threads at once (4 SSE), a
+    two-turn chat and an abort mid-stream, timed on the client and in the
+    engine; (c) the scrapes; (d) two in-process weight swaps and a refused
+    one; (e) every paged launch on the Hopper route."""
+    from paddlenlp_tpu_torch.observability.span_catalog import SPAN_CATALOG
+    from paddlenlp_tpu_torch.serving.engine_loop import CANARY_PROMPT_IDS, canary_digest
+
+    prompts, sampled = traffic(np, model.config.vocab_size, seed)
+    vocab = model.config.vocab_size
+    eng = InferenceEngine(model, max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256)
+    check(eng.infer.use_paged_kernel, "serve: the engine on CUDA must run the kernel path")
+    greedy = [i for i in range(len(prompts)) if i not in sampled][1:3]
+    torch.cuda.synchronize()
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    # references on the main thread, before the loop starts: each prompt
+    # alone on a cleared prefix cache, the launches the server will make
+    want = {}
+    for i in greedy:
+        eng.clear_prefix_cache()
+        want[i] = eng.generate([prompts[i]], SamplingParams(max_new_tokens=64))[0]
+    eng.clear_prefix_cache()
+    digest_v1 = canary_digest(eng.generate([list(CANARY_PROMPT_IDS)])[0])
+    eng.clear_prefix_cache()
+
+    server = serving.ServingServer(eng, registry=serving.MetricsRegistry(),
+                                   scheduler_config=serving.SchedulerConfig(max_inflight=32, default_timeout_s=600))
+    port = server.start_in_thread()
+    res = dict(phase="serve", config="Qwen/Qwen2-7B", server="paddlenlp_tpu_torch.serving.ServingServer",
+               engine=dict(max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256))
+    try:
+        # (a) parity: non-streaming then SSE, each alone on a cleared cache
+        # (the loop is idle between requests, so clearing from here is safe)
+        parity = {}
+        for i in greedy:
+            server.loop.engine.clear_prefix_cache()
+            status, body = http_json(port, "POST", "/v1/completions", {"prompt": prompts[i].tolist(), "max_tokens": 64})
+            check(status == 200, f"serve: parity request answered {status}")
+            server.loop.engine.clear_prefix_cache()
+            toks, finish, _, _ = http_stream(port, "/v1/completions", {"prompt": prompts[i].tolist(), "max_tokens": 64})
+            parity[i] = body["choices"][0]["token_ids"] == want[i] and toks == want[i]
+        res["parity"] = dict(prompts=[len(prompts[i]) for i in greedy], equal=parity)
+        check(all(parity.values()), f"serve: HTTP greedy streams differ from InferenceEngine.generate: {parity}")
+
+        # (b) load: the engine phase's mix from 8 client threads at once
+        def body_of(i):
+            b = {"prompt": prompts[i].tolist(), "max_tokens": 64}
+            if i in sampled:
+                b.update(do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
+            return b
+
+        results = [None] * len(prompts)
+
+        def client(i):
+            t0 = time.time()
+            if i % 2:
+                toks, finish, _, times = http_stream(port, "/v1/completions", body_of(i))
+                results[i] = dict(sse=True, tokens=toks, finish=finish, t0=t0, times=times, end=time.time())
+            else:
+                status, body = http_json(port, "POST", "/v1/completions", body_of(i))
+                check(status == 200, f"serve: request {i} answered {status}")
+                results[i] = dict(sse=False, tokens=body["choices"][0]["token_ids"],
+                                  finish=body["choices"][0]["finish_reason"], t0=t0, end=time.time())
+
+        # when the scheduler admitted each request (prompt lengths are
+        # unique): splits the client's wait into HTTP, the loop's command
+        # queue and the engine
+        admitted_t = {}
+        real_submit = server.scheduler.submit
+
+        def timed_submit(ids, *args, **kwargs):
+            admitted_t[len(ids)] = time.time()
+            return real_submit(ids, *args, **kwargs)
+
+        server.scheduler.submit = timed_submit
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        load_wall = time.perf_counter() - t_load
+        server.scheduler.submit = real_submit
+        check(all(not t.is_alive() for t in threads) and all(results), "serve: a client never finished")
+        for i, r in enumerate(results):
+            check(r["finish"] in ("length", "stop"), f"serve: request {i} ended {r['finish']}")
+            check(r["finish"] == "stop" or len(r["tokens"]) == 64, f"serve: request {i} short")
+            check(all(0 <= t < vocab for t in r["tokens"]), f"serve: request {i} emitted out-of-vocab ids")
+        recent = {r["prompt_len"]: r for r in http_json(port, "GET", "/debug/requests")[1]["recent"]}
+        engine_side = [recent[len(p)] for p in prompts]
+        sse = [r for r in results if r["sse"]]
+        c_ttft = [(r["times"][0] - r["t0"]) * 1e3 for r in sse]
+        c_tpot = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3 for r in sse if len(r["times"]) > 1]
+        e_ttft = [e["ttft_s"] * 1e3 for e in engine_side]
+        e_tpot = [e["decode_time_s"] / (e["output_tokens"] - 1) * 1e3 for e in engine_side]
+        e_ttft_sse = [e_ttft[i] for i, r in enumerate(results) if r["sse"]]
+        # the client's time to first token, split: HTTP request to the
+        # scheduler's admission, admission to the engine's arrival stamp (the
+        # loop's command queue: a step in flight), the engine's TTFT, and
+        # the token's way back to an SSE client
+        http_in = [(admitted_t[len(p)] - r["t0"]) * 1e3 for p, r in zip(prompts, results)]
+        loop_queue = [(e["arrival_t"] - admitted_t[len(p)]) * 1e3 for p, e in zip(prompts, engine_side)]
+        delivery = [(r["times"][0] - e["arrival_t"] - e["ttft_s"]) * 1e3
+                    for r, e in zip(results, engine_side) if r["sse"]]
+        n_out = sum(len(r["tokens"]) for r in results)
+        res["load"] = dict(
+            requests=len(results), sse=len(sse), output_tokens=n_out, wall_s=load_wall,
+            tokens_per_s=n_out / load_wall,
+            client_ttft_ms_p50=pct(c_ttft, 0.5), client_ttft_ms_p99=pct(c_ttft, 0.99),
+            client_tpot_ms_p50=pct(c_tpot, 0.5), client_tpot_ms_p99=pct(c_tpot, 0.99),
+            client_e2e_ms_p50=pct([(r["end"] - r["t0"]) * 1e3 for r in results], 0.5),
+            engine_e2e_ms_p50=pct([(e["finish_t"] - e["arrival_t"]) * 1e3 for e in engine_side], 0.5),
+            engine_ttft_ms_p50=pct(e_ttft, 0.5), engine_ttft_ms_p99=pct(e_ttft, 0.99),
+            engine_tpot_ms_p50=pct(e_tpot, 0.5), engine_tpot_ms_p99=pct(e_tpot, 0.99),
+            sse_ttft_gap_ms=[c - e for c, e in zip(c_ttft, e_ttft_sse)],
+            ttft_split_ms_p50=dict(http_to_scheduler=pct(http_in, 0.5), loop_command_queue=pct(loop_queue, 0.5),
+                                   engine_ttft=pct(e_ttft, 0.5), sse_delivery=pct(delivery, 0.5)),
+            ttft_split_ms_max=dict(http_to_scheduler=max(http_in), loop_command_queue=max(loop_queue),
+                                   sse_delivery=max(delivery)),
+            engine_queue_ms=[(e["queue_wait_s"] or 0.0) * 1e3 for e in engine_side])
+
+        # a two-turn chat: turn 2's prompt starts with turn 1's prompt and reply
+        rng = np.random.default_rng(seed + 2)
+        user1 = rng.integers(8, vocab, 300).tolist()
+        status, chat1 = http_json(port, "POST", "/v1/chat/completions",
+                                  {"messages": [{"role": "user", "content": user1}], "max_tokens": 32})
+        check(status == 200 and chat1["choices"][0]["finish_reason"] == "length", f"serve: chat turn 1 {status}")
+        reply = chat1["choices"][0]["message"]["token_ids"]
+        turn2 = [{"role": "user", "content": user1}, {"role": "assistant", "content": reply},
+                 {"role": "user", "content": rng.integers(8, vocab, 40).tolist()}]
+        toks2, finish2, usage2, _ = http_stream(port, "/v1/chat/completions", {"messages": turn2, "max_tokens": 32})
+        turn1_len = chat1["usage"]["prompt_tokens"] + chat1["usage"]["completion_tokens"]
+        check(finish2 == "length" and len(toks2) == 32, f"serve: chat turn 2 ended {finish2}")
+        # every full block of turn 1's prompt and reply (all but the reply's
+        # last token, which was sampled and never fed) is cached
+        res["chat"] = dict(turn1_tokens=turn1_len, turn2_prompt=usage2["prompt_tokens"],
+                           turn2_cached=usage2["cached_tokens"])
+        check(usage2["cached_tokens"] == (turn1_len - 1) // 16 * 16,
+              f"serve: chat turn 2 cached {usage2['cached_tokens']} of turn 1's {turn1_len} tokens")
+
+        # an abort mid-stream: its blocks must come back
+        cancelled = {}
+        toks_a, finish_a, _, _ = http_stream(
+            port, "/v1/completions", {"prompt": prompts[1].tolist(), "max_tokens": 64},
+            on_token=lambda cid: cancelled.update(http_json(port, "POST", "/v1/abort", {"id": cid})[1]))
+        check(cancelled.get("cancelled") is True and finish_a == "abort", f"serve: abort {cancelled} {finish_a}")
+        deadline = time.time() + 60
+        while server.loop.pending_count() and time.time() < deadline:
+            time.sleep(0.01)
+        mgr = server.loop.engine.mgr
+        res["abort"] = dict(tokens_before_abort=len(toks_a), tables_left=len(mgr.tables),
+                            free_blocks=mgr.num_free, total_blocks=mgr.total_usable_blocks)
+        check(not mgr.tables and mgr.num_free == mgr.total_usable_blocks, f"serve: blocks leaked: {res['abort']}")
+
+        # (c) scrapes
+        metrics = http_call(port, "GET", "/metrics")[1].decode()
+
+        def counter(name):
+            return sum(float(line.rsplit(" ", 1)[1]) for line in metrics.splitlines()
+                       if line.startswith(name + "{") or line.startswith(name + " "))
+
+        n_requests = 2 * len(greedy) + len(results) + 2 + 1
+        received = 2 * sum(len(want[i]) for i in greedy) + n_out + len(reply) + len(toks2) + len(toks_a)
+        res["scrapes"] = dict(requests_total=counter("paddlenlp_serving_requests_total"), requests_sent=n_requests,
+                              tokens_total=counter("paddlenlp_serving_tokens_generated_total"),
+                              tokens_received=received)
+        check(res["scrapes"]["requests_total"] == n_requests and res["scrapes"]["tokens_total"] == received,
+              f"serve: /metrics counters disagree with the clients: {res['scrapes']}")
+        status, health = http_json(port, "GET", "/health")
+        check(status == 200 and health["status"] == "ok", f"serve: /health answered {status}")
+        eff = http_json(port, "GET", "/debug/efficiency")[1]["ledger"]
+        tot = eff["totals"]
+        conserved = tot["fed"] == tot["useful"] + tot["padding"] + tot["spec_rejected"] + tot["rework"] \
+            and sum(eff["rework_by"].values()) == tot["rework"] and sum(eff["padding_by"].values()) == tot["padding"]
+        check(conserved, f"serve: /debug/efficiency conservation broken: {eff}")
+        trace = json.loads(http_call(port, "GET", "/debug/trace")[1])
+        span_names = {e["name"] for e in trace["traceEvents"] if e.get("ph") in ("X", "i")}
+        check(span_names and span_names <= set(SPAN_CATALOG),
+              f"serve: spans outside the catalog: {sorted(span_names - set(SPAN_CATALOG))}")
+        # a 1 s device profile taken from an HTTP thread while two requests run
+        prof_out = {}
+
+        def profile():
+            prof_out["status"], prof_out["body"] = http_call(port, "POST", "/debug/profile?seconds=1")
+
+        prof_thread = threading.Thread(target=profile)
+        busy = [threading.Thread(target=http_json, args=(port, "POST", "/v1/completions",
+                                                         {"prompt": prompts[j].tolist(), "max_tokens": 64}))
+                for j in (3, 5)]
+        for t in busy:
+            t.start()
+        time.sleep(0.3)
+        prof_thread.start()
+        for t in busy + [prof_thread]:
+            t.join(timeout=600)
+        check(prof_out.get("status") == 200, f"serve: /debug/profile answered {prof_out}")
+        prof_path = json.loads(prof_out["body"])["path"]
+        with open(f"{prof_path}/trace.json") as f:
+            prof_events = json.load(f)["traceEvents"]
+        paged = [e for e in prof_events if e.get("cat") == "kernel" and "paged_attention" in e.get("name", "")]
+        res["scrapes"].update(health=health["status"], conservation=conserved, ledger=tot,
+                              trace_spans=sorted(span_names), profile_events=len(prof_events),
+                              profile_paged_kernels=len(paged),
+                              profile_engine_steps=sum(1 for e in prof_events if e.get("name") == "engine_step"))
+        check(paged, "serve: the /debug/profile trace holds no paged-attention kernel")
+
+        # (d) in-process weight swaps: a tree that shares every tensor but a
+        # final norm scaled per channel (0.5 to 1.5), then the original back
+        params = model.params
+        scale = params["model"]["norm"]["scale"]
+        ramp = torch.linspace(0.5, 1.5, scale.numel(), device=scale.device, dtype=scale.dtype)
+        swapped = dict(params, model=dict(params["model"], norm={"scale": scale * ramp}))
+        r2 = server.loop.request_weight_swap(swapped, "v2", canary_prompt_ids=CANARY_PROMPT_IDS, timeout_s=600)
+        r1 = server.loop.request_weight_swap(params, "v1", canary_prompt_ids=CANARY_PROMPT_IDS, timeout_s=600)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_uncommitted_") as bad_dir:
+            status, refused = http_json(port, "POST", "/admin/weights", {"ckpt_dir": bad_dir})
+        res["swap"] = dict(v1_digest=digest_v1, v2=dict(ok=r2["ok"], digest=r2["canary_digest"], wall_s=r2["wall_s"]),
+                           back_to_v1=dict(ok=r1["ok"], digest=r1["canary_digest"], wall_s=r1["wall_s"]),
+                           uncommitted_status=status, uncommitted_error=refused["error"]["type"],
+                           weights_version=server.loop.weights_version)
+        check(r2["ok"] and r2["canary_digest"] != digest_v1, f"serve: the v2 swap {r2}")
+        check(r1["ok"] and r1["canary_digest"] == digest_v1, f"serve: swapping v1 back {r1} vs {digest_v1}")
+        check(status == 409 and model.params is params and server.loop.weights_version == "v1",
+              f"serve: an uncommitted checkpoint answered {status}")
+    finally:
+        server.shutdown(drain_timeout_s=120)
+    check(not server.loop.running, "serve: the loop did not stop")
+    torch.cuda.synchronize()
+    # (e) every paged launch of the phase on the Hopper route
+    res.update(kernel_launches=pa.LAUNCHES, sm90_launches=pa.LAUNCHES_SM90,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(res)
+    check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
+          f"serve: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
+    del server, eng
+    torch.cuda.empty_cache()
     return res
 
 
@@ -910,8 +1222,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights, the traffic and the corpus")
     args = ap.parse_args(argv)
+    # a crash in native code prints every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
 
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -921,6 +1234,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     try:
+        from paddlenlp_tpu_torch import serving
         from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
         from paddlenlp_tpu_torch.experimental import InferenceEngine, PagedInferenceModel, SamplingParams
         from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool, quantize_kv
@@ -970,6 +1284,7 @@ def main(argv=None) -> int:
     phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed)
 
     logits = phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, args.seed)
+    serve = phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -986,8 +1301,8 @@ def main(argv=None) -> int:
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
     # the decode call, the launch the engine makes most) and the SIMT kernel
     # (the other pools: times at the fp32 case). Launches are the engine
-    # runs' on each route: the main path never takes the SIMT kernel, which
-    # the fp32 logits run checks
+    # runs' and the serve phase's on each route: the main path never takes
+    # the SIMT kernel, which the fp32 logits run checks
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
     for route, timed_case, name, source in (
@@ -995,14 +1310,16 @@ def main(argv=None) -> int:
             ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", "paged_attention.cu")):
         timed = by_batch[timed_case]
         checked = [c for c in cases if c["route"] == route]
-        sm90 = mono["sm90_launches"] + chunked["sm90_launches"]
-        launches = sm90 if route == "sm90" else mono["kernel_launches"] + chunked["kernel_launches"] - sm90
+        sm90 = mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
+        launches = sm90 if route == "sm90" else (mono["kernel_launches"] + chunked["kernel_launches"]
+                                                 + serve["kernel_launches"] - sm90)
         kernels.append(dict(
             name=name, route="cuda", source=f"paddlenlp_tpu_torch/csrc/{source}",
             replaces="paddlenlp_tpu/ops/pallas/paged_attention.py:56", launches=launches,
             max_abs_err=max(c["max_abs_err"] for c in checked), ms=timed["ms"], plain_ms=timed["plain_ms"],
             bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=timed["library_ms"]))
-        checks.append(dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case), launched_by="engine",
+        checks.append(dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
+                           launched_by="engine, serve", serve_launches=serve["sm90_launches"] if route == "sm90" else 0,
                            launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                               for k in mono["launches_by_shape"]} if route == "sm90" else None,
                            check_launches=None if route == "sm90" else logits["launches"]["float32"]["kernels"],

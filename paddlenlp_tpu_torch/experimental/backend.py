@@ -14,11 +14,17 @@ Contract:
 - ``mixed_step(...)``    one ragged step of prefill chunks + decode tokens;
 - ``seed_counts``/``reset_counts``  per-slot penalty-count maintenance;
 - ``apply_cow(pairs)``   prefix-cache copy-on-write block copies in the pool;
+- ``sync_params(tree)``  install a new parameter tree (live weight swap);
 - ``describe()``         placement metadata for ``stats()``.
 
 Every step entry point also sets ``self.step_accounting`` to ``{"fed": <token
 positions the launch processed>, "shape": <launch-geometry key>}`` before it
 runs; the engine reads it right after the call to feed the goodput ledger.
+
+The serving loop steps the engine under ``torch.inference_mode()`` on its own
+thread. The backend's long-lived tensors (the pool, the penalty counts, the
+parameters) stay ordinary tensors all the same: they are updated in place or
+placed outside inference mode, so the engine stays usable from any thread.
 
 The sharded and disaggregated backends of the JAX package, its host-tier
 spill/promote entry points and speculative ``verify`` are not part of the
@@ -33,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..transformers.conversion_utils import flatten_params, unflatten_params
 from .inference_model import PagedInferenceModel
 from .paged_cache import copy_blocks, init_paged_pool
 
@@ -119,6 +126,9 @@ class ModelBackend:
     def apply_cow(self, pairs):
         raise NotImplementedError
 
+    def sync_params(self, new_params):
+        raise NotImplementedError
+
     def describe(self) -> dict:
         raise NotImplementedError
 
@@ -195,14 +205,28 @@ class SingleDeviceBackend(ModelBackend):
                sampling) -> Tuple[np.ndarray, np.ndarray]:
         B, steps = last_tokens.shape[0], self.infer.decode_steps
         self.step_accounting = {"fed": B * steps, "shape": ("decode", B, steps)}
-        toks, valid, _, _, self.counts = self.infer.decode(
+        toks, valid, _, _, counts = self.infer.decode(
             self.pool, self._dev(last_tokens, torch.int32), self._dev(block_tables, torch.int32),
             self._dev(context_lens, torch.int32), self._dev(done0, torch.bool),
             self._dev(remaining, torch.int32), self.counts, self._samp(sampling, len(sampling)))
+        self.counts.copy_(counts)
         return toks.cpu().numpy(), valid.cpu().numpy()  # THE decode sync point: ids + flags only
 
     def apply_cow(self, pairs):
         copy_blocks(self.pool, pairs)
+
+    def sync_params(self, new_params):
+        """Place ``new_params`` on the model's device now (eagerly, so an
+        out-of-memory error surfaces inside the caller's rollback window; a
+        tree already there is installed as it is), rebind ``model.params``
+        and rebuild the paged model's per-layer views, which would otherwise
+        keep serving the old tree."""
+        flat = flatten_params(new_params)
+        if any(v.device != self.device for v in flat.values()):
+            with torch.inference_mode(False):  # placed tensors stay ordinary ones
+                new_params = unflatten_params({k: v.to(self.device) for k, v in flat.items()})
+        self.model.params = new_params
+        self.infer.bind_params()
 
     # ---------------------------------------------------------------- mixed
     def mixed_step(self, chunk_rows: List[MixedRow], decode_rows: List[MixedRow]) -> np.ndarray:
@@ -238,10 +262,11 @@ class SingleDeviceBackend(ModelBackend):
             count_fed[r.slot] = r.is_chunk  # chunk tokens accumulate into counts
             emit[r.slot] = r.emit
             sampling[r.slot] = r.sampling
-        tokens, self.counts = self.infer.mixed_step(
+        tokens, counts = self.infer.mixed_step(
             self.pool, self._dev(ids, torch.int32), self._dev(tables, torch.int32),
             self._dev(q_lens, torch.int32), self._dev(q_start, torch.int32), self.counts,
             self._dev(count_fed, torch.bool), self._dev(emit, torch.bool), self._samp(sampling, B))
+        self.counts.copy_(counts)
         rows = chunk_rows + decode_rows
         return tokens, lambda host: np.asarray([host[r.slot] for r in rows])
 
@@ -283,12 +308,13 @@ class SingleDeviceBackend(ModelBackend):
         sampling = ([r.sampling for r in chunk_rows] + [None] * (C - len(chunk_rows))
                     + [r.sampling for r in decode_rows] + [None] * (D - len(decode_rows)))
         i32 = torch.int32
-        tokens, self.counts = self.infer.mixed_step_flat(
+        tokens, counts = self.infer.mixed_step_flat(
             self.pool, self._dev(c_ids, i32), self._dev(c_tables, i32), self._dev(c_qlens, i32),
             self._dev(c_start, i32), self._dev(c_slots, i32), self._dev(c_emit, torch.bool),
             self._dev(d_tokens, i32), self._dev(d_tables, i32), self._dev(d_start, i32),
             self._dev(d_slots, i32), self._dev(d_live, torch.bool), self.counts,
             self._samp(sampling, C + D))
+        self.counts.copy_(counts)
         n_c, n_d = len(chunk_rows), len(decode_rows)
         return tokens, lambda host: np.concatenate([host[:n_c], host[C: C + n_d]])
 

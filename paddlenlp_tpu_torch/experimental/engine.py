@@ -17,13 +17,20 @@ scheduler over a :class:`~.backend.ModelBackend`:
 - preemption: on block exhaustion the youngest sequence is evicted and requeued
   with prompt+generated as its new prompt (recompute). Sampling keys are
   (seed, absolute position), so a recomputed sequence resamples identically;
-- streaming: per-request callbacks fire as tokens land.
+- streaming: per-request callbacks fire as tokens land;
+- observability: the tracer's engine spans (``admission``, ``prefix_cache``,
+  ``prefill``, ``mixed_step``, ``decode``) and instants (``kv_alloc``,
+  ``kv_free``, ``preempt``), the flight recorder's decision events
+  (``admit.*``, ``chunk.grant``, ``preempt``), the ``engine.step`` and
+  ``engine.prefill_chunk`` fault points, the per-tenant goodput fold and the
+  per-request usage fields the serving meter books;
+- weight hot-swap: :meth:`InferenceEngine.sync_params` installs a new
+  parameter tree through the backend (the serving loop's swap path).
 
 Options of the JAX engine that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item (speculative decoding, the
 host KV tier, multi-LoRA and tenant quotas, meshes and disaggregated stages,
-quantized weights, weight hot-swap). The serving stack's tracer, flight
-recorder and fault points are not part of the port yet either.
+quantized weights).
 """
 
 from __future__ import annotations
@@ -37,12 +44,20 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..observability.flight_recorder import RECORDER
 from ..observability.goodput import GoodputLedger, device_peak_flops, efficiency_doc, estimate_model_flops_per_token
+from ..observability.tracer import TRACER
+from ..serving.tenancy.adapters import UnknownAdapterError
+from ..serving.tenancy.quotas import DEFAULT_TENANT, tenant_goodput_fold
+from ..utils.faults import FaultPoint
 from ..utils.log import logger
 from .backend import MixedRow, ModelBackend, SingleDeviceBackend, _bucket
 from .paged_cache import BlockManager
 
 __all__ = ["InferenceEngine", "Request", "SamplingParams"]
+
+_F_STEP = FaultPoint("engine.step")
+_F_CHUNK = FaultPoint("engine.prefill_chunk")
 
 
 @dataclasses.dataclass
@@ -78,17 +93,40 @@ class Request:
     finish_reason: Optional[str] = None  # stop | length | abort | capacity
     aborted: bool = False
     base_prompt_len: int = 0  # original prompt length (preemption grows prompt_ids)
+    trace: Optional[str] = None  # observability trace id (serving request context)
     # orders the waiting queue under load: interactive admits ahead of batch,
     # batch ahead of best_effort; FIFO within a class
     priority: str = "interactive"
+    # which tenant the request bills to (per-tenant goodput fold, metric labels)
+    tenant: str = DEFAULT_TENANT
     prefilled_len: int = 0  # prompt tokens whose KV is in the pool (chunked prefill)
+    # latency-attribution bookkeeping (engine_loop.request_attribution):
+    # first time the request was head-of-queue but deferred by an admission
+    # gate (splits queue_wait into pure-queue vs admission-gate) ...
+    gated_t: Optional[float] = None
+    # ... and decode-window seconds spent riding mixed steps that also carried
+    # other requests' prefill chunks (the per-request decode-stall share)
+    chunk_stall_s: float = 0.0
     # goodput-ledger bookkeeping: highest absolute position ever fed through
     # a forward for this request — re-feeding below the mark is rework ...
     fed_hwm: int = 0
     # ... COW tail tokens owed by a full-cover prefix-cache admission ...
     cow_pending: int = 0
-    # ... and the rework bucket re-fed positions land in
+    # ... and the rework bucket re-fed positions land in (preemption
+    # recompute vs a supervisor requeue across a rebuild)
     rework_src: str = "preempt_refill"
+    # usage-metering bookkeeping (serving.tenancy.metering.UsageMeter reads
+    # these at finish): prefix-cache tokens credited at FIRST admission only
+    # (None until admitted: a preemption re-admission must not re-credit) ...
+    cached_tokens: Optional[int] = None
+    # ... engine-attributed useful fed positions, mirroring the per-tenant
+    # goodput fold token for token ...
+    useful_tokens: int = 0
+    # ... and the block-seconds integral of KV residency (advanced by a
+    # per-step checkpoint while kv_occ_t holds the open episode's start;
+    # finalized in _free_kv, so it accumulates across preemption episodes)
+    kv_block_seconds: float = 0.0
+    kv_occ_t: Optional[float] = None
 
     @property
     def needs_prefill(self) -> bool:
@@ -182,8 +220,14 @@ class InferenceEngine:
         self.enable_prefix_cache = enable_prefix_cache
         self.mgr = BlockManager(num_blocks, block_size, max_blocks_per_seq,
                                 enable_prefix_cache=enable_prefix_cache)
+        # per-tenant attributable-token accounting (the tenancy fold over the
+        # goodput ledger): monotone engine totals, surviving reset()
+        self.tenant_goodput: Dict[str, Dict[str, int]] = {}
         self.max_batch_size = max_batch_size
         self.decode_steps = decode_steps
+        # no speculative decoding yet: the counters the metrics plane and
+        # /health read stay at zero
+        self.spec_stats = {"verify_steps": 0, "tokens_emitted": 0, "drafted": 0, "accepted": 0}
         self.waiting: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_batch_size
         self._next_id = itertools.count()
@@ -197,6 +241,9 @@ class InferenceEngine:
         self._chunk_seq = itertools.count(1)
         self.recent_chunk_sizes: deque = deque(maxlen=256)  # (seq, n_tokens)
         self.recent_decode_stalls: deque = deque(maxlen=256)  # (seq, seconds)
+        # monotone step id, stamped on the host spans
+        self._step_seq = itertools.count()
+        self._cur_step = -1
         # goodput ledger: per-step token-conservation accounting
         # (fed == useful + padding + spec_rejected + rework, exact) + step
         # anatomy; totals survive reset()
@@ -226,17 +273,38 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ api
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams] = None,
-                    stream_cb: Optional[Callable] = None, priority: str = "interactive") -> int:
+                    stream_cb: Optional[Callable] = None, trace: Optional[str] = None,
+                    priority: str = "interactive", rework_hwm: int = 0,
+                    adapter_id: Optional[str] = None,
+                    tenant: str = DEFAULT_TENANT) -> int:
+        """``rework_hwm`` marks the first ``rework_hwm`` prompt positions as
+        already-fed-once (a supervisor requeue resubmitting a folded prompt
+        after an engine rebuild): the goodput ledger then books their
+        re-prefill as ``requeue_refill`` rework instead of useful work.
+
+        ``adapter_id`` names a LoRA adapter: the port has no adapter registry
+        yet, so any id raises :class:`UnknownAdapterError` at submit.
+        ``tenant`` names the billing identity the request's work is
+        attributed to."""
         sampling = sampling or SamplingParams()
+        if adapter_id is not None:
+            raise UnknownAdapterError(
+                f"adapter {adapter_id!r} requested but the engine has no adapter_registry")
         req = Request(
             req_id=next(self._next_id),
             prompt_ids=np.asarray(prompt_ids, dtype=np.int32).reshape(-1),
             sampling=sampling,
             stream_cb=stream_cb,
             arrival_t=time.time(),
+            trace=trace,
             priority=priority,
+            tenant=tenant,
         )
         req.base_prompt_len = len(req.prompt_ids)
+        self._tenant_counts(tenant)["requests"] += 1
+        if rework_hwm > 0:
+            req.fed_hwm = min(int(rework_hwm), len(req.prompt_ids))
+            req.rework_src = "requeue_refill"
         # priority-ordered admission: insert before the first waiting request
         # of a STRICTLY lower class; same-class order stays FIFO
         rank = _PRIORITY_RANK.get(priority, 0)
@@ -274,6 +342,13 @@ class InferenceEngine:
         """Release a request's KV blocks. ``cache=True`` (normal finishes)
         registers its full blocks in the prefix index instead of freeing them;
         aborts and preemptions release by refcount without registering."""
+        freed = self.mgr.lengths.get(req.req_id)
+        if req.kv_occ_t is not None:
+            # close the open KV-occupancy episode while the block table still
+            # exists: the block-seconds integral is what usage metering bills
+            req.kv_block_seconds += (time.perf_counter() - req.kv_occ_t) \
+                * len(self.mgr.tables.get(req.req_id, ()))
+            req.kv_occ_t = None
         if cache and self.enable_prefix_cache and req.finish_reason in ("stop", "length"):
             # GENERATED blocks register too (a completion is the next turn's
             # prompt prefix); the last sampled token was emitted, never fed,
@@ -284,6 +359,10 @@ class InferenceEngine:
             self.mgr.finish_seq_cached(req.req_id, token_ids)
         else:
             self.mgr.free_seq(req.req_id)
+        TRACER.instant("kv_free", cat="engine", trace=req.trace,
+                       req_id=req.req_id, tokens_held=freed,
+                       free_blocks=self.mgr.num_free,
+                       cached_blocks=self.mgr.num_cached_blocks)
 
     def _finish_abort(self, req: Request):
         req.done = True
@@ -310,13 +389,36 @@ class InferenceEngine:
             return True
         return False
 
+    def resync_counts(self):
+        """Re-seed the device-side penalty counts of every live slot from
+        host-known token history (``prompt[:prefilled_len] + output_ids``).
+        The supervisor's slot quarantine calls this after releasing a
+        poisoned request: the failed step may have committed count updates
+        for tokens whose host-side emit never ran."""
+        entries, slot_idx = [], []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            hist = np.concatenate([req.prompt_ids[: req.prefilled_len],
+                                   np.asarray(req.output_ids, np.int32)])
+            entries.append((len(slot_idx), hist, len(hist)))
+            slot_idx.append(slot)
+        if slot_idx:
+            self.backend.seed_counts(slot_idx, entries)
+
     def clear_prefix_cache(self):
         """Invalidate every cached prefix block (idle ones return to the free
-        list). Required after a weight update."""
+        list). Required after a weight update: cached KV is only valid under
+        the params that produced it."""
         self.mgr.clear_prefix_cache()
 
     def sync_params(self, new_params):
-        _not_ported("weight hot-swap (sync_params)", "Queue 1 item 7")
+        """Install a new base-weight tree through the backend seam (eager
+        placement on the model's device, see
+        :meth:`ModelBackend.sync_params`). Callers own the rest of the swap
+        protocol: quiesce, :meth:`clear_prefix_cache` and
+        :meth:`resync_counts` for any slots kept live across the swap."""
+        self.backend.sync_params(new_params)
 
     def reset(self):
         """Drop ALL scheduler/allocator state after a failed step. The device
@@ -329,25 +431,33 @@ class InferenceEngine:
                                 enable_prefix_cache=self.enable_prefix_cache)
         self._last_token[:] = 0
         self.backend.reset_counts()
+        # the failed step never ran its anatomy tail: without this, the first
+        # post-recovery step would book the whole outage as a "step gap"
         self._last_step_end = None
         self._prev_step_busy = False
         logger.warning("inference engine reset: scheduler + KV allocator state dropped")
 
     def stats(self) -> Dict:
-        """Point-in-time scheduler/allocator stats."""
-        return {
+        """Point-in-time scheduler/allocator stats, in the JAX engine's shape:
+        the host tier and speculative counters read zero, the tenancy fold
+        appears once a request arrived."""
+        out = {
             "queue_depth": len(self.waiting),
             "running": sum(1 for r in self.slots if r is not None),
             "max_batch_size": self.max_batch_size,
             "free_blocks": self.mgr.num_free,
             "total_blocks": self.mgr.total_usable_blocks,
             "num_preemptions": self.num_preemptions,
+            "spec_stats": dict(self.spec_stats),
             "prefix_cache": {
                 "enabled": self.enable_prefix_cache,
                 "hits": self.mgr.cache_hits,
                 "cached_tokens": self.mgr.cached_tokens_total,
                 "evictions": self.mgr.evictions,
                 "cached_blocks": self.mgr.num_cached_blocks,
+                "host": {"enabled": False, "promotes_inflight": 0, "blocks": 0, "capacity": 0,
+                         "spills": 0, "spill_batches": 0, "promotes": 0, "promoted_blocks": 0,
+                         "promote_bytes": 0, "evictions": 0},
             },
             "chunked_prefill": {
                 "enabled": bool(self.prefill_chunk_tokens),
@@ -358,21 +468,36 @@ class InferenceEngine:
             "backend": self.backend.describe(),
             "goodput": self.ledger.snapshot(),
         }
+        if self.tenant_goodput:
+            out["tenancy"] = {"tenants": tenant_goodput_fold(self.tenant_goodput),
+                              "adapters": None, "quotas": None}
+        return out
 
     def kv_fragmentation(self) -> float:
         """1 - held tokens / (held blocks * block_size); 0.0 when nothing is
-        allocated."""
-        blocks = sum(len(t) for t in self.mgr.tables.values())
+        allocated. Called from HTTP scrape threads while the loop thread
+        mutates the BlockManager: the dict snapshots are taken via ``list()``
+        and a mid-resize race degrades to one stale scrape."""
+        try:
+            tables = list(self.mgr.tables.values())
+            lengths = list(self.mgr.lengths.values())
+        except RuntimeError:  # dict resized mid-copy by the loop thread
+            return 0.0
+        blocks = sum(len(t) for t in tables)
         if not blocks:
             return 0.0
-        return max(0.0, 1.0 - sum(self.mgr.lengths.values()) / (blocks * self.mgr.block_size))
+        return max(0.0, 1.0 - sum(lengths) / (blocks * self.mgr.block_size))
 
     def efficiency(self) -> Dict:
         """The efficiency document: ledger snapshot, MFU / FLOPs model,
         percentiled step anatomy, occupancy and KV fragmentation."""
         running = sum(1 for r in self.slots if r is not None)
+        try:
+            step_times = list(self.recent_step_times)
+        except RuntimeError:  # loop thread appended mid-copy: drop one window
+            step_times = []
         return efficiency_doc(
-            self.ledger, list(self.recent_step_times), tier="serving",
+            self.ledger, step_times, tier="serving",
             extra={
                 "occupancy": {
                     "running": running,
@@ -380,6 +505,11 @@ class InferenceEngine:
                     "slot_occupancy": running / max(self.max_batch_size, 1),
                 },
                 "kv_fragmentation": round(self.kv_fragmentation(), 6),
+                "spec": {
+                    "drafted": self.spec_stats["drafted"],
+                    "accepted": self.spec_stats["accepted"],
+                    "acceptance_rate": self.spec_stats["accepted"] / max(self.spec_stats["drafted"], 1),
+                },
                 "backend": self.backend.describe(),
             })
 
@@ -395,6 +525,8 @@ class InferenceEngine:
     # ------------------------------------------------------------------ scheduling
     def step(self) -> List[Request]:
         """One engine iteration: admit + decode. Returns requests finished this step."""
+        _F_STEP.fire()
+        self._cur_step = next(self._step_seq)
         # step anatomy: host gap since the previous BUSY step ended vs device
         # time inside backend calls vs the step's own host scheduling time
         t_step0 = time.perf_counter()
@@ -403,6 +535,7 @@ class InferenceEngine:
                  else -1.0)
         self._step_device_s = 0.0
         finished: List[Request] = []
+        # the step's range on a torch.profiler timeline (POST /debug/profile)
         with torch.profiler.record_function("engine_step"):
             if self.prefill_chunk_tokens:
                 self._admit_chunked(finished)
@@ -415,6 +548,14 @@ class InferenceEngine:
             else:
                 self._admit(finished)
                 self._decode_running(finished)
+        # usage metering: advance each admitted request's kv_block_seconds
+        # integral piecewise per step (block counts grow during decode)
+        t_occ = time.perf_counter()
+        for req in self.slots:
+            if req is not None and req.kv_occ_t is not None:
+                req.kv_block_seconds += (t_occ - req.kv_occ_t) \
+                    * len(self.mgr.tables.get(req.req_id, ()))
+                req.kv_occ_t = t_occ
         t_end = time.perf_counter()
         host_s = max(t_end - t_step0 - self._step_device_s, 0.0)
         self.ledger.note_step(max(gap_s, 0.0), self._step_device_s, host_s)
@@ -426,6 +567,13 @@ class InferenceEngine:
 
     def _free_slot_indices(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
+
+    def _tenant_counts(self, tenant: str) -> Dict[str, int]:
+        tg = self.tenant_goodput.get(tenant)
+        if tg is None:
+            tg = self.tenant_goodput[tenant] = {
+                "useful": 0, "rework": 0, "requests": 0, "tokens_out": 0}
+        return tg
 
     def _note_fed_span(self, req: Request, start: int, n: int):
         """Goodput split of one fed span ``[start, start+n)``: positions below
@@ -443,13 +591,32 @@ class InferenceEngine:
             by["cow_token"] = cow
             req.cow_pending -= cow
         req.fed_hwm = max(req.fed_hwm, start + n)
-        return overlap + cow, (by or None)
+        rework = overlap + cow
+        # the per-tenant fold and its per-request mirror (the usage record's
+        # useful_tokens reconciles against the ledger token for token)
+        tg = self._tenant_counts(req.tenant)
+        tg["useful"] += n - rework
+        tg["rework"] += rework
+        req.useful_tokens += n - rework
+        return rework, (by or None)
 
     @staticmethod
     def _merge_rework(total_by: Dict[str, int], by: Optional[Dict[str, int]]):
         if by:
             for k, v in by.items():
                 total_by[k] = total_by.get(k, 0) + v
+
+    def _note_gated(self, req: Request, reason: str):
+        """Mark the head-of-queue request as gate-deferred, ONCE per wait
+        episode: the timestamp splits its queue_wait into pure-queue vs
+        admission-gate time, and the single decision event keeps a blocked
+        queue from flooding the flight recorder."""
+        if req.gated_t is not None:
+            return
+        req.gated_t = time.time()
+        RECORDER.record("admit.defer", req_id=req.req_id, trace=req.trace,
+                        reason=reason, queue_depth=len(self.waiting),
+                        free_blocks=self.mgr.num_free)
 
     def _admit_slots(self, finished: List[Request]) -> List[tuple]:
         """Shared admission front half: bind waiting requests to free slots and
@@ -458,7 +625,11 @@ class InferenceEngine:
         free = self._free_slot_indices()
         if not self.waiting or not free:
             return []
+        queue_depth = len(self.waiting)
+        n_finished0 = len(finished)
+        admit_t0 = time.perf_counter()
         cache_on = self.enable_prefix_cache
+        hits0, cached0 = self.mgr.cache_hits, self.mgr.cached_tokens_total
         admitted: List[tuple] = []
         while self.waiting and free:
             req = self.waiting[0]
@@ -470,6 +641,9 @@ class InferenceEngine:
                 req.done = True
                 req.finish_reason = "capacity"
                 req.finish_t = time.time()
+                RECORDER.record("admit.reject", req_id=req.req_id, trace=req.trace,
+                                reason="capacity", blocks_needed=need,
+                                prompt_len=prompt_len)
                 logger.warning(f"req {req.req_id}: needs {need} KV blocks (> capacity); rejected")
                 finished.append(req)
                 continue
@@ -480,9 +654,11 @@ class InferenceEngine:
             if cache_on:
                 best_need = self.mgr.blocks_needed(prompt_len + 1) - prompt_len // self.mgr.block_size
                 if best_need > self.mgr.num_free:
+                    self._note_gated(req, "kv_pressure")
                     break
                 match = self.mgr.match_prefix(req.prompt_ids, prompt_len)
             if not self.mgr.can_admit(prompt_len + 1, match=match):
+                self._note_gated(req, "kv_pressure")
                 break
             self.waiting.popleft()
             if req.sched_t is None:  # preserved across preemption-requeues
@@ -497,11 +673,39 @@ class InferenceEngine:
             # request already built: the ledger books it as cow_token rework
             req.cow_pending = (prompt_len - n_cached
                                if (match is not None and match[2] is not None) else 0)
-            admitted.append((free.pop(0), req, n_cached))
+            # usage metering: the KV-occupancy episode opens with the blocks;
+            # the cache credit bills ONCE, at first admission
+            req.kv_occ_t = time.perf_counter()
+            if req.cached_tokens is None:
+                req.cached_tokens = n_cached
+            TRACER.instant("kv_alloc", cat="engine", trace=req.trace,
+                           req_id=req.req_id, tokens=prompt_len,
+                           cached_tokens=n_cached,
+                           free_blocks=self.mgr.num_free)
+            slot = free.pop(0)
+            RECORDER.record("admit.accept", req_id=req.req_id, trace=req.trace,
+                            slot=slot, prompt_len=prompt_len,
+                            cached_tokens=n_cached)
+            admitted.append((slot, req, n_cached))
+        # the admission span closes BEFORE prefill (sibling phases, not
+        # nested) and only when something happened
+        if admitted or len(finished) > n_finished0:
+            TRACER.add_span("admission", TRACER.epoch_time(admit_t0),
+                            time.perf_counter() - admit_t0, cat="engine",
+                            step=self._cur_step,
+                            queue_depth=queue_depth, admitted=len(admitted),
+                            rejected_capacity=len(finished) - n_finished0)
         if cache_on and admitted:
+            # prefix_cache phase: COW bookkeeping + the owed block copies
+            pc_t0 = time.perf_counter()
             cow = self.mgr.drain_cow_pairs()
             if cow:
                 self.backend.apply_cow(cow)
+            TRACER.add_span("prefix_cache", TRACER.epoch_time(pc_t0),
+                            time.perf_counter() - pc_t0, cat="engine",
+                            hits=self.mgr.cache_hits - hits0,
+                            cached_tokens=self.mgr.cached_tokens_total - cached0,
+                            cow_copies=len(cow))
         return admitted
 
     def _admit(self, finished: List[Request]):
@@ -526,10 +730,14 @@ class InferenceEngine:
                 suffix_lens[j] = len(suffix)
                 sampling[j] = req.sampling
             entries = [(j, req.prompt_ids, c) for j, (_, req, c) in enumerate(group)]
-            t_dev = time.perf_counter()
-            tokens = self.backend.prefill(ids, tables, suffix_lens, entries, sampling,
-                                          [slot for slot, _, _ in group])
-            self._step_device_s += time.perf_counter() - t_dev
+            with TRACER.span("prefill", cat="engine", bucket=padded, batch=len(group),
+                             step=self._cur_step,
+                             req_ids=[r.req_id for _, r, _ in group],
+                             cached_tokens=sum(c for _, _, c in group)):
+                t_dev = time.perf_counter()
+                tokens = self.backend.prefill(ids, tables, suffix_lens, entries, sampling,
+                                              [slot for slot, _, _ in group])
+                self._step_device_s += time.perf_counter() - t_dev
             # goodput: fed = the padded launch geometry; useful = the uncached
             # suffixes minus any re-fed (post-preemption/COW) positions
             acct = self.backend.step_accounting
@@ -585,6 +793,8 @@ class InferenceEngine:
         """One ragged mixed step: up to ``prefill_chunk_tokens`` prompt tokens
         (oldest mid-prefill request first) plus ONE decode token for every
         running sequence, in a single forward."""
+        _F_CHUNK.fire(
+            prefilling=sum(1 for r in self.slots if r is not None and r.needs_prefill))
         # capacity pass: every decoding slot needs a block covering this step's
         # KV write; exhaustion preempts the YOUNGEST active slot
         for slot in sorted([s for s, r in enumerate(self.slots) if r is not None and not r.needs_prefill],
@@ -598,7 +808,7 @@ class InferenceEngine:
                     break
                 active = [s for s, r in enumerate(self.slots) if r is not None]
                 victim = max(active, key=lambda s: self.slots[s].req_id)
-                self._preempt(victim)
+                self._preempt(victim, cause="mixed_capacity")
                 if victim == slot:
                     break
         budget = self.prefill_chunk_tokens
@@ -619,6 +829,8 @@ class InferenceEngine:
             n = min(budget, len(req.prompt_ids) - req.prefilled_len)
             chunk_rows.append((slot, req, n))
             budget -= n
+            RECORDER.record("chunk.grant", req_id=req.req_id, trace=req.trace,
+                            tokens=n, budget_left=budget, step=self._cur_step)
         if not chunk_rows and not decode_rows:
             return
         t0 = time.perf_counter()
@@ -636,10 +848,14 @@ class InferenceEngine:
                      table=self.mgr.table_array(req.req_id), emit=True,
                      sampling=req.sampling, is_chunk=False)
             for slot, req in decode_rows]
-        t_dev = time.perf_counter()
-        with torch.profiler.record_function("mixed_step"):
+        with TRACER.span("mixed_step", cat="engine", step=self._cur_step,
+                         chunks=len(chunk_rows), decodes=len(decode_rows),
+                         chunk_tokens=int(sum(n for _, _, n in chunk_rows)),
+                         req_ids=[r.req_id for _, r, _ in chunk_rows]), \
+                torch.profiler.record_function("mixed_step"):
+            t_dev = time.perf_counter()
             tokens = self.backend.mixed_step(chunk_payload, dec_payload)
-        self._step_device_s += time.perf_counter() - t_dev
+            self._step_device_s += time.perf_counter() - t_dev
         dur = time.perf_counter() - t0
         # goodput accounting BEFORE settle mutates prefilled_len/total_len
         acct = self.backend.step_accounting
@@ -659,6 +875,11 @@ class InferenceEngine:
         self.ledger.record("mixed", acct["fed"], g_useful,
                            padding=acct["fed"] - g_useful - g_rework,
                            rework=g_rework, rework_by=g_by or None)
+        if chunk_rows:
+            # every decode token in this step waited out the chunk work: the
+            # step duration is each riding request's decode-stall share
+            for _slot, req in decode_rows:
+                req.chunk_stall_s += dur
         for j, (slot, req, n) in enumerate(chunk_rows):
             req.prefilled_len += n
             self.chunk_stats["chunks"] += 1
@@ -672,12 +893,17 @@ class InferenceEngine:
             # every decode token in this step waited out the chunk work
             self.recent_decode_stalls.append((next(self._chunk_seq), dur))
 
-    def _preempt(self, slot: int):
+    def _preempt(self, slot: int, cause: str = "decode_growth"):
         """Evict + requeue with prompt+generated as the new prompt (recompute
-        recovery)."""
+        recovery). ``cause`` names which capacity pass chose the victim."""
         req = self.slots[slot]
         logger.warning(f"req {req.req_id}: KV blocks exhausted; preempting (recompute)")
         self.num_preemptions += 1
+        RECORDER.record("preempt", req_id=req.req_id, trace=req.trace,
+                        reason=cause, generated=len(req.output_ids),
+                        free_blocks=self.mgr.num_free)
+        TRACER.instant("preempt", cat="engine", trace=req.trace, req_id=req.req_id,
+                       generated=len(req.output_ids), free_blocks=self.mgr.num_free)
         self._free_kv(req)
         self.slots[slot] = None
         req.prompt_ids = np.concatenate([req.prompt_ids, np.asarray(req.output_ids, np.int32)])
@@ -718,11 +944,13 @@ class InferenceEngine:
             ctx[i] = req.total_len - 1  # position of the token being fed
             done0[i] = False
             remaining[i] = req.remaining_new
-        t_dev = time.perf_counter()
-        with torch.profiler.record_function("decode"):
+        with TRACER.span("decode", cat="engine", steps=steps, step=self._cur_step,
+                         active=int(sum(1 for r in self.slots if r is not None))), \
+                torch.profiler.record_function("decode"):
+            t_dev = time.perf_counter()
             toks, valid = self.backend.decode(tokens, tables, ctx, done0, remaining,
                                               [None if r is None else r.sampling for r in self.slots])
-        self._step_device_s += time.perf_counter() - t_dev
+            self._step_device_s += time.perf_counter() - t_dev
         n_emitted = 0
         for s in range(toks.shape[0]):
             for i, req in enumerate(self.slots):
@@ -731,6 +959,10 @@ class InferenceEngine:
                 self._emit(req, int(toks[s, i]))
                 self._last_token[i] = int(toks[s, i])
                 n_emitted += 1
+                # per-tenant fold: each emitted decode token consumed one fed
+                # position (this path bypasses _note_fed_span)
+                self._tenant_counts(req.tenant)["useful"] += 1
+                req.useful_tokens += 1
         # goodput: the decode call always burns B x decode_steps positions;
         # every emitted token is one useful fed position, the rest is padding
         acct = self.backend.step_accounting
@@ -752,14 +984,26 @@ class InferenceEngine:
                 self.mgr.shrink(req.req_id, req.total_len)
 
     def _emit(self, req: Request, tok: int):
-        if req.first_token_t is None:
-            req.first_token_t = time.time()
-        req.output_ids.append(tok)
-        is_eos = tok in self.eos_ids
-        hit_max = req.gen_offset + len(req.output_ids) >= req.sampling.max_new_tokens
-        req.done = is_eos or hit_max
-        if req.done:
-            req.finish_t = time.time()
-            req.finish_reason = "stop" if is_eos else "length"
-        if req.stream_cb is not None:
-            req.stream_cb(tok, req.done)
+        try:
+            if req.first_token_t is None:
+                req.first_token_t = time.time()
+            req.output_ids.append(tok)
+            self._tenant_counts(req.tenant)["tokens_out"] += 1
+            is_eos = tok in self.eos_ids
+            hit_max = req.gen_offset + len(req.output_ids) >= req.sampling.max_new_tokens
+            req.done = is_eos or hit_max
+            if req.done:
+                req.finish_t = time.time()
+                req.finish_reason = "stop" if is_eos else "length"
+            if req.stream_cb is not None:
+                req.stream_cb(tok, req.done)
+        except Exception as e:
+            # per-request host failure (a poisoned stream callback): attribute
+            # it so the serving supervisor can quarantine THIS slot instead of
+            # rebuilding the whole engine
+            if getattr(e, "req_id", None) is None:
+                try:
+                    e.req_id = req.req_id
+                except Exception:
+                    pass
+            raise

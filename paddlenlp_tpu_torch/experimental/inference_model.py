@@ -165,8 +165,14 @@ class PagedInferenceModel:
         self.head_dim = cfg.head_dim
         self.inv_freq = torch.from_numpy(rope_frequencies(self.head_dim, cfg.rope_theta, cfg.rope_scaling)) \
             .to(self.device)
-        params = model.params
-        self._layers = [layer_params(params["model"]["layers"], i) for i in range(cfg.num_hidden_layers)]
+        self.bind_params()
+
+    def bind_params(self):
+        """Per-layer views of ``model.params``; called again after a weight
+        swap rebinds the tree (the embedding, final norm and head are read
+        from ``model.params`` on every call)."""
+        layers = self.model.params["model"]["layers"]
+        self._layers = [layer_params(layers, i) for i in range(self.config.num_hidden_layers)]
 
     def _mm(self, p, x):
         y = x @ p["kernel"].to(self.dtype)

@@ -4,15 +4,18 @@ Megatron-style ``Timers`` :96, ``RuntimeTimer`` :70; wired as
 
 Port of ``paddlenlp_tpu/trainer/timer.py``. The card runs asynchronously: a
 timer stop given ``block_on`` (a tensor) synchronizes its CUDA device first,
-so the phase measures device work, not the enqueue. The JAX package also
-lands every stop as a span in its tracer; the tracer is not part of the port
-yet (ROADMAP Queue 1 item 7).
+so the phase measures device work, not the enqueue. Every stop also lands
+as a span in the observability tracer (trace id ``train``), with the device
+sync as its own ``block_until_ready`` span, so the trainer's phases show up
+in ``/debug/trace`` Chrome timelines as in the JAX package.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Dict, Optional
+
+from ..observability.tracer import TRACER
 
 __all__ = ["Timers", "RuntimeTimer"]
 
@@ -36,8 +39,16 @@ class _Timer:
         if device is not None and device.type == "cuda":
             import torch
 
+            t_sync = time.perf_counter()
             torch.cuda.synchronize(device)
-        self._elapsed += time.perf_counter() - self._started
+            TRACER.add_span("block_until_ready", TRACER.epoch_time(t_sync),
+                            time.perf_counter() - t_sync, cat="trainer",
+                            trace="train", phase=self.name)
+        t_end = time.perf_counter()
+        # spans are named by the caller's timer name (e.g. "forward-backward")
+        TRACER.add_span(self.name, TRACER.epoch_time(self._started),
+                        t_end - self._started, cat="trainer", trace="train")
+        self._elapsed += t_end - self._started
         self._started = None
         self.count += 1
 

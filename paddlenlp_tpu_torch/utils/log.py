@@ -7,8 +7,9 @@ rank 0 logs at INFO by default.
 
 Structured mode: ``PDNLP_TPU_LOG_JSON=1`` switches the formatter to one JSON
 object per line (``ts``/``level``/``logger``/``msg``/``file``/``line`` [+
-``exc``]) so serving and trainer logs are machine-parseable — the shape log
-shippers (fluentbit/vector) and ``jq`` expect. ``logger.set_json(True)``
+``exc``] [+ ``trace`` inside a traced serving request]) so serving and
+trainer logs are machine-parseable — the shape log shippers
+(fluentbit/vector) and ``jq`` expect. ``logger.set_json(True)``
 toggles it at runtime.
 """
 
@@ -38,6 +39,18 @@ def _process_index() -> int:
     return int(os.environ.get("RANK", "0"))
 
 
+def _ambient_trace():
+    """Active span-tracer trace id (None outside a traced request). Imported
+    lazily: observability pulls this module in at import time, so a top-level
+    import here would be circular."""
+    try:
+        from ..observability.tracer import current_trace
+
+        return current_trace()
+    except Exception:
+        return None
+
+
 class _ColorFormatter(logging.Formatter):
     def format(self, record):  # noqa: A003
         color = _COLORS.get(record.levelname, "")
@@ -60,6 +73,9 @@ class _JsonFormatter(logging.Formatter):
             "file": record.pathname.split("/")[-1],
             "line": record.lineno,
         }
+        trace = _ambient_trace()
+        if trace is not None:
+            out["trace"] = trace
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
         return json.dumps(out, default=str)
