@@ -20,8 +20,9 @@ Serving, the paged engine at Qwen2-7B width and depth:
               prefill chunks, decode rows at contexts up to 4096 and a dead
               row, with bf16 queries over bf16, int8 and fp8 pools and with
               fp32 queries over an fp32 pool; the monolithic-prefill shape,
-              2048 query tokens at contexts up to 2048; and the engine's
-              decode call, 8 rows of one token at contexts 256-2112. bf16 over
+              2048 query tokens at contexts up to 2048; the engine's decode
+              call, 8 rows of one token at contexts 256-2112; and the
+              speculative verify, 8 rows of 5 tokens. bf16 over
               bf16 takes the Hopper kernel (``paged_attention_sm90.cu``, split
               kv walk in decode), the rest the SIMT kernel
               (``paged_attention.cu``), and each case checks its route; the
@@ -48,10 +49,36 @@ Serving, the paged engine at Qwen2-7B width and depth:
               paged kernel; two in-process weight swaps with their canary
               digests and a refused uncommitted checkpoint; every paged
               launch on the Hopper route;
+8. spec    -- speculative decoding on the same model and engine settings:
+              (a) the n-gram proposer (4 drafts, 2-grams) on 8 greedy
+              requests of 512-960 extractive tokens (a random 128-token
+              segment repeated), 64 new tokens each, against the same
+              engine without speculation; (b) a Qwen2-0.5B draft model at
+              its published widths (vocabulary cut to the target's) on 4
+              requests of 256-512 tokens, 32 new tokens, greedy and
+              sampled (temperature 0.9, rejection sampling); (c) the engine
+              phase's mix with speculation on, which falls back to the
+              plain decode while its two samplers run. Random weights do
+              not continue a prompt's text, so the n-gram runs may find
+              nothing to draft and keep to the plain decode. Greedy streams
+              equal those without speculation (a first divergence passes
+              only within the bf16 gate, printed with its fp32 margin);
+              emitted = accepted + one a live row a verify step; the ledger
+              conserved; every verify launch on the Hopper paged kernel and
+              every draft forward on the Hopper flash kernel; the draft's
+              attention launch (q [4, L, 14, 64]) against its plain version;
+9. host_tier -- the host KV tier: a 256-block pool over a 512-block tier
+              against a 2048-block pool that never evicts (and the small
+              pool without the tier): turn 1 of 1024 tokens, a flood that
+              evicts it, turn 2 on turn 1 and its output, twice; turn 2 promotes
+              >= 60 blocks, holds the spilled bytes and streams the
+              never-evicting engine's tokens; D2H and H2D rates, turn-2
+              TTFT against a cold re-prefill; then the same as a chat over
+              HTTP, whose turn 2 counts the promoted span as cached;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-8. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+10. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -61,11 +88,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-9. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+11. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-10. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+12. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -73,9 +100,10 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
-11. train_profile -- ``torch.profiler`` over one more training step;
-12. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs and the serve phase) and the training run, each on
+13. train_profile -- ``torch.profiler`` over one more training step;
+14. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, spec and host_tier phases) and the
+              training run (and the spec phase's draft forwards), each on
               its own route, and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
@@ -151,11 +179,16 @@ BATCHES = {
     # the decode call: 8 rows of one token at contexts 256-2112 (prompts of
     # 256-2048 tokens and up to 64 new ones), the launch the engine makes most
     "decode": (1, [255, 511, 767, 1023, 1279, 1535, 1791, 2111], [1] * 8),
+    # the speculative verify: 8 rows of K + 1 = 5 tokens (the last accepted
+    # one and 4 drafts) at the spec phase's contexts (prompts of 512-960
+    # tokens, ~32 tokens into their 64 new ones)
+    "verify": (5, [543, 607, 671, 735, 799, 863, 927, 991], [5] * 8),
 }
 # (batch, query dtype, pool) of every case the kernel phase checks: bf16
 # queries over a bf16 pool, the main path's types, take the Hopper kernel
 CASES = [("ragged", "bfloat16", "bf16"), ("ragged", "bfloat16", "int8"), ("ragged", "bfloat16", "fp8"),
-         ("ragged", "float32", "fp32"), ("prefill", "bfloat16", "bf16"), ("decode", "bfloat16", "bf16")]
+         ("ragged", "float32", "fp32"), ("prefill", "bfloat16", "bf16"), ("decode", "bfloat16", "bf16"),
+         ("verify", "bfloat16", "bf16")]
 
 
 def kernel_case(torch, quantize_kv, batch, q_dtype, kv, seed):
@@ -299,7 +332,8 @@ def traffic(np, vocab, seed):
     return prompts, sampled
 
 
-def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, chunk):
+def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, chunk, streams=None):
+    """``streams``, when given, receives each prompt's output ids."""
     prompts, sampled = traffic(np, model.config.vocab_size, seed)
     eng = InferenceEngine(model, max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256,
                           prefill_chunk_tokens=chunk)
@@ -342,6 +376,8 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
     launches, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
     check(sum(by_shape.values()) == launches, f"engine: {by_shape} counted, {launches} launched")
     check(len(done) == 8, f"engine: {len(done)} of 8 requests finished")
+    if streams is not None:
+        streams.update({r.req_id: list(r.output_ids) for r in done})  # req i serves prompt i
     out_tokens = sum(len(r.output_ids) for r in done)
     vocab = model.config.vocab_size
     for r in done:
@@ -778,6 +814,548 @@ def phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, 
     emit(res)
     check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
           f"serve: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
+    del server, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------------- spec
+# Qwen/Qwen2-0.5B config.json (https://huggingface.co/Qwen/Qwen2-0.5B/blob/main/config.json): the draft model
+QWEN2_0_5B = dict(
+    vocab_size=151936, hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+    num_attention_heads=14, num_key_value_heads=2, max_position_embeddings=131072,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, hidden_act="silu", initializer_range=0.02,
+    tie_word_embeddings=True, use_sliding_window=False, sliding_window=131072, max_window_layers=24,
+    bos_token_id=151643, eos_token_id=151643,
+)
+SPEC_K = 4  # spec_draft_len of every speculative run
+SERVE_ENGINE = dict(max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256)
+
+
+def divergence(torch, model, prompt, got, want):
+    """None when two greedy streams are equal. Otherwise their first
+    divergent position, with the two tokens' fp32 logits there from the
+    plain dense forward over the common prefix, their margin and the bf16
+    gate ``2**-7 * |logit| + 1e-3``: a bf16 verify over [8, 5] rows and a
+    decode over [8, 1] rows run GEMMs of different M, so a near-tie may take
+    the other token. Only a divergence within the gate passes."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        check(len(got) == len(want), f"streams of {len(got)} and {len(want)} tokens share every position")
+        return None
+    ids = torch.tensor([[int(t) for t in prompt] + list(want[:j])], device=DEVICE)
+    row = model(ids, dtype=torch.float32)[0, -1]
+    la, lb = row[got[j]].item(), row[want[j]].item()
+    margin, gate = abs(la - lb), 2**-7 * max(abs(la), abs(lb)) + 1e-3
+    del row
+    return dict(position=j, tokens=[got[j], want[j]], logits=[la, lb], margin=margin, gate=gate,
+                within_gate=margin <= gate)
+
+
+def serve_waves(torch, eng, prompts, sp_of, waves):
+    """Serve ``prompts`` on ``eng``, wave after wave (each wave runs to
+    completion); returns ({prompt index: Request}, wall s)."""
+    index, done = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:
+        for i in wave:
+            index[eng.add_request(prompts[i], sp_of(i))] = i
+        while eng.has_work():
+            for r in eng.step():
+                done[index[r.req_id]] = r
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def latency(done, wall):
+    ttft = [r.ttft * 1e3 for r in done.values()]
+    tpot = [r.decode_time / (len(r.output_ids) - 1) * 1e3 for r in done.values() if len(r.output_ids) > 1]
+    n = sum(len(r.output_ids) for r in done.values())
+    return dict(requests=len(done), output_tokens=n, wall_s=wall, tokens_per_s=n / wall,
+                ttft_ms_p50=pct(ttft, 0.5), ttft_ms_p99=pct(ttft, 0.99),
+                tpot_ms_p50=pct(tpot, 0.5), tpot_ms_p99=pct(tpot, 0.99))
+
+
+class SpecProbe:
+    """Counts a speculative engine's work, without changing it: the verify
+    forwards (device ms by CUDA events; the call syncs anyway) and the rows
+    they carry, the draft forwards and their buffer lengths, every paged
+    launch of verify's shape and whether it took the Hopper route, and
+    whether a verify ran with a sampled request in the batch."""
+
+    def __init__(self, torch, eng, pa):
+        self.verify_ms, self.draft_ms, self.draft_buckets = [], [], []
+        self.live_rows = self.verify_launches = self.verify_sm90 = self.sampled_verifies = 0
+        real_verify, real_draft, real_spec = eng.backend.verify, eng._draft_rows, eng._decode_spec
+        infer_module = sys.modules[type(eng.infer).__module__]
+        self._restore = [(eng.backend, "verify", real_verify), (eng, "_draft_rows", real_draft),
+                         (eng, "_decode_spec", real_spec),
+                         (infer_module, "ragged_paged_attention", infer_module.ragged_paged_attention)]
+
+        def timed(fn, into, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            into.append(start.elapsed_time(end))
+            return out
+
+        def verify(tokens, tables, start, need_logits):
+            self.live_rows += int((tables[:, 0] != 0).sum())
+            return timed(real_verify, self.verify_ms, tokens, tables, start, need_logits=need_logits)
+
+        def draft(ids, pos):
+            self.draft_buckets.append(int(ids.shape[1]))
+            return timed(real_draft, self.draft_ms, ids, pos)
+
+        def spec(finished, drafts, qprobs=None, mode="greedy"):
+            self.sampled_verifies += any(r is not None and r.sampling.do_sample for r in eng.slots) \
+                and mode == "greedy"
+            return real_spec(finished, drafts, qprobs, mode)
+
+        kernel = infer_module.ragged_paged_attention
+
+        def counted(q, *args, **kwargs):
+            if q.shape[1] != SPEC_K + 1:
+                return kernel(q, *args, **kwargs)
+            before = pa.LAUNCHES_SM90
+            out = kernel(q, *args, **kwargs)
+            self.verify_launches += 1
+            self.verify_sm90 += pa.LAUNCHES_SM90 - before
+            return out
+
+        eng.backend.verify, eng._draft_rows, eng._decode_spec = verify, draft, spec
+        infer_module.ragged_paged_attention = counted
+
+    def close(self):
+        for obj, name, fn in self._restore:
+            setattr(obj, name, fn)
+
+
+def spec_run(torch, pa, fa, model, eng, prompts, sp_of, waves):
+    """Serve ``prompts`` on a speculative engine with every kernel count set
+    to 0 just before and read just after; check the engine's bookkeeping."""
+    probe = SpecProbe(torch, eng, pa)
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90):
+        counts["fwd"] = 0
+    try:
+        done, wall = serve_waves(torch, eng, prompts, sp_of, waves)
+    finally:
+        probe.close()
+    s = dict(eng.spec_stats)
+    layers = model.config.num_hidden_layers
+    # tokens a verify forward emits, over its whole batch and a row
+    out = dict(latency(done, wall), spec_stats=s, tokens_per_verify=s["tokens_emitted"] / max(s["verify_steps"], 1),
+               verify_row_steps=probe.live_rows, tokens_per_row_verify=s["tokens_emitted"] / max(probe.live_rows, 1),
+               acceptance_rate=s["accepted"] / max(s["drafted"], 1),
+               verify_ms_per_step=sum(probe.verify_ms) / max(len(probe.verify_ms), 1),
+               paged_launches=pa.LAUNCHES, paged_sm90_launches=pa.LAUNCHES_SM90,
+               verify_launches=probe.verify_launches, verify_sm90_launches=probe.verify_sm90,
+               flash_fwd_launches=fa.LAUNCHES["fwd"], flash_fwd_sm90_launches=fa.LAUNCHES_SM90["fwd"],
+               ledger=eng.ledger.snapshot()["totals"])
+    if probe.draft_ms:
+        out.update(draft_forwards=len(probe.draft_ms), draft_buckets=sorted(set(probe.draft_buckets)),
+                   draft_ms_per_forward=sum(probe.draft_ms) / len(probe.draft_ms),
+                   draft_ms_per_step=sum(probe.draft_ms) / max(s["verify_steps"], 1))
+    for i, r in done.items():
+        check(r.finish_reason in ("length", "stop"), f"spec: request {i} ended {r.finish_reason}")
+        check(r.finish_reason == "stop" or len(r.output_ids) == r.sampling.max_new_tokens, f"spec: request {i} short")
+    check(eng.ledger.verify_conservation(), "spec: goodput ledger conservation broken")
+    t = out["ledger"]
+    check(t["fed"] == t["useful"] + t["padding"] + t["spec_rejected"] + t["rework"],
+          f"spec: fed != useful + padding + spec_rejected + rework: {t}")
+    check(s["drafted"] >= s["accepted"], f"spec: accepted more than drafted: {s}")
+    check(t["spec_rejected"] == s["drafted"] - s["accepted"], f"spec: ledger spec_rejected {t} vs {s}")
+    # each verify step emits its accepted drafts plus one token a live row
+    # (no draft runs past a request's budget); a stop id ends a row early
+    stopped = any(r.finish_reason == "stop" for r in done.values())
+    check(s["tokens_emitted"] == s["accepted"] + probe.live_rows
+          or (stopped and s["tokens_emitted"] < s["accepted"] + probe.live_rows),
+          f"spec: {s['tokens_emitted']} tokens emitted, {s['accepted']} accepted + {probe.live_rows} row-steps")
+    check(probe.sampled_verifies == 0, f"spec: {probe.sampled_verifies} greedy verifies with a sampler in the batch")
+    check(probe.verify_launches == s["verify_steps"] * layers and probe.verify_sm90 == probe.verify_launches,
+          f"spec: {probe.verify_sm90} of {probe.verify_launches} verify launches on the Hopper route "
+          f"({s['verify_steps']} verify steps x {layers} layers)")
+    check(pa.LAUNCHES_SM90 == pa.LAUNCHES, f"spec: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} paged launches on the "
+          "Hopper route")
+    check(fa.LAUNCHES_SM90["fwd"] == fa.LAUNCHES["fwd"],
+          f"spec: {fa.LAUNCHES_SM90['fwd']} of {fa.LAUNCHES['fwd']} flash forwards on the Hopper route")
+    if probe.draft_ms:
+        per = eng.draft_model.config.num_hidden_layers
+        check(fa.LAUNCHES["fwd"] == len(probe.draft_ms) * per,
+              f"spec: {fa.LAUNCHES['fwd']} flash forwards for {len(probe.draft_ms)} draft forwards x {per} layers")
+    return done, out
+
+
+def compare_greedy(torch, model, prompts, got, want, greedy, what):
+    """Greedy streams with speculation against those without: equal, or a
+    first divergence within the bf16 gate (printed)."""
+    diverged = {}
+    for i in greedy:
+        d = divergence(torch, model, prompts[i], got[i], want[i])
+        if d is not None:
+            diverged[i] = d
+            check(d["within_gate"], f"spec {what}: request {i} diverges at {d['position']} outside the bf16 gate: {d}")
+    return dict(equal=sum(1 for i in greedy if i not in diverged), of=len(greedy), diverged=diverged)
+
+
+def spec_step_device_ms(torch, model, draft, InferenceEngine, SamplingParams, prompts):
+    """Device time of one speculative step by part: ``torch.profiler`` over
+    two steps of a draft-model engine past admission, each part's kernels
+    read off its ``record_function`` range (``spec_propose``: the draft's
+    forwards; ``spec_verify``: the verify forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = InferenceEngine(model, **SERVE_ENGINE, draft_model=draft, spec_draft_len=SPEC_K)
+    for p in prompts:
+        eng.add_request(p, SamplingParams(max_new_tokens=16))
+    eng.step()  # admission: the prefill and a first speculative step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    out = dict(steps=2, wall_ms_per_step=wall_ms)
+    for e in prof.key_averages():
+        if e.key in ("spec_propose", "spec_verify") and e.device_type == DeviceType.CPU:
+            out[e.key] = e.device_time_total / 1e3 / 2
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    out["all_kernels"] = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    del eng
+    return out
+
+
+def verify_vs_decode(torch, np, model, seed):
+    """Row 0 of a [8, 5] verify forward against a [8, 1] decode forward over
+    the same pool (8 rows after 300-559-token prompts), with the verify's
+    projections one GEMM a position (the engine's layout) and one GEMM over
+    all 40 rows: bitwise equal, largest logit difference, argmaxes equal."""
+    from paddlenlp_tpu_torch.experimental import PagedInferenceModel
+    from paddlenlp_tpu_torch.experimental.paged_cache import PagedKVPool, init_paged_pool
+
+    B, mb, bs = 8, 48, 16
+    infer = PagedInferenceModel(model, bs, B * mb + 1, mb, dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed + 7)
+    lens = [300 + 37 * i for i in range(B)]
+    tables = torch.arange(1, B * mb + 1, dtype=torch.int32, device=DEVICE).reshape(B, mb)
+    S = mb * bs
+    s_ar = torch.arange(S, device=DEVICE)[None]
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    pool = init_paged_pool(model.config, B * mb + 1, bs, dtype=torch.bfloat16, device=DEVICE)
+    last = []
+    for i, n in enumerate(lens):
+        ids = torch.tensor(rng.integers(8, model.config.vocab_size, (1, n)), dtype=torch.int32, device=DEVICE)
+        logits = infer._forward(pool, ids, tables[i: i + 1], torch.arange(n, device=DEVICE)[None], s_ar < n,
+                                i32([0]), i32([n - 1]), q_lens=i32([n]))
+        last.append(int(logits.argmax()))
+    start, tok = i32(lens), i32(last)
+    decode = infer._forward(PagedKVPool(kv=pool.kv.clone()), tok[:, None], tables, start[:, None],
+                            s_ar <= start[:, None], start, torch.zeros(B, dtype=torch.int32, device=DEVICE)).float()
+    drafts = torch.tensor(rng.integers(8, model.config.vocab_size, (B, 4)), dtype=torch.int32, device=DEVICE)
+    out = {}
+    for layout, per_position in (("one_gemm_a_position", True), ("one_gemm", False)):
+        verify = infer._forward(PagedKVPool(kv=pool.kv.clone()), torch.cat([tok[:, None], drafts], 1), tables,
+                                start[:, None] + torch.arange(5, device=DEVICE)[None], s_ar <= start[:, None] + 4,
+                                start, None, per_position=per_position)[:, 0].float()
+        out[layout] = dict(bitwise=bool(torch.equal(verify, decode)), max_abs=(verify - decode).abs().max().item(),
+                           argmax_equal=int((verify.argmax(-1) == decode.argmax(-1)).sum().item()), rows=B)
+    del pool, decode, verify
+    torch.cuda.empty_cache()
+    return out
+
+
+def draft_flash_case(torch, fa, L, seed):
+    """The draft's attention launch, q [4, L, 14, 64] bf16 over k/v
+    [4, L, 2, 64] causal, through the Hopper flash forward against its plain
+    version; times against the bound, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, N, K, H = 4, QWEN2_0_5B["num_attention_heads"], QWEN2_0_5B["num_key_value_heads"], 64
+    q = torch.randn(B, L, N, H, generator=g, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn(B, L, K, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    sm90 = fa.LAUNCHES_SM90["fwd"]
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    check(fa.LAUNCHES_SM90["fwd"] == sm90 + 1, "draft flash: the bf16 forward did not take the Hopper route")
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v)
+    errs = flash_worst(torch, dict(out=out, lse=lse), dict(out=ref_out, lse=ref_lse), "bfloat16")
+    for t, e in errs.items():
+        check(e["finite"] and e["worst"] <= 1.0, f"draft flash: {t} exceeds its bound: {e}")
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    ms = time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v), 20, flush)
+    plain_ms = time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v), 3, flush)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                                             enable_gqa=True), 20, flush)
+    bound_ms, bound_by = flash_bound(torch, fa, q, k, None, None, "fwd")
+    del flush, q, k, v, out, lse, ref_out, ref_lse, qh, kh, vh
+    torch.cuda.empty_cache()
+    return dict(q=[B, L, N, H], kv=[B, L, K, H], errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()),
+                max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_spec(torch, np, model, pa, fa, InferenceEngine, SamplingParams, Qwen2ForCausalLM, Qwen2Config,
+               mono_streams, seed):
+    """Speculative decoding on the Qwen2-7B engine: (a) the n-gram proposer
+    on 8 extractive prompts, greedy, against the same engine settings
+    without speculation; (b) a Qwen2-0.5B draft model, greedy and sampled;
+    (c) the engine phase's mix (2 seeded top-p samplers among 8) with
+    speculation on, against the engine phase's streams."""
+    vocab = model.config.vocab_size
+    res = dict(phase="spec", config="Qwen/Qwen2-7B", engine=SERVE_ENGINE, spec_draft_len=SPEC_K)
+    launches = dict(paged=0, paged_sm90=0, flash_fwd=0, flash_fwd_sm90=0)
+
+    def tally(out):
+        for key, field in (("paged", "paged_launches"), ("paged_sm90", "paged_sm90_launches"),
+                           ("flash_fwd", "flash_fwd_launches"), ("flash_fwd_sm90", "flash_fwd_sm90_launches")):
+            launches[key] += out[field]
+
+    # (a) n-gram, greedy: prompts of 512-960 tokens, each a random 128-token
+    # segment repeated; 64 new tokens each. Random weights do not continue
+    # the segment, so the proposer may find no n-gram to draft from: the
+    # engine then keeps to the plain decode, which this run reports
+    rng = np.random.default_rng(seed + 4)
+    prompts = [np.tile(rng.integers(8, vocab, 128), 8)[: 512 + 64 * i] for i in range(8)]
+    greedy = lambda i: SamplingParams(max_new_tokens=64)  # noqa: E731
+    plain_done, plain_wall = serve_waves(torch, InferenceEngine(model, **SERVE_ENGINE), prompts, greedy, [range(8)])
+    eng = InferenceEngine(model, **SERVE_ENGINE, use_speculative=True, spec_draft_len=SPEC_K, spec_ngram=2)
+    done, ngram = spec_run(torch, pa, fa, model, eng, prompts, greedy, [range(8)])
+    del eng
+    tally(ngram)
+    ngram["without_spec"] = latency(plain_done, plain_wall)
+    # where the proposer could have drafted: positions of the plain streams
+    # whose last 2 tokens occurred earlier in prompt + stream
+    hits = 0
+    for i, r in plain_done.items():
+        hist = [int(t) for t in prompts[i]] + list(r.output_ids)
+        seen = {tuple(hist[j: j + 2]) for j in range(len(prompts[i]) - 1)}
+        for j in range(len(prompts[i]), len(hist)):
+            hits += tuple(hist[j - 1: j + 1]) in seen
+            seen.add(tuple(hist[j - 1: j + 1]))
+    ngram["plain_positions_with_an_earlier_2gram"] = hits
+    ngram["greedy_vs_without"] = compare_greedy(
+        torch, model, prompts, {i: r.output_ids for i, r in done.items()},
+        {i: r.output_ids for i, r in plain_done.items()}, range(8), "ngram")
+    res["ngram"] = dict(ngram, prompt_tokens=[len(p) for p in prompts], spec_ngram=2)
+    torch.cuda.empty_cache()
+
+    # (b) a Qwen2-0.5B draft: 4 requests of 256-512 prompt tokens, 32 new
+    # tokens, greedy and then sampled
+    dcfg = Qwen2Config(**dict(QWEN2_0_5B, vocab_size=vocab))
+    draft = Qwen2ForCausalLM.init_random(dcfg, seed=seed + 1, device=DEVICE, dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed + 5)
+    d_prompts = [rng.integers(8, vocab, n) for n in (256, 320, 448, 512)]
+    short = lambda i: SamplingParams(max_new_tokens=32)  # noqa: E731
+    sampled = lambda i: SamplingParams(max_new_tokens=32, do_sample=True, temperature=0.9, top_k=0, top_p=1.0,  # noqa: E731
+                                       seed=20 + i)
+    plain_done, plain_wall = serve_waves(torch, InferenceEngine(model, **SERVE_ENGINE), d_prompts, short, [range(4)])
+    runs = {}
+    for mode, sp_of in (("greedy", short), ("sampled", sampled)):
+        eng = InferenceEngine(model, **SERVE_ENGINE, draft_model=draft, spec_draft_len=SPEC_K)
+        runs[mode] = spec_run(torch, pa, fa, model, eng, d_prompts, sp_of, [range(4)])
+        del eng
+        tally(runs[mode][1])
+        check(runs[mode][1]["spec_stats"]["verify_steps"] > 0, f"spec draft {mode}: no verify step ran")
+    draft_model = dict(config="Qwen/Qwen2-0.5B", params=draft.num_parameters(),
+                       reduced=dict(vocab_size=dict(published=QWEN2_0_5B["vocab_size"], run=vocab,
+                                                    why="the target's (Qwen2-7B) vocabulary, so that rejection "
+                                                        "sampling's p - q shares one support")),
+                       without_spec=latency(plain_done, plain_wall), prompt_tokens=[len(p) for p in d_prompts])
+    draft_model["greedy"] = dict(runs["greedy"][1], greedy_vs_without=compare_greedy(
+        torch, model, d_prompts, {i: r.output_ids for i, r in runs["greedy"][0].items()},
+        {i: r.output_ids for i, r in plain_done.items()}, range(4), "draft greedy"))
+    draft_model["sampled"] = dict(runs["sampled"][1], temperature=0.9, top_k=0, top_p=1.0)
+    buckets = runs["greedy"][1]["draft_buckets"] + runs["sampled"][1]["draft_buckets"]
+    L = max(set(buckets), key=buckets.count)
+    draft_model["device_ms_per_step"] = spec_step_device_ms(torch, model, draft, InferenceEngine, SamplingParams,
+                                                            d_prompts)
+    del draft
+    torch.cuda.empty_cache()
+    draft_model["flash_kernel"] = draft_flash_case(torch, fa, L, seed)
+    res["draft_model"] = draft_model
+
+    # (c) the engine phase's mix with speculation on: it falls back to the
+    # plain decode while a sampler is in the batch; streams equal the engine
+    # phase's (samplers exactly, greedy ones up to the bf16 gate)
+    mix, samplers = traffic(np, vocab, seed)
+
+    def mix_sp(i):
+        if i in samplers:
+            return SamplingParams(max_new_tokens=64, do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
+        return SamplingParams(max_new_tokens=64)
+
+    eng = InferenceEngine(model, **SERVE_ENGINE, use_speculative=True, spec_draft_len=SPEC_K)
+    done, mixed = spec_run(torch, pa, fa, model, eng, mix, mix_sp, [[0], range(1, 8)])
+    del eng
+    tally(mixed)
+    got = {i: r.output_ids for i, r in done.items()}
+    for i in samplers:
+        check(got[i] == mono_streams[i], f"spec mix: sampled request {i} differs from the engine phase's stream")
+    mixed["streams_vs_engine_phase"] = dict(
+        samplers_equal=len(samplers),
+        greedy=compare_greedy(torch, model, mix, got, mono_streams, [i for i in range(8) if i not in samplers], "mix"))
+    res["engine_mix"] = mixed
+    res["verify_layout"] = verify_vs_decode(torch, np, model, seed)
+    res["launches"] = launches
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------------- host tier
+def host_conversation(torch, np, eng, turn1, flood, more, sp, bs):
+    """Turn 1, a flood that evicts it (on a small pool), turn 2 on turn 1 and
+    its output; the host tier's checks where the engine has one."""
+    tier = eng._host_tier
+    done1, _ = serve_waves(torch, eng, [turn1], lambda i: sp, [[0]])
+    out1 = done1[0].output_ids
+    history = np.concatenate([turn1, np.asarray(out1[:-1], np.int32)])  # the last token was never fed
+    hashes = eng.mgr._chain_hashes(history, len(history) // bs)
+    turn1_blocks = eng.pool.kv[:, :, [eng.mgr._index[h] for h in hashes]].clone() if tier is not None else None
+    t0 = time.perf_counter()
+    for p in flood:
+        eng.add_request(p, sp)
+    while eng.has_work():
+        eng.step()
+    flood_s = time.perf_counter() - t0
+    left = sum(h in eng.mgr._index for h in hashes)
+    promoted0 = tier.stats["promoted_blocks"] if tier is not None else 0
+    turn2 = np.concatenate([turn1, np.asarray(out1, np.int32), more])
+    eng.add_request(turn2, sp)
+    finished = []
+    while eng.has_work():
+        finished += eng.step()
+    r2 = finished[0]
+    torch.cuda.synchronize()
+    run = dict(turn1=out1, turn2=r2.output_ids, turn2_ttft_ms=r2.ttft * 1e3, turn2_cached_tokens=r2.cached_tokens,
+               turn2_prompt_tokens=len(turn2), flood_s=flood_s, history_blocks=len(hashes),
+               history_blocks_left_after_flood=left)
+    if tier is not None:
+        run["promoted_blocks"] = tier.stats["promoted_blocks"] - promoted0
+        check(run["promoted_blocks"] >= 60, f"host_tier: turn 2 promoted {run['promoted_blocks']} blocks (< 60)")
+        now = eng.pool.kv[:, :, [eng.mgr._index[h] for h in hashes]]
+        check(torch.equal(now, turn1_blocks), "host_tier: promoted blocks differ from the bytes spilled")
+        check(not (set(eng.mgr._index) & set(tier._entries)), "host_tier: a hash resident in both tiers")
+        del now, turn1_blocks
+    mgr = eng.mgr
+    check(not mgr.tables and len(mgr.free) + len(mgr._lru) == mgr.total_usable_blocks, "host_tier: blocks leaked")
+    return run
+
+
+def phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, seed):
+    """The host KV tier at Qwen2-7B: a 256-block pool over a 512-block tier
+    against a 2048-block pool that never evicts and the small pool without
+    the tier. Turn 1 (1024 tokens, 32 new), a flood of 4 unrelated
+    1024-token prompts that evicts every turn-1 block, then turn 2 (turn 1,
+    its output and 40 more tokens): twice on each engine with other tokens,
+    since the process's first host<->device copies pay a one-time set-up
+    that later ones do not. Then the same two turns as a
+    chat over HTTP through ``ServingServer`` on the small pool with the tier."""
+    vocab, bs = model.config.vocab_size, 16
+    rng = np.random.default_rng(seed + 6)
+    convs = [(rng.integers(8, vocab, 1024), [rng.integers(8, vocab, 1024) for _ in range(4)],
+              rng.integers(8, vocab, 40)) for _ in range(2)]
+    small = dict(SERVE_ENGINE, num_blocks=256)
+    configs = {"host_tier": dict(small, host_kv_blocks=512), "never_evicts": SERVE_ENGINE, "cold": small}
+    sp = SamplingParams(max_new_tokens=32)
+    res = dict(phase="host_tier", config="Qwen/Qwen2-7B", engines=configs)
+    runs, copies = {}, {"d2h": [], "h2d": []}
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    for name, kw in configs.items():
+        eng = InferenceEngine(model, **kw)
+        tier = eng._host_tier
+        if tier is not None:
+            cfg = model.config  # at Qwen2-7B in bf16: 28 * 2 * 4 * 16 * 128 * 2 bytes = 0.875 MiB a block
+            want = cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * bs * cfg.head_dim * eng.pool.kv.element_size()
+            check(tier.block_bytes == want, f"host_tier: {tier.block_bytes} bytes a block, want {want}")
+        runs[name] = [host_conversation(torch, np, eng, *conv, sp, bs) for conv in convs]
+        if name != "never_evicts":
+            left = [r["history_blocks_left_after_flood"] for r in runs[name]]
+            check(not any(left), f"host_tier {name}: the flood left {left} of turn 1's blocks resident")
+        if tier is not None:
+            # the tier's copies, each timed on the side stream from its start to its end
+            for kind, nbytes, start, end in eng.backend._copies.timings:
+                copies[kind].append((start, end, nbytes))
+            res["tier"] = tier.snapshot()
+        del eng
+        torch.cuda.empty_cache()
+    for c in range(len(convs)):
+        check(runs["host_tier"][c]["turn1"] == runs["never_evicts"][c]["turn1"], "host_tier: turn 1 streams differ")
+        check(runs["host_tier"][c]["turn2"] == runs["never_evicts"][c]["turn2"],
+              "host_tier: turn 2 after a promote differs from the never-evicting engine's")
+    res["launches"] = dict(paged=pa.LAUNCHES, paged_sm90=pa.LAUNCHES_SM90)
+    check(pa.LAUNCHES_SM90 == pa.LAUNCHES > 0, f"host_tier: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} paged launches "
+                                                 "on the Hopper route")
+    for way in ("d2h", "h2d"):
+        ms = sum(start.elapsed_time(done) for start, done, _n in copies[way])
+        nbytes = sum(n for _s, _d, n in copies[way])
+        res[way] = dict(copies=len(copies[way]), bytes=nbytes, ms=ms, gb_per_s=nbytes / ms / 1e6 if ms else None)
+    res["runs"] = {k: [{f: v for f, v in r.items() if f not in ("turn1", "turn2")} for r in rs]
+                   for k, rs in runs.items()}
+    res["turn2_ttft_ms"] = {when: {k: rs[c]["turn2_ttft_ms"] for k, rs in runs.items()}
+                            for c, when in enumerate(("first_conversation", "second_conversation"))}
+    res["turn2_equal_never_evicts"] = True
+
+    # the two turns as a chat over HTTP, on the small pool with the tier
+    turn1, flood, more = convs[0]
+    eng = InferenceEngine(model, **configs["host_tier"])
+    server = serving.ServingServer(eng, registry=serving.MetricsRegistry(),
+                                   scheduler_config=serving.SchedulerConfig(max_inflight=32, default_timeout_s=600))
+    port = server.start_in_thread()
+    try:
+        status, chat1 = http_json(port, "POST", "/v1/chat/completions",
+                                  {"messages": [{"role": "user", "content": turn1.tolist()}], "max_tokens": 32})
+        check(status == 200 and chat1["choices"][0]["finish_reason"] == "length", f"host_tier: chat turn 1 {status}")
+        reply = chat1["choices"][0]["message"]["token_ids"]
+        threads = [threading.Thread(target=http_json, args=(port, "POST", "/v1/completions",
+                                                            {"prompt": p.tolist(), "max_tokens": 32}))
+                   for p in flood]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(all(not t.is_alive() for t in threads), "host_tier: a flood client never finished")
+        turn2 = [{"role": "user", "content": turn1.tolist()}, {"role": "assistant", "content": reply},
+                 {"role": "user", "content": more.tolist()}]
+        toks2, finish2, usage2, _ = http_stream(port, "/v1/chat/completions", {"messages": turn2, "max_tokens": 32})
+        check(finish2 == "length" and len(toks2) == 32, f"host_tier: chat turn 2 ended {finish2}")
+        turn1_len = chat1["usage"]["prompt_tokens"] + chat1["usage"]["completion_tokens"]
+        row = next(r for r in http_json(port, "GET", "/debug/requests")[1]["recent"]
+                   if r["prompt_len"] == usage2["prompt_tokens"])
+        metrics = http_call(port, "GET", "/metrics")[1].decode()
+        promotes = sum(float(ln.rsplit(" ", 1)[1]) for ln in metrics.splitlines()
+                       if ln.startswith("paddlenlp_serving_kv_host_promotes_total"))
+        res["chat"] = dict(turn1_tokens=turn1_len, turn2_prompt=usage2["prompt_tokens"],
+                           turn2_cached=usage2["cached_tokens"], promote_wait_ms=row["attribution"]["promote_wait"] * 1e3,
+                           attribution_ms={k: v * 1e3 for k, v in row["attribution"].items()},
+                           kv_host_promotes_total=promotes)
+        # every full block of turn 1 (all but the reply's last token, sampled
+        # and never fed) comes back from the host tier
+        check(usage2["cached_tokens"] == (turn1_len - 1) // bs * bs,
+              f"host_tier: chat turn 2 cached {usage2['cached_tokens']} of turn 1's {turn1_len} tokens")
+        check(promotes >= (turn1_len - 1) // bs, f"host_tier: /metrics counts {promotes} promoted blocks")
+        check(row["attribution"]["promote_wait"] > 0, "host_tier: no promote_wait in turn 2's attribution")
+    finally:
+        server.shutdown(drain_timeout_s=120)
+    check(not server.loop.running, "host_tier: the loop did not stop")
+    mgr = server.loop.engine.mgr
+    check(not mgr.tables and mgr.num_free == mgr.total_usable_blocks, "host_tier: chat blocks leaked")
+    res["launches_chat"] = dict(paged=pa.LAUNCHES - res["launches"]["paged"],
+                                paged_sm90=pa.LAUNCHES_SM90 - res["launches"]["paged_sm90"])
+    res["launches"] = dict(paged=pa.LAUNCHES, paged_sm90=pa.LAUNCHES_SM90)
+    check(pa.LAUNCHES_SM90 == pa.LAUNCHES, f"host_tier: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} paged launches on the "
+                                           "Hopper route")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(res)
     del server, eng
     torch.cuda.empty_cache()
     return res
@@ -1279,12 +1857,16 @@ def main(argv=None) -> int:
     emit(dict(phase="model", config="Qwen/Qwen2-7B", layers=cfg.num_hidden_layers, params=model.num_parameters(),
               init_s=time.perf_counter() - t0))
 
-    mono = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, None)
+    mono_streams = {}
+    mono = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, None, mono_streams)
     chunked = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, 512)
     phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed)
 
     logits = phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, args.seed)
     serve = phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
+    spec = phase_spec(torch, np, model, pa, fa, InferenceEngine, SamplingParams, Qwen2ForCausalLM, Qwen2Config,
+                      mono_streams, args.seed)
+    host = phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -1301,8 +1883,8 @@ def main(argv=None) -> int:
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
     # the decode call, the launch the engine makes most) and the SIMT kernel
     # (the other pools: times at the fp32 case). Launches are the engine
-    # runs' and the serve phase's on each route: the main path never takes
-    # the SIMT kernel, which the fp32 logits run checks
+    # runs', the serve, spec and host_tier phases' on each route: the main
+    # path never takes the SIMT kernel, which the fp32 logits run checks
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
     for route, timed_case, name, source in (
@@ -1310,24 +1892,30 @@ def main(argv=None) -> int:
             ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", "paged_attention.cu")):
         timed = by_batch[timed_case]
         checked = [c for c in cases if c["route"] == route]
-        sm90 = mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
+        sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
+                + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"])
         launches = sm90 if route == "sm90" else (mono["kernel_launches"] + chunked["kernel_launches"]
-                                                 + serve["kernel_launches"] - sm90)
+                                                 + serve["kernel_launches"] + spec["launches"]["paged"]
+                                                 + host["launches"]["paged"] - sm90)
         kernels.append(dict(
             name=name, route="cuda", source=f"paddlenlp_tpu_torch/csrc/{source}",
             replaces="paddlenlp_tpu/ops/pallas/paged_attention.py:56", launches=launches,
             max_abs_err=max(c["max_abs_err"] for c in checked), ms=timed["ms"], plain_ms=timed["plain_ms"],
             bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=timed["library_ms"]))
         checks.append(dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
-                           launched_by="engine, serve", serve_launches=serve["sm90_launches"] if route == "sm90" else 0,
+                           launched_by="engine, serve, spec, host_tier",
+                           serve_launches=serve["sm90_launches"] if route == "sm90" else 0,
+                           spec_launches=spec["launches"]["paged_sm90"] if route == "sm90" else 0,
+                           host_tier_launches=host["launches"]["paged_sm90"] if route == "sm90" else 0,
                            launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                               for k in mono["launches_by_shape"]} if route == "sm90" else None,
                            check_launches=None if route == "sm90" else logits["launches"]["float32"]["kernels"],
                            worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked)))
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
     # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
-    # train run's on each route: the main path never takes the SIMT kernels,
-    # which the fp32 train_grad step checks
+    # train run's on each route, and for the forward the spec phase's draft
+    # forwards too: the main path never takes the SIMT kernels, which the
+    # fp32 train_grad step checks
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
@@ -1339,6 +1927,9 @@ def main(argv=None) -> int:
         checked = [c for c in flash if c["route"] == route]
         sm90 = train["sm90_launches"].get(what, 0)
         launches = sm90 if route == "sm90" else train["kernel_launches"][what] - sm90
+        if what == "fwd":
+            draft90 = spec["launches"]["flash_fwd_sm90"]
+            launches += draft90 if route == "sm90" else spec["launches"]["flash_fwd"] - draft90
         check_launches = None if route == "sm90" else grad["launches"]["float32"]["kernels"][what]
         kernels.append(dict(
             name=name, route="cuda",
@@ -1350,7 +1941,8 @@ def main(argv=None) -> int:
             plain_ms=timed["plain_fwd_ms"] if what == "fwd" else timed["plain_bwd_ms"],
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
-        checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"], launched_by="train",
+        checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
+                           launched_by="train, spec (draft)" if what == "fwd" else "train",
                            check_launches=check_launches,
                            worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))

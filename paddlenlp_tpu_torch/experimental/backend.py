@@ -12,8 +12,10 @@ Contract:
 - ``prefill(...)``       batched monolithic prompt prefill, samples token 0;
 - ``decode(...)``        multi-token decode for every running slot;
 - ``mixed_step(...)``    one ragged step of prefill chunks + decode tokens;
+- ``verify(...)``        the speculative-decoding verify forward;
 - ``seed_counts``/``reset_counts``  per-slot penalty-count maintenance;
 - ``apply_cow(pairs)``   prefix-cache copy-on-write block copies in the pool;
+- ``kv_spill``/``kv_promote``/``migration_ready``  the host KV tier's copies;
 - ``sync_params(tree)``  install a new parameter tree (live weight swap);
 - ``describe()``         placement metadata for ``stats()``.
 
@@ -26,21 +28,41 @@ thread. The backend's long-lived tensors (the pool, the penalty counts, the
 parameters) stay ordinary tensors all the same: they are updated in place or
 placed outside inference mode, so the engine stays usable from any thread.
 
-The sharded and disaggregated backends of the JAX package, its host-tier
-spill/promote entry points and speculative ``verify`` are not part of the
-port yet (ROADMAP Queue 1).
+**Ordering of the host-tier copies.** The JAX package threads a functional
+pool, so dispatch order alone puts a spill's gather before any overwrite of
+the recycled blocks and a promote's scatter before the prefill that reads
+it. The port writes its pool in place, so it orders them on CUDA streams:
+
+- a spill's gather is enqueued on the compute stream when ``kv_spill`` is
+  called, which the engine does before the launch that rewrites the blocks;
+  the D2H copy into pinned memory runs on a side stream that waits on an
+  event recorded after the gather;
+- a promote's H2D copy runs on the side stream and records an event, the
+  ticket's marker (``migration_ready`` queries it, a scheduling signal only).
+  The scatter into the pool runs on the compute stream, after the compute
+  stream waits on that event, at the first launch whose block tables hold a
+  promoted block (or once the copy has landed), in the order the promotes
+  were made. Every pool write therefore stays on the compute stream, in
+  program order, as in the JAX package.
+
+On the CPU the copies are synchronous and the markers empty.
+
+The sharded and disaggregated backends of the JAX package are not part of
+the port yet (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from collections import deque
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..transformers.conversion_utils import flatten_params, unflatten_params
 from .inference_model import PagedInferenceModel
+from .kv_host_tier import HostPromoteTicket, gather_blocks, scatter_blocks, slot_runs
 from .paged_cache import copy_blocks, init_paged_pool
 
 __all__ = ["ModelBackend", "SingleDeviceBackend", "MixedRow", "samp_arrays"]
@@ -117,6 +139,9 @@ class ModelBackend:
     def mixed_step(self, chunk_rows: List[MixedRow], decode_rows: List[MixedRow]) -> np.ndarray:
         raise NotImplementedError
 
+    def verify(self, tokens, block_tables, start_pos, need_logits: bool):
+        raise NotImplementedError
+
     def seed_counts(self, slot_idx, cached_entries):
         raise NotImplementedError
 
@@ -126,11 +151,124 @@ class ModelBackend:
     def apply_cow(self, pairs):
         raise NotImplementedError
 
+    def host_planes(self, n_blocks: int) -> List[torch.Tensor]:
+        """The host tier's arena for ``n_blocks`` blocks: one block-major
+        host tensor [n, L, 2, K, bs, H] per pool plane (kv, then the scale
+        plane of a quantized pool), pinned when the pool is on CUDA."""
+        raise NotImplementedError
+
+    def kv_spill(self, block_ids, planes, slots):
+        """Gather ``block_ids`` out of the pool and start their copy into the
+        arena ``planes`` at ``slots``. Must be called BEFORE any launch that
+        writes the (just recycled) blocks."""
+        raise NotImplementedError
+
+    def kv_promote(self, seq_id, block_ids, planes, slots):
+        """Start the copy of arena ``slots`` back into the freshly allocated
+        pool blocks ``block_ids``. Returns a :class:`HostPromoteTicket` whose
+        markers feed :meth:`migration_ready`."""
+        raise NotImplementedError
+
+    def migration_ready(self, ticket) -> bool:
+        """Non-blocking landed check of a copy ticket's markers: a
+        scheduling signal only (the launches that read the blocks are
+        ordered after the copy by the backend)."""
+        return all(m.query() for m in ticket.markers)
+
     def sync_params(self, new_params):
         raise NotImplementedError
 
     def describe(self) -> dict:
         raise NotImplementedError
+
+
+class _HostCopies:
+    """The host KV tier's copies on CUDA, between the pool's blocks and the
+    tier's pinned arena: one side stream, ordered against the compute stream
+    (the current stream) by events. ``timings`` keeps the recent copies'
+    (direction, bytes, start event, done event), timed on the side stream."""
+
+    def __init__(self, device):
+        self.device = device
+        self._side = None
+        self.timings: deque = deque(maxlen=256)
+
+    def _stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
+
+    def _timed(self, kind, nbytes, side):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(side)
+        done = torch.cuda.Event(enable_timing=True)
+        self.timings.append((kind, nbytes, start, done))
+        return done
+
+    def to_host(self, blocks: Sequence[torch.Tensor], planes: Sequence[torch.Tensor], slots: Sequence[int]):
+        """D2H copies of block-major tensors the compute stream is producing
+        into the arena at ``slots``: the side stream waits on an event
+        recorded after them, copies each run of consecutive slots and records
+        the completion event, which it returns."""
+        side = self._stream()
+        produced = torch.cuda.Event()
+        produced.record(torch.cuda.current_stream(self.device))
+        side.wait_event(produced)
+        with torch.cuda.stream(side):
+            done = self._timed("d2h", sum(t.numel() * t.element_size() for t in blocks), side)
+            for t, plane in zip(blocks, planes):
+                for i, slot, n in slot_runs(slots):
+                    plane[slot: slot + n].copy_(t[i: i + n], non_blocking=True)
+                t.record_stream(side)  # its memory is not reused before the copy ran
+            done.record(side)
+        return done
+
+    def to_device(self, planes: Sequence[torch.Tensor], slots: Sequence[int]):
+        """H2D copies of the arena's ``slots`` on the side stream: (block-major
+        device tensors, completion event)."""
+        side = self._stream()
+        with torch.cuda.stream(side):
+            out = [torch.empty((len(slots),) + tuple(p.shape[1:]), dtype=p.dtype, device=self.device) for p in planes]
+            done = self._timed("h2d", sum(t.numel() * t.element_size() for t in out), side)
+            for t, plane in zip(out, planes):
+                for i, slot, n in slot_runs(slots):
+                    t[i: i + n].copy_(plane[slot: slot + n], non_blocking=True)
+            done.record(side)
+        return out, done
+
+    def compute_wait(self, event, tensors: Iterable[torch.Tensor]):
+        """Order the compute stream after ``event``; ``tensors``, made on the
+        side stream, are then used on the compute stream."""
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(event)
+        for t in tensors:
+            t.record_stream(compute)
+
+
+class _CpuCopies:
+    """The same interface on the CPU: every copy is done when it returns."""
+
+    def to_host(self, blocks, planes, slots):
+        for t, plane in zip(blocks, planes):
+            plane[list(slots)] = t
+        return None
+
+    def to_device(self, planes, slots):
+        return [plane[list(slots)] for plane in planes], None
+
+    def compute_wait(self, event, tensors):
+        pass
+
+
+@dataclasses.dataclass
+class _PendingPromote:
+    """A promote whose H2D copy is in flight and whose scatter into the pool
+    has not run yet."""
+
+    ids: torch.Tensor  # target blocks, long, on the pool's device
+    blocks: frozenset
+    planes: list  # staged block-major [n, L, 2, ...] data for kv (and scale)
+    landed: Optional[object]  # the copy's event (None: already there)
 
 
 class SingleDeviceBackend(ModelBackend):
@@ -152,6 +290,8 @@ class SingleDeviceBackend(ModelBackend):
             quant=kv_cache_quant, device=self.device)
         self.counts = torch.zeros((max_batch_size, model.config.vocab_size), dtype=torch.int32,
                                   device=self.device)
+        self._copies = _HostCopies(self.device) if self.device.type == "cuda" else _CpuCopies()
+        self._promotes: List[_PendingPromote] = []
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -194,6 +334,7 @@ class SingleDeviceBackend(ModelBackend):
         cached_lens = np.zeros(n, np.int32)
         for row, _ids, n_cached in cached_entries:
             cached_lens[row] = n_cached
+        self._land_promotes(block_tables)
         tokens, counts_rows = self.infer.prefill(
             self.pool, self._dev(input_ids, torch.int32), self._dev(block_tables, torch.int32),
             self._dev(suffix_lens, torch.int32), self._dev(cached_lens, torch.int32),
@@ -205,6 +346,7 @@ class SingleDeviceBackend(ModelBackend):
                sampling) -> Tuple[np.ndarray, np.ndarray]:
         B, steps = last_tokens.shape[0], self.infer.decode_steps
         self.step_accounting = {"fed": B * steps, "shape": ("decode", B, steps)}
+        self._land_promotes(block_tables)
         toks, valid, _, _, counts = self.infer.decode(
             self.pool, self._dev(last_tokens, torch.int32), self._dev(block_tables, torch.int32),
             self._dev(context_lens, torch.int32), self._dev(done0, torch.bool),
@@ -212,8 +354,66 @@ class SingleDeviceBackend(ModelBackend):
         self.counts.copy_(counts)
         return toks.cpu().numpy(), valid.cpu().numpy()  # THE decode sync point: ids + flags only
 
+    def verify(self, tokens, block_tables, start_pos, need_logits: bool):
+        B, T = tokens.shape
+        self.step_accounting = {"fed": B * T, "shape": ("verify", B, T)}
+        self._land_promotes(block_tables)
+        argmax, logits = self.infer.verify(
+            self.pool, self._dev(tokens, torch.int32), self._dev(block_tables, torch.int32),
+            self._dev(start_pos, torch.int32), need_logits=need_logits)
+        # THE verify sync point: the argmax, and the fp32 logits only when
+        # rejection sampling asks for them
+        return argmax.cpu().numpy(), (logits.cpu().numpy() if need_logits else None)
+
     def apply_cow(self, pairs):
+        self._land_promotes([b for pair in pairs for b in pair])
         copy_blocks(self.pool, pairs)
+
+    # ---------------------------------------------------------------- host tier
+    def _planes(self):
+        return [self.pool.kv] + ([] if self.pool.scale is None else [self.pool.scale])
+
+    def host_planes(self, n_blocks: int) -> List[torch.Tensor]:
+        return [torch.empty((n_blocks,) + (p.shape[:2] + p.shape[3:]), dtype=p.dtype,
+                            pin_memory=self.device.type == "cuda") for p in self._planes()]
+
+    def kv_spill(self, block_ids, planes, slots):
+        self._land_promotes(block_ids)
+        ids = self._dev(block_ids, torch.long)
+        # the gather is enqueued on the compute stream now, ahead of any
+        # launch that rewrites the blocks, so it reads their old bytes
+        return self._copies.to_host([gather_blocks(p, ids) for p in self._planes()], planes, slots)
+
+    def kv_promote(self, seq_id, block_ids, planes, slots):
+        ids = [int(b) for b in block_ids]
+        staged, landed = self._copies.to_device(planes, slots)
+        if len(ids) & (len(ids) - 1):
+            # the JAX package pads the scatter to a power of two with zero
+            # rows aimed at block 0: block 0 ends up zeroed there, so here too
+            for plane in self._planes():
+                plane[:, :, 0] = 0
+        self._promotes.append(_PendingPromote(
+            ids=self._dev(ids, torch.long), blocks=frozenset(ids), planes=staged, landed=landed))
+        return HostPromoteTicket(seq_id=seq_id, n_blocks=len(ids), markers=() if landed is None else (landed,))
+
+    def _land_promotes(self, blocks):
+        """Scatter pending promotes into the pool, on the compute stream and
+        in the order they were made: every one up to the last whose blocks
+        ``blocks`` (block ids a launch reads or writes) holds, the compute
+        stream waiting on its copy, and after those every one whose copy has
+        already landed."""
+        if not self._promotes:
+            return
+        wanted = set(np.asarray(blocks, dtype=np.int64).ravel().tolist())
+        n = max((i + 1 for i, p in enumerate(self._promotes) if p.blocks & wanted), default=0)
+        while n < len(self._promotes) and (self._promotes[n].landed is None or self._promotes[n].landed.query()):
+            n += 1
+        for p in self._promotes[:n]:
+            if p.landed is not None:
+                self._copies.compute_wait(p.landed, p.planes)
+            for plane, data in zip(self._planes(), p.planes):
+                scatter_blocks(plane, data, p.ids)
+        del self._promotes[:n]
 
     def sync_params(self, new_params):
         """Place ``new_params`` on the model's device now (eagerly, so an
@@ -233,6 +433,7 @@ class SingleDeviceBackend(ModelBackend):
         """One ragged mixed step. Returns sampled tokens in row order
         ``[*chunk_rows, *decode_rows]`` (the scheduler keeps them only where
         ``emit``)."""
+        self._land_promotes([r.table for r in chunk_rows + decode_rows])
         # the plain path flattens (decode rows padded to the chunk bucket
         # would dominate its cost); the kernel takes one padded launch
         launch = self._mixed_padded_launch if self.infer.use_paged_kernel else self._mixed_flat_launch

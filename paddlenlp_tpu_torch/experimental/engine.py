@@ -25,12 +25,18 @@ scheduler over a :class:`~.backend.ModelBackend`:
   ``engine.prefill_chunk`` fault points, the per-tenant goodput fold and the
   per-request usage fields the serving meter books;
 - weight hot-swap: :meth:`InferenceEngine.sync_params` installs a new
-  parameter tree through the backend (the serving loop's swap path).
+  parameter tree through the backend (the serving loop's swap path);
+- speculative decoding (``use_speculative`` / ``draft_model``): an n-gram
+  prompt-lookup or draft-model proposer, ONE batched ``[B, K+1]`` verify
+  forward, greedy longest-prefix acceptance or Leviathan rejection sampling
+  (host-side numpy, seeded per request, as in the JAX package);
+- the host KV tier (``host_kv_blocks``): prefix-cache blocks evicted under
+  pressure spill to pinned host memory and promote back when a later prompt
+  matches them (``kv_host_tier.py``).
 
 Options of the JAX engine that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item (speculative decoding, the
-host KV tier, multi-LoRA and tenant quotas, meshes and disaggregated stages,
-quantized weights).
+``NotImplementedError`` naming their ROADMAP item (multi-LoRA and tenant
+quotas, meshes and disaggregated stages, quantized weights).
 """
 
 from __future__ import annotations
@@ -47,17 +53,21 @@ import torch
 from ..observability.flight_recorder import RECORDER
 from ..observability.goodput import GoodputLedger, device_peak_flops, efficiency_doc, estimate_model_flops_per_token
 from ..observability.tracer import TRACER
+from ..serving.engine_loop import is_device_fault
 from ..serving.tenancy.adapters import UnknownAdapterError
 from ..serving.tenancy.quotas import DEFAULT_TENANT, tenant_goodput_fold
 from ..utils.faults import FaultPoint
 from ..utils.log import logger
 from .backend import MixedRow, ModelBackend, SingleDeviceBackend, _bucket
+from .kv_host_tier import HostKVTier, pool_block_bytes
 from .paged_cache import BlockManager
 
 __all__ = ["InferenceEngine", "Request", "SamplingParams"]
 
 _F_STEP = FaultPoint("engine.step")
 _F_CHUNK = FaultPoint("engine.prefill_chunk")
+_F_SPILL = FaultPoint("engine.kv_spill")
+_F_PROMOTE = FaultPoint("engine.kv_promote")
 
 
 @dataclasses.dataclass
@@ -100,13 +110,21 @@ class Request:
     # which tenant the request bills to (per-tenant goodput fold, metric labels)
     tenant: str = DEFAULT_TENANT
     prefilled_len: int = 0  # prompt tokens whose KV is in the pool (chunked prefill)
+    # "promoting" while promoted host-tier blocks are in flight to the pool
+    # (the request feeds no row until they land), "decode" otherwise
+    kv_stage: str = "decode"
     # latency-attribution bookkeeping (engine_loop.request_attribution):
     # first time the request was head-of-queue but deferred by an admission
     # gate (splits queue_wait into pure-queue vs admission-gate) ...
     gated_t: Optional[float] = None
-    # ... and decode-window seconds spent riding mixed steps that also carried
-    # other requests' prefill chunks (the per-request decode-stall share)
+    # ... decode-window seconds spent riding mixed steps that also carried
+    # other requests' prefill chunks (the per-request decode-stall share) ...
     chunk_stall_s: float = 0.0
+    # ... and seconds waiting for a host-tier promotion to land before
+    # prefill could proceed (accumulated on land; promote_start_t marks an
+    # episode still open)
+    promote_wait_s: float = 0.0
+    promote_start_t: Optional[float] = None
     # goodput-ledger bookkeeping: highest absolute position ever fed through
     # a forward for this request — re-feeding below the mark is rework ...
     fed_hwm: int = 0
@@ -122,6 +140,9 @@ class Request:
     # ... engine-attributed useful fed positions, mirroring the per-tenant
     # goodput fold token for token ...
     useful_tokens: int = 0
+    # ... speculative work billed to this request ...
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     # ... and the block-seconds integral of KV residency (advanced by a
     # per-step checkpoint while kv_occ_t holds the open episode's start;
     # finalized in _free_kv, so it accumulates across preemption episodes)
@@ -184,6 +205,11 @@ class InferenceEngine:
         dtype: Optional[torch.dtype] = None,  # None: bf16 on CUDA, fp32 on the CPU
         decode_steps: int = 8,
         kv_cache_quant: Optional[str] = None,  # None | "int8" | "fp8"
+        use_speculative: bool = False,
+        spec_draft_len: int = 4,
+        spec_ngram: int = 2,
+        draft_model=None,  # small causal LM proposer (a port LlamaForCausalLM)
+        spec_seed: int = 0,
         # share KV blocks across common prompt prefixes. Content-addressed:
         # only valid while params are frozen
         enable_prefix_cache: bool = True,
@@ -191,22 +217,20 @@ class InferenceEngine:
         # interleaved with decode tokens. None/0 = monolithic prefill.
         prefill_chunk_tokens: Optional[int] = None,
         # options of the JAX engine not ported yet: each raises when set
-        use_speculative: bool = False,
-        draft_model=None,
         mesh_shape=None,
         disagg_stages=None,
         adapter_registry=None,
         tenant_quotas=None,
+        # hierarchical KV cache: host-RAM spill tier capacity in BLOCKS
+        # (0 = off). Zero-ref prefix blocks popped off the cache LRU demote
+        # to pinned host memory instead of being destroyed; a prefix match
+        # landing on them promotes them back. Requires enable_prefix_cache.
         host_kv_blocks: int = 0,
     ):
-        if use_speculative or draft_model is not None:
-            _not_ported("speculative decoding (use_speculative/draft_model)", "Queue 1 item 8")
         if mesh_shape is not None or disagg_stages is not None:
             _not_ported("sharded and disaggregated backends (mesh_shape/disagg_stages)", "Queue 1 item 12")
         if adapter_registry is not None or tenant_quotas is not None:
             _not_ported("multi-LoRA and tenant quotas (adapter_registry/tenant_quotas)", "Queue 1 item 10")
-        if host_kv_blocks:
-            _not_ported("the host KV tier (host_kv_blocks)", "Queue 1 item 9")
         self.model = model
         self.tokenizer = tokenizer
         if dtype is None:
@@ -220,13 +244,33 @@ class InferenceEngine:
         self.enable_prefix_cache = enable_prefix_cache
         self.mgr = BlockManager(num_blocks, block_size, max_blocks_per_seq,
                                 enable_prefix_cache=enable_prefix_cache)
+        # hierarchical KV: the optional host-RAM tier under the BlockManager,
+        # plus the in-flight promotion tickets (req_id -> ticket)
+        self.host_kv_blocks = int(host_kv_blocks or 0)
+        self._host_tier: Optional[HostKVTier] = None
+        if self.host_kv_blocks > 0:
+            if not enable_prefix_cache:
+                raise ValueError("host_kv_blocks requires enable_prefix_cache=True: the "
+                                 "tier is the prefix cache's second level")
+            self._host_tier = HostKVTier(self.host_kv_blocks, block_bytes=pool_block_bytes(self.backend.pool),
+                                         planes=self.backend.host_planes(self.host_kv_blocks))
+            self.mgr.attach_host_tier(self._host_tier)
+        self._promoting: Dict[int, object] = {}
+        # a promotion whose copy never reports landed lands after this many polls
+        self.migration_force_land_polls = 8
         # per-tenant attributable-token accounting (the tenancy fold over the
         # goodput ledger): monotone engine totals, surviving reset()
         self.tenant_goodput: Dict[str, Dict[str, int]] = {}
         self.max_batch_size = max_batch_size
         self.decode_steps = decode_steps
-        # no speculative decoding yet: the counters the metrics plane and
-        # /health read stay at zero
+        # speculative decoding: n-gram prompt-lookup OR draft-model proposer,
+        # batched verify; greedy acceptance or rejection sampling
+        self.use_speculative = use_speculative or draft_model is not None
+        self.spec_draft_len = spec_draft_len
+        self.spec_ngram = spec_ngram
+        self.draft_model = draft_model
+        self._spec_seed = spec_seed
+        self._spec_rngs: Dict[int, np.random.Generator] = {}
         self.spec_stats = {"verify_steps": 0, "tokens_emitted": 0, "drafted": 0, "accepted": 0}
         self.waiting: deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_batch_size
@@ -334,6 +378,7 @@ class InferenceEngine:
             if req is not None and req.req_id == req_id:
                 self._free_kv(req)
                 self.slots[slot] = None
+                self._drop_promotion(req_id)
                 self._finish_abort(req)
                 return req
         return None
@@ -369,6 +414,7 @@ class InferenceEngine:
         req.aborted = True
         req.finish_reason = "abort"
         req.finish_t = time.time()
+        self._spec_rngs.pop(req.req_id, None)
 
     def release_request(self, req_id: int) -> bool:
         """Drop a request from the scheduler (waiting queue or its slot) and
@@ -377,12 +423,16 @@ class InferenceEngine:
         for i, req in enumerate(self.waiting):
             if req.req_id == req_id:
                 del self.waiting[i]  # waiting requests hold no KV blocks
+                self._spec_rngs.pop(req_id, None)
                 return True
         for slot, req in enumerate(self.slots):
             if req is not None and req.req_id == req_id:
                 self._free_kv(req)
                 self.slots[slot] = None
+                self._drop_promotion(req_id)
+                self._spec_rngs.pop(req_id, None)
                 return True
+        self._spec_rngs.pop(req_id, None)
         if req_id in self.mgr.lengths:
             # allocated but bound to no slot yet (failure mid-admission)
             self.mgr.free_seq(req_id)
@@ -420,6 +470,80 @@ class InferenceEngine:
         :meth:`resync_counts` for any slots kept live across the swap."""
         self.backend.sync_params(new_params)
 
+    # ------------------------------------------------------------------ host KV tier
+    def _slot_of(self, req_id: int) -> Optional[int]:
+        for slot, r in enumerate(self.slots):
+            if r is not None and r.req_id == req_id:
+                return slot
+        return None
+
+    def _drop_promotion(self, req_id: int):
+        """Forget a request's in-flight promotion (abort / preempt /
+        quarantine). The copy needs no cancellation: the backend scatters it
+        before any later launch reads or rewrites its blocks."""
+        self._promoting.pop(req_id, None)
+
+    def _drain_spills(self):
+        """Flush prefix blocks the allocator popped off the cache LRU since
+        the last drain into the host tier: ONE batched gather, enqueued
+        BEFORE any launch that could overwrite the recycled blocks, with its
+        copy to the host overlapping the step's work. A failure drops the
+        spill (the blocks were already recycled: the pre-tier behaviour) and
+        leaks nothing; a CUDA error that poisoned the context propagates."""
+        if self._host_tier is None:
+            return
+        pairs = self.mgr.drain_pending_spills()
+        if not pairs:
+            return
+        t0 = time.perf_counter()
+        slots = None
+        try:
+            _F_SPILL.fire(blocks=len(pairs))
+            slots = self._host_tier.reserve([h for h, _b in pairs])
+            kept = pairs[len(pairs) - len(slots):]  # a batch larger than the tier keeps its last blocks
+            self.backend.kv_spill([b for _h, b in kept], self._host_tier.planes, slots)
+            self._host_tier.put([h for h, _b in kept], slots)
+        except Exception as e:
+            if slots is not None:
+                self._host_tier.release(slots)
+            if is_device_fault(e):
+                raise
+            RECORDER.record("spill.drop", blocks=len(pairs), error=type(e).__name__)
+            logger.warning(f"host-tier spill of {len(pairs)} blocks dropped: {e}")
+            return
+        RECORDER.record("spill.batch", blocks=len(pairs), resident=self._host_tier.num_blocks)
+        TRACER.add_span("kv_spill", TRACER.epoch_time(t0), time.perf_counter() - t0, cat="engine",
+                        blocks=len(pairs), resident=self._host_tier.num_blocks, step=self._cur_step)
+
+    def _advance_promotions(self, finished: List[Request]):
+        """Poll in-flight host->device promotions. Landing re-opens the
+        request's prefill path: chunked engines feed its remaining suffix in
+        this step's mixed step; monolithic engines launch the deferred
+        prefill right here."""
+        to_prefill: List[tuple] = []
+        for req_id, ticket in list(self._promoting.items()):
+            ticket.polls += 1
+            if not (self.backend.migration_ready(ticket) or ticket.polls >= self.migration_force_land_polls):
+                continue
+            del self._promoting[req_id]
+            slot = self._slot_of(req_id)
+            if slot is None:
+                continue  # aborted/preempted while the copy was in flight
+            req = self.slots[slot]
+            req.kv_stage = "decode"
+            if req.promote_start_t is not None:
+                # the promote-wait episode closes: bank it for attribution
+                req.promote_wait_s += time.time() - req.promote_start_t
+                req.promote_start_t = None
+            RECORDER.record("promote.land", req_id=req_id, trace=req.trace, blocks=ticket.n_blocks,
+                            polls=ticket.polls)
+            TRACER.instant("kv_promoted", cat="engine", trace=req.trace, req_id=req_id,
+                           blocks=ticket.n_blocks, polls=ticket.polls)
+            if not self.prefill_chunk_tokens and req.needs_prefill:
+                to_prefill.append((slot, req, req.prefilled_len))
+        if to_prefill:
+            self._prefill_batch(to_prefill, finished)
+
     def reset(self):
         """Drop ALL scheduler/allocator state after a failed step. The device
         pool tensor is kept (stale KV is unreachable once the block tables are
@@ -431,6 +555,13 @@ class InferenceEngine:
                                 enable_prefix_cache=self.enable_prefix_cache)
         self._last_token[:] = 0
         self.backend.reset_counts()
+        self._spec_rngs.clear()
+        self._promoting.clear()
+        if self._host_tier is not None:
+            # tier content stays valid across reset (content-addressed KV
+            # under unchanged params): only the device-side index dropped
+            # with the manager; re-attach so spills keep flowing
+            self.mgr.attach_host_tier(self._host_tier)
         # the failed step never ran its anatomy tail: without this, the first
         # post-recovery step would book the whole outage as a "step gap"
         self._last_step_end = None
@@ -438,9 +569,8 @@ class InferenceEngine:
         logger.warning("inference engine reset: scheduler + KV allocator state dropped")
 
     def stats(self) -> Dict:
-        """Point-in-time scheduler/allocator stats, in the JAX engine's shape:
-        the host tier and speculative counters read zero, the tenancy fold
-        appears once a request arrived."""
+        """Point-in-time scheduler/allocator stats, in the JAX engine's shape;
+        the tenancy fold appears once a request arrived."""
         out = {
             "queue_depth": len(self.waiting),
             "running": sum(1 for r in self.slots if r is not None),
@@ -455,9 +585,13 @@ class InferenceEngine:
                 "cached_tokens": self.mgr.cached_tokens_total,
                 "evictions": self.mgr.evictions,
                 "cached_blocks": self.mgr.num_cached_blocks,
-                "host": {"enabled": False, "promotes_inflight": 0, "blocks": 0, "capacity": 0,
-                         "spills": 0, "spill_batches": 0, "promotes": 0, "promoted_blocks": 0,
-                         "promote_bytes": 0, "evictions": 0},
+                # the host-RAM spill tier under the device cache: always
+                # present (zeros when off) so the metrics plane reads one shape
+                "host": dict(
+                    {"enabled": self._host_tier is not None, "promotes_inflight": len(self._promoting)},
+                    **(self._host_tier.snapshot() if self._host_tier is not None
+                       else {"blocks": 0, "capacity": 0, "spills": 0, "spill_batches": 0, "promotes": 0,
+                             "promoted_blocks": 0, "promote_bytes": 0, "evictions": 0})),
             },
             "chunked_prefill": {
                 "enabled": bool(self.prefill_chunk_tokens),
@@ -537,6 +671,10 @@ class InferenceEngine:
         finished: List[Request] = []
         # the step's range on a torch.profiler timeline (POST /debug/profile)
         with torch.profiler.record_function("engine_step"):
+            if self._promoting:
+                # land finished host->device promotions FIRST, so a landed
+                # request prefills (or chunks) in this very step
+                self._advance_promotions(finished)
             if self.prefill_chunk_tokens:
                 self._admit_chunked(finished)
                 if any(r is not None and r.needs_prefill for r in self.slots):
@@ -673,6 +811,8 @@ class InferenceEngine:
             # request already built: the ledger books it as cow_token rework
             req.cow_pending = (prompt_len - n_cached
                                if (match is not None and match[2] is not None) else 0)
+            if cache_on and self._host_tier is not None and not (match is not None and match[2] is not None):
+                n_cached = self._promote_from_host(req, n_cached, _new)
             # usage metering: the KV-occupancy episode opens with the blocks;
             # the cache credit bills ONCE, at first admission
             req.kv_occ_t = time.perf_counter()
@@ -695,6 +835,10 @@ class InferenceEngine:
                             step=self._cur_step,
                             queue_depth=queue_depth, admitted=len(admitted),
                             rejected_capacity=len(finished) - n_finished0)
+        # spill drain BEFORE the COW copies: a pending spill's gather must be
+        # enqueued before any device write can touch the recycled blocks
+        # (apply_cow may write into freshly popped LRU blocks)
+        self._drain_spills()
         if cache_on and admitted:
             # prefix_cache phase: COW bookkeeping + the owed block copies
             pc_t0 = time.perf_counter()
@@ -708,12 +852,80 @@ class InferenceEngine:
                             cow_copies=len(cow))
         return admitted
 
+    def _promote_from_host(self, req: Request, n_cached: int, new_blocks: List[int]) -> int:
+        """The device-index match of an admitted request may continue into
+        the host tier: promote those blocks into its freshly allocated ones
+        instead of re-prefilling them. The copy starts now, ahead of any
+        prefill, and the request sits in ``kv_stage == "promoting"`` until it
+        lands. Returns the request's cached tokens, promoted ones included.
+        A failed promote falls back to a token-exact cold prefill of the span
+        (the request keeps its blocks; no tier or device entry leaks); a CUDA
+        error that poisoned the context propagates instead."""
+        bs = self.mgr.block_size
+        prompt_len = len(req.prompt_ids)
+        host_hashes = self.mgr.host_match(req.prompt_ids, prompt_len, skip=n_cached // bs)
+        # at least one prompt token must remain uncached: the first output
+        # token is sampled by the final prompt forward
+        while host_hashes and n_cached + len(host_hashes) * bs >= prompt_len:
+            host_hashes = host_hashes[:-1]
+        if host_hashes:
+            # drain pending spills FIRST: this very allocate() may have popped
+            # LRU blocks that are about to be promote targets, so their gather
+            # goes ahead of the promote's writes. The drain's put() can evict
+            # tier entries: re-truncate to the still-resident prefix
+            self._drain_spills()
+            resident: List[bytes] = []
+            for h in host_hashes:
+                if not self._host_tier.contains(h):
+                    break
+                resident.append(h)
+            host_hashes = resident
+        if not host_hashes:
+            return n_cached
+        promote_blocks = list(new_blocks[: len(host_hashes)])
+        t_pr = time.perf_counter()
+        try:
+            _F_PROMOTE.fire(req_id=req.req_id, blocks=len(host_hashes))
+            slots, nbytes = self._host_tier.take(host_hashes)
+            ticket = self.backend.kv_promote(req.req_id, promote_blocks, self._host_tier.planes, slots)
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            RECORDER.record("promote.fail", req_id=req.req_id, trace=req.trace, blocks=len(host_hashes),
+                            error=type(e).__name__)
+            logger.warning(f"req {req.req_id}: host-tier promote failed ({e}); falling back to cold prefill")
+            return n_cached
+        self.mgr.register_promoted(promote_blocks, host_hashes)
+        if n_cached == 0:
+            self.mgr.cache_hits += 1
+        self.mgr.cached_tokens_total += len(host_hashes) * bs
+        req.kv_stage = "promoting"
+        req.promote_start_t = time.time()
+        self._promoting[req.req_id] = ticket
+        RECORDER.record("promote.start", req_id=req.req_id, trace=req.trace, blocks=len(host_hashes),
+                        bytes=nbytes)
+        TRACER.add_span("kv_promote", TRACER.epoch_time(t_pr), time.perf_counter() - t_pr, cat="engine",
+                        trace=req.trace, req_id=req.req_id, blocks=len(host_hashes), bytes=nbytes)
+        return n_cached + len(host_hashes) * bs
+
     def _admit(self, finished: List[Request]):
-        self._prefill_batch(self._admit_slots(finished), finished)
+        launch: List[tuple] = []
+        for slot, req, n_cached in self._admit_slots(finished):
+            if req.kv_stage == "promoting":
+                # promoted KV is still in flight: the request holds its slot
+                # and its prefill launches from _advance_promotions once the
+                # copy lands
+                req.prefilled_len = n_cached
+                self.slots[slot] = req
+            else:
+                launch.append((slot, req, n_cached))
+        self._prefill_batch(launch, finished)
 
     def _prefill_batch(self, admitted: List[tuple], finished: List[Request]):
         """Launch monolithic prefill for ``[(slot, req, n_cached), ...]``,
-        batched by padded UNCACHED suffix length."""
+        batched by padded UNCACHED suffix length: the back half of
+        :meth:`_admit`, also called from :meth:`_advance_promotions` for
+        requests whose prefill waited on a host-tier promotion."""
         by_bucket: Dict[int, List[tuple]] = {}
         for slot, req, n_cached in admitted:
             by_bucket.setdefault(_bucket(len(req.prompt_ids) - n_cached), []).append((slot, req, n_cached))
@@ -797,7 +1009,8 @@ class InferenceEngine:
             prefilling=sum(1 for r in self.slots if r is not None and r.needs_prefill))
         # capacity pass: every decoding slot needs a block covering this step's
         # KV write; exhaustion preempts the YOUNGEST active slot
-        for slot in sorted([s for s, r in enumerate(self.slots) if r is not None and not r.needs_prefill],
+        for slot in sorted([s for s, r in enumerate(self.slots)
+                            if r is not None and not r.needs_prefill and r.kv_stage == "decode"],
                            key=lambda s: self.slots[s].req_id):
             req = self.slots[slot]
             if req is None or req.needs_prefill:
@@ -811,13 +1024,16 @@ class InferenceEngine:
                 self._preempt(victim, cause="mixed_capacity")
                 if victim == slot:
                     break
+        # the capacity pass may have popped LRU blocks: enqueue their gather
+        # before the mixed forward can overwrite them
+        self._drain_spills()
         budget = self.prefill_chunk_tokens
         chunk_rows: List[tuple] = []  # (slot, req, n_new)
         decode_rows: List[tuple] = []  # (slot, req)
         prefilling: List[int] = []
         for slot, req in enumerate(self.slots):
-            if req is None:
-                continue
+            if req is None or req.kv_stage == "promoting":
+                continue  # promoted KV still in flight: no row until it lands
             if req.needs_prefill:
                 prefilling.append(slot)
             else:
@@ -895,7 +1111,9 @@ class InferenceEngine:
 
     def _preempt(self, slot: int, cause: str = "decode_growth"):
         """Evict + requeue with prompt+generated as the new prompt (recompute
-        recovery). ``cause`` names which capacity pass chose the victim."""
+        recovery). ``cause`` names which capacity pass chose the victim
+        (decode table growth, a mixed step's capacity pass, or the
+        speculative K+1 reservation)."""
         req = self.slots[slot]
         logger.warning(f"req {req.req_id}: KV blocks exhausted; preempting (recompute)")
         self.num_preemptions += 1
@@ -904,6 +1122,13 @@ class InferenceEngine:
                         free_blocks=self.mgr.num_free)
         TRACER.instant("preempt", cat="engine", trace=req.trace, req_id=req.req_id,
                        generated=len(req.output_ids), free_blocks=self.mgr.num_free)
+        if req.promote_start_t is not None:
+            # an open promote-wait episode ends here (its blocks are being
+            # freed; re-admission re-matches the tier): bank the wait
+            req.promote_wait_s += time.time() - req.promote_start_t
+            req.promote_start_t = None
+        self._drop_promotion(req.req_id)
+        req.kv_stage = "decode"
         self._free_kv(req)
         self.slots[slot] = None
         req.prompt_ids = np.concatenate([req.prompt_ids, np.asarray(req.output_ids, np.int32)])
@@ -914,14 +1139,268 @@ class InferenceEngine:
         req.rework_src = "preempt_refill"
         self.waiting.appendleft(req)
 
-    def _decode_running(self, finished: List[Request]):
+    # ------------------------------------------------------------------ speculative
+    def _spec_mode(self) -> Optional[str]:
+        """'greedy' when every active request decodes greedily with penalties
+        off (deterministic acceptance); 'sample' when a draft model is
+        attached and every request does plain temperature sampling (top-k,
+        top-p and penalties off), accepted by rejection sampling, which keeps
+        the target distribution exactly; None otherwise."""
+        greedy = sample = True
+        for r in self.slots:
+            if r is None:
+                continue
+            s = r.sampling
+            if s.repetition_penalty != 1.0 or s.presence_penalty != 0.0 or s.frequency_penalty != 0.0:
+                return None
+            if s.do_sample:
+                greedy = False
+                if s.top_k or (s.top_p < 1.0):
+                    sample = False
+            else:
+                sample = False
+        if greedy:
+            return "greedy"
+        if sample and self.draft_model is not None:
+            return "sample"
+        return None
+
+    def _propose_drafts(self, req: Request) -> np.ndarray:
+        """Prompt-lookup (n-gram) proposer: find the most recent earlier
+        occurrence of the sequence's final n-gram and propose the tokens that
+        followed it."""
+        k = min(self.spec_draft_len, max(req.remaining_new - 1, 0))
+        n = self.spec_ngram
+        if k == 0:
+            return np.zeros(0, np.int32)
+        hist = np.concatenate([req.prompt_ids, np.asarray(req.output_ids, np.int32)])
+        if len(hist) <= n:
+            return np.zeros(0, np.int32)
+        pat = hist[-n:]
+        windows = np.lib.stride_tricks.sliding_window_view(hist, n)
+        starts = np.nonzero((windows == pat).all(axis=1))[0]
+        starts = starts[starts < len(hist) - n]  # exclude the suffix itself
+        if len(starts) == 0:
+            return np.zeros(0, np.int32)
+        s = int(starts[-1])
+        return hist[s + n: s + n + k].astype(np.int32)
+
+    def _draft_rows(self, ids: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """The draft model's logits at position ``pos[b]`` of each row of the
+        right-padded ``ids`` [B, L], fp32 [B, V]. One causal forward through
+        the flash kernels: under causal attention the right padding never
+        reaches a read row, so it needs no padding mask. Only the [B, V] rows
+        leave the device."""
+        dm = self.draft_model
+        with torch.no_grad():
+            logits = dm.forward(torch.as_tensor(ids, device=dm.device))
+            rows = logits[torch.arange(len(pos), device=dm.device), torch.as_tensor(pos, device=dm.device).long()]
+            return rows.float().cpu().numpy()
+
+    def _propose_drafts_draft_model(self, mode: str):
+        """Autoregressive draft-model proposer: K greedy or sampled steps of
+        the small model over a right-padded buffer whose length is a power of
+        two (the draft is far cheaper than the target, so recomputing the
+        whole buffer each step is noise). Returns (drafts per slot, draft
+        probabilities per slot: [k, V] fp32 after temperature, None in greedy
+        mode)."""
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        K = self.spec_draft_len
+        ctxs = {i: np.concatenate([self.slots[i].prompt_ids, np.asarray(self.slots[i].output_ids, np.int32)])
+                for i in active}
+        ks = {i: min(K, max(self.slots[i].remaining_new - 1, 0)) for i in active}
+        if not active or all(ks[i] == 0 for i in active):
+            return [np.zeros(0, np.int32)] * len(self.slots), [None] * len(self.slots)
+        max_len = max(len(c) for c in ctxs.values())
+        L = 1 << max(6, (max_len + K - 1).bit_length())
+        B = len(active)
+        ids = np.zeros((B, L), np.int32)
+        lens = np.zeros(B, np.int32)
+        for j, i in enumerate(active):
+            ids[j, : len(ctxs[i])] = ctxs[i]
+            lens[j] = len(ctxs[i])
+        drafts = {i: [] for i in active}
+        qprobs = {i: [] for i in active}
+        for t in range(K):
+            rows = self._draft_rows(ids, lens + t - 1)
+            for j, i in enumerate(active):
+                if t >= ks[i]:
+                    continue
+                row = rows[j]
+                temp = max(self.slots[i].sampling.temperature, 1e-6)
+                if mode == "sample":
+                    row = row / temp
+                    p = np.exp(row - row.max())
+                    p /= p.sum()
+                    nxt = int(self._req_rng(self.slots[i]).choice(len(p), p=p))
+                    qprobs[i].append(p)
+                else:
+                    nxt = int(np.argmax(row))
+                drafts[i].append(nxt)
+                ids[j, lens[j] + t] = nxt
+        out_d = [np.asarray(drafts.get(i, []), np.int32) for i in range(len(self.slots))]
+        out_q = [np.asarray(qprobs[i], np.float32) if i in qprobs and qprobs[i] else None
+                 for i in range(len(self.slots))]
+        return out_d, out_q
+
+    def _req_rng(self, req) -> np.random.Generator:
+        """Per-request generator seeded by (engine seed, SamplingParams.seed,
+        req_id): a request's rejection-sampling draws reproduce under re-runs
+        with the same seed."""
+        if req.req_id not in self._spec_rngs:
+            self._spec_rngs[req.req_id] = np.random.default_rng((self._spec_seed, req.sampling.seed, req.req_id))
+        return self._spec_rngs[req.req_id]
+
+    def _decode_spec(self, finished: List[Request], drafts: List[np.ndarray], qprobs=None, mode: str = "greedy"):
+        """One speculative iteration: verify the proposed drafts for the whole
+        batch in ONE [B, K+1] forward, then accept on the host. Greedy mode
+        takes the longest argmax-matching prefix plus the model's bonus
+        token; sample mode runs Leviathan rejection sampling against the
+        draft probabilities. 1..K+1 tokens per sequence per forward."""
+        K = self.spec_draft_len
+        # reserve capacity for all K+1 optimistic KV writes; preempt on OOM
+        active = [s for s in range(len(self.slots)) if self.slots[s] is not None]
+        for slot in sorted(active, key=lambda s: -self.slots[s].req_id):
+            req = self.slots[slot]
+            grow = req.total_len + K - self.mgr.lengths[req.req_id]
+            if grow > 0 and self.mgr.extend(req.req_id, grow) is None:
+                self._preempt(slot, cause="spec_reserve")
+        # the reservation pass may have popped LRU blocks: enqueue their
+        # gather before the verify forward can overwrite them
+        self._drain_spills()
         if not any(r is not None for r in self.slots):
             return
+
+        B = self.max_batch_size
+        tokens = np.zeros((B, K + 1), np.int32)
+        tables = np.zeros((B, self.mgr.max_blocks_per_seq), np.int32)
+        start = np.zeros(B, np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                drafts[i] = np.zeros(0, np.int32)
+                continue
+            d = drafts[i]
+            tokens[i, 0] = self._last_token[i]
+            tokens[i, 1: 1 + len(d)] = d
+            tables[i] = self.mgr.table_array(req.req_id)
+            start[i] = req.total_len - 1  # position of the token being fed
+        with TRACER.span("spec_verify", cat="engine", mode=mode, step=self._cur_step,
+                         drafted=int(sum(len(d) for d in drafts))), \
+                torch.profiler.record_function("spec_verify"):
+            # greedy acceptance never reads the logits: need_logits=False
+            # keeps the [B, K+1, V] fp32 buffer from materializing
+            t_dev = time.perf_counter()
+            argmax, logits = self.backend.verify(tokens, tables, start, need_logits=mode == "sample")
+            self._step_device_s += time.perf_counter() - t_dev
+        self.spec_stats["verify_steps"] += 1
+        # goodput: drafted-but-rejected positions are the spec_rejected waste
+        # bucket; emitted (accepted + correction/bonus) positions are useful
+        g_acc0 = self.spec_stats["accepted"]
+        g_drafted = g_emitted = 0
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            d = drafts[i]
+            g_drafted += len(d)
+            self.spec_stats["drafted"] += len(d)
+            req.spec_drafted += len(d)
+            if mode == "sample":
+                with TRACER.span("sampling", cat="engine", trace=req.trace,
+                                 req_id=req.req_id, kind="rejection", drafted=len(d)):
+                    emitted = self._accept_rejection(i, req, d, logits[i], qprobs[i])
+            else:
+                targets = argmax[i]
+                n_acc = 0
+                while n_acc < len(d) and targets[n_acc] == d[n_acc]:
+                    n_acc += 1
+                emitted = list(d[:n_acc]) + [int(targets[n_acc])]
+                self.spec_stats["accepted"] += n_acc
+                req.spec_accepted += n_acc
+            for tok in emitted:
+                self._emit(req, int(tok))
+                self._last_token[i] = int(tok)
+                self.spec_stats["tokens_emitted"] += 1
+                g_emitted += 1
+                # per-tenant fold: accepted/bonus tokens are the useful verify
+                # positions (rejected drafts are step-global spec waste)
+                self._tenant_counts(req.tenant)["useful"] += 1
+                req.useful_tokens += 1
+                if req.done:
+                    break
+            # the last emitted token was sampled, not fed: mark to total-1
+            req.fed_hwm = max(req.fed_hwm, req.total_len - 1)
+            if req.done:
+                self._free_kv(req, cache=True)
+                self.slots[i] = None
+                finished.append(req)
+            else:
+                # release the optimistic blocks past the accepted tokens
+                self.mgr.shrink(req.req_id, req.total_len)
+        g_rejected = g_drafted - (self.spec_stats["accepted"] - g_acc0)
+        acct = self.backend.step_accounting
+        self.ledger.note_shape(acct["shape"])
+        self.ledger.record("verify", acct["fed"], g_emitted, padding=acct["fed"] - g_emitted - g_rejected,
+                           spec_rejected=g_rejected)
+
+    def _accept_rejection(self, slot: int, req, d: np.ndarray, logits_row: np.ndarray,
+                          q: Optional[np.ndarray]) -> List[int]:
+        """Leviathan et al. rejection sampling over one row: returns the tokens
+        to emit (accepted prefix + correction-or-bonus sample)."""
+        temp = max(req.sampling.temperature, 1e-6)
+        rng = self._req_rng(req)
+        emitted: List[int] = []
+        for t in range(len(d)):
+            row = logits_row[t] / temp
+            p = np.exp(row - row.max())
+            p /= p.sum()
+            x = int(d[t])
+            qv = float(q[t][x]) if q is not None else 1.0
+            if rng.uniform() < min(1.0, float(p[x]) / max(qv, 1e-20)):
+                emitted.append(x)
+                self.spec_stats["accepted"] += 1
+                req.spec_accepted += 1
+                continue
+            residual = np.maximum(p - (q[t] if q is not None else 0.0), 0.0)
+            s = residual.sum()
+            residual = residual / s if s > 0 else p
+            emitted.append(int(rng.choice(len(residual), p=residual)))
+            return emitted
+        # every draft accepted: bonus token from the position after the last draft
+        row = logits_row[len(d)] / temp
+        p = np.exp(row - row.max())
+        p /= p.sum()
+        emitted.append(int(rng.choice(len(p), p=p)))
+        return emitted
+
+    def _decode_running(self, finished: List[Request]):
+        # a promoting slot's KV has not landed yet: it rides no decode row
+        if not any(r is not None and r.kv_stage == "decode" for r in self.slots):
+            return
+        # speculative decoding needs every active slot advancing in lockstep,
+        # so it waits for a batch with no promotion in flight
+        all_ready = all(r is None or r.kv_stage == "decode" for r in self.slots)
+        mode = self._spec_mode() if (self.use_speculative and all_ready) else None
+        if mode is not None:
+            # propose first: when NO slot has a draft, a verify forward would
+            # emit 1 token a sequence for (K+1)x the compute, so the
+            # multi-step decode runs instead
+            with TRACER.span("spec_propose", cat="engine", mode=mode, step=self._cur_step,
+                             proposer="draft_model" if self.draft_model is not None else "ngram"), \
+                    torch.profiler.record_function("spec_propose"):
+                if self.draft_model is not None:
+                    drafts, qprobs = self._propose_drafts_draft_model(mode)
+                else:
+                    drafts = [np.zeros(0, np.int32) if r is None else self._propose_drafts(r)
+                              for r in self.slots]
+                    qprobs = [None] * len(self.slots)
+            if any(len(d) for d in drafts):
+                return self._decode_spec(finished, drafts, qprobs, mode)
         steps = self.decode_steps
         # grow tables for up to `steps` tokens; preempt (recompute-requeue)
         # the youngest on exhaustion. Surplus is shrunk back after the call.
         start_len: Dict[int, int] = {}
-        active = [s for s in range(len(self.slots)) if self.slots[s] is not None]
+        active = [s for s in range(len(self.slots))
+                  if self.slots[s] is not None and self.slots[s].kv_stage == "decode"]
         for slot in sorted(active, key=lambda s: -self.slots[s].req_id):
             req = self.slots[slot]
             needed = min(steps, req.remaining_new)
@@ -929,7 +1408,10 @@ class InferenceEngine:
             if self.mgr.extend(req.req_id, max(needed, 1)) is None:
                 start_len.pop(req.req_id, None)
                 self._preempt(slot)
-        if not any(r is not None for r in self.slots):
+        # extends may have popped LRU blocks: enqueue their gather before the
+        # decode forward can overwrite them
+        self._drain_spills()
+        if not any(r is not None and r.kv_stage == "decode" for r in self.slots):
             return
         B = self.max_batch_size
         tokens = np.array(self._last_token, np.int32)
@@ -938,8 +1420,8 @@ class InferenceEngine:
         done0 = np.ones(B, bool)
         remaining = np.zeros(B, np.int32)
         for i, req in enumerate(self.slots):
-            if req is None:
-                continue
+            if req is None or req.kv_stage != "decode":
+                continue  # promoting rows stay frozen (done0) like empty slots
             tables[i] = self.mgr.table_array(req.req_id)
             ctx[i] = req.total_len - 1  # position of the token being fed
             done0[i] = False
@@ -967,7 +1449,7 @@ class InferenceEngine:
         # every emitted token is one useful fed position, the rest is padding
         acct = self.backend.step_accounting
         for req in self.slots:
-            if req is not None:
+            if req is not None and req.kv_stage == "decode":
                 # the last emitted token was sampled, not fed: mark to total-1
                 req.fed_hwm = max(req.fed_hwm, req.total_len - 1)
         self.ledger.note_shape(acct["shape"])

@@ -6,7 +6,9 @@ loop over the layers against the paged KV pool. Where the JAX package traced
 one jit per entry point and scanned the layers with ``lax.scan``, the port
 runs eagerly: a Python loop over layers writing into the pool in place. The
 multi-step decode keeps tokens, done flags and penalty counts on the device
-for all ``decode_steps`` iterations; the caller syncs once per call.
+for all ``decode_steps`` iterations; the caller syncs once per call. The
+speculative ``verify`` is one forward over ``[B, K + 1]`` rows, the third row
+class the ragged kernel serves beside prefill chunks and decode rows.
 
 Attention takes one of two paths, chosen by ``use_paged_kernel`` (default: on
 for a CUDA device): the CUDA ragged paged-attention kernel reading the pool
@@ -174,7 +176,13 @@ class PagedInferenceModel:
         layers = self.model.params["model"]["layers"]
         self._layers = [layer_params(layers, i) for i in range(self.config.num_hidden_layers)]
 
-    def _mm(self, p, x):
+    def _mm(self, p, x, per_position: bool = False):
+        """x [B, T, D] @ kernel (+ bias). ``per_position``: one GEMM for each
+        position t over the B rows, so that every row meets the GEMM the
+        decode's [B, 1] step runs (cuBLAS picks its kernel, and with it the
+        summation order, by the row count M)."""
+        if per_position and x.shape[1] > 1:
+            return torch.cat([self._mm(p, x[:, t: t + 1].contiguous()) for t in range(x.shape[1])], dim=1)
         y = x @ p["kernel"].to(self.dtype)
         if "bias" in p:
             y = y + p["bias"].to(self.dtype)
@@ -195,16 +203,18 @@ class PagedInferenceModel:
         out = torch.einsum("bnts,bsnh->btnh", torch.softmax(logits, dim=-1), v.float())
         return out.to(q.dtype)
 
-    def _layer(self, h, i, pool: PagedKVPool, block_tables, q_positions, kv_len_mask, write_pos, q_lens):
+    def _layer(self, h, i, pool: PagedKVPool, block_tables, q_positions, kv_len_mask, write_pos, q_lens,
+               per_position=False):
         """Decoder layer ``i``: writes this step's K/V into the pool's layer
         ``i`` in place and returns the new hidden states."""
         lp = self._layers[i]
         B, T, _ = h.shape
+        mm = lambda p, x: self._mm(p, x, per_position)  # noqa: E731
         x = rms_norm(h, lp["input_layernorm"]["scale"], self.eps)
         attn = lp["self_attn"]
-        q = self._mm(attn["q_proj"], x).reshape(B, T, self.n_heads, self.head_dim)
-        k = self._mm(attn["k_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
-        v = self._mm(attn["v_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
+        q = mm(attn["q_proj"], x).reshape(B, T, self.n_heads, self.head_dim)
+        k = mm(attn["k_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
+        v = mm(attn["v_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
         cos, sin = rope_tables(q_positions, self.inv_freq)
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
 
@@ -223,20 +233,22 @@ class PagedInferenceModel:
         else:
             k_all, v_all = gather_kv(pool_layer, block_tables, scale_layer)
             attn_out = self._attend(q, k_all, v_all, q_positions, kv_len_mask)
-        h = h + self._mm(attn["o_proj"], attn_out.reshape(B, T, self.n_heads * self.head_dim))
+        h = h + mm(attn["o_proj"], attn_out.reshape(B, T, self.n_heads * self.head_dim))
 
         x = rms_norm(h, lp["post_attention_layernorm"]["scale"], self.eps)
         mlp = lp["mlp"]
-        act = F.silu(self._mm(mlp["gate_proj"], x)) * self._mm(mlp["up_proj"], x)
-        return h + self._mm(mlp["down_proj"], act)
+        act = F.silu(mm(mlp["gate_proj"], x)) * mm(mlp["up_proj"], x)
+        return h + mm(mlp["down_proj"], act)
 
     @torch.no_grad()
     def _forward(self, pool: PagedKVPool, input_ids, block_tables, q_positions, kv_len_mask, write_pos,
-                 last_pos, q_lens=None):
+                 last_pos, q_lens=None, per_position=False):
         """input_ids [B,T]; writes the fed tokens' K/V into ``pool`` and
         returns the logits at ``last_pos`` [B,V] (``last_pos=None``: [B,T,V]).
         ``q_lens`` [B] = valid new tokens per row (default T everywhere); only
-        the kernel reads it, the plain path masks padded rows by position."""
+        the kernel reads it, the plain path masks padded rows by position.
+        ``per_position`` runs every projection as one GEMM a position (see
+        :meth:`_mm`)."""
         B, T = input_ids.shape
         if q_lens is None:
             q_lens = torch.full((B,), T, dtype=torch.int32, device=input_ids.device)
@@ -251,12 +263,13 @@ class PagedInferenceModel:
         if getattr(self.config, "scale_embeddings", False):
             h = h * torch.tensor(self.config.hidden_size**0.5, dtype=h.dtype)
         for i in range(len(self._layers)):
-            h = self._layer(h, i, pool, block_tables, q_positions, kv_len_mask, write_pos, q_lens)
+            h = self._layer(h, i, pool, block_tables, q_positions, kv_len_mask, write_pos, q_lens, per_position)
         h = rms_norm(h, m["norm"]["scale"], self.eps)
         last = h if last_pos is None else h[torch.arange(B, device=h.device), last_pos.long()]
-        if "lm_head" in self.model.params:
-            return last @ self.model.params["lm_head"]["kernel"].to(self.dtype)
-        return last @ embed.T.to(self.dtype)
+        head = self.model.params["lm_head"]["kernel"] if "lm_head" in self.model.params else embed.T
+        if last.dim() == 3:
+            return self._mm({"kernel": head}, last, per_position)
+        return last @ head.to(self.dtype)
 
     # ------------------------------------------------------------------ entry points
     @torch.no_grad()
@@ -375,3 +388,33 @@ class PagedInferenceModel:
             toks.append(nxt)
             valid.append(emit)
         return torch.stack(toks), torch.stack(valid), done, ctx, counts
+
+    @torch.no_grad()
+    def verify(self, pool, tokens, block_tables, start_pos, need_logits: bool = True):
+        """Speculative-decoding verify: one forward over ``[last_token, d_1..d_K]``
+        (``_verify_impl`` of the JAX package). tokens [B, K+1] (the last
+        accepted token then the drafts, 0-padded); start_pos [B] the absolute
+        position of tokens[:, 0]. K/V is written for every fed position,
+        drafts past a row's real draft length included: rejected positions
+        need no rollback, they are masked by position until a later step
+        overwrites them. Returns (argmax [B, K+1] int32, logits [B, K+1, V]
+        fp32 or None): position i scores the token after tokens[:, i]. Greedy
+        acceptance reads only the argmax, so ``need_logits=False`` never
+        materializes the fp32 logits.
+
+        Every projection runs as one [B, D] GEMM a position, the shape of the
+        decode's: each row then takes the decode's summation order, and the
+        tokens greedy speculation emits are the ones the plain decode emits,
+        bit for bit. One [B(K+1), D] GEMM would read the weights once instead
+        of K+1 times, but cuBLAS picks another kernel for it: on an H100 at
+        Qwen2-7B's widths in bf16 that moved the logits by up to 0.2 and
+        flipped the argmax of one row in eight."""
+        B, T = tokens.shape
+        dev = tokens.device
+        positions = start_pos[:, None] + torch.arange(T, device=dev)[None, :]
+        S = block_tables.shape[1] * self.block_size
+        kv_len_mask = torch.arange(S, device=dev)[None, :] <= (start_pos[:, None] + T - 1)
+        logits = self._forward(pool, tokens, block_tables, positions, kv_len_mask, start_pos, None,
+                               per_position=True)
+        argmax = logits.argmax(dim=-1).to(torch.int32)
+        return argmax, (logits.float() if need_logits else None)

@@ -10,8 +10,10 @@ PyTorch port of ``paddlenlp_tpu/experimental/paged_cache.py``:
   pool tensor in place.
 - host side: ``BlockManager`` is the JAX package's allocator copied as it is
   (free list, per-sequence tables, refcounted prefix cache with the same
-  sha256 chain hashes, LRU eviction, copy-on-write pairs), minus the host-RAM
-  spill tier, which the port does not have yet.
+  sha256 chain hashes, LRU eviction, copy-on-write pairs) with the hooks of
+  the host-RAM spill tier (``kv_host_tier.py``): LRU evictions queue for a
+  batched spill, prefix matches continue into the tier, promoted blocks
+  re-register.
 """
 
 from __future__ import annotations
@@ -193,6 +195,12 @@ class BlockManager:
         self.cache_hits = 0  # allocations that reused >=1 cached block
         self.cached_tokens_total = 0  # prompt tokens whose prefill was skipped
         self.evictions = 0  # cached blocks recycled under pressure
+        # hierarchical cache (kv_host_tier.py): with a tier attached, LRU
+        # evictions queue (hash, block) pairs here instead of dropping the
+        # content; the engine drains them into one batched spill BEFORE any
+        # device launch can overwrite the recycled blocks
+        self.host_tier = None
+        self._pending_spills: List[Tuple[bytes, int]] = []
 
     @property
     def num_free(self) -> int:
@@ -301,7 +309,10 @@ class BlockManager:
 
     def _pop_block(self) -> int:
         """A fresh private block: free list first, else evict the LRU cached
-        block (allocation pressure is the ONLY thing that shrinks the cache)."""
+        block (allocation pressure is the ONLY thing that shrinks the cache).
+        With a host tier attached the evicted block's hash demotes instead of
+        dying: it is queued for the engine's batched spill and the tier keeps
+        serving it to future prefix matches (:meth:`host_match`)."""
         if self.free:
             b = self.free.pop()
         else:
@@ -309,8 +320,52 @@ class BlockManager:
             h = self._block_hash.pop(b)
             self._index.pop(h, None)
             self.evictions += 1
+            if self.host_tier is not None and self.host_tier.accepting:
+                self._pending_spills.append((h, b))
         self.ref[b] = 1
         return b
+
+    # ------------------------------------------------------------- host tier
+    def attach_host_tier(self, tier):
+        """Hang a :class:`~.kv_host_tier.HostKVTier` under the LRU: evictions
+        demote to it, :meth:`host_match` extends prefix matches into it."""
+        self.host_tier = tier
+
+    def drain_pending_spills(self) -> List[Tuple[bytes, int]]:
+        """(hash, block) pairs evicted since the last drain; cleared on read.
+        The engine MUST consume these before any device launch that writes
+        the recycled blocks: the spill gather is enqueued on the compute
+        stream ahead of that launch and so reads the old bytes."""
+        out, self._pending_spills = self._pending_spills, []
+        return out
+
+    def host_match(self, token_ids, n_tokens: int, salt: Optional[str] = None,
+                   skip: int = 0) -> List[bytes]:
+        """Chain hashes of the full-block prefix run that continues past the
+        device match (``skip`` = blocks the device index already covered)
+        and is resident in the host tier. Pure lookup: pops nothing."""
+        if (not self.enable_prefix_cache or self.host_tier is None
+                or not self.host_tier.accepting):
+            return []
+        bs = self.block_size
+        nb_full = min(len(token_ids), n_tokens) // bs
+        if nb_full <= skip:
+            return []
+        out: List[bytes] = []
+        for h in self._chain_hashes(token_ids, nb_full, salt=salt)[skip:]:
+            if not self.host_tier.contains(h):
+                break
+            out.append(h)
+        return out
+
+    def register_promoted(self, blocks: Sequence[int], hashes: Sequence[bytes]):
+        """Re-register just-promoted blocks in the device index (the other
+        half of the resident-XOR move that :meth:`HostKVTier.take` started).
+        A hash or block already claimed is skipped."""
+        for b, h in zip(blocks, hashes):
+            if h not in self._index and b not in self._block_hash:
+                self._index[h] = b
+                self._block_hash[b] = h
 
     def drain_cow_pairs(self) -> List[Tuple[int, int]]:
         """(src, dst) block copies the caller owes the device pool (see
@@ -427,6 +482,14 @@ class BlockManager:
                 if h not in self._index and b not in self._block_hash:
                     self._index[h] = b
                     self._block_hash[b] = h
+                    # resident-XOR: a cold re-prefill of a spilled span just
+                    # re-registered device-side; the (identical) host copy
+                    # yields, and a still-queued spill of it dies before the
+                    # drain would double-register it
+                    if self.host_tier is not None:
+                        self.host_tier.discard(h)
+                        if self._pending_spills:
+                            self._pending_spills = [p for p in self._pending_spills if p[0] != h]
         for b in blocks:
             self._release_block(b)
 
@@ -443,6 +506,11 @@ class BlockManager:
         # in-flight sequences hold KV from before the clear: the epoch bump
         # stops finish_seq_cached from re-registering it into the fresh index
         self._cache_epoch += 1
+        # the host tier is the same cache one level down: queued spills die
+        # and resident entries invalidate (no KV across weight generations)
+        self._pending_spills.clear()
+        if self.host_tier is not None:
+            self.host_tier.clear()
 
     def table_array(self, seq_id: int) -> np.ndarray:
         """Padded table row (sentinel block 0 for unused slots)."""

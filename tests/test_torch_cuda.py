@@ -377,3 +377,93 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ----------------------------------------------------------------- speculative decode and the host KV tier
+def test_verify_rows_through_the_hopper_kernel(dev):
+    """Verify rows (8 rows of K + 1 = 5 query tokens, the spec phase's
+    shape at a narrow width) through the Hopper paged kernel against the
+    plain version, elementwise within 2**-7 * |plain| + 1e-3."""
+    rng = np.random.default_rng(3)
+    B, T, N, K, H, bs, mb = 8, 5, 14, 2, 128, 16, 16
+    nb = B * mb + 1
+    q = torch.from_numpy(rng.standard_normal((B, T, N, H), dtype=np.float32)).to(dev, torch.bfloat16)
+    pk, pv = (torch.from_numpy(rng.standard_normal((nb, K, bs, H), dtype=np.float32)).to(dev, torch.bfloat16)
+              for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb))[: B * mb].reshape(B, mb).astype(np.int32)).to(dev)
+    q_start = torch.tensor([0, 15, 16, 100, 200, 255 - T, 31, 64], dtype=torch.int32, device=dev)
+    q_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    sm90 = pa.LAUNCHES_SM90
+    out = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
+    assert pa.LAUNCHES_SM90 == sm90 + 1
+    ref = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens)
+    assert ((out.float() - ref.float()).abs() <= 2**-7 * ref.float().abs() + 1e-3).all()
+
+
+def test_speculative_engine_kernel_path_matches_plain_path(dev):
+    """n-gram speculation on the card: in fp32 the verify forward through the
+    kernel gives the plain gather path's greedy streams; in bf16 its
+    launches all take the Hopper route and its streams equal those of the
+    plain decode without speculation, bit for bit."""
+    cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
+    prompts = [[5, 6, 7, 8, 9, 5, 6, 7, 8, 9, 5, 6], [30] * 12]
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=dtype)
+        for kernel in (True, False):
+            eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                                  dtype=dtype, use_speculative=True)
+            eng.infer.use_paged_kernel = kernel
+            pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+            outs[dtype, kernel] = eng.generate(prompts, SamplingParams(max_new_tokens=24))
+            assert eng.spec_stats["verify_steps"] > 0
+            if kernel:
+                assert pa.LAUNCHES > 0 and (pa.LAUNCHES_SM90 == pa.LAUNCHES) == (dtype == torch.bfloat16)
+        eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8, dtype=dtype)
+        outs[dtype, "plain decode"] = eng.generate(prompts, SamplingParams(max_new_tokens=24))
+    assert outs[torch.float32, True] == outs[torch.float32, False]
+    assert outs[torch.bfloat16, True] == outs[torch.bfloat16, "plain decode"]
+
+
+def test_draft_forward_takes_the_hopper_flash_route(dev):
+    """A bf16 draft model at head_dim 64 proposes through the Hopper flash
+    forward: one launch per layer and draft step, none on the SIMT route."""
+    cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
+    dcfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=1,
+                       num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    draft = Qwen2ForCausalLM.init_random(dcfg, seed=1, device=dev, dtype=torch.bfloat16)
+    eng = InferenceEngine(model, max_batch_size=2, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                          draft_model=draft, spec_draft_len=4)
+    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    out = eng.generate([[5, 6, 7, 8], [40, 41, 42]], SamplingParams(max_new_tokens=10))
+    assert [len(o) for o in out] == [10, 10]
+    fwd, fwd90 = fa.LAUNCHES["fwd"] - before["fwd"], fa.LAUNCHES_SM90["fwd"] - sm90["fwd"]
+    assert fwd == fwd90 == eng.spec_stats["verify_steps"] * 4 * dcfg.num_hidden_layers > 0
+
+
+def test_host_tier_round_trip_on_the_card(dev):
+    """Spill to pinned host memory on the side stream and promote back: the
+    promoted blocks hold the spilled bytes and the stream after the promote
+    equals a never-evicting engine's."""
+    cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+    prefix = list(range(5, 69))  # 4 blocks of 16
+    kw = dict(max_batch_size=2, block_size=16, max_blocks_per_seq=16)
+    eng = InferenceEngine(model, num_blocks=9, host_kv_blocks=32, **kw)
+    eng.generate([prefix + [70, 71]], SamplingParams(max_new_tokens=4))
+    blocks = [eng.mgr._index[h] for h in eng.mgr._chain_hashes(prefix, 4)]
+    spilled = eng.pool.kv[:, :, blocks].clone()
+    eng.generate([[72 + i % 50 for i in range(120)]], SamplingParams(max_new_tokens=4))  # evicts the prefix
+    tier = eng._host_tier
+    assert tier.stats["spills"] >= 4
+    assert all(plane.is_pinned() for plane in tier.planes)
+    got = eng.generate([prefix + [80, 81]], SamplingParams(max_new_tokens=8))[0]
+    assert tier.stats["promoted_blocks"] >= 4
+    promoted = [eng.mgr._index[h] for h in eng.mgr._chain_hashes(prefix, 4)]
+    assert torch.equal(eng.pool.kv[:, :, promoted], spilled)
+    ref = InferenceEngine(model, num_blocks=64, enable_prefix_cache=False, **kw)
+    assert got == ref.generate([prefix + [80, 81]], SamplingParams(max_new_tokens=8))[0]

@@ -211,8 +211,8 @@ def test_paged_logits_match_dense(models):
         torch.testing.assert_close(torch.cat(rows), dense[T - 1:], atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("option", [dict(use_speculative=True), dict(mesh_shape=(1, 2)), dict(disagg_stages=(1, 1)),
-                                    dict(adapter_registry=object()), dict(tenant_quotas={}), dict(host_kv_blocks=8)])
+@pytest.mark.parametrize("option", [dict(mesh_shape=(1, 2)), dict(disagg_stages=(1, 1)),
+                                    dict(adapter_registry=object()), dict(tenant_quotas={})])
 def test_options_outside_the_slice_raise(models, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(models[1], **BASE, **option)
