@@ -19,16 +19,17 @@ Serving, the paged engine at Qwen2-7B width and depth:
               heads, head_dim 128, block 16): one ragged batch of 512-token
               prefill chunks, decode rows at contexts up to 4096 and a dead
               row, with bf16 queries over bf16, int8 and fp8 pools and with
-              fp32 queries over an fp32 pool; the monolithic-prefill shape,
-              2048 query tokens at contexts up to 2048; the engine's decode
-              call, 8 rows of one token at contexts 256-2112; and the
-              speculative verify, 8 rows of 5 tokens. bf16 over
-              bf16 takes the Hopper kernel (``paged_attention_sm90.cu``, split
-              kv walk in decode), the rest the SIMT kernel
-              (``paged_attention.cu``), and each case checks its route; the
-              Hopper cases give bitwise equal results over two launches;
-              times against the card's bound, the plain version and
-              ``scaled_dot_product_attention``;
+              fp32 queries over fp32 and int8 pools; the monolithic-prefill
+              shape, 2048 query tokens at contexts up to 2048, over bf16 and
+              int8 pools; the engine's decode call, 8 rows of one token at
+              contexts 256-2112, over bf16, int8 and fp8 pools; and the
+              speculative verify, 8 rows of 5 tokens. bf16 queries take the
+              Hopper kernel (``paged_attention_sm90.cu``, split kv walk in
+              decode; its quantized entry for int8 and fp8 pools), fp32
+              queries the SIMT kernel (``paged_attention.cu``), and each case
+              checks its route; the Hopper cases give bitwise equal results
+              over two launches; times against the card's bound, the plain
+              version and ``scaled_dot_product_attention``;
 4. engine  -- ``InferenceEngine`` serving 8 requests on Qwen2-7B at its
               published widths and depth with random bf16 weights from
               ``--seed``, once with monolithic prefill and once with 512-token
@@ -75,10 +76,23 @@ Serving, the paged engine at Qwen2-7B width and depth:
               never-evicting engine's tokens; D2H and H2D rates, turn-2
               TTFT against a cold re-prefill; then the same as a chat over
               HTTP, whose turn 2 counts the promoted span as cached;
+10. kv_quant -- the engine phase's 8 requests on the same model over an int8
+              pool (monolithic and 512-token chunked prefill) and an fp8
+              pool (monolithic), every paged launch on the Hopper kernel's
+              quantized entry; prefix-cache hits, the ledger conserved; the
+              kernel path's logits against the plain gather path's over
+              int8 and fp8 pools (min cosine >= 0.99), and each one's
+              distance from the fp32 logits; greedy streams against those
+              of the same engine on the plain gather path (a divergence
+              passes only where the two tokens' fp32 margin is within
+              twice that distance; the bf16 gate is printed beside it);
+              TTFT/TPOT, tokens/s, peak memory, pool bytes and the
+              agreement with a bf16 pool's streams, printed; one profiled
+              decode call's paged-attention device ms;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-10. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+11. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -88,11 +102,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-11. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+12. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-12. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+13. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -100,15 +114,17 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
-13. train_profile -- ``torch.profiler`` over one more training step;
-14. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs, the serve, spec and host_tier phases) and the
-              training run (and the spec phase's draft forwards), each on
-              its own route, and its check.
+14. train_profile -- ``torch.profiler`` over one more training step;
+15. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, spec and host_tier phases; the
+              kv_quant phase for the quantized entry) and the training run
+              (and the spec phase's draft forwards), each on its own route,
+              and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
-object (eight rows: the paged kernel, the flash forward, dq and dk/dv, each on
-the Hopper and on the SIMT route) and ``{"ok": true, "device": {...}}``.
+object (nine rows: the paged kernel, the flash forward, dq and dk/dv, each on
+the Hopper and on the SIMT route, and the paged kernel's Hopper route over a
+quantized pool) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -185,10 +201,12 @@ BATCHES = {
     "verify": (5, [543, 607, 671, 735, 799, 863, 927, 991], [5] * 8),
 }
 # (batch, query dtype, pool) of every case the kernel phase checks: bf16
-# queries over a bf16 pool, the main path's types, take the Hopper kernel
+# queries, the main path's, take the Hopper kernel (over an int8 or fp8 pool
+# its quantized entry), fp32 queries the SIMT kernel
 CASES = [("ragged", "bfloat16", "bf16"), ("ragged", "bfloat16", "int8"), ("ragged", "bfloat16", "fp8"),
-         ("ragged", "float32", "fp32"), ("prefill", "bfloat16", "bf16"), ("decode", "bfloat16", "bf16"),
-         ("verify", "bfloat16", "bf16")]
+         ("ragged", "float32", "fp32"), ("ragged", "float32", "int8"), ("prefill", "bfloat16", "bf16"),
+         ("prefill", "bfloat16", "int8"), ("decode", "bfloat16", "bf16"), ("decode", "bfloat16", "int8"),
+         ("decode", "bfloat16", "fp8"), ("verify", "bfloat16", "bf16")]
 
 
 def kernel_case(torch, quantize_kv, batch, q_dtype, kv, seed):
@@ -266,15 +284,17 @@ def phase_kernel(torch, pa, quantize_kv, seed):
     cases = []
     for batch, q_dtype, kv in CASES:
         args = kernel_case(torch, quantize_kv, batch, q_dtype, kv, seed)
-        route = "sm90" if (q_dtype, kv) == ("bfloat16", "bf16") else "simt"
-        sm90_before = pa.LAUNCHES_SM90
+        route = pa.kernel_route(args["q"].dtype, args["pool_k"].dtype)
+        before = (pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT)
         out = pa.ragged_paged_attention(**args)
-        sm90 = pa.LAUNCHES_SM90 - sm90_before
+        moved = tuple(n - b for n, b in zip((pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT), before))
         again = pa.ragged_paged_attention(**args)
         ref = pa.ragged_paged_attention_ref(**args)
         torch.cuda.synchronize()
         name = f"{batch} q {q_dtype} pool {kv}"
-        check(sm90 == (route == "sm90"), f"kernel {name}: a {route} case took the Hopper route {sm90} times")
+        want = (1, int(route != "simt"), int(route == "sm90_quant"))
+        check(moved == want, f"kernel {name}: launches, Hopper, quantized Hopper moved by {moved}, "
+                             f"want {want} on the {route} route")
         # no atomics on the Hopper route: the same inputs give the same bits
         check(route == "simt" or torch.equal(out, again), f"kernel {name}: two launches differ")
         rtol, atol = KERNEL_TOL[q_dtype]
@@ -406,33 +426,37 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
     return res
 
 
-def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
+def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, quant=None):
     """Where one steady-state decode call goes (8 requests, ``decode_steps``
     sub-steps): ``torch.profiler`` over the engine step after admission,
-    device time by kernel and the device's idle share of the step."""
+    device time by kernel and the device's idle share of the step; over a
+    bf16 pool, or an int8 / fp8 one (``quant``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prompts, _ = traffic(np, model.config.vocab_size, seed)
-    eng = InferenceEngine(model, max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256)
+    eng = InferenceEngine(model, **SERVE_ENGINE, kv_cache_quant=quant)
     for p in prompts:
         eng.add_request(p, SamplingParams(max_new_tokens=1 + 2 * eng.decode_steps))
     eng.step()  # admission: prefill + the first decode call
     torch.cuda.synchronize()
     # the profiled call's attention launches read, per layer and sub-step,
-    # every live row's KV blocks up to its current position once
+    # every live row's KV blocks up to its current position once (K and V:
+    # H values a position and kv head, and a quantized pool's fp32 scale)
     cfg, bs = model.config, 16
     fed = [r.total_len - 1 for r in eng.slots if r is not None]
-    kv_bytes = [sum(((p + s) // bs + 1) * bs for p in fed) * cfg.num_key_value_heads * cfg.head_dim * 2 * 2
+    per_pos = 2 * (cfg.head_dim * eng.pool.kv.element_size() + (4 if quant else 0))
+    kv_bytes = [sum(((p + s) // bs + 1) * bs for p in fed) * cfg.num_key_value_heads * per_pos
                 for s in range(eng.decode_steps)]
-    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    check(pa.LAUNCHES_SM90 == pa.LAUNCHES > 0,
-          f"profile: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
+    route = pa.LAUNCHES_SM90_QUANT if quant else pa.LAUNCHES_SM90
+    check(route == pa.LAUNCHES > 0 and (quant or pa.LAUNCHES_SM90_QUANT == 0),
+          f"profile: {route} of {pa.LAUNCHES} launches on the Hopper route ({quant or 'bf16'} pool)")
     # kernels and copies only: host ops and annotation ranges carry the
     # device time of the kernels they launched as well
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
@@ -442,7 +466,7 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
     attn = [e for e in events if "paged_attention" in e.key]
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     attn_launches = sum(e.count for e in attn if "merge" not in e.key)
-    res = dict(phase="profile", step="decode call, 8 rows x %d sub-steps" % eng.decode_steps,
+    res = dict(phase="profile", step="decode call, 8 rows x %d sub-steps" % eng.decode_steps, kv_cache_quant=quant,
                wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
                attention_kernel_ms=attn_ms, attention_launches=attn_launches, sm90_launches=pa.LAUNCHES_SM90,
                attention_launch_ms=attn_ms / max(attn_launches, 1),
@@ -456,16 +480,20 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
 
 
 # ----------------------------------------------------------------------------- logits
-def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dtype, n_decode, feed=None):
+def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dtype, n_decode, feed=None, quant=None,
+                 kernel=True):
     """Prefill ``prompt`` then ``n_decode`` decode steps through the paged
-    forward on the kernel path, feeding the greedy token (or ``feed[i]`` when
-    given); returns (logits [1 + n_decode, V] fp32, fed token ids)."""
+    forward, over a fresh pool (int8 / fp8 with ``quant``), on the kernel path
+    or, with ``kernel=False``, on the plain gather path, feeding the greedy
+    token (or ``feed[i]`` when given); returns (logits [1 + n_decode, V]
+    fp32, fed token ids)."""
     bs = 16
     n_blocks = (len(prompt) + n_decode) // bs + 2
     infer = PagedInferenceModel(model, block_size=bs, num_blocks=n_blocks + 1, max_blocks_per_seq=n_blocks,
                                 dtype=dtype)
     check(infer.use_paged_kernel, "logits: the paged model on CUDA must run the kernel path")
-    pool = init_paged_pool(model.config, n_blocks + 1, bs, dtype=dtype, device=DEVICE)
+    infer.use_paged_kernel = kernel  # the plain path only where the caller asks for it
+    pool = init_paged_pool(model.config, n_blocks + 1, bs, dtype=dtype, quant=quant, device=DEVICE)
     tables = torch.arange(1, n_blocks + 1, dtype=torch.int32, device=DEVICE)[None]
     S = n_blocks * bs
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
@@ -832,19 +860,22 @@ SPEC_K = 4  # spec_draft_len of every speculative run
 SERVE_ENGINE = dict(max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256)
 
 
-def divergence(torch, model, prompt, got, want):
+def divergence(torch, model, prompt, got, want, fp32_logits=None):
     """None when two greedy streams are equal. Otherwise their first
     divergent position, with the two tokens' fp32 logits there from the
-    plain dense forward over the common prefix, their margin and the bf16
-    gate ``2**-7 * |logit| + 1e-3``: a bf16 verify over [8, 5] rows and a
+    plain dense forward over the common prefix (or ``fp32_logits(ids)``, the
+    last position's fp32 logits of the function the streams compute, where
+    it is not the dense one), their margin and the bf16 gate
+    ``2**-7 * |logit| + 1e-3``: a bf16 verify over [8, 5] rows and a
     decode over [8, 1] rows run GEMMs of different M, so a near-tie may take
     the other token. Only a divergence within the gate passes."""
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if j is None:
         check(len(got) == len(want), f"streams of {len(got)} and {len(want)} tokens share every position")
         return None
-    ids = torch.tensor([[int(t) for t in prompt] + list(want[:j])], device=DEVICE)
-    row = model(ids, dtype=torch.float32)[0, -1]
+    ids = [int(t) for t in prompt] + list(want[:j])
+    row = model(torch.tensor([ids], device=DEVICE), dtype=torch.float32)[0, -1] if fp32_logits is None \
+        else fp32_logits(ids)
     la, lb = row[got[j]].item(), row[want[j]].item()
     margin, gate = abs(la - lb), 2**-7 * max(abs(la), abs(lb)) + 1e-3
     del row
@@ -1361,6 +1392,171 @@ def phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, servi
     return res
 
 
+# ----------------------------------------------------------------------------- quantized KV pool
+# (kv_cache_quant, prefill_chunk_tokens) of the kv_quant phase's engine runs
+KV_QUANT_RUNS = [("int8", None), ("int8", 512), ("fp8", None)]
+
+
+def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+                   bf16_profile, seed):
+    """The engine over an int8 or fp8 pool at Qwen2-7B (``kv_cache_quant``,
+    the reference's ``cachekv_int8``).
+
+    (a) Logits: one 1024-token request and 16 decode steps, in bf16 on the
+    kernel path, in bf16 on the plain gather path (which the caller turns on
+    here to compare) fed the same tokens, and in fp32 on the kernel path
+    (the SIMT kernel, the precise check), each over a fresh pool of the same
+    kind; the two bf16 paths at min cosine >= 0.99, and the largest
+    distance of each from the fp32 logits, ``e_kernel`` and ``e_plain``.
+
+    (b) The engine phase's 8 requests and waves on ``SERVE_ENGINE``, on the
+    kernel path (every paged launch on the Hopper kernel's quantized entry)
+    and on the plain gather path. The two paths are two functions, as in the
+    JAX package: the kernel dequantizes K and V in fp32, the gather path
+    rounds them to bf16, and on random weights the logits of the 152,064
+    tokens lie within a few tenths of each other. A greedy stream may
+    therefore leave the other path's at a near tie. At the first divergence
+    the two tokens' logits come from the fp32 kernel path over the common
+    prefix; each bf16 path's pick is ``e`` from the fp32 logits at most, so
+    the fp32 margin between the two picks is at most ``2 * max(e_kernel,
+    e_plain)`` (the gate, from this run's (a)); the bf16 rounding gate
+    ``2**-7 * |logit| + 1e-3`` is printed beside it. The same engine over a
+    bf16 pool serves the same requests first, for the time and memory
+    beside the quantized runs' and the streams they are held to, printed:
+    quantization changes the function.
+
+    (c) One profiled decode call over an int8 pool against the bf16 one."""
+    t_phase = time.perf_counter()
+    prompts, sampled = traffic(np, model.config.vocab_size, seed)
+    greedy = [i for i in range(len(prompts)) if i not in sampled]
+    vocab = model.config.vocab_size
+    res = dict(phase="kv_quant", config="Qwen/Qwen2-7B", engine=SERVE_ENGINE, logits={}, runs=[])
+    total = dict(paged=0, sm90_quant=0)
+
+    def logits(ids, quant, dtype, n_decode=0, feed=None, kernel=True):
+        return paged_logits(torch, model, PagedInferenceModel, init_paged_pool, ids, dtype, n_decode, feed=feed,
+                            quant=quant, kernel=kernel)
+
+    # (a) the logits of the three paths over the same tokens
+    rng = np.random.default_rng(seed + 1)
+    prompt = rng.integers(0, vocab, 1024).tolist()
+    for quant in ("int8", "fp8"):
+        pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+        got, fed = logits(prompt, quant, torch.bfloat16, 16)
+        launches = dict(paged=pa.LAUNCHES, sm90_quant=pa.LAUNCHES_SM90_QUANT)
+        plain, _ = logits(prompt, quant, torch.bfloat16, 16, feed=fed, kernel=False)
+        launches["plain_path"] = pa.LAUNCHES - launches["paged"]
+        precise, _ = logits(prompt, quant, torch.float32, 16, feed=fed)
+        res["logits"][quant] = dict(positions=got.shape[0], finite=torch.isfinite(got).all().item(),
+                                    min_cosine=torch.nn.functional.cosine_similarity(got, plain, dim=-1).min().item(),
+                                    max_abs_err=(got - plain).abs().max().item(),
+                                    plain_max_abs=plain.abs().max().item(),
+                                    top1_agree=(got.argmax(-1) == plain.argmax(-1)).float().mean().item(),
+                                    e_kernel=(got - precise).abs().max().item(),
+                                    e_plain=(plain - precise).abs().max().item(),
+                                    top1_agree_fp32={k: (x.argmax(-1) == precise.argmax(-1)).float().mean().item()
+                                                     for k, x in (("kernel", got), ("plain", plain))},
+                                    launches=launches)
+        for k in total:
+            total[k] += launches[k]
+        del got, plain, precise
+
+    def sp(i):
+        if i in sampled:
+            return SamplingParams(max_new_tokens=64, do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
+        return SamplingParams(max_new_tokens=64)
+
+    def serve(quant, chunk, kernel=True):
+        eng = InferenceEngine(model, **SERVE_ENGINE, kv_cache_quant=quant, prefill_chunk_tokens=chunk)
+        check(eng.infer.use_paged_kernel, "kv_quant: the engine on CUDA must run the kernel path")
+        eng.infer.use_paged_kernel = kernel
+        torch.cuda.reset_peak_memory_stats()
+        pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+        done, wall = serve_waves(torch, eng, prompts, sp, [[0], range(1, len(prompts))])
+        launches = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90, sm90_quant=pa.LAUNCHES_SM90_QUANT)
+        stats = eng.stats()["prefix_cache"]
+        what = f"kv_quant {quant or 'bf16'} {'chunked' if chunk else 'monolithic'} {'kernel' if kernel else 'plain'}"
+        check(len(done) == len(prompts), f"{what}: {len(done)} of {len(prompts)} requests finished")
+        for i, r in done.items():
+            check(r.finish_reason in ("length", "stop"), f"{what}: request {i} ended {r.finish_reason}")
+            check(r.finish_reason == "stop" or len(r.output_ids) == 64, f"{what}: request {i} short")
+            check(all(0 <= t < vocab for t in r.output_ids), f"{what}: request {i} emitted out-of-vocab ids")
+        check(stats["hits"] > 0, f"{what}: no prefix-cache hit")
+        check(eng.ledger.verify_conservation(), f"{what}: goodput ledger conservation broken")
+        if kernel:
+            on_route = launches["sm90_quant"] if quant else launches["sm90"] - launches["sm90_quant"]
+            check(launches["paged"] > 0 and on_route == launches["sm90"] == launches["paged"],
+                  f"{what}: {launches} -- every paged launch must take the Hopper kernel's "
+                  f"{'quantized' if quant else 'bf16'} entry")
+        else:
+            check(launches["paged"] == 0, f"{what}: the plain path launched {launches}")
+        pool_bytes = sum(t.numel() * t.element_size() for t in (eng.pool.kv, eng.pool.scale) if t is not None)
+        run = dict(latency(done, wall), launches=launches, prefix_cache_hits=stats["hits"],
+                   prefix_cached_tokens=stats["cached_tokens"], ledger=eng.ledger.snapshot()["totals"],
+                   conservation=True, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, pool_bytes=pool_bytes)
+        del eng
+        torch.cuda.empty_cache()
+        return {i: list(r.output_ids) for i, r in done.items()}, run
+
+    # (b) the engine runs; the fp32 logits of a common prefix are shared by runs that reach it
+    bf16_streams, res["bf16_pool"] = serve(None, None)
+    fp32_rows = {}
+    for quant, chunk in KV_QUANT_RUNS:
+        streams, run = serve(quant, chunk)
+        for k in total:
+            total[k] += run["launches"][k]
+        plain, plain_run = serve(quant, chunk, False)
+
+        def fp32_logits(ids, quant=quant):
+            key = (quant, tuple(ids))
+            if key not in fp32_rows:
+                fp32_rows[key] = logits(ids, quant, torch.float32)[0][-1]
+            return fp32_rows[key]
+
+        e = res["logits"][quant]
+        gate = 2 * max(e["e_kernel"], e["e_plain"])
+        diverged = {}
+        for i in greedy:
+            d = divergence(torch, model, prompts[i], streams[i], plain[i], fp32_logits)
+            if d is not None:
+                d.update(within_bf16_gate=d.pop("within_gate"), bf16_gate=d.pop("gate"), gate=gate,
+                         within_gate=d["margin"] <= gate)
+                diverged[i] = d
+        # quantization changes the function: agreement with the bf16 pool, printed
+        agree = {i: next((j for j, (a, b) in enumerate(zip(streams[i], bf16_streams[i])) if a != b),
+                         len(streams[i])) for i in streams}
+        res["runs"].append(dict(
+            kv_cache_quant=quant, prefill="chunked" if chunk else "monolithic", chunk_tokens=chunk or 0,
+            kernel=run, plain=plain_run,
+            greedy_vs_plain=dict(equal=len(greedy) - len(diverged), of=len(greedy), gate=gate, diverged=diverged),
+            sampled_equal_plain=sum(streams[i] == plain[i] for i in sampled),
+            tokens_equal_bf16_pool_before_first_difference=agree))
+    del fp32_rows
+    res["launches"] = total
+    # (c)
+    prof = phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, quant="int8")
+    res["decode_profile"] = {f"{pool}_{k}": p[k] for pool, p in (("int8", prof), ("bf16", bf16_profile))
+                             for k in ("attention_kernel_ms", "attention_launches", "attention_launch_ms",
+                                       "attention_launch_bound_ms", "device_ms", "wall_ms")}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    # the gates, once everything above is printed
+    for quant, lg in res["logits"].items():
+        per_run = lg["positions"] * model.config.num_hidden_layers
+        check(lg["launches"] == dict(paged=per_run, sm90_quant=per_run, plain_path=0),
+              f"kv_quant logits {quant}: launches {lg['launches']}, want {per_run} on the quantized Hopper entry "
+              "and none on the plain path")
+        check(lg["finite"], f"kv_quant logits {quant}: non-finite")
+        check(lg["min_cosine"] >= 0.99, f"kv_quant logits {quant}: kernel vs plain path min cosine "
+                                        f"{lg['min_cosine']} < 0.99")
+    for run in res["runs"]:
+        for i, d in run["greedy_vs_plain"]["diverged"].items():
+            check(d["within_gate"], f"kv_quant {run['kv_cache_quant']} {run['prefill']}: request {i} leaves the "
+                                    f"plain path's stream at {d['position']}, an fp32 margin outside "
+                                    f"2 max(e_kernel, e_plain): {d}")
+    return res
+
+
 # ----------------------------------------------------------------------------- flash attention
 # Qwen/Qwen2-1.5B config.json (https://huggingface.co/Qwen/Qwen2-1.5B/blob/main/config.json)
 QWEN2_1_5B = dict(
@@ -1860,13 +2056,15 @@ def main(argv=None) -> int:
     mono_streams = {}
     mono = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, None, mono_streams)
     chunked = phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed, 512)
-    phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed)
+    prof16 = phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, args.seed)
 
     logits = phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, args.seed)
     serve = phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
     spec = phase_spec(torch, np, model, pa, fa, InferenceEngine, SamplingParams, Qwen2ForCausalLM, Qwen2Config,
                       mono_streams, args.seed)
     host = phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
+    kvq = phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+                         prof16, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -1881,36 +2079,47 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
-    # the decode call, the launch the engine makes most) and the SIMT kernel
-    # (the other pools: times at the fp32 case). Launches are the engine
-    # runs', the serve, spec and host_tier phases' on each route: the main
-    # path never takes the SIMT kernel, which the fp32 logits run checks
+    # the decode call, the launch the engine makes most), the SIMT kernel
+    # (fp32 queries: times at the fp32 case) and the Hopper kernel's quantized
+    # entry (bf16 over int8 and fp8: times at the int8 decode call). Launches
+    # of the first two are the engine runs', the serve, spec and host_tier
+    # phases' on each route: the main path never takes the SIMT kernel, which
+    # the fp32 logits run checks; the quantized entry's are the kv_quant
+    # phase's, whose launches all took it
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
-    for route, timed_case, name, source in (
-            ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", "paged_attention_sm90.cu"),
-            ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", "paged_attention.cu")):
+    sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
+            + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"])
+    simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
+            + spec["launches"]["paged"] + host["launches"]["paged"] - sm90
+            + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
+    for route, timed_case, name, launches in (
+            ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
+            ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", simt),
+            ("sm90_quant", ("decode", "bfloat16", "int8"), "ragged_paged_attention_sm90_quant",
+             kvq["launches"]["sm90_quant"])):
         timed = by_batch[timed_case]
         checked = [c for c in cases if c["route"] == route]
-        sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
-                + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"])
-        launches = sm90 if route == "sm90" else (mono["kernel_launches"] + chunked["kernel_launches"]
-                                                 + serve["kernel_launches"] + spec["launches"]["paged"]
-                                                 + host["launches"]["paged"] - sm90)
+        source = "paged_attention.cu" if route == "simt" else "paged_attention_sm90.cu"
         kernels.append(dict(
             name=name, route="cuda", source=f"paddlenlp_tpu_torch/csrc/{source}",
             replaces="paddlenlp_tpu/ops/pallas/paged_attention.py:56", launches=launches,
             max_abs_err=max(c["max_abs_err"] for c in checked), ms=timed["ms"], plain_ms=timed["plain_ms"],
             bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=timed["library_ms"]))
-        checks.append(dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
-                           launched_by="engine, serve, spec, host_tier",
-                           serve_launches=serve["sm90_launches"] if route == "sm90" else 0,
-                           spec_launches=spec["launches"]["paged_sm90"] if route == "sm90" else 0,
-                           host_tier_launches=host["launches"]["paged_sm90"] if route == "sm90" else 0,
-                           launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
-                                              for k in mono["launches_by_shape"]} if route == "sm90" else None,
-                           check_launches=None if route == "sm90" else logits["launches"]["float32"]["kernels"],
-                           worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked)))
+        info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
+                    worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
+        if route == "sm90":
+            info.update(launched_by="engine, serve, spec, host_tier", serve_launches=serve["sm90_launches"],
+                        spec_launches=spec["launches"]["paged_sm90"], host_tier_launches=host["launches"]["paged_sm90"],
+                        launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
+                                           for k in mono["launches_by_shape"]})
+        elif route == "simt":
+            info.update(launched_by="engine, serve, spec, host_tier, kv_quant",
+                        check_launches=logits["launches"]["float32"]["kernels"])
+        else:
+            fp8 = by_batch[("decode", "bfloat16", "fp8")]
+            info.update(launched_by="kv_quant", fp8_decode_ms=fp8["ms"], fp8_decode_library_ms=fp8["library_ms"])
+        checks.append(info)
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
     # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
     # train run's on each route, and for the forward the spec phase's draft

@@ -1,9 +1,10 @@
 // Ragged paged attention for Hopper (sm_90a), CUDA C++ with a plain C entry.
 //
-// Route: fp32 queries or pools and int8 / fp8 pools; bf16 queries over a bf16
-// pool, the serving path's types, go to the tensor-core kernel of
-// paged_attention_sm90.cu. fp32 stays here on purpose: its fp32 products are
-// what the fp32 logits gate (rel 1e-4) holds to.
+// Route: fp32 queries or fp32 pools, including fp32 queries over int8 / fp8
+// pools; bf16 queries over a bf16, int8 or fp8 pool, the serving path's
+// types, go to the tensor-core kernel of paged_attention_sm90.cu. fp32 stays
+// here on purpose: its fp32 products are what the fp32 logits gate (rel 1e-4)
+// holds to.
 //
 // Replaces the Pallas TPU kernel paddlenlp_tpu/ops/pallas/paged_attention.py
 // `_kernel` (:56), launched by `ragged_paged_attention` (:105). One launch
@@ -30,7 +31,8 @@
 // (m, l, acc) in registers, with lane c scoring KV column c against a
 // broadcast query row. Simple: the KV tile is loaded once per block and
 // shared by its 64 rows, with no tensor cores, asynchronous copies or split
-// kv walk; the serving path's bf16 pair has those in paged_attention_sm90.cu.
+// kv walk; the serving path's bf16 queries have those in
+// paged_attention_sm90.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -244,24 +246,27 @@ template <typename QT, int H>
 cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* pool_k, const void* pool_v, const void* tables,
                         const void* q_start, const void* q_lens, const void* k_scale, const void* v_scale,
                         void* out, int B, int T, int N, int K, int bs, int mb, float scale, cudaStream_t s) {
-  switch (kv_dtype) {
-    case 0:
-      return launch<QT, float, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
-                                         N, K, bs, mb, scale, s);
-    case 1:
-      if constexpr (std::is_same<QT, __nv_bfloat16>::value)  // bf16 over bf16: the sm90 source
-        return cudaErrorInvalidValue;
-      else
+  if constexpr (std::is_same<QT, __nv_bfloat16>::value) {  // bf16 over bf16, int8, fp8: the sm90 source
+    if (kv_dtype != 0) return cudaErrorInvalidValue;
+    return launch<QT, float, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T, N,
+                                       K, bs, mb, scale, s);
+  } else {
+    switch (kv_dtype) {
+      case 0:
+        return launch<QT, float, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
+                                           N, K, bs, mb, scale, s);
+      case 1:
         return launch<QT, __nv_bfloat16, H, false>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale,
                                                    out, B, T, N, K, bs, mb, scale, s);
-    case 2:
-      return launch<QT, int8_t, H, true>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
-                                         N, K, bs, mb, scale, s);
-    case 3:
-      return launch<QT, __nv_fp8_e4m3, H, true>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out,
-                                                B, T, N, K, bs, mb, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+      case 2:
+        return launch<QT, int8_t, H, true>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale, out, B, T,
+                                           N, K, bs, mb, scale, s);
+      case 3:
+        return launch<QT, __nv_fp8_e4m3, H, true>(q, pool_k, pool_v, tables, q_start, q_lens, k_scale, v_scale,
+                                                  out, B, T, N, K, bs, mb, scale, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -286,7 +291,8 @@ cudaError_t dispatch_h(int H, int kv_dtype, const void* q, const void* pool_k, c
 // scales k_scale/v_scale [nb, K, bs, 1]); tables [B, mb], q_start/q_lens [B]
 // int32; out [B, T, N, H] in q's dtype. Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported dtype or H,
-// bf16 q over a bf16 pool included: that pair runs paged_attention_sm90.cu).
+// bf16 q over a bf16, int8 or fp8 pool included: those pairs run
+// paged_attention_sm90.cu).
 extern "C" int pdnlp_ragged_paged_attention(const void* q, const void* pool_k, const void* pool_v,
                                             const void* tables, const void* q_start, const void* q_lens,
                                             const void* k_scale, const void* v_scale, void* out, int B, int T,

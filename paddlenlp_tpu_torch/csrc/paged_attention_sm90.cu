@@ -1,11 +1,12 @@
 // Ragged paged attention on Hopper tensor cores (sm_90a), bf16 queries over a
-// bf16 pool, CUDA C++ with a plain C entry.
+// bf16, int8 or fp8-e4m3 pool, CUDA C++ with a plain C entry for each pool
+// kind.
 //
 // Replaces, for the serving path's types, the Pallas TPU kernel
 // paddlenlp_tpu/ops/pallas/paged_attention.py `_kernel` (:56), launched at
 // :159 by `ragged_paged_attention` (:105). Same function as the SIMT kernel of
-// paged_attention.cu, which stays the route for fp32, int8 and fp8 pools (fp32
-// is the precise check): query token t of sequence b sits at position
+// paged_attention.cu, which stays the route for fp32 queries or pools (the
+// precise check): query token t of sequence b sits at position
 // q_start[b] + t and sees kv positions <= q_start[b] + t of its block table;
 // rows t >= q_lens[b], and every row of a q_lens == 0 sequence, are exact
 // zeros; GQA folds query head n = kh * group + g of token t into row
@@ -13,8 +14,11 @@
 // fp32 (exp2, scale * log2(e) folded into one FMA), the finalizer divides by
 // max(l, 1e-37).
 //
-// Layouts: q, out [B, T, N, H] bf16; pool_k, pool_v [nb, K, bs, H] bf16 (any
-// bs in 1..64); tables [B, mb], q_start, q_lens [B] int32; H 64 or 128.
+// Layouts: q, out [B, T, N, H] bf16; pool_k, pool_v [nb, K, bs, H] bf16,
+// int8 or fp8-e4m3 (any bs in 1..64), the quantized ones with k_scale,
+// v_scale [nb, K, bs, 1] fp32 (position p's K row is k_scale[p] * kq[p], as
+// the Pallas kernel dequantizes at :83-85); tables [B, mb], q_start, q_lens
+// [B] int32; H 64 or 128.
 //
 // What bounds it on an H100:
 // - Decode (q_lens 1) is bound by bytes, the K and V it reads, and by too few
@@ -38,16 +42,29 @@
 //   of the card's elementwise gate; V is the B operand MN-major.
 // - Several pool blocks in flight: each 64-position K and V tile is gathered
 //   row by row through the block table with 16-byte `cp.async` (any bs,
-//   33 included), straight into the 128-byte-swizzled layout that wgmma reads,
-//   through a 3-stage ring (two blocks an SM at H 128). Positions past the
-//   tile's highest live one are zero-filled and their table entries never
-//   read; the per-element mask runs only on tiles that are not wholly visible.
+//   33 included), through a 3-stage ring (two blocks an SM at H 128).
+//   Positions past the tile's highest live one are zero-filled and their
+//   table entries never read; the per-element mask runs only on tiles that
+//   are not wholly visible. A bf16 pool lands straight in the
+//   128-byte-swizzled layout that wgmma reads.
+// - A quantized pool halves the bytes: its stages hold the raw 1-byte rows
+//   (half a bf16 stage) and the tile's 64 K and 64 V scales. Each landed
+//   stage is widened into one bf16 K and one bf16 V tile in the swizzled
+//   layout; the widening is exact (|int8| <= 127 and every e4m3 value are
+//   bf16 values), so the same wgmmas run on the quantized values. The scales
+//   are folded, never multiplied into K or V: S's column c is multiplied by
+//   k_scale[c] before the mask and the softmax, and P's column c by
+//   v_scale[c] before its two-part bf16 split, so O += (P v_scale) Vq while
+//   the row sum l stays over P; the reference's q . (kq ks) up to fp32
+//   rounding. Q is never quantized (the reference keeps it in bf16).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -77,6 +94,11 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool 
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// 4 bytes global -> shared, asynchronous, the same zero fill
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -174,13 +196,21 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 }
 
 // ------------------------------------------------------------------ attention
-template <int H>
+// A bf16 pool: the Q tile, then rings of STAGES K and V tiles that wgmma
+// reads. A quantized pool: the Q tile, one K and one V bf16 tile that wgmma
+// reads, then a ring of STAGES raw stages, each the 64 K rows and 64 V rows
+// of H bytes and the 64 K and 64 V scales.
+template <int H, typename KVT>
 struct Smem {
+  static constexpr bool QUANT = !std::is_same<KVT, __nv_bfloat16>::value;
   static constexpr int TILE = 64 * H * 2;  // bytes of a 64-row tile: H / 64 panels of 64 rows x 128 bytes
+  static constexpr int RAW = KV_TILE * H;  // bytes of a 1-byte tile, rows H bytes apart
+  static constexpr int RAW_STAGE = 2 * RAW + 2 * KV_TILE * 4;
   static constexpr size_t q = 0;
   static constexpr size_t k = q + TILE;
-  static constexpr size_t v = k + STAGES * TILE;
-  static constexpr size_t bytes = v + STAGES * TILE + 1024;  // + alignment slack
+  static constexpr size_t v = k + (QUANT ? 1 : STAGES) * TILE;
+  static constexpr size_t raw = v + (QUANT ? 1 : STAGES) * TILE;
+  static constexpr size_t bytes = raw + (QUANT ? STAGES * RAW_STAGE : 0) + 1024;  // + alignment slack
 };
 
 // Row `row` (0..63) of a 64-row tile of H bf16 columns, 16-byte chunk c, at
@@ -211,14 +241,98 @@ __device__ __forceinline__ void load_kv(uint32_t k_t, uint32_t v_t, const __nv_b
   }
 }
 
-template <int H>
+// K and V bytes of kv positions kv0 .. kv0 + 63, and their scales, into one
+// raw stage, gathered row by row through the block table (16-byte chunks, 4
+// of a row at H 64, 8 at H 128); positions past `hi` are zeros, scales
+// included, and their table entries are never read.
+template <int H, typename KVT>
+__device__ __forceinline__ void load_kv_raw(uint32_t st, const KVT* __restrict__ pool_k,
+                                            const KVT* __restrict__ pool_v, const float* __restrict__ k_scale,
+                                            const float* __restrict__ v_scale, const int* __restrict__ table,
+                                            const Shape& sh, int kh, int kv0, int hi) {
+  constexpr int CHUNKS = H / 16;
+  constexpr int ROWS_A_PASS = THREADS / CHUNKS;
+  const uint8_t* pk = reinterpret_cast<const uint8_t*>(pool_k);
+  const uint8_t* pv = reinterpret_cast<const uint8_t*>(pool_v);
+  const int c = threadIdx.x % CHUNKS;
+#pragma unroll
+  for (int u = 0; u < KV_TILE / ROWS_A_PASS; ++u) {
+    const int r = threadIdx.x / CHUNKS + u * ROWS_A_PASS, pos = kv0 + r;
+    const bool live = pos <= hi;
+    size_t off = 0;
+    if (live) off = ((static_cast<size_t>(table[pos / sh.bs]) * sh.K + kh) * sh.bs + pos % sh.bs) * H + c * 16;
+    cp_async_16(st + r * H + c * 16, pk + off, live);
+    cp_async_16(st + (KV_TILE + r) * H + c * 16, pv + off, live);
+  }
+  // threads 0-63 the K scale of row t, threads 64-127 the V scale of row t - 64
+  const int r = threadIdx.x % KV_TILE, pos = kv0 + r;
+  const bool live = pos <= hi;
+  size_t off = 0;
+  if (live) off = (static_cast<size_t>(table[pos / sh.bs]) * sh.K + kh) * sh.bs + pos % sh.bs;
+  cp_async_4(st + 2 * KV_TILE * H + threadIdx.x * 4, (threadIdx.x < KV_TILE ? k_scale : v_scale) + off, live);
+}
+
+// two 1-byte pool values (the low 16 bits of w, the first in the low byte)
+// as a bf16 pair, exactly
+template <typename KVT>
+__device__ __forceinline__ uint32_t widen2(uint32_t w);
+
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w) {  // |x| <= 127: 7 bits of bf16's 8
+  const __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(static_cast<int8_t>(w & 0xff)),
+                                                  static_cast<float>(static_cast<int8_t>((w >> 8) & 0xff)));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w) {  // 3 mantissa bits, 2^-9 .. 448
+  const __half2 hf(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(w & 0xffff), __NV_E4M3));
+  const float2 f = __half22float2(hf);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A landed raw stage's K and V rows widened into the bf16 K and V tiles that
+// wgmma reads: raw chunk c of row r (16 values) becomes bf16 chunks 2c and
+// 2c + 1 of the swizzled row.
+template <int H, typename KVT>
+__device__ __forceinline__ void widen_kv(const uint8_t* raw, uint8_t* k_t, uint8_t* v_t) {
+  constexpr int CHUNKS = H / 16;
+#pragma unroll
+  for (int u = 0; u < 2 * KV_TILE * CHUNKS / THREADS; ++u) {
+    const int i = threadIdx.x + u * THREADS, t = i / (KV_TILE * CHUNKS), r = (i / CHUNKS) % KV_TILE, c = i % CHUNKS;
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + (t * KV_TILE + r) * H + c * 16);
+    uint8_t* tile = t ? v_t : k_t;
+    *reinterpret_cast<uint4*>(tile + swizzled(0, r, 2 * c)) =
+        make_uint4(widen2<KVT>(w.x), widen2<KVT>(w.x >> 16), widen2<KVT>(w.y), widen2<KVT>(w.y >> 16));
+    *reinterpret_cast<uint4*>(tile + swizzled(0, r, 2 * c + 1)) =
+        make_uint4(widen2<KVT>(w.z), widen2<KVT>(w.z >> 16), widen2<KVT>(w.w), widen2<KVT>(w.w >> 16));
+  }
+}
+
+// s[4 j + e] and s[4 j + 2 + e] (rows r, r + 8; column 8 j + cq + e) times
+// the column's scale
+__device__ __forceinline__ void scale_columns(float (&s)[KV_TILE / 2], const float* col_scale, int cq) {
+#pragma unroll
+  for (int j = 0; j < KV_TILE / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float sc = col_scale[8 * j + cq + e];
+      s[4 * j + e] *= sc;
+      s[4 * j + 2 + e] *= sc;
+    }
+}
+
+template <int H, typename KVT>
 __global__ void __launch_bounds__(THREADS, 2)
-    paged_attention_kernel_sm90(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ pool_k,
-                                const __nv_bfloat16* __restrict__ pool_v, const int* __restrict__ tables,
+    paged_attention_kernel_sm90(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ pool_k,
+                                const KVT* __restrict__ pool_v, const float* __restrict__ k_scale,
+                                const float* __restrict__ v_scale, const int* __restrict__ tables,
                                 const int* __restrict__ q_start, const int* __restrict__ q_lens,
                                 __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
                                 float* __restrict__ part_ml, Shape sh) {
-  using L = Smem<H>;
+  using L = Smem<H, KVT>;
+  constexpr bool QUANT = L::QUANT;
   constexpr int CHUNKS = H / 8;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -258,7 +372,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   float o[H / 2];
 #pragma unroll
   for (int i = 0; i < H / 2; ++i) o[i] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // m: the row max of the unscaled q.k
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // m: the row max of S, before the softmax scale
   const float sl2 = sh.scale * LOG2E;
 
   if (n_kv > 0) {
@@ -273,8 +387,13 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_kv)
-        load_kv<H>(k_s + s * L::TILE, v_s + s * L::TILE, pool_k, pool_v, table, sh, kh, (j_lo + s) * KV_TILE, hi);
+      if (s < n_kv) {
+        if constexpr (QUANT)
+          load_kv_raw<H>(smem_u32(smem + L::raw + s * L::RAW_STAGE), pool_k, pool_v, k_scale, v_scale, table, sh,
+                         kh, (j_lo + s) * KV_TILE, hi);
+        else
+          load_kv<H>(k_s + s * L::TILE, v_s + s * L::TILE, pool_k, pool_v, table, sh, kh, (j_lo + s) * KV_TILE, hi);
+      }
       cp_async_commit();
     }
 
@@ -285,22 +404,39 @@ __global__ void __launch_bounds__(THREADS, 2)
       __syncthreads();  // everyone's have; and every reader of tile it - 1's stage is done
       {
         const int nx = it + STAGES - 1;
-        if (nx < n_kv)
-          load_kv<H>(k_s + (nx % STAGES) * L::TILE, v_s + (nx % STAGES) * L::TILE, pool_k, pool_v, table, sh, kh,
-                     (j_lo + nx) * KV_TILE, hi);
+        if (nx < n_kv) {
+          if constexpr (QUANT)
+            load_kv_raw<H>(smem_u32(smem + L::raw + (nx % STAGES) * L::RAW_STAGE), pool_k, pool_v, k_scale, v_scale,
+                           table, sh, kh, (j_lo + nx) * KV_TILE, hi);
+          else
+            load_kv<H>(k_s + (nx % STAGES) * L::TILE, v_s + (nx % STAGES) * L::TILE, pool_k, pool_v, table, sh, kh,
+                       (j_lo + nx) * KV_TILE, hi);
+        }
         cp_async_commit();
       }
+      // a quantized pool: the landed stage widened into the one K and V tile
+      // (every reader of the previous tile is past the barrier above), and
+      // its scales: K's 64, then V's 64
+      const uint8_t* raw = smem + L::raw + stage * L::RAW_STAGE;
+      const float* col_scale = reinterpret_cast<const float*>(raw + 2 * L::RAW);
+      if constexpr (QUANT) {
+        widen_kv<H, KVT>(raw, smem + L::k, smem + L::v);
+        fence_async_shared();
+        __syncthreads();
+      }
+      const int kv_stage = QUANT ? 0 : stage;
 
       float s[KV_TILE / 2];  // S = Q K^T, 64 x 64: rows r / r + 8, columns 8 j + cq + {0, 1}
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < H / 16; ++kk) {
         const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;  // 16 columns = 32 bytes into a panel
-        wgmma_ss64(s, desc(smem + L::q + off, 16), desc(smem + L::k + stage * L::TILE + off, 16), kk > 0);
+        wgmma_ss64(s, desc(smem + L::q + off, 16), desc(smem + L::k + kv_stage * L::TILE + off, 16), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
+      if constexpr (QUANT) scale_columns(s, col_scale, cq);  // S[r, c] = k_scale[c] (q_r . kq_c)
 
       if (!(rows_live && kv0 + KV_TILE - 1 <= min(start + t_first, cap - 1))) {
 #pragma unroll
@@ -348,6 +484,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         o[4 * j + 2] *= a1;
         o[4 * j + 3] *= a1;
       }
+      if constexpr (QUANT) scale_columns(s, col_scale + KV_TILE, cq);  // O += (P v_scale) Vq; l is of P
       // P as the A operand in two bf16 parts (high, residual): k-chunk kk is
       // the accumulator's columns 16 kk .. 16 kk + 15; the row sum above is of fp32 P
       uint32_t p_hi[KV_TILE / 16][4], p_lo[KV_TILE / 16][4];
@@ -359,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KV_TILE / 16; ++kk) {  // O += P V, V [kv, H] MN-major: 16 kv rows = 2048 bytes
-        const uint8_t* v_k = smem + L::v + stage * L::TILE + kk * 16 * 128;
+        const uint8_t* v_k = smem + L::v + kv_stage * L::TILE + kk * 16 * 128;
         wgmma_rs<H>(o, p_hi[kk], desc(v_k, 64 * 128));
         wgmma_rs<H>(o, p_lo[kk], desc(v_k, 64 * 128));
       }
@@ -440,11 +577,11 @@ __global__ void __launch_bounds__(MERGE_ROWS * 32)
 }
 
 // ------------------------------------------------------------------ launch
-template <int H>
-cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const void* tables, const void* q_start,
-                   const void* q_lens, void* out, void* part_o, void* part_ml, int B, const Shape& sh,
-                   cudaStream_t s) {
-  auto kernel = paged_attention_kernel_sm90<H>;
+template <int H, typename KVT>
+cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const void* k_scale, const void* v_scale,
+                   const void* tables, const void* q_start, const void* q_lens, void* out, void* part_o,
+                   void* part_ml, int B, const Shape& sh, cudaStream_t s) {
+  auto kernel = paged_attention_kernel_sm90<H, KVT>;
   // above 48 KB only as opted-in dynamic shared memory: set once per
   // instantiation and device, not on every launch
   static std::atomic<bool> opted_in[MAX_DEVICES];
@@ -453,17 +590,18 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!opted_in[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Smem<H>::bytes));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Smem<H, KVT>::bytes));
     if (err != cudaSuccess) return err;
     opted_in[dev].store(true, std::memory_order_release);
   }
   const int tiles = (sh.T * (sh.N / sh.K) + ROWS - 1) / ROWS;
   dim3 grid(tiles * sh.parts, sh.K, B);
-  kernel<<<grid, THREADS, Smem<H>::bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(pool_k),
-      static_cast<const __nv_bfloat16*>(pool_v), static_cast<const int*>(tables), static_cast<const int*>(q_start),
-      static_cast<const int*>(q_lens), static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), sh);
+  kernel<<<grid, THREADS, Smem<H, KVT>::bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(pool_k), static_cast<const KVT*>(pool_v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+      static_cast<const int*>(q_start), static_cast<const int*>(q_lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), sh);
   err = cudaGetLastError();
   if (err != cudaSuccess || sh.parts == 1) return err;
   const int rows = B * sh.T * sh.N;
@@ -474,6 +612,20 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The checks both entries make; cudaSuccess when the launch may go ahead.
+cudaError_t check_args(const void* q, const void* pool_k, const void* pool_v, void* out, void* part_o, void* part_ml,
+                       int B, int T, int N, int K, int H, int bs, int mb, int parts, int part_len) {
+  if (bs < 1 || bs > MAX_BS || K < 1 || N % K != 0 || (H != 64 && H != 128) || mb < 1 || B > 65535 || K > 65535 ||
+      parts < 1 || part_len < KV_TILE || part_len % KV_TILE != 0 ||
+      static_cast<long long>(parts) * part_len < static_cast<long long>(mb) * bs ||
+      static_cast<long long>((T * (N / K) + ROWS - 1) / ROWS) * parts > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(pool_k) || !aligned16(pool_v) || !aligned16(out) ||
+      (parts > 1 && (part_o == nullptr || part_ml == nullptr || !aligned16(part_o) || !aligned16(part_ml))))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -491,16 +643,40 @@ extern "C" int pdnlp_ragged_paged_attention_sm90(const void* q, const void* pool
                                                  int H, int bs, int mb, int parts, int part_len, float scale,
                                                  void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
-  if (bs < 1 || bs > MAX_BS || K < 1 || N % K != 0 || (H != 64 && H != 128) || mb < 1 || B > 65535 || K > 65535 ||
-      parts < 1 || part_len < KV_TILE || part_len % KV_TILE != 0 ||
-      static_cast<long long>(parts) * part_len < static_cast<long long>(mb) * bs ||
-      static_cast<long long>((T * (N / K) + ROWS - 1) / ROWS) * parts > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(pool_k) || !aligned16(pool_v) || !aligned16(out) ||
-      (parts > 1 && (part_o == nullptr || part_ml == nullptr || !aligned16(part_o) || !aligned16(part_ml))))
+  const cudaError_t bad = check_args(q, pool_k, pool_v, out, part_o, part_ml, B, T, N, K, H, bs, mb, parts, part_len);
+  if (bad != cudaSuccess) return bad;
+  const Shape sh{T, N, K, bs, mb, parts, part_len, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return H == 64 ? launch<64, __nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, tables, q_start, q_lens, out,
+                                             part_o, part_ml, B, sh, s)
+                 : launch<128, __nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, tables, q_start, q_lens, out,
+                                              part_o, part_ml, B, sh, s);
+}
+
+// The same over a quantized pool: pool_k/pool_v [nb, K, bs, H] int8
+// (kv_dtype 2) or fp8-e4m3 (kv_dtype 3), k_scale/v_scale [nb, K, bs, 1] fp32
+// (4-byte aligned); the other arguments and the return as above.
+extern "C" int pdnlp_ragged_paged_attention_sm90_quant(const void* q, const void* pool_k, const void* pool_v,
+                                                       const void* k_scale, const void* v_scale, const void* tables,
+                                                       const void* q_start, const void* q_lens, void* out,
+                                                       void* part_o, void* part_ml, int B, int T, int N, int K,
+                                                       int H, int bs, int mb, int parts, int part_len, int kv_dtype,
+                                                       float scale, void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  const cudaError_t bad = check_args(q, pool_k, pool_v, out, part_o, part_ml, B, T, N, K, H, bs, mb, parts, part_len);
+  if (bad != cudaSuccess) return bad;
+  if ((kv_dtype != 2 && kv_dtype != 3) || k_scale == nullptr || v_scale == nullptr ||
+      reinterpret_cast<uintptr_t>(k_scale) % 4 != 0 || reinterpret_cast<uintptr_t>(v_scale) % 4 != 0)
     return cudaErrorInvalidValue;
   const Shape sh{T, N, K, bs, mb, parts, part_len, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch<64>(q, pool_k, pool_v, tables, q_start, q_lens, out, part_o, part_ml, B, sh, s)
-                 : launch<128>(q, pool_k, pool_v, tables, q_start, q_lens, out, part_o, part_ml, B, sh, s);
+  if (kv_dtype == 2)
+    return H == 64 ? launch<64, int8_t>(q, pool_k, pool_v, k_scale, v_scale, tables, q_start, q_lens, out, part_o,
+                                        part_ml, B, sh, s)
+                   : launch<128, int8_t>(q, pool_k, pool_v, k_scale, v_scale, tables, q_start, q_lens, out, part_o,
+                                         part_ml, B, sh, s);
+  return H == 64 ? launch<64, __nv_fp8_e4m3>(q, pool_k, pool_v, k_scale, v_scale, tables, q_start, q_lens, out,
+                                             part_o, part_ml, B, sh, s)
+                 : launch<128, __nv_fp8_e4m3>(q, pool_k, pool_v, k_scale, v_scale, tables, q_start, q_lens, out,
+                                              part_o, part_ml, B, sh, s);
 }

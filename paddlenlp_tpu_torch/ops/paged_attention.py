@@ -7,19 +7,21 @@ decode token, or nothing), reading its KV from the paged pool through
 ``block_tables[b]``. :func:`ragged_paged_attention_ref` computes the same
 function in plain PyTorch.
 
-Two kernels, the route chosen by dtype alone. bf16 queries over a bf16 pool,
-the serving path's types, take the Hopper tensor-core kernel of
-``paddlenlp_tpu_torch/csrc/paged_attention_sm90.cu`` (``cp.async`` gather
-ring, ``wgmma``; when the grid is small, as in decode, the kv walk is split
-into :func:`kv_partitions` and a second kernel merges them in order); every
-other pair (fp32 queries or pool, int8 and fp8 pools) takes the SIMT kernel
-of ``paddlenlp_tpu_torch/csrc/paged_attention.cu``, and fp32 is the precise
-check.
+Two kernels, the route chosen by dtype alone (:func:`kernel_route`). bf16
+queries over a bf16, int8 or fp8 pool, the serving path's types, take the
+Hopper tensor-core kernel of ``paddlenlp_tpu_torch/csrc/paged_attention_sm90.cu``
+(``cp.async`` gather ring, ``wgmma``; a quantized pool lands as raw bytes
+and is widened to bf16 in shared memory, its scales folded into the scores
+and the probabilities; when the grid is small, as in decode, the kv walk is
+split into :func:`kv_partitions` and a second kernel merges them in order).
+fp32 queries or an fp32 pool take the SIMT kernel of
+``paddlenlp_tpu_torch/csrc/paged_attention.cu``, the precise check.
 
 :func:`ragged_paged_attention` takes the plain version only for tensors on the
 CPU. For CUDA tensors it checks the operands and launches its kernel, or
 raises: there is no fallback. ``LAUNCHES`` counts kernel launches on either
-route and ``LAUNCHES_SM90`` those of the Hopper route alone.
+route, ``LAUNCHES_SM90`` those of the Hopper route (either pool kind) and
+``LAUNCHES_SM90_QUANT`` those of the Hopper route over an int8 or fp8 pool.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "kv_partitions", "paged_decode_attention",
-           "ragged_paged_attention", "ragged_paged_attention_ref"]
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_QUANT", "NEG_INF", "kernel_route", "kv_partitions",
+           "paged_decode_attention", "ragged_paged_attention", "ragged_paged_attention_ref"]
 
 NEG_INF = -1e30
 
@@ -42,6 +44,8 @@ NEG_INF = -1e30
 LAUNCHES = 0
 #: the launches of those that took the Hopper route (paged_attention_sm90.cu)
 LAUNCHES_SM90 = 0
+#: the launches of those that took the Hopper route over an int8 or fp8 pool
+LAUNCHES_SM90_QUANT = 0
 
 KV_TILE = 64  # kv positions of the Hopper kernel's tile, the unit of a partition
 ROW_TILE = 64  # folded query rows of its block
@@ -50,6 +54,22 @@ H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 _QUANTIZED = (torch.int8, torch.float8_e4m3fn)
+#: route -> (library stem, C entry)
+_ENTRIES = {"sm90": ("paged_attention_sm90", "pdnlp_ragged_paged_attention_sm90"),
+            "sm90_quant": ("paged_attention_sm90", "pdnlp_ragged_paged_attention_sm90_quant"),
+            "simt": ("paged_attention", "pdnlp_ragged_paged_attention")}
+#: pointers and ints each entry takes, before its float scale and its stream
+_ARGS = {"sm90": (9, 9), "sm90_quant": (11, 10), "simt": (9, 9)}
+
+
+def kernel_route(q_dtype, kv_dtype) -> str:
+    """The kernel a (query, pool) dtype pair takes on CUDA: ``"sm90"`` for
+    bf16 queries over a bf16 pool, ``"sm90_quant"`` for bf16 queries over an
+    int8 or fp8 pool (both paged_attention_sm90.cu), ``"simt"``
+    (paged_attention.cu) for fp32 queries or an fp32 pool."""
+    if q_dtype != torch.bfloat16 or kv_dtype == torch.float32:
+        return "simt"
+    return "sm90_quant" if kv_dtype in _QUANTIZED else "sm90"
 
 
 def ragged_paged_attention_ref(q, pool_k, pool_v, block_tables, q_start, q_lens, scale=None,
@@ -167,12 +187,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _kernel_fn(sm90: bool):
-    """The entry of the route's library: both take 9 pointers and 9 ints."""
-    lib = _build.load("paged_attention_sm90" if sm90 else "paged_attention")
-    fn = lib.pdnlp_ragged_paged_attention_sm90 if sm90 else lib.pdnlp_ragged_paged_attention
+def _kernel_fn(route: str):
+    """The C entry of ``route`` (see :func:`kernel_route`)."""
+    stem, symbol = _ENTRIES[route]
+    fn = getattr(_build.load(stem), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        n_ptr, n_int = _ARGS[route]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -186,8 +207,9 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     block_tables [B, max_blocks], q_start/q_lens [B], all int32. Query token t
     of row b attends kv positions ``[0, q_start[b] + t]``; returns
     [B, T, N, H] in q's dtype with rows ``t >= q_lens[b]`` zeroed. bf16 q
-    over a bf16 pool runs the Hopper kernel, every other pair the SIMT one."""
-    global LAUNCHES, LAUNCHES_SM90
+    over a bf16, int8 or fp8 pool runs the Hopper kernel, fp32 q or an fp32
+    pool the SIMT one."""
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_SM90_QUANT
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, pool_k, pool_v, block_tables, q_start, q_lens, scale,
                                           k_scale, v_scale)
@@ -198,33 +220,39 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     B, T, N, H = q.shape
     _nb, K, bs, _ = pool_k.shape
     mb = block_tables.shape[1]
-    sm90 = q.dtype == torch.bfloat16 and pool_k.dtype == torch.bfloat16
+    route = kernel_route(q.dtype, pool_k.dtype)
     scale = float(H**-0.5 if scale is None else scale)
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _kernel_fn(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if sm90:
+        if route == "simt":
+            rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
+                    ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, mb,
+                    _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], scale, stream)
+        else:
             parts, part_len = kv_partitions(B, T, N, K, mb, bs, _sm_count(q.device.index or 0))
             part_o = part_ml = None
             if parts > 1:  # each partition's unnormalised rows and their (max, sum), for the merge
                 rows = B * K * parts * T * (N // K)
                 part_o = torch.empty(rows * H, dtype=torch.float32, device=q.device)
                 part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
-            rc = _kernel_fn(True)(
-                ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens), ptr(out),
-                ptr(part_o), ptr(part_ml), B, T, N, K, H, bs, mb, parts, part_len, scale, stream)
-        else:
-            rc = _kernel_fn(False)(
-                ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
-                ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, mb,
-                _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], scale, stream)
+            geometry = (B, T, N, K, H, bs, mb, parts, part_len)
+            if route == "sm90":
+                rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens), ptr(out),
+                        ptr(part_o), ptr(part_ml), *geometry, scale, stream)
+            else:
+                rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(block_tables),
+                        ptr(q_start), ptr(q_lens), ptr(out), ptr(part_o), ptr(part_ml), *geometry,
+                        _KV_DTYPES[pool_k.dtype], scale, stream)
     if rc != 0:
-        symbol = "pdnlp_ragged_paged_attention" + ("_sm90" if sm90 else "")
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed ({symbol}): CUDA error {rc}")
+        raise RuntimeError(f"ragged_paged_attention kernel launch failed ({_ENTRIES[route][1]}): CUDA error {rc}")
     LAUNCHES += 1
-    if sm90:
+    if route != "simt":
         LAUNCHES_SM90 += 1
+    if route == "sm90_quant":
+        LAUNCHES_SM90_QUANT += 1
     return out
 
 

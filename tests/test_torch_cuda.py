@@ -60,14 +60,17 @@ def _case(dev, q_dtype, kv_dtype, H, bs, group, K=2, seed=0):
     (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8)])
 @pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
 def test_kernel_matches_plain(dev, q_dtype, kv_dtype, H, bs, group):
-    """bf16 over bf16 takes the Hopper kernel (``LAUNCHES_SM90``), the rest the SIMT one."""
+    """bf16 queries over a bf16, int8 or fp8 pool take the Hopper kernel
+    (``LAUNCHES_SM90``; the quantized pools also ``LAUNCHES_SM90_QUANT``),
+    fp32 queries the SIMT one."""
     args = _case(dev, q_dtype, kv_dtype, H, bs, group)
     q, pk, pv, tables, q_start, q_lens, ks, vs = args
-    sm90 = pa.LAUNCHES_SM90
+    sm90, quant = pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT
     got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    assert pa.LAUNCHES_SM90 - sm90 == int(q_dtype == kv_dtype == torch.bfloat16)
+    assert pa.LAUNCHES_SM90 - sm90 == int(q_dtype == torch.bfloat16)
+    assert pa.LAUNCHES_SM90_QUANT - quant == int(q_dtype == torch.bfloat16 and ks is not None)
     # fp32 output: summation order only; bf16 output: two roundings of fp32
     # values that differ in summation order, at most one ulp (2**-7 * |x|) apart
     atol, rtol = (2e-5, 0.0) if q_dtype == torch.float32 else (1e-3, 2**-7)
@@ -89,15 +92,20 @@ def test_decode_wrapper_and_launch_count(dev, dtype):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+POOLS = {"bf16": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
 @pytest.mark.parametrize("split", [True, False], ids=["kv-partitions", "one-partition"])
 @pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
-def test_paged_sm90_route_matches_plain(dev, monkeypatch, H, bs, group, split):
-    """The Hopper kernel with its kv walk split (the partitions of
-    ``kv_partitions``: this small grid splits) and whole (one partition, as a
-    full grid takes): the ragged batch of ``_case`` plus a decode row whose
-    context ends on a partition boundary, a decode row one past it and a
-    q_lens 0 row; dead rows exact zeros, two launches the same bits."""
-    q, pk, pv, tables, q_start, q_lens, _, _ = _case(dev, torch.bfloat16, torch.bfloat16, H, bs, group)
+def test_paged_sm90_route_matches_plain(dev, monkeypatch, H, bs, group, split, pool):
+    """The Hopper kernel over a bf16, int8 or fp8 pool with its kv walk split
+    (the partitions of ``kv_partitions``: this small grid splits) and whole
+    (one partition, as a full grid takes): the ragged batch of ``_case`` plus
+    a decode row whose context ends on a partition boundary, a decode row one
+    past it and a q_lens 0 row; dead rows exact zeros, two launches the same
+    bits."""
+    q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, torch.bfloat16, POOLS[pool], H, bs, group)
     B, T, N, _ = q.shape
     mb = tables.shape[1]
     parts, part_len = pa.kv_partitions(B + 3, T, N, N // group, mb, bs, pa._sm_count(dev.index or 0))
@@ -108,41 +116,50 @@ def test_paged_sm90_route_matches_plain(dev, monkeypatch, H, bs, group, split):
     q = torch.cat([q, torch.randn(3, T, N, H, device=dev, generator=torch.Generator(dev).manual_seed(1)).bfloat16()])
     tables = torch.cat([tables, tables[:3].flip(1)])
     q_start, q_lens = torch.cat([q_start, more[:, 0]]), torch.cat([q_lens, more[:, 1]])
-    sm90 = pa.LAUNCHES_SM90
-    got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
-    again = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
-    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens)
+    sm90, quant = pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT
+    got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    again = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert pa.LAUNCHES_SM90 == sm90 + 2
+    assert pa.LAUNCHES_SM90_QUANT == quant + (2 if pool != "bf16" else 0)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2**-7)
     assert torch.equal(got, again)
     for b, qlen in enumerate(q_lens.tolist()):
         assert torch.all(got[b, qlen:] == 0), b
 
 
+@pytest.mark.parametrize("pool", list(POOLS))
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
-def test_paged_sm90_failed_launch_raises(dev, monkeypatch, fault):
-    """A refused launch on the Hopper route raises RuntimeError: neither
-    counter moves, and neither the SIMT kernel nor the plain version runs in
-    its place."""
-    q, pk, pv, tables, q_start, q_lens, _, _ = _case(dev, torch.bfloat16, torch.bfloat16, 128, 16, 7)
-    if fault == "entry returns an error":
-        real = pa._kernel_fn
-        monkeypatch.setattr(pa, "_kernel_fn", lambda sm90: (lambda *args: 700) if sm90 else real(sm90))
-    else:  # a contiguous view 2 bytes into its buffer
-        buf = torch.empty(pk.numel() + 1, dtype=pk.dtype, device=dev)
-        buf[1:].view(pk.shape).copy_(pk)
-        pk = buf[1:].view(pk.shape)
+def test_paged_sm90_failed_launch_raises(dev, monkeypatch, fault, pool):
+    """A refused launch on the Hopper route, over a bf16, int8 or fp8 pool,
+    raises RuntimeError naming its entry: no counter moves, and neither the
+    SIMT kernel nor the plain version runs in its place."""
+    q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, torch.bfloat16, POOLS[pool], 128, 16, 7)
+    route = pa.kernel_route(q.dtype, pk.dtype)
+    real = pa._kernel_fn
+
+    def entry(r):  # only the route's own entry is ever asked for
+        assert r == route, f"the {r} entry asked for in place of {route}"
+        return (lambda *args: 700) if fault == "entry returns an error" else real(r)
+
+    monkeypatch.setattr(pa, "_kernel_fn", entry)
+    if fault == "pointer not 16-byte aligned":  # a contiguous view 2 bytes past a 16-byte boundary
+        off = 2 // pk.element_size()
+        buf = torch.empty(pk.numel() + off, dtype=pk.dtype, device=dev)
+        buf[off:].view(pk.shape).copy_(pk)
+        pk = buf[off:].view(pk.shape)
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran in place of the kernel")
 
     monkeypatch.setattr(pa, "ragged_paged_attention_ref", plain)
-    before, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
-    with pytest.raises(RuntimeError, match="_sm90"):
-        pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens)
+    before, sm90, quant = pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT
+    symbol = "_sm90_quant" if pool != "bf16" else "_sm90\\)"
+    with pytest.raises(RuntimeError, match=symbol):
+        pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    assert pa.LAUNCHES == before and pa.LAUNCHES_SM90 == sm90
+    assert (pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT) == (before, sm90, quant)
 
 
 def test_wrapper_rejects_bad_operands(dev):
@@ -164,9 +181,22 @@ def test_wrapper_rejects_bad_operands(dev):
     assert pa.LAUNCHES == launches
 
 
-def test_engine_kernel_path_matches_plain_path(dev):
-    """Greedy streams through the kernel equal the plain gather path, for
-    monolithic and chunked prefill, in fp32 on the card."""
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_engine_kernel_path_matches_plain_path(dev, quant):
+    """Greedy streams through the kernel against the plain gather path, for
+    monolithic and chunked prefill, in fp32 on the card. Over an fp32 pool
+    they are equal. Over an int8 pool (the SIMT kernel's quantized read) the
+    two paths are two functions, as in the JAX package: the kernel
+    dequantizes K and V in fp32, the gather path rounds them to bf16. So a
+    stream may leave the other, but only at a near tie: at the first
+    divergence the kernel path's fp32 logits over the common prefix put the
+    two tokens within the bf16 gate ``2**-7 * |logit| + 1e-3`` of each
+    other (the gather path's rounding of K and V is a bf16 rounding)."""
+    import chip_smoke
+
+    from paddlenlp_tpu_torch.experimental import PagedInferenceModel
+    from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool
+
     cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
                       num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
     model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
@@ -175,13 +205,24 @@ def test_engine_kernel_path_matches_plain_path(dev):
     for kernel in (True, False):
         for chunk in (None, 8):
             eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64,
-                                  max_blocks_per_seq=8, prefill_chunk_tokens=chunk)
+                                  max_blocks_per_seq=8, prefill_chunk_tokens=chunk, kv_cache_quant=quant)
             eng.infer.use_paged_kernel = kernel
             pa.LAUNCHES = 0
             outs[kernel, chunk] = eng.generate(prompts, SamplingParams(max_new_tokens=12))
             assert (pa.LAUNCHES > 0) == kernel
     for chunk in (None, 8):
-        assert outs[True, chunk] == outs[False, chunk]
+        if quant is None:
+            assert outs[True, chunk] == outs[False, chunk]
+            continue
+        for prompt, got, want in zip(prompts, outs[True, chunk], outs[False, chunk]):
+            j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            if j is None:
+                assert got == want
+                continue
+            row = chip_smoke.paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt + want[:j],
+                                          torch.float32, 0, quant=quant)[0][-1]
+            la, lb = row[got[j]].item(), row[want[j]].item()
+            assert abs(la - lb) <= 2**-7 * max(abs(la), abs(lb)) + 1e-3, (chunk, j, la, lb)
 
 
 # ----------------------------------------------------------------- flash attention

@@ -5,7 +5,7 @@ from the JAX params, as in ``tests/experimental/test_paged_inference.py``)
 and must emit identical greedy and seeded streams: a batch of two, staggered
 arrivals, prefix-cache hits with a copy-on-write tail, chunked prefill (the
 token-flattened launch, which both pick off the TPU/GPU kernel), preemption
-in a 10-block pool, and an int8 KV pool. The goodput ledger books the same
+in a 10-block pool, and int8 and fp8 KV pools. The goodput ledger books the same
 totals. One engine pair per configuration is shared by the module and reset
 between tests, so each configuration is compiled once on the JAX side.
 """
@@ -30,6 +30,7 @@ CONFIGS = {
     "chunked": dict(BASE, prefill_chunk_tokens=8),
     "preempt": dict(max_batch_size=2, block_size=4, num_blocks=10, max_blocks_per_seq=32),
     "int8": dict(BASE, block_size=8, kv_cache_quant="int8"),
+    "fp8": dict(BASE, block_size=8, kv_cache_quant="fp8"),
 }
 PREFIX = list(range(5, 21))  # 4 full blocks of 4
 
@@ -172,6 +173,23 @@ def test_preemption_recompute(pair):
 def test_int8_kv_pool(pair):
     got, want = _generate_both(pair, [[5, 6, 7, 8, 9], [40, 41, 42]], max_new_tokens=8)
     assert got == want
+
+
+@pytest.mark.parametrize("pair", ["int8", "fp8"], indirect=True)
+def test_quantized_kv_pool_state(pair):
+    """Token-exact streams over an int8 or fp8 pool, and the pool's quantized
+    bytes equal to the JAX engine's. The scales are each token's K/V row
+    maximum over 127 or 448, and K/V come out of fp32 GEMMs of two libraries:
+    equal to fp32 rounding, 1e-6 of the largest scale."""
+    got, want = _generate_both(pair, [[5, 6, 7, 8, 9], [40, 41, 42], list(range(60, 75))], max_new_tokens=8)
+    assert got == want
+    jeng, peng = pair
+    jkv, pkv = np.asarray(jeng.pool.kv), peng.pool.kv
+    if pkv.dtype == torch.float8_e4m3fn:
+        jkv, pkv = jkv.view(np.uint8), pkv.view(torch.uint8)
+    assert np.array_equal(pkv.numpy(), jkv)
+    jscale = np.asarray(jeng.pool.scale)
+    np.testing.assert_allclose(peng.pool.scale.numpy(), jscale, rtol=0, atol=1e-6 * np.abs(jscale).max())
 
 
 @pytest.mark.parametrize("pair", ["base", "chunked", "preempt"], indirect=True)

@@ -120,14 +120,19 @@ def _bf16(x, parts):
     return hi if parts == 1 else hi + (x - hi).bfloat16().float()
 
 
-def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts=2, tile=64):
+def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts=2, tile=64,
+                    k_scale=None, v_scale=None):
     """``paged_attention_sm90.cu`` step by step in torch: every (sequence, kv
     head) folds its query heads into rows t * group + g; each kv partition
     walks its 64-position tiles up to its rows' highest live position with an
     online softmax in fp32 (exp2 of scores times scale * log2(e)), P in
     ``p_parts`` bf16 operands of P.V and the row sum of fp32 P, and keeps
     (max, sum, unnormalised rows); the partitions then merge in fp32 in
-    partition order. Products accumulate in fp32, as the tensor cores do."""
+    partition order. Products accumulate in fp32, as the tensor cores do.
+    A quantized pool (``k_scale``/``v_scale`` given) is read as its raw
+    values, widened exactly; S's column c is multiplied by its K scale before
+    the mask, P's column c by its V scale before the bf16 split, and the row
+    sum stays over P."""
     B, T, N, H = q.shape
     _nb, K, bs, _ = pk.shape
     group, cap = N // K, tables.shape[1] * bs
@@ -141,6 +146,9 @@ def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts
         for kh in range(K):
             k = pk[blocks, kh].reshape(cap, H).float()
             v = pv[blocks, kh].reshape(cap, H).float()
+            ones = torch.ones(cap)
+            ks = ones if k_scale is None else k_scale[blocks, kh].reshape(cap)
+            vs = ones if v_scale is None else v_scale[blocks, kh].reshape(cap)
             rows = q[b, :qlen, kh * group:(kh + 1) * group].reshape(qlen * group, H).float()
             lim = torch.clamp_max(int(q_start[b]) + torch.arange(qlen).repeat_interleave(group), cap - 1)
             hi = int(lim.max())
@@ -152,7 +160,7 @@ def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts
                 l = torch.zeros(len(rows))
                 o = torch.zeros(len(rows), H)
                 for c0 in range(p * part_len, min((p + 1) * part_len, hi + 1), tile):
-                    s = rows @ k[c0:c0 + tile].T
+                    s = (rows @ k[c0:c0 + tile].T) * ks[c0:c0 + tile]
                     s = torch.where(torch.arange(c0, c0 + tile)[None, :] <= lim[:, None], s,
                                     torch.full_like(s, pa.NEG_INF))
                     mn = torch.maximum(m, s.amax(-1))
@@ -160,7 +168,7 @@ def _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, p_parts
                     a = torch.exp2(m * sl2 - mu)
                     pr = torch.exp2(s * sl2 - mu[:, None])
                     l = l * a + pr.sum(-1)
-                    o = o * a[:, None] + _bf16(pr, p_parts) @ v[c0:c0 + tile]
+                    o = o * a[:, None] + _bf16(pr * vs[c0:c0 + tile], p_parts) @ v[c0:c0 + tile]
                     m = mn
                 ms.append(torch.where(m == pa.NEG_INF, m, m * sl2))
                 ls.append(l)
@@ -207,6 +215,44 @@ def test_sm90_roundings_and_partitions_fit_the_chip_gate():
             assert torch.all(got[4] == 0) and torch.all(got[:3, 1:] == 0)
     print("paged sm90 worst over the gate:", {f"P in {k} bf16 parts": round(w, 3) for k, w in worst.items()})
     assert worst[2] <= 1.0
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_sm90_quantized_scale_fold_fits_the_chip_gate(quant):
+    """The Hopper route over an int8 or fp8 pool: the raw values through the
+    bf16 wgmmas, K scales on S's columns, V scales in P before its two-part
+    bf16 split, the row sum over P, at this launch's kv partitions, against
+    the plain version (which dequantizes K and V in fp32) under
+    ``chip_smoke.py``'s elementwise gate for bf16 outputs; dead rows exact
+    zeros."""
+    import chip_smoke
+
+    from paddlenlp_tpu_torch.experimental.paged_cache import quantize_kv
+
+    q, pk, pv, tables, q_start, q_lens = _serving_batch(10, torch.bfloat16)
+    qdtype = torch.int8 if quant == "int8" else torch.float8_e4m3fn
+    (pk, ks), (pv, vs) = quantize_kv(pk, qdtype), quantize_kv(pv, qdtype)
+    parts, part_len = pa.kv_partitions(5, 6, 14, 2, 128, 16)
+    assert parts > 1
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs).float()
+    got = _sm90_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, k_scale=ks,
+                          v_scale=vs).bfloat16().float()
+    rtol, atol = chip_smoke.KERNEL_TOL["bfloat16"]
+    worst = ((got - want).abs() / (rtol * want.abs() + atol)).max().item()
+    print(f"paged sm90 over {quant}: worst over the gate {worst:.3f}")
+    assert worst <= 1.0
+    assert torch.all(got[4] == 0) and torch.all(got[:3, 1:] == 0)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,route", [
+    (torch.bfloat16, torch.bfloat16, "sm90"), (torch.bfloat16, torch.int8, "sm90_quant"),
+    (torch.bfloat16, torch.float8_e4m3fn, "sm90_quant"), (torch.float32, torch.float32, "simt"),
+    (torch.float32, torch.bfloat16, "simt"), (torch.float32, torch.int8, "simt"),
+    (torch.float32, torch.float8_e4m3fn, "simt"), (torch.bfloat16, torch.float32, "simt")])
+def test_kernel_route(q_dtype, kv_dtype, route):
+    """bf16 queries over a bf16, int8 or fp8 pool take the Hopper kernel; fp32
+    queries, or an fp32 pool, the SIMT kernel (the precise check)."""
+    assert pa.kernel_route(q_dtype, kv_dtype) == route
 
 
 @pytest.mark.parametrize("parts", range(1, 9))
