@@ -89,10 +89,30 @@ Serving, the paged engine at Qwen2-7B width and depth:
               TTFT/TPOT, tokens/s, peak memory, pool bytes and the
               agreement with a bf16 pool's streams, printed; one profiled
               decode call's paged-attention device ms;
+11. lora   -- multi-LoRA on the same model and engine settings: an
+              ``AdapterRegistry`` (max rank 16, 4 pool slots, fp32; the pool's
+              bytes printed) with three random adapters (ranks 16, 16, 8) and
+              one a ``LoRAModel`` exported to a file; the engine phase's 8
+              prompts (two rows on each random adapter, two on the base
+              model), greedy and seeded sampling, against each request alone
+              (a first divergence passes only within the bf16 gate, the
+              sampled one on its sampling scores); one [8, 1] decode forward
+              twice with other adapters on rows 1-7: row 0 bit for bit; five
+              different greedy streams of one prompt on each adapter and the
+              base model; the ``LoRAModel``'s adapter against
+              ``merge_and_unload()`` (min cosine >= 0.99); five adapters over
+              four slots with one pinned (evictions, ``adapter_pressure``
+              deferral, no slot leaked); over HTTP ``/admin/adapters``, JSON
+              and SSE completions on an adapter equal to in-process ones, an
+              unknown adapter, a tenant over its KV share deferred while
+              another admits, tenant and adapter ``/metrics`` labels;
+              TTFT/TPOT and tokens/s with adapters and on the base model,
+              profiled decode calls of each, the device pool's re-place
+              times; every paged launch on the Hopper route;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-11. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+12. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -102,11 +122,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-12. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+13. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-13. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+14. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -114,9 +134,9 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
-14. train_profile -- ``torch.profiler`` over one more training step;
-15. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs, the serve, spec and host_tier phases; the
+15. train_profile -- ``torch.profiler`` over one more training step;
+16. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, spec, host_tier and lora phases; the
               kv_quant phase for the quantized entry) and the training run
               (and the spec phase's draft forwards), each on its own route,
               and its check.
@@ -134,6 +154,7 @@ import faulthandler
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -481,12 +502,15 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, q
 
 # ----------------------------------------------------------------------------- logits
 def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dtype, n_decode, feed=None, quant=None,
-                 kernel=True):
+                 kernel=True, lora=None, adapter=0):
     """Prefill ``prompt`` then ``n_decode`` decode steps through the paged
     forward, over a fresh pool (int8 / fp8 with ``quant``), on the kernel path
     or, with ``kernel=False``, on the plain gather path, feeding the greedy
-    token (or ``feed[i]`` when given); returns (logits [1 + n_decode, V]
-    fp32, fed token ids)."""
+    token (or ``feed[i]`` when given), with the LoRA delta of pool slot
+    ``adapter`` of the device adapter pool ``lora`` when given; returns
+    (logits [1 + n_decode, V] fp32, fed token ids)."""
+    from paddlenlp_tpu_torch.experimental.inference_model import gather_lora
+
     bs = 16
     n_blocks = (len(prompt) + n_decode) // bs + 2
     infer = PagedInferenceModel(model, block_size=bs, num_blocks=n_blocks + 1, max_blocks_per_seq=n_blocks,
@@ -499,16 +523,18 @@ def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dty
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
     T = len(prompt)
     ids = torch.tensor([prompt], dtype=torch.int32, device=DEVICE)
+    rows_lora = gather_lora(lora, i32([adapter]))
     rows = [infer._forward(pool, ids, tables, torch.arange(T, device=DEVICE)[None],
                            torch.arange(S, device=DEVICE)[None] < T, i32([0]), i32([T - 1]),
-                           q_lens=i32([T])).float()]
+                           q_lens=i32([T]), lora_rows=rows_lora).float()]
     fed = list(prompt)
     for step in range(n_decode):
         pos = T + step
         tok = int(rows[-1].argmax(dim=-1)) if feed is None else feed[pos]
         fed.append(tok)
         rows.append(infer._forward(pool, i32([[tok]]), tables, i32([[pos]]),
-                                   torch.arange(S, device=DEVICE)[None] <= pos, i32([pos]), i32([0])).float())
+                                   torch.arange(S, device=DEVICE)[None] <= pos, i32([pos]), i32([0]),
+                                   lora_rows=rows_lora).float())
     del pool
     return torch.cat(rows, dim=0), fed
 
@@ -860,7 +886,7 @@ SPEC_K = 4  # spec_draft_len of every speculative run
 SERVE_ENGINE = dict(max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256)
 
 
-def divergence(torch, model, prompt, got, want, fp32_logits=None):
+def divergence(torch, model, prompt, got, want, fp32_logits=None, noise=None):
     """None when two greedy streams are equal. Otherwise their first
     divergent position, with the two tokens' fp32 logits there from the
     plain dense forward over the common prefix (or ``fp32_logits(ids)``, the
@@ -868,7 +894,10 @@ def divergence(torch, model, prompt, got, want, fp32_logits=None):
     it is not the dense one), their margin and the bf16 gate
     ``2**-7 * |logit| + 1e-3``: a bf16 verify over [8, 5] rows and a
     decode over [8, 1] rows run GEMMs of different M, so a near-tie may take
-    the other token. Only a divergence within the gate passes."""
+    the other token. Only a divergence within the gate passes. For sampled
+    streams ``noise(position)`` is what the sampler adds to the logits there
+    (temperature x its Gumbel draw): the margin is then the two tokens'
+    sampling scores'."""
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if j is None:
         check(len(got) == len(want), f"streams of {len(got)} and {len(want)} tokens share every position")
@@ -877,21 +906,26 @@ def divergence(torch, model, prompt, got, want, fp32_logits=None):
     row = model(torch.tensor([ids], device=DEVICE), dtype=torch.float32)[0, -1] if fp32_logits is None \
         else fp32_logits(ids)
     la, lb = row[got[j]].item(), row[want[j]].item()
-    margin, gate = abs(la - lb), 2**-7 * max(abs(la), abs(lb)) + 1e-3
+    na = nb = 0.0
+    if noise is not None:
+        n = noise(len(ids))
+        na, nb = n[got[j]].item(), n[want[j]].item()
+    margin, gate = abs(la + na - lb - nb), 2**-7 * max(abs(la), abs(lb)) + 1e-3
     del row
     return dict(position=j, tokens=[got[j], want[j]], logits=[la, lb], margin=margin, gate=gate,
                 within_gate=margin <= gate)
 
 
-def serve_waves(torch, eng, prompts, sp_of, waves):
+def serve_waves(torch, eng, prompts, sp_of, waves, adapter_of=None):
     """Serve ``prompts`` on ``eng``, wave after wave (each wave runs to
-    completion); returns ({prompt index: Request}, wall s)."""
+    completion), request i on adapter ``adapter_of(i)`` when given; returns
+    ({prompt index: Request}, wall s)."""
     index, done = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for wave in waves:
         for i in wave:
-            index[eng.add_request(prompts[i], sp_of(i))] = i
+            index[eng.add_request(prompts[i], sp_of(i), adapter_id=None if adapter_of is None else adapter_of(i))] = i
         while eng.has_work():
             for r in eng.step():
                 done[index[r.req_id]] = r
@@ -1557,6 +1591,427 @@ def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedI
     return res
 
 
+# ----------------------------------------------------------------------------- lora
+LORA_RANK = 16  # the pool's max_rank; one random adapter has rank 8
+LORA_POOL_SLOTS = 4
+LORA_NEW = 32  # new tokens a request of the mixed batch
+LORA_MIX = ("ad-0", "ad-1", "ad-2", None) * 2  # the adapter of request i of the engine phase's traffic
+
+
+class uncounted:
+    """Leaves the paged kernel's launch counts as they were: launches made
+    to check a result are not the main path's."""
+
+    def __init__(self, pa):
+        self.pa = pa
+
+    def __enter__(self):
+        self.saved = (self.pa.LAUNCHES, self.pa.LAUNCHES_SM90, self.pa.LAUNCHES_SM90_QUANT)
+
+    def __exit__(self, *exc):
+        self.pa.LAUNCHES, self.pa.LAUNCHES_SM90, self.pa.LAUNCHES_SM90_QUANT = self.saved
+
+
+def lora_weights(torch, cfg, dims, seed, rank, b_std):
+    """One random adapter on all seven projections, drawn on the card:
+    A ~ N(0, 1)/sqrt(d_in) (LoRA's init) and B ~ N(0, b_std^2)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    L = cfg.num_hidden_layers
+    out = {}
+    for proj, (d_in, d_out) in dims.items():
+        a = torch.randn((L, d_in, rank), generator=gen, device=DEVICE) / math.sqrt(d_in)
+        b = torch.randn((L, rank, d_out), generator=gen, device=DEVICE) * b_std
+        out[proj] = {"A": a.cpu().numpy(), "B": b.cpu().numpy()}
+    return out
+
+
+def lora_profile(torch, np, model, pa, InferenceEngine, SamplingParams, reg, seed, adapters):
+    """``torch.profiler`` over one steady decode call of the engine phase's 8
+    requests (each on ``adapters[i]``): device ms, idle share, the paged
+    kernel's ms, and the device ms of the ops only the LoRA delta runs
+    (``aten::bmm``, ``aten::index_select``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts, _ = traffic(np, model.config.vocab_size, seed)
+    eng = InferenceEngine(model, adapter_registry=reg, **SERVE_ENGINE)
+    for i, p in enumerate(prompts):
+        eng.add_request(p, SamplingParams(max_new_tokens=1 + 2 * eng.decode_steps), adapter_id=adapters[i])
+    eng.step()  # admission: prefill + the first decode call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 1e3
+    ops = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
+    op_ms = {k: (ops[k].device_time_total / 1e3 if k in ops else 0.0, ops[k].count if k in ops else 0)
+             for k in ("aten::bmm", "aten::index_select")}
+    del eng
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
+                attention_kernel_ms=attn_ms, bmm_ms=op_ms["aten::bmm"][0], bmm_calls=op_ms["aten::bmm"][1],
+                gather_ms=op_ms["aten::index_select"][0], gather_calls=op_ms["aten::index_select"][1],
+                kernel_launches=sum(e.count for e in kernels))
+
+
+def lora_rows_independent(torch, np, cfg, infer, init_paged_pool, lora_dev, slots, rng):
+    """Step (2) of the lora phase: 8 rows of 256 tokens prefilled over a
+    fresh pool, then one [8, 1] decode forward twice, row 0 on the same
+    adapter slot both times and rows 1-7 on other ones the second time."""
+    from paddlenlp_tpu_torch.experimental.inference_model import gather_lora
+
+    B, T, bs = 8, 256, 16
+    nb = (T + 1) // bs + 1
+    pool = init_paged_pool(cfg, B * nb + 1, bs, dtype=torch.bfloat16, device=DEVICE)
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32, device=DEVICE).reshape(B, nb)
+    S = nb * bs
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)), dtype=torch.int32, device=DEVICE)
+    first = [slots[j % len(slots)] for j in range(B)]
+    infer._forward(pool, ids, tables, torch.arange(T, device=DEVICE)[None].expand(B, T),
+                   torch.arange(S, device=DEVICE)[None] < T, i32([0] * B), i32([T - 1] * B), q_lens=i32([T] * B),
+                   lora_rows=gather_lora(lora_dev, i32(first)))
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)), dtype=torch.int32, device=DEVICE)
+    outs = [infer._forward(pool, tok, tables, i32([[T]] * B), torch.arange(S, device=DEVICE)[None] <= T,
+                           i32([T] * B), i32([0] * B), lora_rows=gather_lora(lora_dev, i32(table))).float()
+            for table in (first, [first[0]] + [slots[(j + 1) % len(slots)] for j in range(1, B)])]
+    return dict(shape=[B, 1], row0_bitwise=bool(torch.equal(outs[0][0], outs[1][0])),
+                others_changed=int(sum(not torch.equal(outs[0][j], outs[1][j]) for j in range(1, B))))
+
+
+def phase_lora(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+               serving, LoRAModel, LoRAConfig, tenancy, seed):
+    """Multi-LoRA serving at Qwen2-7B: an ``AdapterRegistry`` (max rank 16,
+    4 pool slots, fp32) holding three random adapters (ranks 16, 16, 8) and
+    one exported by a ``LoRAModel`` over the same model, on the engine
+    settings of the serve phase (8 slots, block 16, 2048 blocks, 8 decode
+    steps a call). (1) The engine phase's 8 prompts, two on each random
+    adapter and two on the base model, greedy and then seeded sampling,
+    against each request alone on an engine of its own; (2) one [8, 1]
+    decode forward twice over the same pool, row 0 on the same adapter and
+    the other rows on others: row 0's logits bit for bit; (3) one prompt on
+    each adapter and on the base model: five different greedy streams; (4)
+    a 1024-token request's logits and 16 decode steps through the
+    ``LoRAModel``'s adapter against the model of ``merge_and_unload()``
+    without one; (5) five adapters over four slots with one pinned by a long
+    request; (6) the same over HTTP through ``ServingServer``:
+    ``/admin/adapters`` load / list / unload, JSON and SSE completions on an
+    adapter, an unknown adapter, a tenant over its ``kv_block_share``
+    deferred while another admits, tenant- and adapter-labelled
+    ``/metrics``; (7) the mix's TTFT/TPOT and tokens/s with adapters and on
+    the base model, a profiled decode call of each, and the device pool's
+    re-place times. Every paged launch takes the Hopper route."""
+    import copy
+    import os
+
+    from paddlenlp_tpu_torch.experimental.inference_model import _gumbel_rows
+    from paddlenlp_tpu_torch.observability.flight_recorder import RECORDER
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab, L = cfg.vocab_size, cfg.num_hidden_layers
+    dims = tenancy.adapter_dims_from_config(cfg)
+    res = dict(phase="lora", config="Qwen/Qwen2-7B", engine=dict(SERVE_ENGINE), max_rank=LORA_RANK,
+               pool_slots=LORA_POOL_SLOTS)
+    torch.cuda.synchronize()
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+
+    # ---- set-up: three random adapters and one from a LoRAModel, exported to a file
+    t0 = time.perf_counter()
+    reg = tenancy.AdapterRegistry(cfg, max_rank=LORA_RANK, pool_slots=LORA_POOL_SLOTS)
+    for i, rank in enumerate((16, 16, 8)):
+        reg.add(f"ad-{i}", lora_weights(torch, cfg, dims, seed + 200 + i, rank, 0.05))
+    lm = LoRAModel(copy.copy(model), LoRAConfig(r=LORA_RANK, lora_alpha=2 * LORA_RANK))  # scaling 2
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 210)
+    with torch.no_grad():
+        for leaf in [v for k, v in flatten_params(lm.params).items() if k.endswith("lora_B")]:
+            leaf.normal_(0.0, 0.025, generator=gen)  # a trained adapter's B is not zero
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    exported = os.path.join(workdir, "lora.safetensors")
+    lm.export_adapter(exported)
+    reg.add("lora", exported)
+    pool_bytes = sum(a.nbytes for w in reg._pool.values() for a in w.values())
+    want_bytes = (LORA_POOL_SLOTS + 1) * L * LORA_RANK * sum(d_in + d_out for d_in, d_out in dims.values()) * 4
+    res["setup"] = dict(adapters=reg.ids(), ranks={a: reg._store[a].rank for a in reg.ids()},
+                        pool_bytes=pool_bytes, exported_bytes=os.path.getsize(exported),
+                        seconds=time.perf_counter() - t0)
+    check(pool_bytes == want_bytes, f"lora: adapter pool of {pool_bytes} bytes, want {want_bytes}")
+
+    prompts, _ = traffic(np, vocab, seed)
+    greedy_sp = lambda i: SamplingParams(max_new_tokens=LORA_NEW)  # noqa: E731
+    temp = 0.8
+    sampled_sp = lambda i: SamplingParams(max_new_tokens=LORA_NEW, do_sample=True, temperature=temp,  # noqa: E731
+                                          seed=20 + i)
+
+    def fresh(**kw):
+        eng = InferenceEngine(model, adapter_registry=reg, **dict(SERVE_ENGINE, **kw))
+        check(eng.infer.use_paged_kernel, "lora: the engine on CUDA must run the kernel path")
+        return eng
+
+    def fp32_of(adapter_id):
+        """The fp32 logits of the function a stream on ``adapter_id`` computes:
+        the paged fp32 forward with the adapter's delta (SIMT kernel)."""
+        slot = 0 if adapter_id is None else reg.slot_of(adapter_id)
+
+        def logits(ids):
+            with uncounted(pa):
+                return paged_logits(torch, model, PagedInferenceModel, init_paged_pool, ids, torch.float32, 0,
+                                    lora=probe.backend._lora_tree(), adapter=slot)[0][0]
+        return logits
+
+    def gumbel(sp):
+        return lambda pos: sp.temperature * _gumbel_rows(torch.tensor([sp.seed], device=DEVICE),
+                                                          torch.tensor([pos], device=DEVICE), vocab)[0]
+
+    # ---- (1) the mix, greedy and sampled, against each request alone
+    mix = {}
+    gates = []  # the stream gates, checked once everything is printed
+    solo_eng = fresh()
+    probe = solo_eng  # whose backend holds the device pool the fp32 references read
+    for kind, sp_of in (("greedy", greedy_sp), ("sampled", sampled_sp)):
+        eng = fresh()
+        done, wall = serve_waves(torch, eng, prompts, sp_of, [range(8)], adapter_of=LORA_MIX.__getitem__)
+        check(eng.ledger.verify_conservation(), f"lora {kind}: goodput ledger conservation broken")
+        del eng
+        solo = {}
+        for i in range(8):
+            solo_eng.clear_prefix_cache()
+            solo[i] = serve_waves(torch, solo_eng, prompts, sp_of, [[i]], adapter_of=LORA_MIX.__getitem__)[0][i]
+        # every reference registered: the fp32 forwards below need each adapter resident
+        for aid in ("ad-0", "ad-1", "ad-2"):
+            reg.acquire(aid)
+        diverged = {}
+        for i in range(8):
+            d = divergence(torch, model, prompts[i], done[i].output_ids, solo[i].output_ids,
+                           fp32_logits=fp32_of(LORA_MIX[i]),
+                           noise=gumbel(sp_of(i)) if kind == "sampled" else None)
+            if d is not None:
+                diverged[i] = d
+        for aid in ("ad-0", "ad-1", "ad-2"):
+            reg.release(aid)
+        mix[kind] = dict(latency(done, wall), equal=8 - len(diverged), of=8, diverged=diverged,
+                         finish=sorted({r.finish_reason for r in done.values()}))
+        for i, r in done.items():
+            check(r.finish_reason in ("length", "stop"), f"lora {kind}: request {i} ended {r.finish_reason}")
+            check(all(0 <= t < vocab for t in r.output_ids), f"lora {kind}: request {i} emitted out-of-vocab ids")
+        gates += [(d["within_gate"], f"lora {kind}: request {i} ({LORA_MIX[i]}) leaves its solo stream at "
+                                     f"{d['position']} outside the bf16 gate: {d}") for i, d in diverged.items()]
+    base_eng = fresh()
+    done, wall = serve_waves(torch, base_eng, prompts, greedy_sp, [range(8)])
+    mix["base_greedy"] = latency(done, wall)
+    del base_eng
+    res["mix"] = mix
+
+    # ---- (2) row independence at a fixed [8, 1] shape
+    infer, backend = solo_eng.infer, solo_eng.backend
+    for aid in ("ad-0", "ad-1", "ad-2", "lora"):
+        reg.acquire(aid)
+    slots = [reg.slot_of(a) for a in ("ad-0", "ad-1", "ad-2", "lora")]
+    lora_dev = backend._lora_tree()
+    rng = np.random.default_rng(seed + 220)
+    with uncounted(pa):  # a check's launches, not the main path's
+        res["row_independence"] = lora_rows_independent(torch, np, cfg, infer, init_paged_pool, lora_dev, slots, rng)
+    check(res["row_independence"]["row0_bitwise"], "lora: row 0's logits changed with the other rows' adapters")
+    check(res["row_independence"]["others_changed"] == 7, "lora: another adapter left a row's logits as they were")
+
+    # ---- (3) steering: one prompt on each adapter and on the base model
+    steer_prompt = prompts[1]
+    ads = ("ad-0", "ad-1", "ad-2", "lora", None)
+    eng = fresh()
+    done, _ = serve_waves(torch, eng, [steer_prompt] * 5, lambda i: SamplingParams(max_new_tokens=16), [range(5)],
+                          adapter_of=ads.__getitem__)
+    del eng
+    streams = [tuple(done[i].output_ids) for i in range(5)]
+    res["steering"] = dict(adapters=[a or "base" for a in ads], distinct_streams=len(set(streams)),
+                           first_tokens=[s[0] for s in streams])
+    check(len(set(streams)) == 5, f"lora: {len(set(streams))} distinct greedy streams of 5 adapters incl. base")
+
+    # ---- (4) the LoRAModel's adapter against merge_and_unload()'s model
+    prompt = rng.integers(0, vocab, 1024).tolist()
+    with uncounted(pa):
+        got, fed = paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, torch.bfloat16, 16,
+                                lora=lora_dev, adapter=reg.slot_of("lora"))
+        merged = lm.merge_and_unload()
+        ref, _ = paged_logits(torch, merged, PagedInferenceModel, init_paged_pool, prompt, torch.bfloat16, 16,
+                              feed=fed)
+    del merged, lm
+    torch.cuda.empty_cache()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+    res["merged"] = dict(positions=17, min_cosine=cos, max_abs_diff=(got - ref).abs().max().item(),
+                         ref_max_abs=ref.abs().max().item(),
+                         top1_agree=(got.argmax(-1) == ref.argmax(-1)).float().mean().item())
+    check(torch.isfinite(got).all().item() and torch.isfinite(ref).all().item(), "lora merged: non-finite logits")
+    check(cos >= 0.99, f"lora merged: unmerged vs merged min cosine {cos} < 0.99")
+
+    # ---- (7, part) the device pool's re-place times: all slots, then one slot after a load
+    for aid in ("ad-0", "ad-1", "ad-2", "lora"):
+        reg.release(aid)
+    torch.cuda.synchronize()
+    backend._lora_dev = backend._lora_version = None
+    t0 = time.perf_counter()
+    backend._lora_tree()
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    reg.add("ad-3", lora_weights(torch, cfg, dims, seed + 203, 16, 0.05))
+    reg.acquire("ad-3")  # evicts the LRU adapter: one slot written
+    t0 = time.perf_counter()
+    backend._lora_tree()
+    torch.cuda.synchronize()
+    slot_ms = (time.perf_counter() - t0) * 1e3
+    reg.release("ad-3")
+    equal = all(torch.equal(t.cpu(), torch.from_numpy(reg._pool[p][k])) for p, w in backend._lora_dev.items()
+                for k, t in w.items())
+    res["replace"] = dict(full_pool_ms=full_ms, one_slot_ms=slot_ms, full_pool_bytes=pool_bytes,
+                          slot_bytes=pool_bytes // (LORA_POOL_SLOTS + 1), device_equals_host=equal)
+    check(equal, "lora: the device adapter pool differs from the host pool")
+    del solo_eng, backend, infer, lora_dev
+
+    # ---- (5) pool pressure: five adapters over four slots, ad-0 pinned by a long request
+    RECORDER.clear()
+    ev0 = reg.stats()["evictions"]
+    eng = fresh()
+    pinned_sp = lambda i: SamplingParams(max_new_tokens=96 if i == 1 else 16)  # noqa: E731
+    press = {1: "ad-0", 3: "ad-1", 5: "ad-2", 7: "lora", 2: "ad-3"}
+    done, _ = serve_waves(torch, eng, prompts, pinned_sp, [list(press)], adapter_of=press.__getitem__)
+    del eng
+    defers = [e.get("reason") for e in RECORDER.to_dicts(RECORDER.snapshot()) if e["name"] == "admit.defer"]
+    solo_eng = fresh()
+    want = serve_waves(torch, solo_eng, prompts, pinned_sp, [[1]], adapter_of=press.__getitem__)[0][1]
+    probe = solo_eng
+    reg.acquire("ad-0")
+    d = divergence(torch, model, prompts[1], done[1].output_ids, want.output_ids, fp32_logits=fp32_of("ad-0"))
+    reg.release("ad-0")
+    del solo_eng
+    st = reg.stats()
+    res["pressure"] = dict(adapters=len(press), pool_slots=LORA_POOL_SLOTS, evictions=st["evictions"] - ev0,
+                           defer_reasons=sorted(set(defers)), pinned_tokens=len(done[1].output_ids),
+                           pinned_equal_solo=d is None, pinned_divergence=d, stats=st)
+    check("adapter_pressure" in defers, f"lora pressure: no admit.defer reason=adapter_pressure ({defers})")
+    check(st["evictions"] > ev0, "lora pressure: no eviction")
+    check(st["pinned"] == 0 and st["free_slots"] + st["resident"] == st["pool_slots"], f"lora pressure: slot leak {st}")
+    gates.append((d is None or d["within_gate"], f"lora pressure: the pinned stream leaves its solo stream: {d}"))
+    check(all(r.finish_reason == "length" for r in done.values()), "lora pressure: a request did not finish")
+
+    # ---- (6) over HTTP
+    res["http"] = lora_http(torch, np, model, InferenceEngine, SamplingParams, serving, tenancy, reg, exported,
+                            RECORDER)
+
+    # ---- (7) profiles of one decode call, with adapters and on the base model
+    res["profile"] = {"adapters": lora_profile(torch, np, model, pa, InferenceEngine, SamplingParams, reg, seed,
+                                               LORA_MIX),
+                      "base": lora_profile(torch, np, model, pa, InferenceEngine, SamplingParams, reg, seed,
+                                           (None,) * 8)}
+    pf = res["profile"]
+    res["profile"]["delta_device_ms"] = pf["adapters"]["device_ms"] - pf["base"]["device_ms"]
+    res["launches"] = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
+    res["sm90_launches"] = pa.LAUNCHES_SM90
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    shutil.rmtree(workdir, ignore_errors=True)
+    check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
+          f"lora: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} paged launches on the Hopper route")
+    for ok, msg in gates:
+        check(ok, msg)
+    return res
+
+
+def lora_http(torch, np, model, InferenceEngine, SamplingParams, serving, tenancy, reg, exported, recorder):
+    """(6) of the lora phase: ``ServingServer`` over an engine with the
+    registry, tenant "capped" held to 5% of the KV blocks."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(7)
+    p_json, p_sse = rng.integers(0, vocab, 384).tolist(), rng.integers(0, vocab, 320).tolist()
+    # in-process references on an engine of their own, each prompt alone
+    ref = InferenceEngine(model, adapter_registry=reg, **SERVE_ENGINE)
+    want = serve_waves(torch, ref, [p_json, p_sse], lambda i: SamplingParams(max_new_tokens=16), [[0], [1]],
+                       adapter_of=lambda i: "lora")[0]
+    del ref
+    quotas = tenancy.TenantQuotas({"capped": {"kv_block_share": 0.05}})
+    eng = InferenceEngine(model, adapter_registry=reg, tenant_quotas=quotas, **SERVE_ENGINE)
+    server = serving.ServingServer(eng, registry=serving.MetricsRegistry(), tenant_quotas=quotas,
+                                   scheduler_config=serving.SchedulerConfig(max_inflight=32, default_timeout_s=600))
+    port = server.start_in_thread()
+    out = {}
+    try:
+        status, doc = http_json(port, "POST", "/admin/adapters",
+                                {"op": "load", "adapter_id": "lora-http", "path": exported})
+        check(status == 200 and "lora-http" in doc["adapters"], f"lora http: load answered {status} {doc}")
+        out["load"] = dict(status=status, same_digest=doc["digest"] == reg.digest_of("lora"))
+        check(out["load"]["same_digest"], "lora http: the loaded file's digest differs from the in-process add's")
+        status, doc = http_json(port, "POST", "/admin/adapters", {"op": "list"})
+        out["list"] = dict(status=status, adapters=doc["adapters"], stats=doc["stats"])
+        status, body = http_json(port, "POST", "/v1/completions",
+                                 {"prompt": p_json, "max_tokens": 16, "adapter_id": "lora-http", "tenant": "acme"})
+        check(status == 200, f"lora http: JSON completion answered {status}")
+        toks, finish, _, _ = http_stream(port, "/v1/completions", {"prompt": p_sse, "max_tokens": 16,
+                                                                  "adapter_id": "lora-http", "tenant": "globex"})
+        out["equal_in_process"] = dict(json=body["choices"][0]["token_ids"] == want[0].output_ids,
+                                       sse=toks == want[1].output_ids)
+        check(all(out["equal_in_process"].values()), f"lora http: streams differ from in-process: {out}")
+        status, doc = http_json(port, "POST", "/v1/completions",
+                                {"prompt": p_json[:8], "max_tokens": 2, "adapter_id": "nope"})
+        out["unknown"] = dict(status=status, type=doc["error"]["type"])
+        check(status == 400 and "nope" in doc["error"]["message"], f"lora http: unknown adapter answered {status}")
+
+        # tenant "capped": a running 1024-token request holds 65 of its 102
+        # blocks, so a second one (63 more) waits while tenant "other" admits
+        cap = quotas.kv_block_cap("capped", eng.mgr.total_usable_blocks)
+        recorder.clear()
+        started, results = threading.Event(), {}
+
+        def long_stream():
+            results["long"] = http_stream(port, "/v1/completions",
+                                          {"prompt": rng_long, "max_tokens": 128, "adapter_id": "ad-1",
+                                           "tenant": "capped"}, on_token=lambda _cid: started.set())
+
+        def second():
+            results["second"] = http_json(port, "POST", "/v1/completions",
+                                          {"prompt": rng_second, "max_tokens": 8, "tenant": "capped"})
+
+        rng_long, rng_second = rng.integers(0, vocab, 1024).tolist(), rng.integers(0, vocab, 1000).tolist()
+        threads = [threading.Thread(target=long_stream), threading.Thread(target=second)]
+        threads[0].start()
+        check(started.wait(600), "lora http: the long stream never started")
+        threads[1].start()
+        deadline = time.time() + 120
+        while not any(e["name"] == "admit.defer" and e.get("reason") == "tenant_kv_share"
+                      for e in recorder.to_dicts(recorder.snapshot())):
+            check(time.time() < deadline, "lora http: the second capped request was never deferred")
+            time.sleep(0.01)
+        status, _ = http_json(port, "POST", "/v1/completions",
+                              {"prompt": rng.integers(0, vocab, 512).tolist(), "max_tokens": 8, "tenant": "other"})
+        for t in threads:
+            t.join(600)
+        accepts = [e["prompt_len"] for e in recorder.to_dicts(recorder.snapshot()) if e["name"] == "admit.accept"]
+        out["kv_share"] = dict(cap_blocks=cap, other_status=status, long_tokens=len(results["long"][0]),
+                               second_status=results["second"][0], admit_order=accepts)
+        check(status == 200 and results["second"][0] == 200 and len(results["long"][0]) == 128,
+              f"lora http: kv share run {out['kv_share']}")
+        check(accepts.index(512) < accepts.index(1000),
+              f"lora http: tenant other did not admit while capped waited: {accepts}")
+
+        text = http_call(port, "GET", "/metrics")[1].decode()
+        out["metrics"] = dict(
+            tenants=sorted(set(re.findall(r'paddlenlp_serving_requests_total\{[^}]*tenant="([^"]+)"', text))),
+            adapters=sorted(set(re.findall(r'paddlenlp_serving_usage_tokens_total\{[^}]*adapter="([^"]+)"', text))))
+        check({"acme", "globex", "capped", "other"} <= set(out["metrics"]["tenants"])
+              and "lora-http" in out["metrics"]["adapters"], f"lora http: /metrics labels {out['metrics']}")
+        status, doc = http_json(port, "POST", "/admin/adapters", {"op": "unload", "adapter_id": "lora-http"})
+        out["unload"] = dict(status=status, adapters=doc["adapters"])
+        check(status == 200 and "lora-http" not in doc["adapters"], f"lora http: unload answered {status}")
+    finally:
+        server.shutdown(drain_timeout_s=30)
+    st = reg.stats()
+    check(st["pinned"] == 0 and st["free_slots"] + st["resident"] == st["pool_slots"], f"lora http: slot leak {st}")
+    return out
+
+
 # ----------------------------------------------------------------------------- flash attention
 # Qwen/Qwen2-1.5B config.json (https://huggingface.co/Qwen/Qwen2-1.5B/blob/main/config.json)
 QWEN2_1_5B = dict(
@@ -2017,6 +2472,8 @@ def main(argv=None) -> int:
         from paddlenlp_tpu_torch.ops import flash_attention as fa
         from paddlenlp_tpu_torch.ops import paged_attention as pa
         from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+        from paddlenlp_tpu_torch.peft import LoRAConfig, LoRAModel
+        from paddlenlp_tpu_torch.serving import tenancy
         from paddlenlp_tpu_torch.trainer import TrainerCallback
         from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
         from paddlenlp_tpu_torch.transformers.llama import modeling
@@ -2065,6 +2522,8 @@ def main(argv=None) -> int:
     host = phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
     kvq = phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                          prof16, args.seed)
+    lora = phase_lora(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+                      serving, LoRAModel, LoRAConfig, tenancy, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -2082,16 +2541,16 @@ def main(argv=None) -> int:
     # the decode call, the launch the engine makes most), the SIMT kernel
     # (fp32 queries: times at the fp32 case) and the Hopper kernel's quantized
     # entry (bf16 over int8 and fp8: times at the int8 decode call). Launches
-    # of the first two are the engine runs', the serve, spec and host_tier
-    # phases' on each route: the main path never takes the SIMT kernel, which
+    # of the first two are the engine runs', the serve, spec, host_tier and
+    # lora phases' on each route: the main path never takes the SIMT kernel, which
     # the fp32 logits run checks; the quantized entry's are the kv_quant
     # phase's, whose launches all took it
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
     sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
-            + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"])
+            + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"])
     simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
-            + spec["launches"]["paged"] + host["launches"]["paged"] - sm90
+            + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"] - sm90
             + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
     for route, timed_case, name, launches in (
             ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
@@ -2109,12 +2568,13 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
                     worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
         if route == "sm90":
-            info.update(launched_by="engine, serve, spec, host_tier", serve_launches=serve["sm90_launches"],
+            info.update(launched_by="engine, serve, spec, host_tier, lora", serve_launches=serve["sm90_launches"],
                         spec_launches=spec["launches"]["paged_sm90"], host_tier_launches=host["launches"]["paged_sm90"],
+                        lora_launches=lora["launches"]["sm90"],
                         launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                            for k in mono["launches_by_shape"]})
         elif route == "simt":
-            info.update(launched_by="engine, serve, spec, host_tier, kv_quant",
+            info.update(launched_by="engine, serve, spec, host_tier, kv_quant, lora",
                         check_launches=logits["launches"]["float32"]["kernels"])
         else:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]

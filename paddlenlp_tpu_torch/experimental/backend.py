@@ -47,6 +47,14 @@ it. The port writes its pool in place, so it orders them on CUDA streams:
 
 On the CPU the copies are synchronous and the markers empty.
 
+**Multi-LoRA.** With an ``adapter_registry``, every step takes per-row adapter
+slots (``adapter_table=`` on ``prefill``/``decode``/``verify``,
+``MixedRow.adapter`` in a mixed step) and the device copy of the registry's
+adapter pool. The copy follows the registry's ``version``: when it moved, only
+the slots written since the last copy are copied, synchronously and under the
+registry's lock (``AdapterRegistry.copy_pool``), so the device pool equals the
+host pool whenever a step reads it.
+
 The sharded and disaggregated backends of the JAX package are not part of
 the port yet (ROADMAP Queue 1 item 12).
 """
@@ -107,6 +115,9 @@ class MixedRow:
     emit: bool
     sampling: object
     is_chunk: bool
+    #: adapter-pool slot this row's LoRA delta gathers from (0 = identity --
+    #: the no-adapter row); the engine fills it from Request.adapter_slot
+    adapter: int = 0
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -129,17 +140,17 @@ class ModelBackend:
     step_accounting: dict
 
     def prefill(self, input_ids, block_tables, suffix_lens, cached_entries,
-                sampling, slot_idx) -> np.ndarray:
+                sampling, slot_idx, adapter_table=None) -> np.ndarray:
         raise NotImplementedError
 
     def decode(self, last_tokens, block_tables, context_lens, done0, remaining,
-               sampling) -> Tuple[np.ndarray, np.ndarray]:
+               sampling, adapter_table=None) -> Tuple[np.ndarray, np.ndarray]:
         raise NotImplementedError
 
     def mixed_step(self, chunk_rows: List[MixedRow], decode_rows: List[MixedRow]) -> np.ndarray:
         raise NotImplementedError
 
-    def verify(self, tokens, block_tables, start_pos, need_logits: bool):
+    def verify(self, tokens, block_tables, start_pos, need_logits: bool, adapter_table=None):
         raise NotImplementedError
 
     def seed_counts(self, slot_idx, cached_entries):
@@ -276,11 +287,16 @@ class SingleDeviceBackend(ModelBackend):
 
     def __init__(self, model, *, max_batch_size: int, block_size: int, num_blocks: int,
                  max_blocks_per_seq: int, dtype, decode_steps: int, eos_ids,
-                 kv_cache_quant: Optional[str] = None):
+                 kv_cache_quant: Optional[str] = None, adapter_registry=None):
         self.model = model
         self.device = model.device
         self.max_batch_size = max_batch_size
         self.step_accounting = {"fed": 0, "shape": ()}
+        # multi-LoRA: the registry whose pool the steps gather per-row deltas
+        # from, and the pool's device copy with the registry version it holds
+        self.adapter_registry = adapter_registry
+        self._lora_dev: Optional[dict] = None
+        self._lora_version: Optional[int] = None
         self.infer = PagedInferenceModel(
             model, block_size, num_blocks, max_blocks_per_seq, dtype=dtype,
             decode_steps=decode_steps, eos_ids=eos_ids)
@@ -298,6 +314,47 @@ class SingleDeviceBackend(ModelBackend):
 
     def _samp(self, sampling, n):
         return samp_arrays(sampling, n, device=self.device)
+
+    # ---------------------------------------------------------------- lora
+    def _lora_tree(self):
+        """The device copy of the registry's adapter pool, brought up to the
+        registry's version first (None without a registry)."""
+        reg = self.adapter_registry
+        if reg is None:
+            return None
+        if reg.version != self._lora_version:
+            self._lora_version = reg.copy_pool(None if self._lora_dev is None else self._lora_version,
+                                               self._copy_lora_slots)
+        return self._lora_dev
+
+    def _copy_lora_slots(self, host, slots):
+        """Copy pool ``slots`` of every host array into the device copy
+        (allocated on first use). Synchronous copies: the registry may
+        rewrite its arrays once this returns."""
+        if self._lora_dev is None:
+            with torch.inference_mode(False):  # placed tensors stay ordinary ones
+                self._lora_dev = {proj: {k: torch.from_numpy(a).to(self.device, copy=True) for k, a in w.items()}
+                                  for proj, w in host.items()}
+            return
+        for proj, w in host.items():
+            for k, arr in w.items():
+                dev = self._lora_dev[proj][k]
+                for slot in slots:
+                    dev[:, slot].copy_(torch.from_numpy(arr[:, slot]))
+
+    def _adapter_idx(self, adapter_table, n: int) -> Optional[torch.Tensor]:
+        """Per-row pool slots of an n-row launch as a device tensor, or None
+        when every row is on the identity slot (the delta would add zeros).
+        Raises for adapter rows without a registry: a scheduler bug must not
+        silently serve base-model tokens."""
+        idx = np.zeros(n, np.int32)
+        if adapter_table is not None:
+            idx[: len(adapter_table)] = np.asarray(adapter_table, np.int32)
+        if not idx.any():
+            return None
+        if self.adapter_registry is None:
+            raise ValueError("adapter_table has non-identity rows but the backend has no adapter_registry")
+        return self._dev(idx, torch.int32)
 
     # ---------------------------------------------------------------- counts
     def _cached_counts(self, cached_entries, n_rows: int) -> torch.Tensor:
@@ -327,7 +384,7 @@ class SingleDeviceBackend(ModelBackend):
 
     # ---------------------------------------------------------------- steps
     def prefill(self, input_ids, block_tables, suffix_lens, cached_entries,
-                sampling, slot_idx) -> np.ndarray:
+                sampling, slot_idx, adapter_table=None) -> np.ndarray:
         n = input_ids.shape[0]
         self.step_accounting = {"fed": n * input_ids.shape[1],
                                 "shape": ("prefill", n, input_ids.shape[1])}
@@ -338,29 +395,32 @@ class SingleDeviceBackend(ModelBackend):
         tokens, counts_rows = self.infer.prefill(
             self.pool, self._dev(input_ids, torch.int32), self._dev(block_tables, torch.int32),
             self._dev(suffix_lens, torch.int32), self._dev(cached_lens, torch.int32),
-            self._cached_counts(cached_entries, n), self._samp(sampling, n))
+            self._cached_counts(cached_entries, n), self._samp(sampling, n),
+            lora=self._lora_tree(), adapter_idx=self._adapter_idx(adapter_table, n))
         self.counts[self._dev(slot_idx, torch.long)] = counts_rows[: len(slot_idx)]
         return tokens.cpu().numpy()  # THE prefill sync point: sampled int32 ids only
 
     def decode(self, last_tokens, block_tables, context_lens, done0, remaining,
-               sampling) -> Tuple[np.ndarray, np.ndarray]:
+               sampling, adapter_table=None) -> Tuple[np.ndarray, np.ndarray]:
         B, steps = last_tokens.shape[0], self.infer.decode_steps
         self.step_accounting = {"fed": B * steps, "shape": ("decode", B, steps)}
         self._land_promotes(block_tables)
         toks, valid, _, _, counts = self.infer.decode(
             self.pool, self._dev(last_tokens, torch.int32), self._dev(block_tables, torch.int32),
             self._dev(context_lens, torch.int32), self._dev(done0, torch.bool),
-            self._dev(remaining, torch.int32), self.counts, self._samp(sampling, len(sampling)))
+            self._dev(remaining, torch.int32), self.counts, self._samp(sampling, len(sampling)),
+            lora=self._lora_tree(), adapter_idx=self._adapter_idx(adapter_table, B))
         self.counts.copy_(counts)
         return toks.cpu().numpy(), valid.cpu().numpy()  # THE decode sync point: ids + flags only
 
-    def verify(self, tokens, block_tables, start_pos, need_logits: bool):
+    def verify(self, tokens, block_tables, start_pos, need_logits: bool, adapter_table=None):
         B, T = tokens.shape
         self.step_accounting = {"fed": B * T, "shape": ("verify", B, T)}
         self._land_promotes(block_tables)
         argmax, logits = self.infer.verify(
             self.pool, self._dev(tokens, torch.int32), self._dev(block_tables, torch.int32),
-            self._dev(start_pos, torch.int32), need_logits=need_logits)
+            self._dev(start_pos, torch.int32), need_logits=need_logits,
+            lora=self._lora_tree(), adapter_idx=self._adapter_idx(adapter_table, B))
         # THE verify sync point: the argmax, and the fp32 logits only when
         # rejection sampling asks for them
         return argmax.cpu().numpy(), (logits.cpu().numpy() if need_logits else None)
@@ -453,6 +513,7 @@ class SingleDeviceBackend(ModelBackend):
         q_start = np.zeros(B, np.int32)
         count_fed = np.zeros(B, bool)
         emit = np.zeros(B, bool)
+        adapter = np.zeros(B, np.int32)
         sampling: List = [None] * B
         for r in chunk_rows + decode_rows:
             n = len(r.tokens)
@@ -462,11 +523,13 @@ class SingleDeviceBackend(ModelBackend):
             q_start[r.slot] = r.start
             count_fed[r.slot] = r.is_chunk  # chunk tokens accumulate into counts
             emit[r.slot] = r.emit
+            adapter[r.slot] = r.adapter
             sampling[r.slot] = r.sampling
         tokens, counts = self.infer.mixed_step(
             self.pool, self._dev(ids, torch.int32), self._dev(tables, torch.int32),
             self._dev(q_lens, torch.int32), self._dev(q_start, torch.int32), self.counts,
-            self._dev(count_fed, torch.bool), self._dev(emit, torch.bool), self._samp(sampling, B))
+            self._dev(count_fed, torch.bool), self._dev(emit, torch.bool), self._samp(sampling, B),
+            lora=self._lora_tree(), adapter_idx=self._adapter_idx(adapter, B))
         self.counts.copy_(counts)
         rows = chunk_rows + decode_rows
         return tokens, lambda host: np.asarray([host[r.slot] for r in rows])
@@ -487,11 +550,13 @@ class SingleDeviceBackend(ModelBackend):
         c_start = np.zeros(C, np.int32)
         c_slots = np.zeros(C, np.int32)
         c_emit = np.zeros(C, bool)
+        c_adapter = np.zeros(C, np.int32)
         d_tokens = np.zeros(D, np.int32)
         d_tables = np.zeros((D, M), np.int32)
         d_start = np.zeros(D, np.int32)
         d_slots = np.zeros(D, np.int32)
         d_live = np.zeros(D, bool)
+        d_adapter = np.zeros(D, np.int32)
         for j, r in enumerate(chunk_rows):
             n = len(r.tokens)
             c_ids[j, :n] = r.tokens
@@ -500,12 +565,14 @@ class SingleDeviceBackend(ModelBackend):
             c_start[j] = r.start
             c_slots[j] = r.slot
             c_emit[j] = r.emit
+            c_adapter[j] = r.adapter
         for j, r in enumerate(decode_rows):
             d_tokens[j] = r.tokens[0]
             d_tables[j] = r.table
             d_start[j] = r.start
             d_slots[j] = r.slot
             d_live[j] = True
+            d_adapter[j] = r.adapter
         sampling = ([r.sampling for r in chunk_rows] + [None] * (C - len(chunk_rows))
                     + [r.sampling for r in decode_rows] + [None] * (D - len(decode_rows)))
         i32 = torch.int32
@@ -514,7 +581,8 @@ class SingleDeviceBackend(ModelBackend):
             self._dev(c_start, i32), self._dev(c_slots, i32), self._dev(c_emit, torch.bool),
             self._dev(d_tokens, i32), self._dev(d_tables, i32), self._dev(d_start, i32),
             self._dev(d_slots, i32), self._dev(d_live, torch.bool), self.counts,
-            self._samp(sampling, C + D))
+            self._samp(sampling, C + D), lora=self._lora_tree(),
+            chunk_adapter=self._adapter_idx(c_adapter, C), dec_adapter=self._adapter_idx(d_adapter, D))
         self.counts.copy_(counts)
         n_c, n_d = len(chunk_rows), len(decode_rows)
         return tokens, lambda host: np.concatenate([host[:n_c], host[C: C + n_d]])

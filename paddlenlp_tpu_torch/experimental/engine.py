@@ -32,11 +32,17 @@ scheduler over a :class:`~.backend.ModelBackend`:
   (host-side numpy, seeded per request, as in the JAX package);
 - the host KV tier (``host_kv_blocks``): prefix-cache blocks evicted under
   pressure spill to pinned host memory and promote back when a later prompt
-  matches them (``kv_host_tier.py``).
+  matches them (``kv_host_tier.py``);
+- multi-tenant serving: ``adapter_registry`` (a
+  :class:`~..serving.tenancy.AdapterRegistry`) serves batches that mix LoRA
+  adapters and base-model rows, each admitted request holding a pool slot
+  (``adapter_pressure`` defers admission like KV pressure) and its prefix
+  hashes salted by its adapter id; ``tenant_quotas`` caps each tenant's share
+  of the KV blocks at admission.
 
 Options of the JAX engine that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item (multi-LoRA and tenant
-quotas, meshes and disaggregated stages, quantized weights).
+``NotImplementedError`` naming their ROADMAP item (meshes and disaggregated
+stages, quantized weights).
 """
 
 from __future__ import annotations
@@ -54,8 +60,8 @@ from ..observability.flight_recorder import RECORDER
 from ..observability.goodput import GoodputLedger, device_peak_flops, efficiency_doc, estimate_model_flops_per_token
 from ..observability.tracer import TRACER
 from ..serving.engine_loop import is_device_fault
-from ..serving.tenancy.adapters import UnknownAdapterError
-from ..serving.tenancy.quotas import DEFAULT_TENANT, tenant_goodput_fold
+from ..serving.tenancy.adapters import AdapterPressure, UnknownAdapterError
+from ..serving.tenancy.quotas import DEFAULT_TENANT, TenantQuotas, tenant_goodput_fold
 from ..utils.faults import FaultPoint
 from ..utils.log import logger
 from .backend import MixedRow, ModelBackend, SingleDeviceBackend, _bucket
@@ -107,8 +113,15 @@ class Request:
     # orders the waiting queue under load: interactive admits ahead of batch,
     # batch ahead of best_effort; FIFO within a class
     priority: str = "interactive"
-    # which tenant the request bills to (per-tenant goodput fold, metric labels)
+    # which tenant the request bills to (quotas, the per-tenant goodput fold,
+    # metric labels) ...
     tenant: str = DEFAULT_TENANT
+    # ... which registered LoRA adapter its rows gather (None = base model;
+    # also the prefix-cache salt, so adapter outputs never share KV) ...
+    adapter_id: Optional[str] = None
+    # ... and the adapter-pool slot held while admitted (0 = identity slot;
+    # acquired at admission, released with the KV blocks)
+    adapter_slot: int = 0
     prefilled_len: int = 0  # prompt tokens whose KV is in the pool (chunked prefill)
     # "promoting" while promoted host-tier blocks are in flight to the pool
     # (the request feeds no row until they land), "decode" otherwise
@@ -148,6 +161,10 @@ class Request:
     # finalized in _free_kv, so it accumulates across preemption episodes)
     kv_block_seconds: float = 0.0
     kv_occ_t: Optional[float] = None
+    # ... and wall seconds holding a real adapter-pool slot (refcount
+    # episodes, accumulated across preemptions like kv_block_seconds)
+    adapter_slot_seconds: float = 0.0
+    adapter_acq_t: Optional[float] = None
 
     @property
     def needs_prefill(self) -> bool:
@@ -219,7 +236,12 @@ class InferenceEngine:
         # options of the JAX engine not ported yet: each raises when set
         mesh_shape=None,
         disagg_stages=None,
+        # multi-LoRA serving: a tenancy.AdapterRegistry whose pool the backend
+        # gathers per-row deltas from. None = base model only
         adapter_registry=None,
+        # per-tenant KV-block share limits: a tenancy.TenantQuotas (or its
+        # dict form). The max_inflight leg is enforced upstream by the
+        # serving scheduler; the engine owns the block-share admission gate
         tenant_quotas=None,
         # hierarchical KV cache: host-RAM spill tier capacity in BLOCKS
         # (0 = off). Zero-ref prefix blocks popped off the cache LRU demote
@@ -229,8 +251,6 @@ class InferenceEngine:
     ):
         if mesh_shape is not None or disagg_stages is not None:
             _not_ported("sharded and disaggregated backends (mesh_shape/disagg_stages)", "Queue 1 item 12")
-        if adapter_registry is not None or tenant_quotas is not None:
-            _not_ported("multi-LoRA and tenant quotas (adapter_registry/tenant_quotas)", "Queue 1 item 10")
         self.model = model
         self.tokenizer = tokenizer
         if dtype is None:
@@ -240,7 +260,14 @@ class InferenceEngine:
         self.backend: ModelBackend = SingleDeviceBackend(
             model, max_batch_size=max_batch_size, block_size=block_size, num_blocks=num_blocks,
             max_blocks_per_seq=max_blocks_per_seq, dtype=dtype, decode_steps=decode_steps,
-            eos_ids=self.eos_ids, kv_cache_quant=kv_cache_quant)
+            eos_ids=self.eos_ids, kv_cache_quant=kv_cache_quant, adapter_registry=adapter_registry)
+        # the engine acquires and releases the registry's pool slots at
+        # admission and finish
+        self.adapter_registry = adapter_registry
+        self.tenant_quotas = (
+            tenant_quotas
+            if tenant_quotas is None or isinstance(tenant_quotas, TenantQuotas)
+            else TenantQuotas(tenant_quotas))
         self.enable_prefix_cache = enable_prefix_cache
         self.mgr = BlockManager(num_blocks, block_size, max_blocks_per_seq,
                                 enable_prefix_cache=enable_prefix_cache)
@@ -326,14 +353,18 @@ class InferenceEngine:
         after an engine rebuild): the goodput ledger then books their
         re-prefill as ``requeue_refill`` rework instead of useful work.
 
-        ``adapter_id`` names a LoRA adapter: the port has no adapter registry
-        yet, so any id raises :class:`UnknownAdapterError` at submit.
-        ``tenant`` names the billing identity the request's work is
-        attributed to."""
+        ``adapter_id`` selects a LoRA adapter registered with the engine's
+        :class:`~..serving.tenancy.AdapterRegistry` (validated HERE so an
+        unknown id fails at submit, not mid-batch); ``tenant`` names the
+        billing/quota identity the request's work is attributed to."""
         sampling = sampling or SamplingParams()
         if adapter_id is not None:
-            raise UnknownAdapterError(
-                f"adapter {adapter_id!r} requested but the engine has no adapter_registry")
+            if self.adapter_registry is None:
+                raise UnknownAdapterError(
+                    f"adapter {adapter_id!r} requested but the engine has no adapter_registry")
+            if adapter_id not in self.adapter_registry:
+                raise UnknownAdapterError(
+                    f"adapter {adapter_id!r} is not registered (known: {sorted(self.adapter_registry.ids())})")
         req = Request(
             req_id=next(self._next_id),
             prompt_ids=np.asarray(prompt_ids, dtype=np.int32).reshape(-1),
@@ -343,6 +374,7 @@ class InferenceEngine:
             trace=trace,
             priority=priority,
             tenant=tenant,
+            adapter_id=adapter_id,
         )
         req.base_prompt_len = len(req.prompt_ids)
         self._tenant_counts(tenant)["requests"] += 1
@@ -395,15 +427,26 @@ class InferenceEngine:
                 * len(self.mgr.tables.get(req.req_id, ()))
             req.kv_occ_t = None
         if cache and self.enable_prefix_cache and req.finish_reason in ("stop", "length"):
-            # GENERATED blocks register too (a completion is the next turn's
-            # prompt prefix); the last sampled token was emitted, never fed,
-            # so its KV position was never written
+            # salt = adapter_id: an adapter's KV is the product of base+delta
+            # forwards, so cached prefixes are only shareable within the SAME
+            # adapter. GENERATED blocks register too (a completion is the next
+            # turn's prompt prefix); the last sampled token was emitted, never
+            # fed, so its KV position was never written
             token_ids = req.prompt_ids
             if len(req.output_ids) > 1:
                 token_ids = np.concatenate([req.prompt_ids, np.asarray(req.output_ids[:-1], np.int32)])
-            self.mgr.finish_seq_cached(req.req_id, token_ids)
+            self.mgr.finish_seq_cached(req.req_id, token_ids, salt=req.adapter_id)
         else:
             self.mgr.free_seq(req.req_id)
+        if req.adapter_slot:
+            # the adapter-pool refcount travels with the KV blocks: finish,
+            # abort, preemption and quarantine all pass through here, and
+            # re-admission re-acquires (content-addressed => token-exact)
+            self.adapter_registry.release(req.adapter_id)
+            req.adapter_slot = 0
+            if req.adapter_acq_t is not None:
+                req.adapter_slot_seconds += time.perf_counter() - req.adapter_acq_t
+                req.adapter_acq_t = None
         TRACER.instant("kv_free", cat="engine", trace=req.trace,
                        req_id=req.req_id, tokens_held=freed,
                        free_blocks=self.mgr.num_free,
@@ -555,6 +598,10 @@ class InferenceEngine:
                                 enable_prefix_cache=self.enable_prefix_cache)
         self._last_token[:] = 0
         self.backend.reset_counts()
+        if self.adapter_registry is not None:
+            # dropped requests can no longer release their pool refcounts;
+            # adapters stay RESIDENT (content intact for re-acquisition)
+            self.adapter_registry.reset_refs()
         self._spec_rngs.clear()
         self._promoting.clear()
         if self._host_tier is not None:
@@ -570,7 +617,7 @@ class InferenceEngine:
 
     def stats(self) -> Dict:
         """Point-in-time scheduler/allocator stats, in the JAX engine's shape;
-        the tenancy fold appears once a request arrived."""
+        the tenancy block appears with a registry or once a request arrived."""
         out = {
             "queue_depth": len(self.waiting),
             "running": sum(1 for r in self.slots if r is not None),
@@ -602,9 +649,12 @@ class InferenceEngine:
             "backend": self.backend.describe(),
             "goodput": self.ledger.snapshot(),
         }
-        if self.tenant_goodput:
-            out["tenancy"] = {"tenants": tenant_goodput_fold(self.tenant_goodput),
-                              "adapters": None, "quotas": None}
+        if self.adapter_registry is not None or self.tenant_goodput:
+            out["tenancy"] = {
+                "tenants": tenant_goodput_fold(self.tenant_goodput),
+                "adapters": self.adapter_registry.stats() if self.adapter_registry is not None else None,
+                "quotas": self.tenant_quotas.describe() if self.tenant_quotas is not None else None,
+            }
         return out
 
     def kv_fragmentation(self) -> float:
@@ -703,6 +753,14 @@ class InferenceEngine:
         self._prev_step_busy = self.has_work()
         return finished
 
+    def _adapter_table(self, rows) -> Dict:
+        """The ``adapter_table`` extra of a backend call over ``rows``
+        (requests or None), only with a registry attached: a backend
+        predating the argument keeps working registry-off."""
+        if self.adapter_registry is None:
+            return {}
+        return {"adapter_table": [0 if r is None else r.adapter_slot for r in rows]}
+
     def _free_slot_indices(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
 
@@ -712,6 +770,12 @@ class InferenceEngine:
             tg = self.tenant_goodput[tenant] = {
                 "useful": 0, "rework": 0, "requests": 0, "tokens_out": 0}
         return tg
+
+    def _tenant_held_blocks(self, tenant: str) -> int:
+        """KV blocks currently held by a tenant's admitted requests (the
+        engine-side input to the per-tenant block-share gate)."""
+        return sum(len(self.mgr.tables[r.req_id]) for r in self.slots
+                   if r is not None and r.tenant == tenant and r.req_id in self.mgr.tables)
 
     def _note_fed_span(self, req: Request, start: int, n: int):
         """Goodput split of one fed span ``[start, start+n)``: positions below
@@ -769,6 +833,10 @@ class InferenceEngine:
         cache_on = self.enable_prefix_cache
         hits0, cached0 = self.mgr.cache_hits, self.mgr.cached_tokens_total
         admitted: List[tuple] = []
+        # requests deferred by their TENANT's block-share cap step aside for
+        # the rest of this pass (re-queued in order afterwards): one capped
+        # tenant must not head-of-line block every other tenant's admissions
+        tenant_deferred: List[Request] = []
         while self.waiting and free:
             req = self.waiting[0]
             prompt_len = len(req.prompt_ids)
@@ -785,6 +853,17 @@ class InferenceEngine:
                 logger.warning(f"req {req.req_id}: needs {need} KV blocks (> capacity); rejected")
                 finished.append(req)
                 continue
+            if self.tenant_quotas is not None:
+                # the gate charges only what admission reserves (prompt + 1)
+                cap = self.tenant_quotas.kv_block_cap(req.tenant, self.mgr.total_usable_blocks)
+                if cap is not None and self._tenant_held_blocks(req.tenant) \
+                        + self.mgr.blocks_needed(prompt_len + 1) > cap:
+                    # the tenant waits for its own requests to finish; it is
+                    # deferred (not shed) and other tenants keep admitting
+                    self._note_gated(req, "tenant_kv_share")
+                    self.waiting.popleft()
+                    tenant_deferred.append(req)
+                    continue
             # reserve prompt + 1 so the first decode never immediately preempts;
             # cached prefix blocks need no fresh capacity. The prefix match is
             # computed ONCE and shared with allocate
@@ -794,11 +873,38 @@ class InferenceEngine:
                 if best_need > self.mgr.num_free:
                     self._note_gated(req, "kv_pressure")
                     break
-                match = self.mgr.match_prefix(req.prompt_ids, prompt_len)
+                match = self.mgr.match_prefix(req.prompt_ids, prompt_len, salt=req.adapter_id)
             if not self.mgr.can_admit(prompt_len + 1, match=match):
                 self._note_gated(req, "kv_pressure")
                 break
+            adapter_slot = 0
+            if req.adapter_id is not None:
+                # acquire BEFORE the queue pop and KV allocation: a failed
+                # hot-load leaves queue and allocator untouched (no KV or
+                # pool-slot leak), and AdapterPressure just waits like
+                # kv_pressure for a running adapter's refcount to drop
+                try:
+                    adapter_slot = self.adapter_registry.acquire(req.adapter_id)
+                except AdapterPressure:
+                    self._note_gated(req, "adapter_pressure")
+                    break
+                except Exception as e:
+                    # a poisoned load (the engine.adapter_load fault point, a
+                    # corrupt source): attribute it so the serving supervisor
+                    # quarantines ONLY this request while every other
+                    # tenant's stream keeps decoding
+                    if getattr(e, "req_id", None) is None:
+                        try:
+                            e.req_id = req.req_id
+                        except Exception:
+                            pass
+                    raise
             self.waiting.popleft()
+            req.adapter_slot = adapter_slot
+            if adapter_slot:
+                # the adapter_slot_seconds episode opens with the refcount; the
+                # release in _free_kv closes it (accumulates across preemptions)
+                req.adapter_acq_t = time.perf_counter()
             if req.sched_t is None:  # preserved across preemption-requeues
                 req.sched_t = time.time()
             if cache_on:
@@ -827,6 +933,10 @@ class InferenceEngine:
                             slot=slot, prompt_len=prompt_len,
                             cached_tokens=n_cached)
             admitted.append((slot, req, n_cached))
+        # capped-tenant requests return to the FRONT in their original order
+        # (they were popped from the head before anything behind them)
+        for r in reversed(tenant_deferred):
+            self.waiting.appendleft(r)
         # the admission span closes BEFORE prefill (sibling phases, not
         # nested) and only when something happened
         if admitted or len(finished) > n_finished0:
@@ -863,7 +973,7 @@ class InferenceEngine:
         error that poisoned the context propagates instead."""
         bs = self.mgr.block_size
         prompt_len = len(req.prompt_ids)
-        host_hashes = self.mgr.host_match(req.prompt_ids, prompt_len, skip=n_cached // bs)
+        host_hashes = self.mgr.host_match(req.prompt_ids, prompt_len, salt=req.adapter_id, skip=n_cached // bs)
         # at least one prompt token must remain uncached: the first output
         # token is sampled by the final prompt forward
         while host_hashes and n_cached + len(host_hashes) * bs >= prompt_len:
@@ -948,7 +1058,8 @@ class InferenceEngine:
                              cached_tokens=sum(c for _, _, c in group)):
                 t_dev = time.perf_counter()
                 tokens = self.backend.prefill(ids, tables, suffix_lens, entries, sampling,
-                                              [slot for slot, _, _ in group])
+                                              [slot for slot, _, _ in group], **self._adapter_table(
+                                                  [r for _, r, _ in group]))
                 self._step_device_s += time.perf_counter() - t_dev
             # goodput: fed = the padded launch geometry; useful = the uncached
             # suffixes minus any re-fed (post-preemption/COW) positions
@@ -1057,12 +1168,12 @@ class InferenceEngine:
                 slot=slot, tokens=req.prompt_ids[p0: p0 + n], start=p0,
                 table=self.mgr.table_array(req.req_id),
                 emit=p0 + n == len(req.prompt_ids),  # sampler on last chunk
-                sampling=req.sampling, is_chunk=True))
+                sampling=req.sampling, is_chunk=True, adapter=req.adapter_slot))
         dec_payload = [
             MixedRow(slot=slot, tokens=np.asarray([self._last_token[slot]], np.int32),
                      start=req.total_len - 1,  # position of the token being fed
                      table=self.mgr.table_array(req.req_id), emit=True,
-                     sampling=req.sampling, is_chunk=False)
+                     sampling=req.sampling, is_chunk=False, adapter=req.adapter_slot)
             for slot, req in decode_rows]
         with TRACER.span("mixed_step", cat="engine", step=self._cur_step,
                          chunks=len(chunk_rows), decodes=len(decode_rows),
@@ -1290,7 +1401,8 @@ class InferenceEngine:
             # greedy acceptance never reads the logits: need_logits=False
             # keeps the [B, K+1, V] fp32 buffer from materializing
             t_dev = time.perf_counter()
-            argmax, logits = self.backend.verify(tokens, tables, start, need_logits=mode == "sample")
+            argmax, logits = self.backend.verify(tokens, tables, start, need_logits=mode == "sample",
+                                                 **self._adapter_table(self.slots))
             self._step_device_s += time.perf_counter() - t_dev
         self.spec_stats["verify_steps"] += 1
         # goodput: drafted-but-rejected positions are the spec_rejected waste
@@ -1431,7 +1543,8 @@ class InferenceEngine:
                 torch.profiler.record_function("decode"):
             t_dev = time.perf_counter()
             toks, valid = self.backend.decode(tokens, tables, ctx, done0, remaining,
-                                              [None if r is None else r.sampling for r in self.slots])
+                                              [None if r is None else r.sampling for r in self.slots],
+                                              **self._adapter_table(self.slots))
             self._step_device_s += time.perf_counter() - t_dev
         n_emitted = 0
         for s in range(toks.shape[0]):

@@ -15,6 +15,15 @@ for a CUDA device): the CUDA ragged paged-attention kernel reading the pool
 through the block tables, or the plain path that gathers each sequence's
 blocks and attends in fp32 (the JAX package's XLA path, used on the CPU).
 
+Multi-LoRA: every entry point takes the adapter pool's device copy (``lora``,
+``{proj: {"A": [L, P, d_in, r], "B": [L, P, r, d_out]}}``, slot 0 the
+identity zeros, scaling folded into B) and ``adapter_idx`` [B], each row's
+slot. The rows' slices are gathered once a call (:func:`gather_lora`) and
+each of the seven projections adds its row's delta
+``(x_f32 @ A[idx]) @ B[idx]``, a batched product per row in fp32 cast to the
+projection's dtype: a row's result depends on no other row. ``adapter_idx``
+None (every row on the identity slot) skips the delta, which would add zeros.
+
 ``sample_tokens`` reproduces the JAX sampler exactly, including its random
 draws: ``jax.random.categorical(fold_in(key(seed), position), row)`` is
 rebuilt from threefry2x32 in integer ops (the partitionable bit layout and the
@@ -34,7 +43,7 @@ from ..ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
 from ..transformers.llama.modeling import layer_params, rms_norm
 from .paged_cache import PagedKVPool, gather_kv, write_kv_block
 
-__all__ = ["PagedInferenceModel", "sample_tokens"]
+__all__ = ["PagedInferenceModel", "gather_lora", "sample_tokens"]
 
 _U32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -138,6 +147,19 @@ def _count_tokens(ids: torch.Tensor, valid: torch.Tensor, V: int) -> torch.Tenso
     return out.scatter_add_(1, ids.long().clamp(0, V - 1), w)
 
 
+def gather_lora(lora, adapter_idx):
+    """Each layer's adapter weights for each row: ``[{proj: (A [B, d_in, r],
+    B [B, r, d_out])}]`` a layer, gathered from the device pool ``lora`` at the
+    rows' slots ``adapter_idx`` [B]; None when either is None. Gathered once a
+    call: the decode's sub-steps and verify's positions reuse the rows."""
+    if lora is None or adapter_idx is None:
+        return None
+    idx = adapter_idx.long()
+    L = next(iter(lora.values()))["A"].shape[0]
+    return [{proj: (w["A"][i].index_select(0, idx), w["B"][i].index_select(0, idx)) for proj, w in lora.items()}
+            for i in range(L)]
+
+
 class PagedInferenceModel:
     """Prefill / decode / mixed steps over (params, paged pool). Llama-family
     only (llama/qwen2: config-driven biases + GQA + rope)."""
@@ -176,16 +198,33 @@ class PagedInferenceModel:
         layers = self.model.params["model"]["layers"]
         self._layers = [layer_params(layers, i) for i in range(self.config.num_hidden_layers)]
 
-    def _mm(self, p, x, per_position: bool = False):
-        """x [B, T, D] @ kernel (+ bias). ``per_position``: one GEMM for each
-        position t over the B rows, so that every row meets the GEMM the
-        decode's [B, 1] step runs (cuBLAS picks its kernel, and with it the
-        summation order, by the row count M)."""
+    def _mm(self, p, x, per_position: bool = False, lora=None, per_row: bool = False):
+        """x [B, T, D] @ kernel (+ bias), plus the rows' LoRA delta when
+        ``lora`` = (A [B, D, r], B [B, r, D_out]) fp32: ``(x_f32 @ A) @ B``
+        per row, cast to the product's dtype (``_lora_mm`` of the JAX
+        package). ``per_position``: one GEMM for each position t over the B
+        rows, the delta's products included, so that every row meets the
+        GEMMs the decode's [B, 1] step runs (cuBLAS picks its kernel, and with
+        it the summation order, by the row count M). ``per_row``: the delta's
+        products one row at a time, as a batch of one; cuBLAS picks the
+        batched product's kernel, and with it the summation order over D, by
+        the batch count, so a prefill row's delta would otherwise depend on
+        how many rows share its launch."""
         if per_position and x.shape[1] > 1:
-            return torch.cat([self._mm(p, x[:, t: t + 1].contiguous()) for t in range(x.shape[1])], dim=1)
+            return torch.cat([self._mm(p, x[:, t: t + 1].contiguous(), lora=lora) for t in range(x.shape[1])],
+                             dim=1)
         y = x @ p["kernel"].to(self.dtype)
         if "bias" in p:
             y = y + p["bias"].to(self.dtype)
+        if lora is not None:
+            a, b = lora[0].float(), lora[1].float()
+            xf = x.float()
+            if per_row and x.shape[0] > 1:
+                delta = torch.cat([torch.bmm(torch.bmm(xf[j: j + 1], a[j: j + 1]), b[j: j + 1])
+                                   for j in range(x.shape[0])])
+            else:
+                delta = torch.bmm(torch.bmm(xf, a), b)
+            y = y + delta.to(y.dtype)
         return y
 
     # ------------------------------------------------------------------ forward core
@@ -204,17 +243,19 @@ class PagedInferenceModel:
         return out.to(q.dtype)
 
     def _layer(self, h, i, pool: PagedKVPool, block_tables, q_positions, kv_len_mask, write_pos, q_lens,
-               per_position=False):
+               per_position=False, lora_rows=None, per_row=False):
         """Decoder layer ``i``: writes this step's K/V into the pool's layer
-        ``i`` in place and returns the new hidden states."""
+        ``i`` in place and returns the new hidden states. ``lora_rows``: this
+        layer's entry of :func:`gather_lora`."""
         lp = self._layers[i]
         B, T, _ = h.shape
-        mm = lambda p, x: self._mm(p, x, per_position)  # noqa: E731
+        rows = lora_rows or {}
+        attn, mlp = lp["self_attn"], lp["mlp"]
+        mm = lambda mod, name, x: self._mm(mod[name], x, per_position, rows.get(name), per_row)  # noqa: E731
         x = rms_norm(h, lp["input_layernorm"]["scale"], self.eps)
-        attn = lp["self_attn"]
-        q = mm(attn["q_proj"], x).reshape(B, T, self.n_heads, self.head_dim)
-        k = mm(attn["k_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
-        v = mm(attn["v_proj"], x).reshape(B, T, self.n_kv, self.head_dim)
+        q = mm(attn, "q_proj", x).reshape(B, T, self.n_heads, self.head_dim)
+        k = mm(attn, "k_proj", x).reshape(B, T, self.n_kv, self.head_dim)
+        v = mm(attn, "v_proj", x).reshape(B, T, self.n_kv, self.head_dim)
         cos, sin = rope_tables(q_positions, self.inv_freq)
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
 
@@ -233,22 +274,23 @@ class PagedInferenceModel:
         else:
             k_all, v_all = gather_kv(pool_layer, block_tables, scale_layer)
             attn_out = self._attend(q, k_all, v_all, q_positions, kv_len_mask)
-        h = h + mm(attn["o_proj"], attn_out.reshape(B, T, self.n_heads * self.head_dim))
+        h = h + mm(attn, "o_proj", attn_out.reshape(B, T, self.n_heads * self.head_dim))
 
         x = rms_norm(h, lp["post_attention_layernorm"]["scale"], self.eps)
-        mlp = lp["mlp"]
-        act = F.silu(mm(mlp["gate_proj"], x)) * mm(mlp["up_proj"], x)
-        return h + mm(mlp["down_proj"], act)
+        act = F.silu(mm(mlp, "gate_proj", x)) * mm(mlp, "up_proj", x)
+        return h + mm(mlp, "down_proj", act)
 
     @torch.no_grad()
     def _forward(self, pool: PagedKVPool, input_ids, block_tables, q_positions, kv_len_mask, write_pos,
-                 last_pos, q_lens=None, per_position=False):
+                 last_pos, q_lens=None, per_position=False, lora_rows=None, per_row=False):
         """input_ids [B,T]; writes the fed tokens' K/V into ``pool`` and
         returns the logits at ``last_pos`` [B,V] (``last_pos=None``: [B,T,V]).
         ``q_lens`` [B] = valid new tokens per row (default T everywhere); only
         the kernel reads it, the plain path masks padded rows by position.
         ``per_position`` runs every projection as one GEMM a position (see
-        :meth:`_mm`)."""
+        :meth:`_mm`). ``lora_rows``: the rows' adapter weights
+        (:func:`gather_lora`), None for none; ``per_row`` computes their
+        deltas one row at a time (see :meth:`_mm`)."""
         B, T = input_ids.shape
         if q_lens is None:
             q_lens = torch.full((B,), T, dtype=torch.int32, device=input_ids.device)
@@ -263,7 +305,8 @@ class PagedInferenceModel:
         if getattr(self.config, "scale_embeddings", False):
             h = h * torch.tensor(self.config.hidden_size**0.5, dtype=h.dtype)
         for i in range(len(self._layers)):
-            h = self._layer(h, i, pool, block_tables, q_positions, kv_len_mask, write_pos, q_lens, per_position)
+            h = self._layer(h, i, pool, block_tables, q_positions, kv_len_mask, write_pos, q_lens, per_position,
+                            None if lora_rows is None else lora_rows[i], per_row)
         h = rms_norm(h, m["norm"]["scale"], self.eps)
         last = h if last_pos is None else h[torch.arange(B, device=h.device), last_pos.long()]
         head = self.model.params["lm_head"]["kernel"] if "lm_head" in self.model.params else embed.T
@@ -273,12 +316,17 @@ class PagedInferenceModel:
 
     # ------------------------------------------------------------------ entry points
     @torch.no_grad()
-    def prefill(self, pool, input_ids, block_tables, suffix_lens, cached_lens, cached_counts, samp):
+    def prefill(self, pool, input_ids, block_tables, suffix_lens, cached_lens, cached_counts, samp, lora=None,
+                adapter_idx=None):
         """Batched prefill of [n, T_pad] SUFFIX sequences; samples the first
         token on device. Row j holds prompt tokens ``[cached_lens[j]:]``;
         attention reads the cached span from the shared blocks in
         ``block_tables`` and new KV is written from ``cached_lens[j]`` on.
         ``cached_counts`` [n, V] are the penalty counts of the cached span.
+
+        The rows' LoRA deltas are computed one row at a time (``per_row``):
+        the prefill's row count is the bucket of the admitted group, so a
+        batched product's summation order would depend on who else arrived.
 
         Returns (tokens [n], counts [n, V] incl. prompt + sampled token)."""
         n, T = input_ids.shape
@@ -290,14 +338,15 @@ class PagedInferenceModel:
         kv_len_mask = torch.arange(S, device=dev)[None, :] < total_lens[:, None]
         logits = self._forward(pool, input_ids, block_tables, positions, kv_len_mask, cached_lens,
                                torch.clamp_min(suffix_lens - 1, 0),  # last VALID token
-                               q_lens=suffix_lens)
+                               q_lens=suffix_lens, lora_rows=gather_lora(lora, adapter_idx), per_row=True)
         V = cached_counts.shape[-1]
         counts = cached_counts + _count_tokens(input_ids, ar[None, :] < suffix_lens[:, None], V)
         tokens = sample_tokens(logits, positions=total_lens, counts=counts, **samp)
         return tokens, counts + F.one_hot(tokens.long(), V).to(torch.int32)
 
     @torch.no_grad()
-    def mixed_step(self, pool, input_ids, block_tables, q_lens, q_start, counts, count_fed, emit, samp):
+    def mixed_step(self, pool, input_ids, block_tables, q_lens, q_start, counts, count_fed, emit, samp, lora=None,
+                   adapter_idx=None):
         """One ragged mixed prefill/decode step: row j feeds ``q_lens[j]`` new
         tokens from absolute position ``q_start[j]`` (a prefill chunk, a decode
         token, or nothing). Every row samples at ``q_start + q_lens``; the
@@ -313,7 +362,8 @@ class PagedInferenceModel:
         S = block_tables.shape[1] * self.block_size
         kv_len_mask = torch.arange(S, device=dev)[None, :] < (q_start + q_lens)[:, None]
         logits = self._forward(pool, input_ids, block_tables, positions, kv_len_mask, q_start,
-                               torch.clamp_min(q_lens - 1, 0), q_lens=q_lens)
+                               torch.clamp_min(q_lens - 1, 0), q_lens=q_lens,
+                               lora_rows=gather_lora(lora, adapter_idx))
         V = counts.shape[-1]
         fed = _count_tokens(input_ids, ar[None, :] < q_lens[:, None], V)
         counts = counts + fed * count_fed.to(torch.int32)[:, None]
@@ -323,13 +373,15 @@ class PagedInferenceModel:
 
     @torch.no_grad()
     def mixed_step_flat(self, pool, chunk_ids, chunk_tables, chunk_qlens, chunk_start, chunk_slots,
-                        chunk_emit, dec_tokens, dec_tables, dec_start, dec_slots, dec_live, counts, samp):
+                        chunk_emit, dec_tokens, dec_tables, dec_start, dec_slots, dec_live, counts, samp,
+                        lora=None, chunk_adapter=None, dec_adapter=None):
         """Token-flattened ragged mixed step (the plain-path layout): prefill
         chunks keep their [C, T] matrix and decode rows collapse to [D, 1], so
         cost scales with the tokens fed. Rows map to engine slots through
         ``chunk_slots``/``dec_slots``; the slot-indexed penalty counts are
         updated by index-add. Dead padding rows write only into the sentinel
-        block and add zeros.
+        block and add zeros. Each segment has its rows' adapter slots
+        (``chunk_adapter``/``dec_adapter``).
 
         Returns (tokens [C + D] in segment order, counts')."""
         C, T = chunk_ids.shape
@@ -339,12 +391,13 @@ class PagedInferenceModel:
         s_ar = torch.arange(S, device=dev)[None, :]
         logits_c = self._forward(pool, chunk_ids, chunk_tables, chunk_start[:, None] + ar[None, :],
                                  s_ar < (chunk_start + chunk_qlens)[:, None], chunk_start,
-                                 torch.clamp_min(chunk_qlens - 1, 0), q_lens=chunk_qlens)
+                                 torch.clamp_min(chunk_qlens - 1, 0), q_lens=chunk_qlens,
+                                 lora_rows=gather_lora(lora, chunk_adapter))
         D = dec_tokens.shape[0]
         logits_d = self._forward(pool, dec_tokens[:, None], dec_tables, dec_start[:, None],
                                  s_ar <= dec_start[:, None], dec_start,
                                  torch.zeros(D, dtype=torch.int32, device=dev),
-                                 q_lens=dec_live.to(torch.int32))
+                                 q_lens=dec_live.to(torch.int32), lora_rows=gather_lora(lora, dec_adapter))
         V = counts.shape[-1]
         counts = counts.index_add(0, chunk_slots.long(),
                                   _count_tokens(chunk_ids, ar[None, :] < chunk_qlens[:, None], V))
@@ -357,7 +410,8 @@ class PagedInferenceModel:
         return tokens, counts
 
     @torch.no_grad()
-    def decode(self, pool, tokens, block_tables, context_lens, done0, remaining, counts, samp):
+    def decode(self, pool, tokens, block_tables, context_lens, done0, remaining, counts, samp, lora=None,
+               adapter_idx=None):
         """Multi-step decode: advance every slot up to ``decode_steps`` tokens
         with sampling, penalties, eos and length stops on the device; the
         caller reads the ids and flags once. Finished rows freeze: ctx stops
@@ -372,9 +426,10 @@ class PagedInferenceModel:
         zeros = torch.zeros(B, dtype=torch.int32, device=dev)
         tok, ctx, done, n_out = tokens, context_lens, done0, zeros
         toks, valid = [], []
+        lora_rows = gather_lora(lora, adapter_idx)
         for _ in range(self.decode_steps):
             logits = self._forward(pool, tok[:, None], block_tables, ctx[:, None], s_ar <= ctx[:, None],
-                                   ctx, zeros)
+                                   ctx, zeros, lora_rows=lora_rows)
             nxt = sample_tokens(logits, positions=ctx + 1, counts=counts, **samp)
             emit = ~done
             hit_eos = (nxt[:, None] == self.eos_arr[None, :]).any(dim=-1)
@@ -390,7 +445,8 @@ class PagedInferenceModel:
         return torch.stack(toks), torch.stack(valid), done, ctx, counts
 
     @torch.no_grad()
-    def verify(self, pool, tokens, block_tables, start_pos, need_logits: bool = True):
+    def verify(self, pool, tokens, block_tables, start_pos, need_logits: bool = True, lora=None,
+               adapter_idx=None):
         """Speculative-decoding verify: one forward over ``[last_token, d_1..d_K]``
         (``_verify_impl`` of the JAX package). tokens [B, K+1] (the last
         accepted token then the drafts, 0-padded); start_pos [B] the absolute
@@ -402,8 +458,8 @@ class PagedInferenceModel:
         acceptance reads only the argmax, so ``need_logits=False`` never
         materializes the fp32 logits.
 
-        Every projection runs as one [B, D] GEMM a position, the shape of the
-        decode's: each row then takes the decode's summation order, and the
+        Every projection runs as one [B, D] GEMM a position (its LoRA delta
+        too), the shape of the decode's: each row then takes the decode's summation order, and the
         tokens greedy speculation emits are the ones the plain decode emits,
         bit for bit. One [B(K+1), D] GEMM would read the weights once instead
         of K+1 times, but cuBLAS picks another kernel for it: on an H100 at
@@ -415,6 +471,6 @@ class PagedInferenceModel:
         S = block_tables.shape[1] * self.block_size
         kv_len_mask = torch.arange(S, device=dev)[None, :] <= (start_pos[:, None] + T - 1)
         logits = self._forward(pool, tokens, block_tables, positions, kv_len_mask, start_pos, None,
-                               per_position=True)
+                               per_position=True, lora_rows=gather_lora(lora, adapter_idx))
         argmax = logits.argmax(dim=-1).to(torch.int32)
         return argmax, (logits.float() if need_logits else None)

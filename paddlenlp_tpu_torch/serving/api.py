@@ -39,9 +39,8 @@ Routes::
     POST /admin/adapters   LoRA adapter hot-load/unload against the engine's
                            AdapterRegistry: {"op": "load", "adapter_id",
                            "path" | "weights", "scaling"?} | {"op": "unload",
-                           "adapter_id"} | {"op": "list"} (the port has no
-                           registry yet, ROADMAP Queue 1 item 10: 400, as the
-                           JAX server answers without one)
+                           "adapter_id"} | {"op": "list"} (400 when the
+                           engine has no registry)
     POST /admin/weights    live base-weight hot-swap from a committed
                            checkpoint: {"ckpt_dir": str, "version"?,
                            "mode"?: "finish_old"|"pause_resume",

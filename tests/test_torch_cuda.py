@@ -508,3 +508,120 @@ def test_host_tier_round_trip_on_the_card(dev):
     assert torch.equal(eng.pool.kv[:, :, promoted], spilled)
     ref = InferenceEngine(model, num_blocks=64, enable_prefix_cache=False, **kw)
     assert got == ref.generate([prefix + [80, 81]], SamplingParams(max_new_tokens=8))[0]
+
+
+# ----------------------------------------------------------------- multi-LoRA
+LORA_CFG = dict(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2, num_attention_heads=7,
+                num_key_value_heads=1, head_dim=64, eos_token_id=None)
+LORA_JOBS = [(list(range(3, 40)), "ad-0"), ([5, 6, 7], "ad-1"), (list(range(50, 70)), "ad-2"), ([9, 8, 7, 6], None)]
+
+
+def _lora_registry(cfg, ids=("ad-0", "ad-1", "ad-2"), pool_slots=4, seed=0):
+    """Random rank-8 adapters on all seven projections, strong enough to
+    steer the greedy tokens."""
+    from paddlenlp_tpu_torch.serving.tenancy import AdapterRegistry, adapter_dims_from_config
+
+    reg = AdapterRegistry(cfg, max_rank=8, pool_slots=pool_slots)
+    rng = np.random.default_rng(seed)
+    L = cfg.num_hidden_layers
+    for aid in ids:
+        reg.add(aid, {proj: {"A": (rng.standard_normal((L, d_in, 8)) / np.sqrt(d_in)).astype(np.float32),
+                             "B": (rng.standard_normal((L, 8, d_out)) * 0.2).astype(np.float32)}
+                      for proj, (d_in, d_out) in adapter_dims_from_config(cfg).items()})
+    return reg
+
+
+def _run_jobs(eng, jobs, n):
+    ids = [eng.add_request(p, SamplingParams(max_new_tokens=n), adapter_id=a) for p, a in jobs]
+    done = {}
+    while eng.has_work():
+        done.update((r.req_id, r) for r in eng.step())
+    return [done[i].output_ids for i in ids]
+
+
+def test_lora_engine_kernel_path_matches_plain_path(dev):
+    """A batch mixing three adapters and a base row: in fp32 the kernel path
+    (the SIMT kernel) gives the plain gather path's greedy streams, for
+    monolithic and chunked prefill; in bf16 every paged launch takes the
+    Hopper route and the adapters steer (four different streams)."""
+    cfg = Qwen2Config(**LORA_CFG)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=dtype)
+        for kernel in (True, False):
+            for chunk in (None, 8):
+                eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                                      dtype=dtype, prefill_chunk_tokens=chunk, adapter_registry=_lora_registry(cfg))
+                eng.infer.use_paged_kernel = kernel
+                pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+                outs[dtype, kernel, chunk] = _run_jobs(eng, LORA_JOBS, 12)
+                assert (pa.LAUNCHES > 0) == kernel
+                assert pa.LAUNCHES_SM90 == (pa.LAUNCHES if dtype == torch.bfloat16 else 0)
+    for chunk in (None, 8):
+        assert outs[torch.float32, True, chunk] == outs[torch.float32, False, chunk]
+    assert len({tuple(s) for s in outs[torch.bfloat16, True, None]}) == len(LORA_JOBS)
+
+
+def test_lora_rows_are_independent_at_a_fixed_shape(dev):
+    """One bf16 [8, 1] decode forward through the Hopper route, twice over
+    the same pool: row 0 keeps its adapter, rows 1-7 change theirs. Row 0's
+    logits are equal bit for bit; every other row's change."""
+    from paddlenlp_tpu_torch.experimental import PagedInferenceModel
+    from paddlenlp_tpu_torch.experimental.backend import SingleDeviceBackend
+    from paddlenlp_tpu_torch.experimental.inference_model import gather_lora
+    from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool
+
+    cfg = Qwen2Config(**LORA_CFG)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    reg = _lora_registry(cfg, ids=("ad-0", "ad-1", "ad-2", "ad-3"))
+    slots = [reg.acquire(a) for a in ("ad-0", "ad-1", "ad-2", "ad-3")]
+    backend = SingleDeviceBackend(model, max_batch_size=8, block_size=16, num_blocks=8, max_blocks_per_seq=4,
+                                  dtype=torch.bfloat16, decode_steps=1, eos_ids=set(), adapter_registry=reg)
+    lora = backend._lora_tree()
+    infer = PagedInferenceModel(model, block_size=16, num_blocks=8 * 3 + 1, max_blocks_per_seq=3, dtype=torch.bfloat16)
+    pool = init_paged_pool(cfg, 8 * 3 + 1, 16, dtype=torch.bfloat16, device=dev)
+    B, T, S = 8, 40, 48
+    tables = torch.arange(1, B * 3 + 1, dtype=torch.int32, device=dev).reshape(B, 3)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 128, (B, T)).astype(np.int32)).to(dev)
+    first = [slots[j % 4] for j in range(B)]
+    infer._forward(pool, ids, tables, torch.arange(T, device=dev)[None].expand(B, T),
+                   torch.arange(S, device=dev)[None] < T, i32([0] * B), i32([T - 1] * B), q_lens=i32([T] * B),
+                   lora_rows=gather_lora(lora, i32(first)))
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    outs = [infer._forward(pool, ids[:, -1:], tables, i32([[T]] * B), torch.arange(S, device=dev)[None] <= T,
+                           i32([T] * B), i32([0] * B), lora_rows=gather_lora(lora, i32(table)))
+            for table in (first, [first[0]] + [slots[(j + 1) % 4] for j in range(1, B)])]
+    assert pa.LAUNCHES == pa.LAUNCHES_SM90 == 2 * cfg.num_hidden_layers
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(not torch.equal(outs[0][j], outs[1][j]) for j in range(1, B))
+
+
+def test_lora_device_pool_follows_the_host_pool(dev):
+    """Loads, evictions, removals and re-adds over a 2-slot pool: after each,
+    the backend's device copy (refreshed slot by slot) equals the host pool
+    bit for bit."""
+    from paddlenlp_tpu_torch.experimental.backend import SingleDeviceBackend
+
+    cfg = Qwen2Config(**LORA_CFG)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    reg = _lora_registry(cfg, ids=("ad-0", "ad-1", "ad-2", "ad-3"), pool_slots=2)
+    backend = SingleDeviceBackend(model, max_batch_size=2, block_size=16, num_blocks=8, max_blocks_per_seq=4,
+                                  dtype=torch.bfloat16, decode_steps=1, eos_ids=set(), adapter_registry=reg)
+    spare = _lora_registry(cfg, ids=("ad-4",), seed=9)
+
+    def same():
+        dev_pool = backend._lora_tree()
+        return all(torch.equal(dev_pool[p][k].cpu(), torch.from_numpy(a)) for p, w in reg._pool.items()
+                   for k, a in w.items())
+
+    ops = [lambda: reg.acquire("ad-0"), lambda: reg.acquire("ad-1"), lambda: reg.release("ad-0"),
+           lambda: reg.acquire("ad-2"), lambda: reg.release("ad-1"), lambda: reg.acquire("ad-3"),
+           lambda: reg.release("ad-2"), lambda: reg.release("ad-3"), lambda: reg.remove("ad-3"),
+           lambda: reg.add("ad-3", spare.weights_of("ad-4")), lambda: reg.acquire("ad-3"),
+           lambda: reg.acquire("ad-0"), lambda: reg.reset_refs()]
+    assert same()
+    for op in ops:
+        op()
+        assert same(), op
+    assert reg.stats()["evictions"] >= 3

@@ -230,7 +230,9 @@ def test_paged_logits_match_dense(models):
 
 
 @pytest.mark.parametrize("option", [dict(mesh_shape=(1, 2)), dict(disagg_stages=(1, 1)),
-                                    dict(adapter_registry=object()), dict(tenant_quotas={})])
+                                    dict(mesh_shape=(1, 2), adapter_registry=object()),
+                                    dict(disagg_stages=(1, 1), tenant_quotas={})])
 def test_options_outside_the_slice_raise(models, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # multi-LoRA and tenant quotas are ported; with a mesh they still refuse
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         InferenceEngine(models[1], **BASE, **option)
