@@ -109,10 +109,26 @@ Serving, the paged engine at Qwen2-7B width and depth:
               TTFT/TPOT and tokens/s with adapters and on the base model,
               profiled decode calls of each, the device pool's re-place
               times; every paged launch on the Hopper route;
+12. wquant -- quantized weights on the same model and engine settings
+              (``quantization.QuantizedModel``: wint8, wint4, fp8, and a8w8
+              with dynamic and with calibrated activation scales), one facade
+              at a time: layer 0's slice of every projection quantized and
+              dequantized on the card and on the CPU, and a8w8's
+              ``int8_linear`` (``torch._int_mm``) at 8 and 2048 rows, bit for
+              bit; the wint8 and a8w8 facades in fp32 through the paged model
+              (SIMT kernel) against their dense forward at rel 1e-4; the
+              engine phase's 8 requests (32 new tokens) on each facade and on
+              the bf16 model with TTFT/TPOT, tokens/s, ``memory_footprint()``
+              against the bytes the shapes give, allocated memory and the
+              logits' cosine and top-1 agreement with the bf16 model's; one
+              profiled decode call on the bf16 model, wint8 and a8w8 (the
+              dequant, the GEMMs, attention, the idle share); greedy HTTP
+              streams over the a8w8 engine equal to ``generate``; every paged
+              launch on the Hopper route;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-12. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+13. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -122,11 +138,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-13. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+14. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-14. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+15. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -134,10 +150,10 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
               launches all on the Hopper route; the saved checkpoint loads
               back bit for bit;
-15. train_profile -- ``torch.profiler`` over one more training step;
-16. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs, the serve, spec, host_tier and lora phases; the
-              kv_quant phase for the quantized entry) and the training run
+16. train_profile -- ``torch.profiler`` over one more training step;
+17. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, spec, host_tier, lora and wquant phases;
+              the kv_quant phase for the quantized entry) and the training run
               (and the spec phase's draft forwards), each on its own route,
               and its check.
 
@@ -537,6 +553,57 @@ def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dty
                                    lora_rows=rows_lora).float())
     del pool
     return torch.cat(rows, dim=0), fed
+
+
+def single_token_logits(torch, model, PagedInferenceModel, init_paged_pool, tokens, dtype):
+    """Each of ``tokens`` as a sequence of its own, all prefilled by one paged
+    forward ([B, 1], a block each, on the kernel path): logits [B, V] fp32.
+    A query over a single key gets that key's value exactly on every route
+    (the kernel's online softmax: p = exp(0) = 1, l = 1; the dense softmax:
+    1 and 0s), so the attention adds no summation-order difference."""
+    bs, B = 16, len(tokens)
+    infer = PagedInferenceModel(model, block_size=bs, num_blocks=B + 1, max_blocks_per_seq=1, dtype=dtype)
+    check(infer.use_paged_kernel, "logits: the paged model on CUDA must run the kernel path")
+    pool = init_paged_pool(model.config, B + 1, bs, dtype=dtype, device=DEVICE)
+    zeros = torch.zeros((B, 1), dtype=torch.int32, device=DEVICE)
+    out = infer._forward(pool, torch.tensor(tokens, dtype=torch.int32, device=DEVICE)[:, None],
+                         torch.arange(1, B + 1, dtype=torch.int32, device=DEVICE)[:, None], zeros,
+                         (torch.arange(bs, device=DEVICE) < 1)[None].expand(B, bs), zeros[:, 0], zeros[:, 0],
+                         q_lens=torch.ones(B, dtype=torch.int32, device=DEVICE)).float()
+    del pool
+    return out
+
+
+def paged_layer_errors(torch, modeling, model, PagedInferenceModel, init_paged_pool, prompt):
+    """Each paged layer (kernel path, fp32) fed the dense forward's input to
+    that layer over ``prompt``: per layer, the largest |paged - dense| of its
+    output over the dense output's largest magnitude, and the number of
+    positions whose row differs by more than ``LOGITS_REL_TOL`` of that. The
+    dense inputs are read by recording ``modeling.rms_norm``'s (two a layer,
+    then the final norm)."""
+    T, bs = len(prompt), 16
+    nb = -(-T // bs)
+    seen, norm = [], modeling.rms_norm
+    modeling.rms_norm = lambda h, scale, eps: (seen.append(h), norm(h, scale, eps))[1]
+    try:
+        model(torch.tensor([prompt], device=DEVICE), dtype=torch.float32)
+    finally:
+        modeling.rms_norm = norm
+    hs = seen[0::2]
+    infer = PagedInferenceModel(model, block_size=bs, num_blocks=nb + 1, max_blocks_per_seq=nb, dtype=torch.float32)
+    pool = init_paged_pool(model.config, nb + 1, bs, dtype=torch.float32, device=DEVICE)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    tables = torch.arange(1, nb + 1, dtype=torch.int32, device=DEVICE)[None]
+    pos, mask = torch.arange(T, device=DEVICE)[None], torch.arange(nb * bs, device=DEVICE)[None] < T
+    err, over = [], []
+    with torch.no_grad():
+        for i in range(len(hs) - 1):
+            diff = (infer._layer(hs[i], i, pool, tables, pos, mask, i32([0]), i32([T])) - hs[i + 1]).abs()[0]
+            big = hs[i + 1].abs().max()
+            err.append((diff.max() / big).item())
+            over.append(int((diff.max(dim=-1).values > LOGITS_REL_TOL * big).sum()))
+    del pool, hs, seen
+    return dict(positions=T, rel_err=err, positions_over_tol=over)
 
 
 def phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, seed):
@@ -2012,6 +2079,301 @@ def lora_http(torch, np, model, InferenceEngine, SamplingParams, serving, tenanc
     return out
 
 
+# ----------------------------------------------------------------------------- wquant
+WQUANT_RUNS = ("wint8", "wint4", "fp8", "a8w8", "a8w8_calibrated")
+WQUANT_NEW = 32  # new tokens a request of the engine mix
+PROJECTIONS = ("self_attn/q_proj", "self_attn/k_proj", "self_attn/v_proj", "self_attn/o_proj", "mlp/gate_proj",
+               "mlp/up_proj", "mlp/down_proj")
+
+
+def same_bits(torch, a, b):
+    """Two tensors of one dtype and shape hold the same bits (on any devices)."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def wquant_weight_bytes(model, algo):
+    """The bytes a facade's tree must hold, from the base model's shapes:
+    each stacked projection kernel [L, in, out] at one byte an element (half
+    a byte at wint4) plus fp32 scales [L, out], [L] fp32 activation scales
+    at calibrated a8w8, and every other leaf as it is."""
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    total = 0
+    for path, t in flatten_params(model.params).items():
+        if path.endswith("/kernel") and "/layers/" in path:
+            L, d_in, d_out = t.shape
+            total += L * d_in * d_out // (2 if algo == "wint4" else 1) + L * d_out * 4
+            total += L * 4 if algo == "a8w8_calibrated" else 0
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def wquant_card_vs_cpu(torch, model, quantization, seed):
+    """(1) of the wquant phase: layer 0's slice of each projection quantized
+    on the card and on the CPU (wint8, wint4, fp8), dequantized to bf16 on
+    each, and a8w8's ``int8_linear`` at 8 rows (padded to 17 on the card)
+    and 2048 rows with the layer's bias: every pair bit for bit."""
+    from paddlenlp_tpu_torch.quantization.a8w8 import int8_linear
+
+    QC, qp, deq = quantization.QuantizationConfig, quantization.quantize_params, quantization.dequantize_leaf
+    layers = model.params["model"]["layers"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 300)
+    out = {}
+    for proj in PROJECTIONS:
+        block, name = proj.split("/")
+        leaves = layers[block][name]
+        w = leaves["kernel"][0]
+        bias = leaves["bias"][0] if "bias" in leaves else None
+        row = {}
+        for algo in ("wint8", "wint4", "fp8"):
+            cfg = QC(weight_quantize_algo=algo)
+            card, cpu = qp({"p": {"kernel": w}}, cfg)["p"], qp({"p": {"kernel": w.cpu()}}, cfg)["p"]
+            row[algo] = dict(
+                codes=same_bits(torch, card["qweight"], cpu["qweight"]),
+                scales=same_bits(torch, card["scales"], cpu["scales"]),
+                dequantized=same_bits(torch, deq(card["qweight"], card["scales"], cfg.bits, torch.bfloat16),
+                                      deq(cpu["qweight"], cpu["scales"], cfg.bits, torch.bfloat16)))
+        q = qp({"p": {"kernel": w}}, QC(weight_quantize_algo="a8w8"))["p"]
+        for m in (8, 2048):
+            x = torch.randn((m, w.shape[0]), generator=g, device=DEVICE).to(torch.bfloat16)
+            card = int8_linear(x, q["qweight"], q["scales"], bias=bias, out_dtype=torch.bfloat16)
+            cpu = int8_linear(x.cpu(), q["qweight"].cpu(), q["scales"].cpu(),
+                              bias=None if bias is None else bias.cpu(), out_dtype=torch.bfloat16)
+            row[f"int8_linear_m{m}"] = same_bits(torch, card, cpu)
+        out[proj] = row
+    return out
+
+
+def wquant_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
+    """``torch.profiler`` over one steady decode call of the engine phase's 8
+    requests on ``model`` (a ``QuantizedModel`` or the bf16 base): device
+    ms, idle share, and the device ms of the paged kernel, the dequant
+    (``dequantize_leaf``), a8w8's activation quantization
+    (``quantize_activations``) and the GEMMs (``aten::mm``, ``aten::_int_mm``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts, _ = traffic(np, model.config.vocab_size, seed)
+    eng = InferenceEngine(model, **SERVE_ENGINE)
+    for p in prompts:
+        eng.add_request(p, SamplingParams(max_new_tokens=1 + 2 * eng.decode_steps))
+    eng.step()  # admission: prefill + the first decode call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
+    op = {k: (ops[k].device_time_total / 1e3 if k in ops else 0.0, ops[k].count if k in ops else 0)
+          for k in ("dequantize_leaf", "quantize_activations", "aten::mm", "aten::_int_mm")}
+    del eng
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
+                attention_kernel_ms=sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 1e3,
+                dequant_ms=op["dequantize_leaf"][0], dequant_calls=op["dequantize_leaf"][1],
+                act_quant_ms=op["quantize_activations"][0], bf16_gemm_ms=op["aten::mm"][0],
+                bf16_gemm_calls=op["aten::mm"][1], int8_gemm_ms=op["aten::_int_mm"][0],
+                int8_gemm_calls=op["aten::_int_mm"][1], kernel_launches=sum(e.count for e in kernels))
+
+
+def wquant_http(eng, serving, SamplingParams, prompts, greedy):
+    """(5) of the wquant phase: ``ServingServer`` over the a8w8 engine; two
+    greedy prompts, JSON and SSE, each alone on a cleared prefix cache, equal
+    to the engine's ``generate`` of the same prompt."""
+    want = {}
+    for i in greedy:
+        eng.clear_prefix_cache()
+        want[i] = eng.generate([prompts[i]], SamplingParams(max_new_tokens=WQUANT_NEW))[0]
+    eng.clear_prefix_cache()
+    server = serving.ServingServer(eng, registry=serving.MetricsRegistry(),
+                                   scheduler_config=serving.SchedulerConfig(max_inflight=8, default_timeout_s=600))
+    port = server.start_in_thread()
+    equal = {}
+    try:
+        for i in greedy:
+            server.loop.engine.clear_prefix_cache()
+            status, body = http_json(port, "POST", "/v1/completions",
+                                     {"prompt": prompts[i].tolist(), "max_tokens": WQUANT_NEW})
+            check(status == 200, f"wquant http: request answered {status}")
+            server.loop.engine.clear_prefix_cache()
+            toks, _, _, _ = http_stream(port, "/v1/completions", {"prompt": prompts[i].tolist(),
+                                                                   "max_tokens": WQUANT_NEW})
+            equal[i] = dict(json=body["choices"][0]["token_ids"] == want[i], sse=toks == want[i],
+                            tokens=len(want[i]))
+    finally:
+        server.shutdown(drain_timeout_s=30)
+    return dict(prompts=[len(prompts[i]) for i in greedy], equal=equal)
+
+
+def phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+                 serving, quantization, modeling, seed):
+    """Quantized weights at Qwen2-7B (``quantization.QuantizedModel``: wint8,
+    wint4, fp8, a8w8 with dynamic and with calibrated activation scales),
+    one facade at a time over the bf16 model, freed before the next:
+
+    (1) layer 0's slice of every projection quantized and dequantized on the
+    card and on the CPU, and a8w8's ``int8_linear`` at 8 and 2048 rows: bit
+    for bit;
+    (2) the wint8 and a8w8 facades in fp32 through the paged model on the
+    SIMT route against the facade's dense forward, rel 1e-4 (the logits
+    phase's gate): eight single-token sequences, whose attention is exact on
+    both (``single_token_logits``), for both; a 1024-token prompt and 16
+    decode steps for wint8. a8w8 rounds each activation to an int8 code, so
+    over a long context the two attentions' fp32 summation orders move
+    codes across rounding midpoints; its long-prompt error and each layer's
+    error fed the dense layer input (``paged_layer_errors``) are printed,
+    not gated;
+    (3) the engine phase's 8 requests (32 new tokens, monolithic prefill) on
+    each facade and on the bf16 model: TTFT/TPOT p50, tokens/s,
+    ``memory_footprint()`` against the bytes the shapes give,
+    ``torch.cuda.memory_allocated()``, every paged launch on the Hopper
+    route, and the logits of a 1024-token prompt and 16 decode steps fed
+    the bf16 model's tokens against the bf16 model's (cosine, top-1);
+    (4) one profiled decode call on the bf16 model, wint8 and a8w8: the
+    dequant's, the GEMMs' and attention's device ms, the idle share;
+    (5) ``ServingServer`` over the a8w8 engine: greedy JSON and SSE streams
+    equal to ``generate``.
+
+    Quality against bf16 is printed, not gated (random weights)."""
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    t_phase = time.perf_counter()
+    QC, QM = quantization.QuantizationConfig, quantization.QuantizedModel
+    vocab = model.config.vocab_size
+    prompts, sampled = traffic(np, vocab, seed)
+    greedy = [i for i in range(len(prompts)) if i not in sampled]
+    rng = np.random.default_rng(seed + 3)
+    probe = rng.integers(0, vocab, 1024).tolist()
+    res = dict(phase="wquant", config="Qwen/Qwen2-7B", engine=dict(SERVE_ENGINE), new_tokens=WQUANT_NEW,
+               base_bytes=sum(t.numel() * t.element_size() for t in flatten_params(model.params).values()))
+    gates = []
+
+    def sp(i):
+        if i in sampled:
+            return SamplingParams(max_new_tokens=WQUANT_NEW, do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
+        return SamplingParams(max_new_tokens=WQUANT_NEW)
+
+    # ---- (1) card vs CPU
+    t0 = time.perf_counter()
+    res["card_vs_cpu"] = wquant_card_vs_cpu(torch, model, quantization, seed)
+    res["card_vs_cpu_s"] = time.perf_counter() - t0
+    for proj, row in res["card_vs_cpu"].items():
+        for what, ok in row.items():
+            gates.append((all(ok.values()) if isinstance(ok, dict) else ok,
+                          f"wquant card vs cpu: {proj} {what} differs: {ok}"))
+
+    # ---- calibration: two prompts through the bf16 dense forward
+    calib = [{"input_ids": rng.integers(0, vocab, (1, n))} for n in (256, 512)]
+    t0 = time.perf_counter()
+    act_scales = quantization.collect_act_scales(model, calib)
+    res["calibration"] = dict(prompts=[256, 512], scales=len(act_scales), seconds=time.perf_counter() - t0)
+
+    def facade(run):
+        algo = run.split("_")[0]
+        return QM(model, QC(weight_quantize_algo=algo), act_scales=act_scales if run == "a8w8_calibrated" else None)
+
+    # ---- (2) the dispatch in fp32
+    single = probe[:8]
+    res["fp32_dispatch"] = {}
+    for run in ("wint8", "a8w8"):
+        qm = facade(run)
+        with uncounted(pa):
+            pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+            got, fed = paged_logits(torch, qm, PagedInferenceModel, init_paged_pool, probe, torch.float32, 16)
+            one = single_token_logits(torch, qm, PagedInferenceModel, init_paged_pool, single, torch.float32)
+            simt = pa.LAUNCHES - pa.LAUNCHES_SM90
+            layers = paged_layer_errors(torch, modeling, qm, PagedInferenceModel, init_paged_pool, probe)
+        ref = qm(torch.tensor([fed], device=DEVICE), dtype=torch.float32)[0, len(probe) - 1:]
+        ref_one = qm(torch.tensor(single, device=DEVICE)[:, None], dtype=torch.float32)[:, 0]
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        err_one = (one - ref_one).abs().max().item() / ref_one.abs().max().item()
+        res["fp32_dispatch"][run] = dict(
+            positions=got.shape[0], rel_err=err, rel_tol=LOGITS_REL_TOL, gated=run == "wint8",
+            single_token=dict(sequences=len(single), rel_err=err_one), layer_by_layer=layers, simt_launches=simt)
+        gates.append((err_one <= LOGITS_REL_TOL,
+                      f"wquant fp32 dispatch {run}: single-token paged vs dense rel err {err_one} > {LOGITS_REL_TOL}"))
+        if run == "wint8":
+            gates.append((err <= LOGITS_REL_TOL,
+                           f"wquant fp32 dispatch {run}: paged vs dense rel err {err} > {LOGITS_REL_TOL}"))
+        gates.append((simt == (got.shape[0] + 1) * model.config.num_hidden_layers,
+                      f"wquant fp32 dispatch {run}: {simt} SIMT launches"))
+        del qm, got, ref, one, ref_one
+        torch.cuda.empty_cache()
+
+    # ---- (3)-(5): the engine mix on the bf16 model and each facade
+    with uncounted(pa):
+        bf16_logits, bf16_fed = paged_logits(torch, model, PagedInferenceModel, init_paged_pool, probe,
+                                             torch.bfloat16, 16)
+    total = dict(paged=0, sm90=0)
+    res["runs"], res["profile"] = {}, {}
+    for run in ("bf16",) + WQUANT_RUNS:
+        what = f"wquant {run}"
+        torch.cuda.synchronize()
+        qm = model if run == "bf16" else facade(run)
+        footprint = res["base_bytes"] if run == "bf16" else qm.memory_footprint()
+        want_bytes = res["base_bytes"] if run == "bf16" else wquant_weight_bytes(model, run)
+        eng = InferenceEngine(qm, **SERVE_ENGINE)
+        check(eng.infer.use_paged_kernel, "wquant: the engine on CUDA must run the kernel path")
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+        done, wall = serve_waves(torch, eng, prompts, sp, [[0], range(1, len(prompts))])
+        engine_launches = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
+        with uncounted(pa):
+            pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+            got, _ = paged_logits(torch, qm, PagedInferenceModel, init_paged_pool, probe, torch.bfloat16, 16,
+                                  feed=bf16_fed)
+            logit_launches = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
+        out = dict(latency(done, wall), engine_launches=engine_launches, memory_footprint=footprint,
+                   expected_bytes=want_bytes, footprint_share_of_bf16=footprint / res["base_bytes"],
+                   memory_allocated=allocated, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   ledger_conserved=eng.ledger.verify_conservation(),
+                   logits_vs_bf16=dict(min_cosine=torch.nn.functional.cosine_similarity(got, bf16_logits, dim=-1)
+                                       .min().item(),
+                                       top1_agree=(got.argmax(-1) == bf16_logits.argmax(-1)).float().mean().item(),
+                                       max_abs_diff=(got - bf16_logits).abs().max().item(),
+                                       launches=logit_launches))
+        gates.append((len(done) == len(prompts) and all(
+            r.finish_reason in ("length", "stop") and all(0 <= t < vocab for t in r.output_ids)
+            for r in done.values()), f"{what}: requests did not all finish in-vocab"))
+        gates.append((logit_launches["sm90"] == logit_launches["paged"] > 0,
+                      f"{what}: logits launches {logit_launches} -- every paged launch must take the Hopper route"))
+        gates.append((footprint == want_bytes, f"{what}: memory_footprint {footprint}, the shapes give {want_bytes}"))
+        gates.append((out["ledger_conserved"], f"{what}: goodput ledger conservation broken"))
+        gates.append((torch.isfinite(got).all().item(), f"{what}: non-finite logits"))
+        if run == "a8w8":
+            res["http"] = wquant_http(eng, serving, SamplingParams, prompts, greedy[:2])
+            for i, eq in res["http"]["equal"].items():
+                gates.append((eq["json"] and eq["sse"], f"wquant http: prompt {i} differs from generate: {eq}"))
+        del eng, got
+        torch.cuda.empty_cache()
+        if run in ("bf16", "wint8", "a8w8"):
+            res["profile"][run] = wquant_profile(torch, np, qm, pa, InferenceEngine, SamplingParams, seed)
+        # the phase's launches: the engine runs, the HTTP requests and the profiled calls
+        out["launches"] = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
+        out["sm90_share"] = pa.LAUNCHES_SM90 / max(pa.LAUNCHES, 1)
+        for k in total:
+            total[k] += out["launches"][k]
+        gates.append((pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
+                      f"{what}: {out['launches']} -- every paged launch must take the Hopper route"))
+        res["runs"][run] = out
+        del qm
+        torch.cuda.empty_cache()
+    res["launches"] = total
+    res["sm90_launches"] = total["sm90"]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    for ok, msg in gates:
+        check(ok, msg)
+    return res
+
+
 # ----------------------------------------------------------------------------- flash attention
 # Qwen/Qwen2-1.5B config.json (https://huggingface.co/Qwen/Qwen2-1.5B/blob/main/config.json)
 QWEN2_1_5B = dict(
@@ -2473,6 +2835,7 @@ def main(argv=None) -> int:
         from paddlenlp_tpu_torch.ops import paged_attention as pa
         from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
         from paddlenlp_tpu_torch.peft import LoRAConfig, LoRAModel
+        from paddlenlp_tpu_torch import quantization
         from paddlenlp_tpu_torch.serving import tenancy
         from paddlenlp_tpu_torch.trainer import TrainerCallback
         from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
@@ -2524,6 +2887,8 @@ def main(argv=None) -> int:
                          prof16, args.seed)
     lora = phase_lora(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                       serving, LoRAModel, LoRAConfig, tenancy, args.seed)
+    wquant = phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
+                          serving, quantization, modeling, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -2548,10 +2913,11 @@ def main(argv=None) -> int:
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
     sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
-            + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"])
+            + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"]
+            + wquant["launches"]["sm90"])
     simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
-            + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"] - sm90
-            + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
+            + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"]
+            + wquant["launches"]["paged"] - sm90 + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
     for route, timed_case, name, launches in (
             ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
             ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", simt),
@@ -2568,13 +2934,14 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
                     worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
         if route == "sm90":
-            info.update(launched_by="engine, serve, spec, host_tier, lora", serve_launches=serve["sm90_launches"],
-                        spec_launches=spec["launches"]["paged_sm90"], host_tier_launches=host["launches"]["paged_sm90"],
-                        lora_launches=lora["launches"]["sm90"],
+            info.update(launched_by="engine, serve, spec, host_tier, lora, wquant",
+                        serve_launches=serve["sm90_launches"], spec_launches=spec["launches"]["paged_sm90"],
+                        host_tier_launches=host["launches"]["paged_sm90"], lora_launches=lora["launches"]["sm90"],
+                        wquant_launches=wquant["launches"]["sm90"],
                         launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                            for k in mono["launches_by_shape"]})
         elif route == "simt":
-            info.update(launched_by="engine, serve, spec, host_tier, kv_quant, lora",
+            info.update(launched_by="engine, serve, spec, host_tier, kv_quant, lora, wquant",
                         check_launches=logits["launches"]["float32"]["kernels"])
         else:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]

@@ -38,11 +38,14 @@ scheduler over a :class:`~.backend.ModelBackend`:
   adapters and base-model rows, each admitted request holding a pool slot
   (``adapter_pressure`` defers admission like KV pressure) and its prefix
   hashes salted by its adapter id; ``tenant_quotas`` caps each tenant's share
-  of the KV blocks at admission.
+  of the KV blocks at admission;
+- quantized weights: a :class:`~..quantization.QuantizedModel` (wint8, wint4,
+  fp8 or a8w8) serves as the model; every projection of every entry point
+  dispatches on its quantized leaves (``quantization.linear``).
 
 Options of the JAX engine that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item (meshes and disaggregated
-stages, quantized weights).
+stages).
 """
 
 from __future__ import annotations

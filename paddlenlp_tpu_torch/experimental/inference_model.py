@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
+from ..quantization.quantization_utils import linear
 from ..transformers.llama.modeling import layer_params, rms_norm
 from .paged_cache import PagedKVPool, gather_kv, write_kv_block
 
@@ -166,10 +167,6 @@ class PagedInferenceModel:
 
     def __init__(self, model, block_size: int = 16, num_blocks: int = 512, max_blocks_per_seq: int = 64,
                  dtype=torch.bfloat16, decode_steps: int = 8, eos_ids=(), use_paged_kernel=None):
-        if getattr(model, "quantization_config", None) is not None:
-            raise NotImplementedError(
-                "quantized weights (a8w8, weight-only) are not part of the port yet: "
-                "ROADMAP Queue 1 item 11")
         self.model = model
         self.config = model.config
         self.device = model.device
@@ -189,6 +186,9 @@ class PagedInferenceModel:
         self.head_dim = cfg.head_dim
         self.inv_freq = torch.from_numpy(rope_frequencies(self.head_dim, cfg.rope_theta, cfg.rope_scaling)) \
             .to(self.device)
+        # serving a QuantizedModel: its params carry qweight/scales (and a8w8
+        # act_scale) leaves, stacked [L, ...]; _mm dispatches per projection
+        self.quant_cfg = getattr(model, "quantization_config", None)
         self.bind_params()
 
     def bind_params(self):
@@ -199,7 +199,9 @@ class PagedInferenceModel:
         self._layers = [layer_params(layers, i) for i in range(self.config.num_hidden_layers)]
 
     def _mm(self, p, x, per_position: bool = False, lora=None, per_row: bool = False):
-        """x [B, T, D] @ kernel (+ bias), plus the rows' LoRA delta when
+        """x [B, T, D] @ kernel (+ bias) through ``quantization.linear`` (over
+        quantized leaves: a8w8's int8 product, or the dequantized weight-only
+        kernel), plus the rows' LoRA delta when
         ``lora`` = (A [B, D, r], B [B, r, D_out]) fp32: ``(x_f32 @ A) @ B``
         per row, cast to the product's dtype (``_lora_mm`` of the JAX
         package). ``per_position``: one GEMM for each position t over the B
@@ -213,9 +215,7 @@ class PagedInferenceModel:
         if per_position and x.shape[1] > 1:
             return torch.cat([self._mm(p, x[:, t: t + 1].contiguous(), lora=lora) for t in range(x.shape[1])],
                              dim=1)
-        y = x @ p["kernel"].to(self.dtype)
-        if "bias" in p:
-            y = y + p["bias"].to(self.dtype)
+        y = linear(p, x, self.dtype, self.quant_cfg)
         if lora is not None:
             a, b = lora[0].float(), lora[1].float()
             xf = x.float()

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ...transformers.conversion_utils import flatten_params, unflatten_params
+from ...transformers.conversion_utils import flatten_params, sorted_tree, unflatten_params
 from ...utils.log import logger
 from ...utils.safetensors_io import SafeFile, save_file
 from .lora_config import DEFAULT_TARGETS, LoRAConfig
@@ -36,14 +36,6 @@ from .lora_config import DEFAULT_TARGETS, LoRAConfig
 __all__ = ["LoRAModel"]
 
 LORA_WEIGHTS_NAME = "lora_model.safetensors"
-
-
-def _sorted_tree(node):
-    """The tree with every level's keys in sorted order: the order JAX
-    flattens a dict in, which the seeded init walks."""
-    if not isinstance(node, dict):
-        return node
-    return {k: _sorted_tree(node[k]) for k in sorted(node)}
 
 
 @torch.no_grad()
@@ -101,7 +93,7 @@ class LoRAModel:
         flat = flatten_params(base_params)
         added = 0
         out = dict(flat)
-        for path, leaf in flatten_params(_sorted_tree(base_params)).items():
+        for path, leaf in flatten_params(sorted_tree(base_params)).items():
             if not path.endswith("/kernel") or leaf.dim() < 2 or not self._matches(path):
                 continue
             shape = tuple(leaf.shape)

@@ -18,7 +18,7 @@ norm before clipping.
 What the JAX trainer does and this one does not yet raises
 ``NotImplementedError`` naming the ROADMAP item (``TrainingArguments.check_supported``
 and below): checkpoint save at ``save_steps`` and resume, ``report_to`` and the
-metrics callback, the profiler, ``compress``, ``predict``, PEFT masks,
+metrics callback, the profiler, ``predict``, PEFT masks,
 ``skip_data_intervals``, dropout.
 """
 
@@ -59,13 +59,16 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule, b1, b2,
     eps, weight_decay, mask))`` over a flat ``{name: tensor}`` dict, updated in
-    place. The moments live beside the parameters, in fp32."""
+    place. The moments live beside the parameters, in fp32. ``decays(name)``
+    is the weight-decay mask (default: the JAX trainer's)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0, max_grad_norm: float = 0.0):
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0, max_grad_norm: float = 0.0,
+                 decays: Callable[[str], bool] = _decays):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
+        self.decays = decays
         self.max_grad_norm = max_grad_norm
         self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
@@ -88,7 +91,7 @@ class AdamW:
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).add_(g.square(), alpha=1.0 - self.b2)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay > 0 and _decays(k):
+            if self.weight_decay > 0 and self.decays(k):
                 update = update + self.weight_decay * p
             p.add_(update.to(p.dtype), alpha=-lr)
 
@@ -155,14 +158,15 @@ class Trainer:
         return self.optimizer
 
     # ------------------------------------------------------------------ loss and step
-    def compute_loss(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def compute_loss(self, inputs: Dict[str, torch.Tensor], params: Optional[dict] = None) -> torch.Tensor:
         """Override point. ``labels`` follow the HF convention (unshifted; the
-        causal shift happens here, as in the JAX trainer)."""
+        causal shift happens here, as in the JAX trainer). ``params``
+        (default: the model's) is the tree the forward reads."""
         inputs = dict(inputs)
         labels = inputs.pop("labels", None)
         if labels is None:
             raise ValueError("training requires `labels` in inputs (or override compute_loss)")
-        logits = self.model.forward(**inputs)
+        logits = self.model.forward(**inputs, params=params)
         if self.criterion is not None:
             return self.criterion(logits, labels)
         return causal_lm_loss(logits, labels, shift=True)
@@ -362,7 +366,13 @@ class Trainer:
         raise NotImplementedError(f"Trainer.predict is not part of the port yet ({_TRAINING_LEFT})")
 
     def compress(self, strategy: str = "ptq", output_dir: Optional[str] = None, **kwargs):
-        raise NotImplementedError("Trainer.compress is not part of the port yet (ROADMAP Queue 1 item 14)")
+        """Post-training compression (reference ``Trainer.compress``,
+        ``trainer_compress.py``): PTQ weight-only (optionally GPTQ-calibrated),
+        a8w8 with calibrated activation scales, QAT, embedding quantization,
+        and width or depth pruning; exports a checkpoint directory."""
+        from .trainer_compress import compress as _compress
+
+        return _compress(self, strategy=strategy, output_dir=output_dir, **kwargs)
 
     # ------------------------------------------------------------------ save
     def save_model(self, output_dir: Optional[str] = None):

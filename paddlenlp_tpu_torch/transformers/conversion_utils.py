@@ -13,13 +13,16 @@ write the HF layout back.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["StateDictNameMapping", "StackedLayerMapping", "auto_name_mappings", "convert_state_dict",
-           "flatten_params", "unflatten_params", "target_to_hf_key"]
+           "flatten_params", "resolve_stacked_key", "sorted_tree", "tensor_from_numpy", "unflatten_params",
+           "target_to_hf_key"]
 
 
 @dataclasses.dataclass
@@ -92,6 +95,55 @@ def unflatten_params(flat: Dict[str, object], sep: str = "/") -> dict:
             node = node.setdefault(k, {})
         node[keys[-1]] = leaf
     return out
+
+
+#: numpy dtypes of ``ml_dtypes`` (the JAX package's bf16 and fp8 leaves), by
+#: name: they enter torch as their raw bits, viewed as the torch dtype
+_RAW_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16), "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``arr`` (a numpy array, or anything
+    ``np.asarray`` accepts, such as a JAX array), bit for bit: ``ml_dtypes``
+    bf16 and float8_e4m3fn arrays included."""
+    arr = np.array(arr, copy=True)
+    raw = _RAW_VIEWS.get(arr.dtype.name)
+    if raw is None:
+        return torch.from_numpy(arr)
+    return torch.from_numpy(arr.view(raw[0])).view(raw[1])
+
+
+def sorted_tree(node):
+    """The tree with every level's keys in sorted order: the order the JAX
+    package's parameter trees flatten in."""
+    if not isinstance(node, dict):
+        return node
+    return {k: sorted_tree(node[k]) for k in sorted(node)}
+
+
+def resolve_stacked_key(path: str, flat_stacked: Dict[str, object]):
+    """Map an unrolled param path (``model/layers_3/.../kernel``) onto its
+    stacked counterpart: ``(stacked_path, (3,))``, one index per stacked
+    leading axis in nesting order, or None when the path exists verbatim or
+    cannot be resolved (``conversion_utils.py:146`` of the JAX package).
+    Calibration results keyed by unrolled paths (activation scales, GPTQ
+    Hessians) write back into the stacked tree through it."""
+    if path in flat_stacked:
+        return None
+    segs = path.split("/")
+    cand = [i for i, s in enumerate(segs) if re.fullmatch(r".+_\d+", s)]
+    for r in range(1, len(cand) + 1):
+        for combo in itertools.combinations(cand, r):
+            segs2 = list(segs)
+            idxs = []
+            for i in combo:
+                base, n = segs2[i].rsplit("_", 1)
+                segs2[i] = base
+                idxs.append(int(n))
+            key = "/".join(segs2)
+            if key in flat_stacked:
+                return key, tuple(idxs)
+    return None
 
 
 _LAYERS_RE = re.compile(r"\blayers_(\d+)\b")

@@ -23,9 +23,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -35,7 +34,7 @@ from ...ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
 from ...utils.log import logger
 from ...utils.safetensors_io import SafeFile, save_file, shard_checkpoint
 from ..conversion_utils import (StackedLayerMapping, auto_name_mappings, convert_state_dict, flatten_params,
-                                unflatten_params)
+                                tensor_from_numpy, unflatten_params)
 from .configuration import LlamaConfig
 
 __all__ = ["LlamaForCausalLM", "layer_params", "rms_norm"]
@@ -163,7 +162,7 @@ class LlamaForCausalLM:
         anything ``np.asarray`` accepts)."""
         flat = {}
         for path, leaf in flatten_params(params).items():
-            t = torch.from_numpy(np.array(leaf, copy=True))
+            t = tensor_from_numpy(leaf)
             flat[path] = t.to(device=device, dtype=dtype or t.dtype)
         return cls._from_flat(config, flat)
 
@@ -196,13 +195,27 @@ class LlamaForCausalLM:
         return self.params["model"]["embed_tokens"]["embedding"].dtype
 
     @torch.no_grad()
-    def __call__(self, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def __call__(self, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None, params: Optional[dict] = None,
+                 quantization_config=None,
+                 observer: Optional[Callable[[str, torch.Tensor], None]] = None) -> torch.Tensor:
         """Dense causal forward over ``input_ids`` [B, T] (positions 0..T-1),
         computed in ``dtype`` (default: the parameters' dtype; each layer's
-        weights are cast as the layer runs). Returns logits [B, T, V]."""
+        weights are cast as the layer runs). Returns logits [B, T, V].
+
+        ``params`` (default ``self.params``) may hold quantized leaves
+        (``quantization.QuantizedModel``): every projection goes through
+        ``quantization.linear``, the dispatch the paged model's ``_mm`` runs,
+        under ``quantization_config``. ``observer(path, x)``, when given, sees
+        each projection's input before it runs, keyed by the unrolled kernel
+        path (``model/layers_3/self_attn/q_proj/kernel``, ``lm_head/kernel``):
+        the calibration hook of ``quantization.collect_act_scales`` and
+        ``collect_hessians`` (the JAX package's ``nn.intercept_methods``)."""
+        from ...quantization.quantization_utils import linear  # here: the quantization package imports this one
+
         cfg = self.config
-        dtype = dtype or self.dtype
-        m = self.params["model"]
+        params = self.params if params is None else params
+        dtype = dtype or params["model"]["embed_tokens"]["embedding"].dtype
+        m = params["model"]
         layers = m["layers"]
         B, T = input_ids.shape
         N, K, H = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -216,19 +229,18 @@ class LlamaForCausalLM:
         cos, sin = rope_tables(pos[None, :].expand(B, T), inv_freq)
         causal = pos[None, :] <= pos[:, None]  # [T(q), T(kv)]
 
-        def mm(p, name, x):
-            y = x @ p[name]["kernel"].to(dtype)
-            if "bias" in p[name]:
-                y = y + p[name]["bias"].to(dtype)
-            return y
+        def mm(p, name, x, where):
+            if observer is not None:
+                observer(f"{where}/{name}/kernel", x)
+            return linear(p[name], x, dtype, quantization_config)
 
         for i in range(cfg.num_hidden_layers):
             lp = layer_params(layers, i)
             x = rms_norm(h, lp["input_layernorm"]["scale"], eps)
-            attn = lp["self_attn"]
-            q = mm(attn, "q_proj", x).reshape(B, T, N, H)
-            k = mm(attn, "k_proj", x).reshape(B, T, K, H)
-            v = mm(attn, "v_proj", x).reshape(B, T, K, H)
+            attn, at = lp["self_attn"], f"model/layers_{i}/self_attn"
+            q = mm(attn, "q_proj", x, at).reshape(B, T, N, H)
+            k = mm(attn, "k_proj", x, at).reshape(B, T, K, H)
+            v = mm(attn, "v_proj", x, at).reshape(B, T, K, H)
             q, k = apply_rotary_pos_emb(q, k, cos, sin)
             if K != N:
                 k = k.repeat_interleave(N // K, dim=2)
@@ -236,13 +248,15 @@ class LlamaForCausalLM:
             s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * (H**-0.5)
             s = torch.where(causal, s, torch.full_like(s, -1e30))
             o = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.float()).to(dtype)
-            h = h + mm(attn, "o_proj", o.reshape(B, T, N * H))
+            h = h + mm(attn, "o_proj", o.reshape(B, T, N * H), at)
             x = rms_norm(h, lp["post_attention_layernorm"]["scale"], eps)
-            mlp = lp["mlp"]
-            h = h + mm(mlp, "down_proj", F.silu(mm(mlp, "gate_proj", x)) * mm(mlp, "up_proj", x))
+            mlp, ml = lp["mlp"], f"model/layers_{i}/mlp"
+            h = h + mm(mlp, "down_proj", F.silu(mm(mlp, "gate_proj", x, ml)) * mm(mlp, "up_proj", x, ml), ml)
         h = rms_norm(h, m["norm"]["scale"], eps)
-        if "lm_head" in self.params:
-            return h @ self.params["lm_head"]["kernel"].to(dtype)
+        if "lm_head" in params:
+            if observer is not None:
+                observer("lm_head/kernel", h)
+            return h @ params["lm_head"]["kernel"].to(dtype)
         return h @ embed.T.to(dtype)
 
     # ------------------------------------------------------------------ training forward

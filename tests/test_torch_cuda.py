@@ -625,3 +625,105 @@ def test_lora_device_pool_follows_the_host_pool(dev):
         op()
         assert same(), op
     assert reg.stats()["evictions"] >= 3
+
+
+# ----------------------------------------------------------------- quantized weights
+@pytest.mark.parametrize("M", [1, 8, 17, 64])
+def test_int8_linear_on_the_card_equals_cpu(dev, M):
+    """``torch._int_mm`` refuses M <= 16 on CUDA: 1 and 8 rows are padded to
+    17, and the integer sums are exact, so the card's result equals the CPU's
+    bit for bit at every M, dynamic and static scales, fp32 and bf16 out."""
+    from paddlenlp_tpu_torch.quantization import a8w8, quantization_utils
+
+    rng = np.random.default_rng(M)
+    w = torch.from_numpy(rng.standard_normal((448, 256)).astype(np.float32) * 0.05)
+    q, s = quantization_utils._quantize_array(w, 8)
+    q = q.t().contiguous().t()  # the a8w8 layout: column-major
+    x = torch.from_numpy(rng.standard_normal((M, 448)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+    for out in (torch.float32, torch.bfloat16):
+        for act in (None, 0.03):
+            want = a8w8.int8_linear(x.to(out), q, s, bias=bias, act_scale=act, out_dtype=out)
+            got = a8w8.int8_linear(x.to(dev, out), q.to(dev), s.to(dev), bias=bias.to(dev), act_scale=act,
+                                   out_dtype=out)
+            assert got.dtype == out and got.shape == (M, 256)
+            assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (out, act)
+
+
+def test_int8_matmul_refuses_shapes_loudly(dev):
+    """A K or N that is not a multiple of 8 raises; there is no fallback."""
+    from paddlenlp_tpu_torch.quantization import a8w8
+
+    a = torch.ones(8, 60, dtype=torch.int8, device=dev)
+    b = torch.ones(60, 64, dtype=torch.int8, device=dev).t().contiguous().t()
+    with pytest.raises(RuntimeError, match="multiple of 8"):
+        a8w8.int8_matmul(a, b)
+
+
+def test_quantize_params_on_the_card_equals_cpu(dev):
+    """Every algorithm's tree quantized on the card equals the CPU's bit for
+    bit (IEEE division by a device constant, round half to even, the int4
+    nibbles, the e4m3 cast), and so do the dequantized kernels."""
+    from paddlenlp_tpu_torch.quantization import QuantizationConfig, dequantize_leaf, quantize_params
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params, unflatten_params
+
+    cfg = Qwen2Config(**LORA_CFG)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
+    on_card = unflatten_params({k: v.to(dev) for k, v in flatten_params(model.params).items()})
+    for algo in ("wint8", "wint4", "fp8", "a8w8"):
+        qcfg = QuantizationConfig(weight_quantize_algo=algo)
+        want = flatten_params(quantize_params(model.params, qcfg))
+        got = flatten_params(quantize_params(on_card, qcfg))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            g = got[k].cpu()
+            assert g.dtype == v.dtype and g.stride() == v.stride(), (algo, k)
+            assert torch.equal(g.contiguous().view(torch.uint8), v.contiguous().view(torch.uint8)), (algo, k)
+            if k.endswith("/qweight"):
+                s = k[: -len("qweight")] + "scales"
+                assert torch.equal(dequantize_leaf(got[k], got[s], qcfg.bits, torch.bfloat16).cpu().view(torch.int16),
+                                   dequantize_leaf(v, want[s], qcfg.bits, torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.parametrize("algo", ["wint8", "a8w8"])
+def test_quantized_engine_kernel_path_matches_plain_path(dev, algo):
+    """A ``QuantizedModel`` served in fp32: the kernel path (the SIMT kernel)
+    against the plain gather path, greedy, monolithic and chunked: streams
+    equal; and the paged logits against the facade's dense forward at the
+    fp32 gate (rel 1e-4) over single-token sequences, whose attention is
+    exact on both (``chip_smoke.single_token_logits``), and for wint8 also
+    over a prompt and 8 decode steps. a8w8 rounds each activation to an int8
+    code, so over a longer context the two attentions' fp32 summation orders
+    can move a code across a rounding midpoint and its logits by more than
+    the gate (``chip_smoke.py``'s ``wquant`` phase prints that error at
+    Qwen2-7B)."""
+    import chip_smoke
+
+    from paddlenlp_tpu_torch.experimental import PagedInferenceModel
+    from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool
+    from paddlenlp_tpu_torch.quantization import QuantizationConfig, QuantizedModel
+
+    cfg = Qwen2Config(**LORA_CFG)
+    base = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+    model = QuantizedModel(base, QuantizationConfig(weight_quantize_algo=algo))
+    prompts = [list(range(3, 40)), [5, 6, 7], list(range(50, 70))]
+    outs = {}
+    for kernel in (True, False):
+        for chunk in (None, 8):
+            eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
+                                  prefill_chunk_tokens=chunk, dtype=torch.float32)
+            eng.infer.use_paged_kernel = kernel
+            pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+            outs[kernel, chunk] = eng.generate(prompts, SamplingParams(max_new_tokens=12))
+            assert (pa.LAUNCHES > 0) == kernel and pa.LAUNCHES_SM90 == 0
+    for chunk in (None, 8):
+        assert outs[True, chunk] == outs[False, chunk], chunk
+    single = [3, 5, 9, 17, 33, 65, 100, 127]
+    paged = chip_smoke.single_token_logits(torch, model, PagedInferenceModel, init_paged_pool, single, torch.float32)
+    dense = model(torch.tensor(single, device=dev)[:, None], dtype=torch.float32)[:, 0]
+    assert (paged - dense).abs().max().item() <= 1e-4 * dense.abs().max().item()
+    if algo == "wint8":
+        paged, fed = chip_smoke.paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompts[0],
+                                             torch.float32, 8)
+        dense = model(torch.tensor([fed], device=dev), dtype=torch.float32)[0, len(prompts[0]) - 1:]
+        assert (paged - dense).abs().max().item() <= 1e-4 * dense.abs().max().item()
