@@ -146,16 +146,39 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
-              Markov-chain corpus from ``--seed``; per-step loss, grad norm,
-              time, tokens/s, MFU and peak memory; the forward, dq and dk/dv
-              launches all on the Hopper route; the saved checkpoint loads
-              back bit for bit;
+              Markov-chain corpus from ``--seed``, with the metrics exporter
+              on an ephemeral port and a ``profiler_options`` window over
+              steps 3-4; per-step loss, grad norm, time, tokens/s, MFU and
+              peak memory; the forward, dq and dk/dv launches all on the
+              Hopper route; ``/metrics`` after the last step (4 steps, the
+              tokens, ``train_mfu`` within 10% of the phase's MFU of that
+              step, the steady MFU beside it); the
+              window's Chrome trace holds the three Hopper flash kernels; the
+              saved checkpoint loads back bit for bit;
 16. train_profile -- ``torch.profiler`` over one more training step;
-17. kernels -- every kernel with its launches on the serving runs (the two
+17. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
+              ``save_total_limit`` 2) through ``run_pretrain.main`` at
+              Qwen2-1.5B widths and 12 layers (``RESUME_LAYERS``: the run keeps
+              its disk writes under 45 GiB): a straight run
+              saves committed checkpoint-2 and -4 (each validated with its
+              hashes; save, hash and step times); a second run resumes
+              checkpoint-2 into a fresh directory from other weights and saves
+              checkpoint-4 asynchronously: steps 3-4 and the final fp32
+              parameters equal the straight run's bit for bit, the two
+              checkpoint-4s' model and optimizer files hash alike; load
+              GB/s, the loop's stall against the writer thread's time;
+18. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
+              each of the 8 recompute granularities at full depth: wall s,
+              peak memory and flash launches each; the losses equal;
+19. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+              full logits at the step's head (hidden [2, 4096, 1536] bf16,
+              the tied 1536 x 151936 head): the loss and both gradients
+              within the bf16 gate, the peak memory of each;
+20. kernels -- every kernel with its launches on the serving runs (the two
               engine runs, the serve, spec, host_tier, lora and wquant phases;
-              the kv_quant phase for the quantized entry) and the training run
-              (and the spec phase's draft forwards), each on its own route,
-              and its check.
+              the kv_quant phase for the quantized entry) and the training runs
+              (train, train_resume, train_recompute, and the spec phase's draft
+              forwards), each on its own route, and its check.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object (nine rows: the paged kernel, the flash forward, dq and dk/dv, each on
@@ -167,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import gc
 import json
 import math
 import re
@@ -2673,16 +2697,159 @@ def markov_corpus(np, prefix, vocab, seed, MMapIndexedDatasetBuilder, n_docs=512
     return total
 
 
-def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder, workdir, seed):
-    """``run_pretrain.main`` on the repo's Qwen2 recipe cut to one card and 4
-    steps, at Qwen2-1.5B's published widths and full depth."""
+class patched:
+    """Replaces ``owner.name`` by ``make(original)`` inside the block: how the
+    training phases read what the trainer computes (the unrounded loss and
+    grad norm of each step, the trainer itself) without a hook in the port."""
+
+    def __init__(self, owner, name, make):
+        self.owner, self.name, self.make = owner, name, make
+
+    def __enter__(self):
+        self.raw = vars(self.owner).get(self.name)  # None: inherited, not the owner's own
+        setattr(self.owner, self.name, self.make(getattr(self.owner, self.name)))
+        return self
+
+    def __exit__(self, *exc):
+        if self.raw is None:
+            delattr(self.owner, self.name)
+        else:
+            setattr(self.owner, self.name, self.raw)
+
+
+def step_spy(steps_out, trainers_out):
+    """A ``Trainer.training_step`` that records each step's loss and grad norm
+    (Python floats of the fp32 device scalars: every bit) and its trainer."""
+    def make(original):
+        def training_step(self, batch):
+            out = original(self, batch)
+            if not trainers_out or trainers_out[-1] is not self:
+                trainers_out.append(self)
+            steps_out.append((out["loss"].item(), out["grad_norm"].item()))
+            return out
+        return training_step
+    return make
+
+
+def pretrain_args(workdir, recipe, seed, **cuts):
+    """The recipe with ``cuts`` applied, written to a JSON file for
+    ``run_pretrain.main``; returns (path, args)."""
     import os
 
+    args = {**recipe, **cuts, "seed": seed}
+    path = os.path.join(workdir, f"pretrain_argument_{os.path.basename(cuts['output_dir'])}.json")
+    with open(path, "w") as f:
+        json.dump(args, f)
+    return path, args
+
+
+def checkpoint_report(ckpt, validate_checkpoint):
+    """A committed checkpoint's bytes, files, hashes (from its manifest) and
+    a full re-read with hashes (``validate_checkpoint``)."""
+    import os
+
+    with open(os.path.join(ckpt, "commit.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    reason = validate_checkpoint(ckpt, verify_hashes=True)
+    hash_s = time.perf_counter() - t0
+    nbytes = sum(manifest["files"].values())
+    return dict(dir=os.path.basename(ckpt), bytes=nbytes, files=manifest["files"], sha256=manifest["sha256"],
+                validate=reason, validate_hash_s=hash_s, validate_gb_per_s=nbytes / hash_s / 1e9)
+
+
+def payload_hashes(report):
+    """sha256 of the model and optimizer files (not config.json, whose dtype
+    field is the same, nor trainer_state.json, whose log holds timings)."""
+    return {f: h for f, h in report["sha256"].items() if f.startswith(("model", "optimizer"))}
+
+
+class StepRecorder:
+    """Per step: device-synchronized step time and peak memory, and the loop
+    time from one step's start to the next (which holds a save); per log: the
+    rounded loss, grad norm and lr; per save: its wall time; the last step's
+    ``/metrics`` scrape from the trainer's exporter."""
+
+    def __init__(self, torch, TrainerCallback, trainers, scrape_at=None):
+        recorder = self
+        self.steps, self.saves, self.scrape = [], [], None
+        self.loop_t = []
+
+        class Callback(TrainerCallback):
+            def on_step_begin(self, *a, **kw):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                recorder.t0 = time.perf_counter()
+                recorder.loop_t.append(recorder.t0)
+
+            def on_step_end(self, args, state, control, **kw):
+                torch.cuda.synchronize()
+                recorder.steps.append(dict(step=state.global_step, step_s=time.perf_counter() - recorder.t0,
+                                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                           tokens=kw.get("step_tokens")))
+
+            def on_log(self, args, state, control, logs=None, **kw):
+                if logs and "grad_norm" in logs:
+                    recorder.steps[-1].update(loss=logs["loss"], grad_norm=logs["grad_norm"],
+                                              lr=logs["learning_rate"])
+                recorder.t_log = time.perf_counter()
+                if scrape_at is not None and state.global_step == scrape_at:
+                    from paddlenlp_tpu_torch.trainer.integrations import MetricsCallback
+
+                    port = next(cb.port for cb in trainers[-1].callback_handler.callbacks
+                                if isinstance(cb, MetricsCallback))
+                    recorder.scrape = dict(port=port, metrics=http_call(port, "GET", "/metrics")[1].decode(),
+                                           health=http_json(port, "GET", "/health")[1])
+
+            def on_save(self, args, state, control, **kw):
+                recorder.saves.append(dict(step=state.global_step, save_s=time.perf_counter() - recorder.t_log))
+
+            def on_train_end(self, *a, **kw):
+                torch.cuda.synchronize()
+                recorder.loop_t.append(time.perf_counter())
+
+        self.callback = Callback()
+
+    def loop_s(self):
+        """Time from each step's start to the next step's (the last: to the
+        end of training), save included."""
+        return [b - a for a, b in zip(self.loop_t, self.loop_t[1:])]
+
+
+def prom_value(text, name):
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def trace_kernels(path, names):
+    """Launches of each kernel in a ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {n: sum(1 for e in events if e.get("cat") == "kernel" and n in e.get("name", "")) for n in names}
+
+
+HOPPER_FLASH = ("flash_fwd_kernel_sm90", "flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
+
+
+def reset_counts(fa):
+    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90):
+        for name in counts:
+            counts[name] = 0
+
+
+def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder, workdir, seed):
+    """``run_pretrain.main`` on the repo's Qwen2 recipe cut to one card and 4
+    steps, at Qwen2-1.5B's published widths and full depth, with the metrics
+    exporter on an ephemeral port and a profiler window over steps 3-4."""
+    import os
+
+    from paddlenlp_tpu_torch.trainer import Trainer
     from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
 
     with open(RECIPE) as f:
         recipe = json.load(f)
     model_dir, data_dir, out_dir = (os.path.join(workdir, d) for d in ("model", "data", "out"))
+    profile_dir = os.path.join(workdir, "profile")
     os.makedirs(model_dir)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(QWEN2_1_5B, f)
@@ -2691,49 +2858,33 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
     cuts = dict(model_name_or_path=model_dir, tokenizer_name_or_path=None, input_dir=data_dir, output_dir=out_dir,
                 tensor_parallel_degree=1, sharding_parallel_degree=1, pipeline_parallel_degree=1, sharding="",
                 gradient_accumulation_steps=2, max_steps=4, warmup_steps=1, do_eval=False, save_steps=5000,
-                seed=seed)
+                metrics_port=0, profiler_options=f"batch_range=[2,4];profile_path={profile_dir}")
     reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items()
-               if k not in ("model_name_or_path", "input_dir", "output_dir", "seed") and recipe.get(k) != v}
+               if k not in ("model_name_or_path", "input_dir", "output_dir", "metrics_port", "profiler_options")
+               and recipe.get(k) != v}
     reduced["model"] = "Qwen/Qwen2-1.5B config.json (recipe: Qwen/Qwen2-7B), random weights from --seed"
     reduced["data"] = f"{corpus_tokens} tokens of a 64-token Markov chain, int32, from --seed"
-    args = {**recipe, **cuts}
-    args_path = os.path.join(workdir, "pretrain_argument.json")
-    with open(args_path, "w") as f:
-        json.dump(args, f)
+    args_path, args = pretrain_args(workdir, recipe, seed, **cuts)
 
-    steps = []
-
-    class StepRecorder(TrainerCallback):
-        def on_step_begin(self, *a, **kw):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            self.t0 = time.perf_counter()
-
-        def on_step_end(self, *a, **kw):
-            torch.cuda.synchronize()
-            steps.append(dict(step_s=time.perf_counter() - self.t0,
-                              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=kw.get("step_tokens")))
-
-        def on_log(self, args, state, control, logs=None, **kw):
-            if logs and "grad_norm" in logs:
-                steps[-1].update(loss=logs["loss"], grad_norm=logs["grad_norm"], lr=logs["learning_rate"])
-
-    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90):
-        for name in counts:
-            counts[name] = 0
+    trainers = []
+    rec = StepRecorder(torch, TrainerCallback, trainers, scrape_at=args["max_steps"])
+    reset_counts(fa)
     t0 = time.perf_counter()
-    trainer = run_pretrain.main([args_path], device=DEVICE, callbacks=[StepRecorder()])
+    with patched(Trainer, "training_step", step_spy([], trainers)):
+        trainer = run_pretrain.main([args_path], device=DEVICE, callbacks=[rec.callback])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    trainers.clear()
 
     model = trainer.model
     cfg = model.config
     accum, n_steps = args["gradient_accumulation_steps"], args["max_steps"]
     step_flops = model.get_model_flops(args["per_device_train_batch_size"] * accum, args["max_seq_length"])
-    for i, s in enumerate(steps):
-        s.update(step=i + 1, tokens_per_s=s["tokens"] / s["step_s"],
-                 mfu=step_flops / s["step_s"] / PEAK_FLOPS["bfloat16"])
+    steps = rec.steps
+    for s in steps:
+        s.update(tokens_per_s=s["tokens"] / s["step_s"], mfu=step_flops / s["step_s"] / PEAK_FLOPS["bfloat16"],
+                 profiled=s["step"] in (3, 4))
         emit(dict(phase="train_step", **s))
     losses = [s.get("loss", float("nan")) for s in steps]
     check(len(steps) == n_steps, f"train: {len(steps)} of {n_steps} steps ran")
@@ -2743,6 +2894,32 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
     check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run},
           f"train: flash launches {launches}, want {per_run} of each (28 a micro-step)")
     check(sm90 == launches, f"train: Hopper-route launches {sm90}, want all {launches}")
+    steady = steps[1:] or steps
+    mfu_steady = step_flops * len(steady) / sum(s["step_s"] for s in steady) / PEAK_FLOPS["bfloat16"]
+
+    # the metrics plane, scraped over HTTP after the last step
+    scrape = rec.scrape
+    check(scrape is not None, "train: no /metrics scrape")
+    metrics = {n: prom_value(scrape["metrics"], n) for n in
+               ("train_steps_total", "train_tokens_total", "train_mfu", "train_loss", "ckpt_last_commit_age_seconds")}
+    want_tokens = sum(s["tokens"] for s in steps)
+    check(metrics["train_steps_total"] == n_steps, f"train: /metrics train_steps_total {metrics['train_steps_total']}")
+    check(metrics["train_tokens_total"] == want_tokens,
+          f"train: /metrics train_tokens_total {metrics['train_tokens_total']}, want {want_tokens}")
+    # the gauge holds the last step's MFU; the profiler window slows steps 3-4
+    # (15-36% on an H100), so it is held to the phase's own MFU of that step
+    last_mfu = steps[-1]["mfu"]
+    check(abs(metrics["train_mfu"] - last_mfu) <= 0.1 * last_mfu,
+          f"train: /metrics train_mfu {metrics['train_mfu']} not within 10% of step {n_steps}'s MFU {last_mfu} "
+          f"(steady MFU {mfu_steady})")
+
+    # the profiler window: a Chrome trace holding the three Hopper flash kernels, and the span files
+    profile = dict(files=sorted(os.listdir(profile_dir)),
+                   kernels=trace_kernels(os.path.join(profile_dir, "trace.json"), HOPPER_FLASH),
+                   trace_bytes=os.path.getsize(os.path.join(profile_dir, "trace.json")))
+    check({"trace.json", "span_timeline.json", "spans.jsonl"} <= set(profile["files"]),
+          f"train: profile files {profile['files']}")
+    check(all(n > 0 for n in profile["kernels"].values()), f"train: the profile window lacks {profile['kernels']}")
 
     # the checkpoint save_model wrote loads back bit for bit
     t_load = time.perf_counter()
@@ -2754,18 +2931,276 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
     files = sorted(f for f in os.listdir(out_dir) if f.endswith(".safetensors"))
     del saved, loaded, trained
     torch.cuda.empty_cache()
-    steady = steps[1:] or steps
     res = dict(phase="train", entry="paddlenlp_tpu_torch.llm.run_pretrain.main", recipe=RECIPE, reduced=reduced,
                params=model.num_parameters(), layers=cfg.num_hidden_layers, micro_batch=[2, args["max_seq_length"]],
                accum=accum, steps=n_steps, wall_s=wall, losses=losses, grad_norms=[s.get("grad_norm") for s in steps],
                step_s_steady=sum(s["step_s"] for s in steady) / len(steady),
                tokens_per_s_steady=sum(s["tokens"] for s in steady) / sum(s["step_s"] for s in steady),
-               mfu_steady=step_flops * len(steady) / sum(s["step_s"] for s in steady) / PEAK_FLOPS["bfloat16"],
+               mfu_steady=mfu_steady,
                mfu_flops="get_model_flops(4, 4096) a step (6 N tokens + attention) over 989 TFLOP/s",
                peak_mem_gb=max(s["peak_mem_gb"] for s in steps), kernel_launches=launches, sm90_launches=sm90,
+               metrics=metrics, health=scrape["health"], profile=profile,
                checkpoint=dict(files=files, load_check_s=time.perf_counter() - t_load, bitwise=True))
     emit(res)
+    return trainer, res, dict(recipe=recipe, cuts=cuts)
+
+
+# The smoke run budgets at most 45 GiB of writes to local disk (deleted files
+# count). Three checkpoints and two final saves of Qwen2-1.5B
+# with fp32 AdamW state write 67.9 GB (12 bytes a parameter a checkpoint, 4
+# a final save), so the resume pair runs at this depth: 44 bytes a parameter
+# over 794,949,120 parameters, 35.0 GB, beside the train run's 6.2 GB.
+RESUME_LAYERS = 12
+
+
+def phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalLM, workdir, seed, base):
+    """The recipe's checkpointing (``save_steps`` 2, ``save_total_limit`` 2)
+    through ``run_pretrain.main`` at Qwen2-1.5B widths and ``RESUME_LAYERS``
+    layers: a straight 4-step run saves committed checkpoint-2 and -4; a
+    second run resumes checkpoint-2 into a fresh output directory from a
+    model built with another seed and saves checkpoint-4 asynchronously. Its
+    steps 3-4 and final fp32 parameters equal the straight run's bit for bit,
+    and its checkpoint-4's model and optimizer files hash as the sync one's."""
+    import gc
+    import os
+    import shutil
+
+    from paddlenlp_tpu_torch.trainer import Trainer
+    from paddlenlp_tpu_torch.trainer import unified_checkpoint as uc
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    free_bytes = shutil.disk_usage(workdir).free
+    emit(dict(phase="train_resume_disk", workdir_free_bytes=free_bytes))
+    straight_dir, resumed_dir = (os.path.join(workdir, d) for d in ("out_ckpt", "out_resume"))
+    cuts = dict(base["cuts"], num_hidden_layers=RESUME_LAYERS, save_steps=2, metrics_port=None,
+                profiler_options=None)
+
+    # the straight run: checkpoints at save_steps
+    exact, trainers = [], []
+    rec = StepRecorder(torch, TrainerCallback, trainers)
+    path, args = pretrain_args(workdir, base["recipe"], seed, **dict(cuts, output_dir=straight_dir))
+    reset_counts(fa)
+    with patched(Trainer, "training_step", step_spy(exact, trainers)):
+        trainer = run_pretrain.main([path], device=DEVICE, callbacks=[rec.callback])
+    torch.cuda.synchronize()
+    launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    trainers.clear()
+    n_params = trainer.model.num_parameters()
+    final = {k: t.detach().cpu() for k, t in flatten_params(trainer.model.params).items()}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved_at = {s["step"]: s["save_s"] for s in rec.saves}
+    loop = rec.loop_s()
+    ckpts = {}
+    for step in (2, 4):
+        r = checkpoint_report(os.path.join(straight_dir, f"checkpoint-{step}"), uc.validate_checkpoint)
+        r.update(save_s=saved_at.get(step), save_gb_per_s=r["bytes"] / saved_at[step] / 1e9)
+        ckpts[step] = r
+        emit(dict(phase="train_checkpoint", **{k: v for k, v in r.items() if k != "sha256"}))
+        check(r["validate"] is None, f"train_resume: checkpoint-{step} does not validate: {r['validate']}")
+    check(sorted(d for d in os.listdir(straight_dir) if d.startswith("checkpoint")) == ["checkpoint-2", "checkpoint-4"],
+          f"train_resume: checkpoints under the output dir: {os.listdir(straight_dir)}")
+    sync_ckpt4 = payload_hashes(ckpts[4])
+    # at most two checkpoints on disk at once: the sync checkpoint-4's hashes are kept
+    shutil.rmtree(os.path.join(straight_dir, "checkpoint-4"))
+
+    # the resumed run, from other weights
+    resumed_exact, timings = [], {}
+    resumed_rec = StepRecorder(torch, TrainerCallback, trainers)
+    path, args = pretrain_args(workdir, base["recipe"], seed, **dict(
+        cuts, output_dir=resumed_dir, async_save=True,
+        resume_from_checkpoint=os.path.join(straight_dir, "checkpoint-2")))
+
+    def timed(key):
+        def make(original):
+            def fn(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return original(*a, **kw)
+                finally:
+                    timings[key] = time.perf_counter() - t0
+            return fn
+        return make
+
+    def other_seed(original):
+        return lambda config, seed=0, **kw: original(config, seed=seed + 1, **kw)
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(resumed_exact, trainers)), \
+            patched(Trainer, "_load_checkpoint", timed("load_s")), \
+            patched(Trainer, "_save_checkpoint", timed("save_stall_s")), \
+            patched(uc, "_writer_main", timed("writer_s")), \
+            patched(Qwen2ForCausalLM, "init_random", other_seed):
+        trainer = run_pretrain.main([path], device=DEVICE, callbacks=[resumed_rec.callback])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for n in launches:
+        launches[n] += fa.LAUNCHES[n]
+        sm90[n] += fa.LAUNCHES_SM90[n]
+    trainers.clear()
+
+    got = flatten_params(trainer.model.params)
+    unequal = [k for k, t in got.items() if not torch.equal(t.detach().cpu(), final[k])]
+    ckpt = checkpoint_report(os.path.join(resumed_dir, "checkpoint-4"), uc.validate_checkpoint)
+    load_bytes = sum(ckpts[2]["files"].values())
+    res = dict(phase="train_resume", entry="paddlenlp_tpu_torch.llm.run_pretrain.main",
+               config=f"Qwen/Qwen2-1.5B widths, {RESUME_LAYERS} of 28 layers", params=n_params,
+               reduced=dict(num_hidden_layers=dict(published=28, run=RESUME_LAYERS),
+                            save_steps=dict(recipe=base["recipe"]["save_steps"], run=2)),
+               workdir_free_bytes=free_bytes, checkpoint_bytes_by_shape=dict(model_fp32=4 * n_params,
+                                                                             adamw_moments=8 * n_params),
+               straight=dict(exact_loss_grad_norm=exact, step_s=[s["step_s"] for s in rec.steps], loop_s=loop,
+                             saves={k: dict(bytes=r["bytes"], save_s=r["save_s"], save_gb_per_s=r["save_gb_per_s"],
+                                            validate_hash_s=r["validate_hash_s"],
+                                            validate_gb_per_s=r["validate_gb_per_s"]) for k, r in ckpts.items()},
+                             saving_vs_plain_step_s=dict(
+                                 saving=[loop[i] for i, s in enumerate(rec.steps) if s["step"] in saved_at],
+                                 plain=[loop[i] for i, s in enumerate(rec.steps) if s["step"] not in saved_at])),
+               resumed=dict(model_seed=seed + 1, wall_s=wall, steps=[s["step"] for s in resumed_rec.steps],
+                            exact_loss_grad_norm=resumed_exact, load_s=timings.get("load_s"), load_bytes=load_bytes,
+                            load_gb_per_s=load_bytes / timings["load_s"] / 1e9,
+                            async_save=dict(loop_stall_s=timings.get("save_stall_s"), writer_s=timings.get("writer_s"),
+                                            bytes=ckpt["bytes"],
+                                            writer_gb_per_s=ckpt["bytes"] / timings["writer_s"] / 1e9,
+                                            validate=ckpt["validate"], validate_hash_s=ckpt["validate_hash_s"])),
+               params_bitwise=not unequal, unequal_leaves=unequal[:8], async_equals_sync=payload_hashes(ckpt) == sync_ckpt4,
+               kernel_launches=launches, sm90_launches=sm90)
+    emit(res)
+    per_run = RESUME_LAYERS * args["gradient_accumulation_steps"] * (4 + 2)
+    check(len(exact) == 4 and resumed_exact == exact[2:],
+          f"train_resume: resumed steps 3-4 {resumed_exact} != the straight run's {exact[2:]}")
+    check(not unequal, f"train_resume: final parameters differ from the straight run's in {unequal[:8]}")
+    check(ckpt["validate"] is None, f"train_resume: async checkpoint-4 does not validate: {ckpt['validate']}")
+    check(payload_hashes(ckpt) == sync_ckpt4,
+          f"train_resume: async checkpoint-4 files {payload_hashes(ckpt)} != sync {sync_ckpt4}")
+    check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run} and sm90 == launches,
+          f"train_resume: flash launches {launches}, Hopper route {sm90}, want {per_run} of each")
     return trainer, res
+
+
+def grad_max_recorder(torch, step, out):
+    """An optimizer ``step`` that first appends to ``out`` each gradient
+    leaf's largest magnitude along its first axis (a layer of a stacked
+    leaf, a row of the embedding), on the host."""
+    def recording_step(params, grads, grad_norm):
+        out.append(torch.cat([g.detach().abs().reshape(len(g), -1).amax(1) for g in grads.values()]).cpu())
+        return step(params, grads, grad_norm)
+    return recording_step
+
+
+def phase_train_recompute(torch, fa, Qwen2Config, Qwen2ForCausalLM, Trainer, TrainingArguments, batch, workdir,
+                          seed):
+    """One optimizer step (the recipe's micro-batch 2 x 4096, 2 micro-batches)
+    under each of the 8 recompute granularities at Qwen2-1.5B's full depth,
+    from the same random weights: the loss, the gradients' global norm and
+    each gradient leaf's largest magnitude a layer bit for bit equal."""
+    import gc
+
+    from paddlenlp_tpu_torch.transformers.llama.modeling import RECOMPUTE_GRANULARITIES
+
+    with open(RECIPE) as f:
+        recipe = json.load(f)
+    runs, leaf_maxes = [], []  # leaf_maxes: one row of grad_max_recorder's a granularity
+    reset_counts(fa)
+    for granularity in RECOMPUTE_GRANULARITIES:
+        cfg = Qwen2Config(**{**QWEN2_1_5B, "recompute": True, "recompute_granularity": granularity})
+        model = Qwen2ForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+        model.compute_dtype = torch.bfloat16
+        args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=2, gradient_accumulation_steps=2,
+                                 learning_rate=recipe["learning_rate"], weight_decay=recipe["weight_decay"],
+                                 max_grad_norm=recipe["max_grad_norm"], warmup_steps=1, max_steps=1,
+                                 save_strategy="no", seed=seed)
+        trainer = Trainer(model=model, args=args)
+        trainer.create_optimizer_and_scheduler(1)
+        trainer.optimizer.step = grad_max_recorder(torch, trainer.optimizer.step, leaf_maxes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, before90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+        t0 = time.perf_counter()
+        out = trainer.training_step(batch)
+        torch.cuda.synchronize()
+        runs.append(dict(granularity=granularity, step_s=time.perf_counter() - t0,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, loss=out["loss"].item(),
+                         grad_norm=out["grad_norm"].item(),
+                         flash_launches={n: fa.LAUNCHES[n] - before[n] for n in before},
+                         sm90_launches={n: fa.LAUNCHES_SM90[n] - before90[n] for n in before90}))
+        del trainer.optimizer.step  # the recorder holds the optimizer, and its moments, alive
+        del trainer, model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = {r["loss"] for r in runs}
+    grad_norms = {r["grad_norm"] for r in runs}
+    # what the backward saves or recomputes cannot move the loss, a forward
+    # value; it reaches the gradients, held here by their global norm and
+    # each leaf's largest magnitude a layer
+    leaves_unequal = [r["granularity"] for r, m in zip(runs, leaf_maxes) if not torch.equal(m, leaf_maxes[0])]
+    res = dict(phase="train_recompute", config="Qwen/Qwen2-1.5B, full depth, bf16 compute over fp32 masters",
+               step="1 optimizer step: 2 micro-batches of 2 x 4096", runs=runs, losses_equal=len(losses) == 1,
+               grad_norms_equal=len(grad_norms) == 1, grad_leaf_max_abs_unequal=leaves_unequal,
+               kernel_launches=dict(fa.LAUNCHES), sm90_launches=dict(fa.LAUNCHES_SM90))
+    emit(res)
+    check(len(losses) == 1, f"train_recompute: losses differ across granularities: {[r['loss'] for r in runs]}")
+    check(len(grad_norms) == 1,
+          f"train_recompute: grad norms differ across granularities: {[r['grad_norm'] for r in runs]}")
+    check(not leaves_unequal, f"train_recompute: a leaf's largest |gradient| a layer differs from the full "
+                              f"granularity's under {leaves_unequal}")
+    check(all(r["sm90_launches"] == r["flash_launches"] for r in runs),
+          "train_recompute: a flash launch left the Hopper route")
+    return res
+
+
+FUSED_CE_TOKENS = (2, 4096)  # the recipe's micro-batch
+
+
+def phase_fused_ce(torch, seed):
+    """``fused_linear_cross_entropy`` against ``causal_lm_loss`` on the full
+    logits, at the training step's head: hidden [2, 4096, 1536] bf16 against
+    the tied 1536 x 151936 head (fp32 master, bf16 product). The loss and both
+    gradients within the bf16 gate; the peak allocated bytes of each."""
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss, fused_linear_cross_entropy
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    (B, T), D, V = FUSED_CE_TOKENS, QWEN2_1_5B["hidden_size"], QWEN2_1_5B["vocab_size"]
+    hidden0 = torch.randn(B, T, D, generator=g, device=DEVICE).to(torch.bfloat16)
+    weight0 = torch.randn(D, V, generator=g, device=DEVICE) * 0.02
+    labels = torch.randint(0, V, (B, T), generator=g, device=DEVICE)
+    labels[0, :100] = -100
+    out = {}
+    for name in ("full_logits", "fused"):
+        hidden, weight = hidden0.clone().requires_grad_(True), weight0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "fused":
+            loss = fused_linear_cross_entropy(hidden, weight, labels)[0]
+        else:
+            loss = causal_lm_loss(hidden @ weight.to(hidden.dtype), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = dict(loss=loss.item(), dhidden=hidden.grad, dweight=weight.grad, s=time.perf_counter() - t0,
+                         peak_bytes_over_inputs=torch.cuda.max_memory_allocated() - base)
+        del loss, hidden, weight
+    want, got = out["full_logits"], out["fused"]
+    errors = {}
+    for key in ("dhidden", "dweight"):
+        w, x = want[key].float(), got[key].float()
+        bound = 2**-7 * w.abs() + 1e-3 * w.abs().max()
+        errors[key] = dict(max_abs_err=(x - w).abs().max().item(), worst=((x - w).abs() / bound).max().item())
+    loss_worst = abs(got["loss"] - want["loss"]) / (2**-7 * abs(want["loss"]) + 1e-3)
+    res = dict(phase="fused_ce", hidden=[B, T, D], head=[D, V], chunk=512,
+               loss=dict(full_logits=want["loss"], fused=got["loss"], worst=loss_worst), grads=errors,
+               peak_bytes_over_inputs={k: v["peak_bytes_over_inputs"] for k, v in out.items()},
+               wall_s={k: v["s"] for k, v in out.items()},
+               gate="|got - want| <= 2**-7 |want| + 1e-3 (x the largest |want| for gradients)")
+    emit(res)
+    del out, want, got
+    torch.cuda.empty_cache()
+    check(loss_worst <= 1 and all(e["worst"] <= 1 for e in errors.values()),
+          f"fused_ce: outside the bf16 gate: loss {loss_worst}, grads {errors}")
+    return res
 
 
 def phase_train_profile(torch, trainer):
@@ -2808,6 +3243,36 @@ def phase_train_profile(torch, trainer):
     return res
 
 
+def run_training_phases(torch, np, fa, seed):
+    """The run_pretrain phases in order: ``train`` and ``train_profile``,
+    ``train_resume``, ``train_recompute`` and ``fused_ce``. Returns the
+    results of ``train``, ``train_resume`` and ``train_recompute``, whose
+    flash launches the kernels line counts."""
+    from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
+    from paddlenlp_tpu_torch.llm import run_pretrain
+    from paddlenlp_tpu_torch.trainer import Trainer, TrainerCallback, TrainingArguments
+    from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        trainer, train, base = phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder,
+                                           workdir, seed)
+        batch = next(iter(trainer.get_train_dataloader()))
+        phase_train_profile(torch, trainer)
+        # two 1.5B trainers with fp32 moments do not fit beside the activations
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, resume = phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalLM, workdir,
+                                             seed, base)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        recompute = phase_train_recompute(torch, fa, Qwen2Config, Qwen2ForCausalLM, Trainer, TrainingArguments,
+                                          batch, workdir, seed)
+    phase_fused_ce(torch, seed)
+    return train, resume, recompute
+
+
 # ----------------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2826,10 +3291,8 @@ def main(argv=None) -> int:
         return 2
     try:
         from paddlenlp_tpu_torch import serving
-        from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
         from paddlenlp_tpu_torch.experimental import InferenceEngine, PagedInferenceModel, SamplingParams
         from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool, quantize_kv
-        from paddlenlp_tpu_torch.llm import run_pretrain
         from paddlenlp_tpu_torch.ops import _build
         from paddlenlp_tpu_torch.ops import flash_attention as fa
         from paddlenlp_tpu_torch.ops import paged_attention as pa
@@ -2837,7 +3300,6 @@ def main(argv=None) -> int:
         from paddlenlp_tpu_torch.peft import LoRAConfig, LoRAModel
         from paddlenlp_tpu_torch import quantization
         from paddlenlp_tpu_torch.serving import tenancy
-        from paddlenlp_tpu_torch.trainer import TrainerCallback
         from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
         from paddlenlp_tpu_torch.transformers.llama import modeling
     except ImportError as e:
@@ -2895,12 +3357,7 @@ def main(argv=None) -> int:
     # ---- training: run_pretrain at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
     grad = phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        trainer, train = phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder,
-                                     workdir, args.seed)
-        phase_train_profile(torch, trainer)
-    del trainer
-    torch.cuda.empty_cache()
+    train, resume, recompute = run_training_phases(torch, np, fa, args.seed)
 
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
     # the decode call, the launch the engine makes most), the SIMT kernel
@@ -2949,9 +3406,9 @@ def main(argv=None) -> int:
         checks.append(info)
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
     # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
-    # train run's on each route, and for the forward the spec phase's draft
-    # forwards too: the main path never takes the SIMT kernels, which the
-    # fp32 train_grad step checks
+    # train, train_resume and train_recompute runs' on each route, and for the
+    # forward the spec phase's draft forwards too: the main path never takes
+    # the SIMT kernels, which the fp32 train_grad step checks
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
@@ -2961,8 +3418,9 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["route"] == route]
-        sm90 = train["sm90_launches"].get(what, 0)
-        launches = sm90 if route == "sm90" else train["kernel_launches"][what] - sm90
+        runs = (train, resume, recompute)
+        sm90 = sum(r["sm90_launches"][what] for r in runs)
+        launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
             draft90 = spec["launches"]["flash_fwd_sm90"]
             launches += draft90 if route == "sm90" else spec["launches"]["flash_fwd"] - draft90
@@ -2978,7 +3436,10 @@ def main(argv=None) -> int:
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
         checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
-                           launched_by="train, spec (draft)" if what == "fwd" else "train",
+                           launched_by="train, train_resume, train_recompute" + (", spec (draft)" if what == "fwd"
+                                                                                  else ""),
+                           train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
+                           recompute_launches=recompute["sm90_launches"][what],
                            check_launches=check_launches,
                            worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))

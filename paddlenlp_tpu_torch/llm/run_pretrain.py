@@ -1,8 +1,12 @@
 """Causal-LM pretraining entry point.
 
 Port of ``llm/run_pretrain.py``: JSON/CLI config -> model config ->
-``LlmMetaConfig`` bridge -> model -> mmap GPT dataset -> ``Trainer`` ->
-``save_model``. Launch on the card with
+``LlmMetaConfig`` bridge -> model -> mmap GPT dataset -> ``Trainer`` (unified
+checkpoints at ``save_steps``) -> ``save_model``. ``resume_from_checkpoint``
+(a checkpoint directory, or ``true`` for the newest committed one under
+``output_dir``; without it, the newest ``checkpoint-*`` under ``output_dir``
+unless ``overwrite_output_dir``) resumes the run (JAX :118-122). Launch on
+the card with
 
     python -m paddlenlp_tpu_torch.llm.run_pretrain args.json
 

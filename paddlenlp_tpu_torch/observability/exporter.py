@@ -1,8 +1,8 @@
-"""Shared HTTP observability routes and the on-demand device profile.
+"""Shared HTTP observability routes, the on-demand device profile, and the
+background HTTP plane of a training job.
 
-A copy of ``paddlenlp_tpu/observability/exporter.py`` minus its training-side
-``ObservabilityExporter`` (the trainer's metrics plane, ROADMAP Queue 1 item
-15). What the serving API mounts:
+Port of ``paddlenlp_tpu/observability/exporter.py``. What the serving API
+mounts:
 
     GET  /metrics        Prometheus text exposition (shared MetricsRegistry)
     GET  /debug/trace    span ring buffer as Chrome trace-event JSON (Perfetto)
@@ -18,6 +18,14 @@ step boundary (``TorchProfiler(run_on=loop.run_on_loop)``): the trace holds
 the loop's ops and kernels, and the profiler is never stopped while the
 thread it records is inside an op. An HTTP thread waits out the window and
 writes ``trace.json`` (Chrome trace) into the capture directory.
+
+:class:`ObservabilityExporter` is the plane of a process without an HTTP
+server, a training job (``TrainingArguments.metrics_port``): the routes above
+but the profile, plus ``GET /health``, ``GET /debug/efficiency`` and
+``POST /debug/postmortem``, on a daemon thread. A training job's profile is
+the ``profiler_options`` step window, started and stopped on the training
+thread (``utils/profiler.py``): the training loop has no hook an HTTP thread
+could run a capture on.
 """
 
 from __future__ import annotations
@@ -27,13 +35,14 @@ import os
 import tempfile
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 from urllib.parse import parse_qs, urlsplit
 
 from ..utils.log import logger
-from .tracer import SpanTracer
+from .tracer import TRACER, SpanTracer
 
-__all__ = ["route_observability", "ProfileCapture", "ProfileInProgressError",
+__all__ = ["ObservabilityExporter", "route_observability", "ProfileCapture", "ProfileInProgressError",
            "PROFILE_CAPTURE", "handle_profile_request", "TorchProfiler"]
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -220,3 +229,129 @@ def handle_profile_request(path: str, capture: ProfileCapture = PROFILE_CAPTURE,
         return (500, "application/json",
                 json.dumps({"error": repr(e), "type": "profile_failed"}).encode())
     return 200, "application/json", json.dumps(result).encode()
+
+
+class ObservabilityExporter:
+    """Serve ``/metrics`` + ``/health`` + ``/debug/*`` off a daemon thread."""
+
+    def __init__(self, registry=None, tracer: Optional[SpanTracer] = None,
+                 health_fn: Optional[Callable[[], Dict]] = None, postmortem=None,
+                 efficiency_fn: Optional[Callable[[], Dict]] = None):
+        if registry is None:
+            from ..serving.metrics import REGISTRY as registry  # stdlib-only module
+        self.registry = registry
+        self.efficiency_fn = efficiency_fn
+        # explicit None check: SpanTracer defines __len__, so an EMPTY tracer
+        # passed here is falsy and `tracer or TRACER` would silently serve
+        # the process-wide ring instead of the caller's
+        self.tracer = tracer if tracer is not None else TRACER
+        self.health_fn = health_fn
+        if postmortem is None:
+            from .postmortem import PostmortemDumper  # avoid import cycle at module load
+
+            postmortem = PostmortemDumper(registry=self.registry, tracer=self.tracer,
+                                          health_fn=health_fn, tier="training")
+        self.postmortem = postmortem
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> Optional[int]:
+        return self._httpd.server_address[1] if self._httpd is not None else None
+
+    def efficiency(self) -> Dict:
+        """``GET /debug/efficiency`` for this plane: the caller-provided doc,
+        else a training-tier default carrying the process compile counters
+        (0 here: eager PyTorch compiles nothing) — every plane answers the
+        route, even ones without a goodput ledger."""
+        if self.efficiency_fn is not None:
+            return self.efficiency_fn()
+        doc: Dict = {"tier": "training", "ledger": None}
+        for key, name in (("compiles", "jax_jit_compile_total"),
+                          ("compile_seconds", "jax_jit_compile_seconds_total")):
+            metric = self.registry.get(name)
+            if metric is not None:
+                doc[key] = metric.value()
+        return doc
+
+    def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Bind + serve in the background; returns the bound port."""
+        if self._httpd is not None:
+            return self.port
+        exporter = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                logger.debug("observability: " + fmt % args)
+
+            def _send(self, code: int, body: bytes, ctype: str):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _fail(self, e: Exception):
+                logger.warning(f"observability: error on {self.path}: {e!r}")
+                try:
+                    self._send(500, json.dumps({"error": str(e)}).encode(), "application/json")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+
+            def do_GET(self):
+                try:
+                    routed = route_observability(self.path, exporter.registry, exporter.tracer)
+                    if routed is not None:
+                        self._send(routed[0], routed[2], routed[1])
+                    elif self.path == "/health":
+                        payload = {"status": "ok"}
+                        if exporter.health_fn is not None:
+                            payload.update(exporter.health_fn())
+                        self._send(200, json.dumps(payload, default=str).encode(), "application/json")
+                    elif self.path == "/debug/efficiency":
+                        self._send(200, json.dumps(exporter.efficiency(), default=str).encode(),
+                                   "application/json")
+                    else:
+                        self._send(404, json.dumps({"error": f"no route {self.path}"}).encode(),
+                                   "application/json")
+                except (BrokenPipeError, ConnectionResetError):
+                    logger.debug("observability: client disconnected")
+                except Exception as e:  # exporter must never take the job down
+                    self._fail(e)
+
+            def do_POST(self):
+                try:
+                    # drain any request body before responding: leftover bytes
+                    # would desync the next request on a keep-alive connection
+                    n = int(self.headers.get("Content-Length") or 0)
+                    if n:
+                        self.rfile.read(n)
+                    from .postmortem import handle_postmortem_request
+
+                    routed = handle_postmortem_request(self.path, exporter.postmortem)
+                    if routed is not None:
+                        self._send(routed[0], routed[2], routed[1])
+                    else:
+                        self._send(404, json.dumps({"error": f"no route {self.path}"}).encode(),
+                                   "application/json")
+                except (BrokenPipeError, ConnectionResetError):
+                    logger.debug("observability: client disconnected")
+                except Exception as e:
+                    self._fail(e)
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True, name="observability-http")
+        self._thread.start()
+        bound = self._httpd.server_address[1]
+        logger.info(f"observability exporter on {host}:{bound} (GET /metrics /health /debug/trace)")
+        return bound
+
+    def shutdown(self):
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+            self._thread = None

@@ -37,9 +37,9 @@ On top of the token ledger:
   ``/debug/efficiency``;
 - **launch-geometry cardinality** — the distinct padded launch shapes seen;
 - **serving FLOPs estimation** — ``estimate_model_flops_per_token`` (2 *
-  params, from config arithmetic) and a per-device peak-FLOPs table keyed on
-  the CUDA device name, so the MFU reads real on an H100 and NaN elsewhere (a
-  CPU run must not report a fake MFU).
+  params, from config arithmetic) and the per-device peak FLOPs keyed on the
+  CUDA device name (``utils/env.py``), so the MFU reads real on an H100 and
+  NaN elsewhere (a CPU run must not report a fake MFU).
 
 PyTorch port of ``paddlenlp_tpu/observability/goodput.py``. PyTorch runs
 eagerly and compiles nothing, so the JAX package's ``jax.monitoring`` compile
@@ -51,6 +51,8 @@ from __future__ import annotations
 import math
 import time
 from typing import Dict, Optional, Tuple
+
+from ..utils.env import device_peak_flops
 
 __all__ = [
     "GoodputLedger",
@@ -239,30 +241,6 @@ def estimate_model_flops_per_token(config) -> float:
     mlp = 3 * h * inter
     params = vocab * h * 2 + layers * (attn + mlp)
     return 2.0 * params
-
-
-#: per-device peak dense FLOPs (bf16) by CUDA device-name substring (matched
-#: case-insensitively; NVIDIA's data sheet, SXM part, dense). Off-table
-#: devices read NaN: an unknown denominator must not fake an MFU.
-_PEAK_FLOPS_BY_KIND = (
-    ("h100", 989e12),
-)
-
-
-def device_peak_flops(device_kind: Optional[str] = None) -> float:
-    """Peak per-device FLOPs for the current (or named) CUDA device; NaN when
-    unknown or when there is no CUDA device."""
-    if device_kind is None:
-        import torch
-
-        if not torch.cuda.is_available():
-            return float("nan")
-        device_kind = torch.cuda.get_device_name()
-    kind = str(device_kind).lower()
-    for sub, peak in _PEAK_FLOPS_BY_KIND:
-        if sub in kind:
-            return peak
-    return float("nan")
 
 
 # ---------------------------------------------------------------- doc helper

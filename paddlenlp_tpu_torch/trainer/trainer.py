@@ -1,42 +1,50 @@
 """``Trainer`` — HF-style training loop on one device.
 
 Port of ``paddlenlp_tpu/trainer/trainer.py``: the optimizer (:125-170), the
-train step (:346-377), the loop (:557-736), ``evaluate`` (:786, loss only)
-and ``save_model`` (:944). Where the JAX trainer jits one step over a sharded
-mesh, this one runs eagerly on the device that holds the model's parameters
-(``model.device``: the card, unless the model was built with
-``device="cpu"``), with explicit generators for every random draw.
+train step (:346-377), the loop (:557-736) with its resume, data skip,
+``skip_data_intervals``, profiler window and checkpoint saves, ``evaluate``
+and ``predict`` (:786-914), and the checkpoint plumbing (:916-972). Where the
+JAX trainer jits one step over a sharded mesh, this one runs eagerly on the
+device that holds the model's parameters (``model.device``: the card, unless
+the model was built with ``device="cpu"``), with explicit generators for every
+random draw.
 
-The optimizer is optax's, not torch's defaults: ``clip_by_global_norm``
-scales by ``max_norm / g_norm`` only when ``g_norm >= max_norm``; AdamW keeps
-``eps`` outside the square root, decays every leaf except biases, norms and
-scales (:138-148), and update k (counting from 0) takes ``schedule(k)``.
-Gradient accumulation sums the micro-batch grads and divides by their count;
-the reported loss is the mean of the micro losses and ``grad_norm`` the global
+The optimizer is ``ops.optimizer.AdamW``, with optax's semantics. Gradient
+accumulation sums the micro-batch grads and divides by their count; the
+reported loss is the mean of the micro losses and ``grad_norm`` the global
 norm before clipping.
 
+Checkpoints (``save_steps``, ``resume_from_checkpoint``) are the JAX
+package's unified checkpoints, file for file (``unified_checkpoint.py``). A
+resumed run restores the parameters and the optimizer's moments and count in
+place, skips the batches the checkpoint's step consumed, and continues bit
+for bit as the run that saved it would have.
+
 What the JAX trainer does and this one does not yet raises
-``NotImplementedError`` naming the ROADMAP item (``TrainingArguments.check_supported``
-and below): checkpoint save at ``save_steps`` and resume, ``report_to`` and the
-metrics callback, the profiler, ``predict``, PEFT masks,
-``skip_data_intervals``, dropout.
+``NotImplementedError`` naming the ROADMAP item: the parallel degrees
+(``TrainingArguments.check_supported``), PEFT masks and dropout.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..observability.tracer import TRACER
 from ..ops.cross_entropy import causal_lm_loss
+from ..ops.optimizer import AdamW, global_norm
 from ..transformers.conversion_utils import flatten_params
 from ..utils.log import logger
+from .integrations import MetricsCallback, get_reporting_callbacks
 from .trainer_callback import CallbackHandler, DefaultFlowCallback, ProgressCallback, TrainerControl, TrainerState
 from .timer import Timers
-from .trainer_utils import IntervalStrategy, TrainOutput, get_scheduler, has_length, set_seed, speed_metrics
+from .trainer_utils import (PREFIX_CHECKPOINT_DIR, EvalPrediction, IntervalStrategy, PredictionOutput, TrainOutput,
+                            get_scheduler, has_length, set_seed, speed_metrics)
 from .training_args import TrainingArguments
 
 __all__ = ["AdamW", "Trainer"]
@@ -44,56 +52,6 @@ __all__ = ["AdamW", "Trainer"]
 DEFAULT_CALLBACKS = [DefaultFlowCallback, ProgressCallback]
 
 _TRAINING_LEFT = "ROADMAP Queue 1 item 15"
-
-
-def _decays(name: str) -> bool:
-    """The JAX trainer's weight-decay mask (:138-148)."""
-    return not (name.endswith("bias") or "norm" in name.lower() or name.endswith("scale"))
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32 (``optax.global_norm``)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
-
-
-class AdamW:
-    """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule, b1, b2,
-    eps, weight_decay, mask))`` over a flat ``{name: tensor}`` dict, updated in
-    place. The moments live beside the parameters, in fp32. ``decays(name)``
-    is the weight-decay mask (default: the JAX trainer's)."""
-
-    def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0, max_grad_norm: float = 0.0,
-                 decays: Callable[[str], bool] = _decays):
-        self.schedule = schedule
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.weight_decay = weight_decay
-        self.decays = decays
-        self.max_grad_norm = max_grad_norm
-        self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        self.count = 0  # updates applied so far (optax's shared step count)
-
-    @torch.no_grad()
-    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             g_norm: Optional[torch.Tensor] = None):
-        if self.max_grad_norm and self.max_grad_norm > 0:
-            g_norm = global_norm(grads.values()) if g_norm is None else g_norm
-            keep = g_norm < self.max_grad_norm
-            grads = {k: torch.where(keep, g, g / g_norm * self.max_grad_norm) for k, g in grads.items()}
-        lr = float(self.schedule(self.count))
-        self.count += 1
-        bc1 = 1.0 - self.b1**self.count
-        bc2 = 1.0 - self.b2**self.count
-        for k, p in params.items():
-            g = grads[k].float()
-            mu, nu = self.mu[k], self.nu[k]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).add_(g.square(), alpha=1.0 - self.b2)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay > 0 and self.decays(k):
-                update = update + self.weight_decay * p
-            p.add_(update.to(p.dtype), alpha=-lr)
 
 
 class Trainer:
@@ -114,8 +72,6 @@ class Trainer:
         if args is None:
             args = TrainingArguments(output_dir="tmp_trainer")
         args.check_supported()
-        if compute_metrics is not None or preprocess_logits_for_metrics is not None:
-            raise NotImplementedError(f"compute_metrics: evaluate() reports the loss only ({_TRAINING_LEFT})")
         if hasattr(model, "trainable_mask"):
             raise NotImplementedError("PEFT trainable masks are not part of the port yet (ROADMAP Queue 1 item 14)")
         cfg = model.config
@@ -130,11 +86,17 @@ class Trainer:
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.tokenizer = tokenizer
+        self.compute_metrics = compute_metrics
+        self.preprocess_logits_for_metrics = preprocess_logits_for_metrics
         self.optimizer, self.lr_scheduler = optimizers
         self.state = TrainerState()
         self.control = TrainerControl()
         self.device = model.device
-        self.callback_handler = CallbackHandler(DEFAULT_CALLBACKS + (callbacks or []), self.model, self.tokenizer)
+        self._profiler = None
+        # MetricsCallback feeds the shared metrics plane (serving.metrics.REGISTRY)
+        # on every run; its HTTP exporter only starts when args.metrics_port is set
+        callbacks = DEFAULT_CALLBACKS + [MetricsCallback] + get_reporting_callbacks(args.report_to) + (callbacks or [])
+        self.callback_handler = CallbackHandler(callbacks, self.model, self.tokenizer)
         self.timers = Timers()
         set_seed(args.seed)
         self.control = self.callback_handler.on_init_end(self.args, self.state, self.control)
@@ -222,9 +184,6 @@ class Trainer:
     # ------------------------------------------------------------------ main loop
     def train(self, resume_from_checkpoint: Optional[str] = None, **kwargs):
         args = self.args
-        if resume_from_checkpoint not in (None, False):
-            raise NotImplementedError(f"resume_from_checkpoint: unified checkpoints are not part of the port "
-                                      f"yet ({_TRAINING_LEFT})")
         train_dataloader = self.get_train_dataloader()
         if has_length(train_dataloader):
             steps_per_epoch = len(train_dataloader)
@@ -242,14 +201,30 @@ class Trainer:
                 raise ValueError("max_steps must be set for sized-less datasets")
             max_steps = steps_per_epoch = args.max_steps
             num_train_epochs = 1
-        saves = args.save_strategy == IntervalStrategy.EPOCH or (
-            args.save_strategy == IntervalStrategy.STEPS and 0 < args.save_steps <= max_steps)
-        if saves:
-            raise NotImplementedError(f"checkpoint saves during training (save_strategy={args.save_strategy.value}, "
-                                      f"save_steps={args.save_steps} <= {max_steps} steps) are not part of the port "
-                                      f"yet ({_TRAINING_LEFT}); save_model() writes the final weights")
 
         self.create_optimizer_and_scheduler(max_steps)
+
+        # ---- resume ----
+        if resume_from_checkpoint is None:
+            resume_from_checkpoint = args.resume_from_checkpoint
+        if resume_from_checkpoint is True:
+            # auto-discovery goes through the commit protocol: the newest
+            # *committed* checkpoint wins, torn dirs from a crashed save are
+            # skipped (get_last_checkpoint would happily hand one back)
+            from .unified_checkpoint import get_last_committed_checkpoint, get_last_legacy_checkpoint
+
+            resume_from_checkpoint = get_last_committed_checkpoint(args.output_dir)
+            if resume_from_checkpoint is None:
+                # no committed checkpoint: fall back to the newest MANIFEST-LESS
+                # dir (written by a pre-protocol trainer, loadable via the
+                # legacy path). Dirs whose manifest fails validation are torn
+                # saves and are never resumed from.
+                resume_from_checkpoint = get_last_legacy_checkpoint(args.output_dir)
+                if resume_from_checkpoint:
+                    logger.warning(f"resume: no committed checkpoint under {args.output_dir}; "
+                                   f"falling back to legacy (pre-commit-protocol) {resume_from_checkpoint}")
+        if resume_from_checkpoint:
+            self._load_checkpoint(resume_from_checkpoint)
         self.state.max_steps = max_steps
         self.state.num_train_epochs = num_train_epochs
         self.state.is_world_process_zero = True
@@ -269,13 +244,27 @@ class Trainer:
         last_metrics = None
         train_start = time.time()
         tokens_seen = 0
-        epoch = 0
+        epoch = self.state.global_step // max(steps_per_epoch, 1)
         while self.state.global_step < max_steps and not self.control.should_training_stop:
             self.control = self.callback_handler.on_epoch_begin(args, self.state, self.control)
+            steps_to_skip = 0
+            if self.state.global_step > 0 and not args.ignore_data_skip:
+                steps_to_skip = self.state.global_step % steps_per_epoch
             train_dataloader.set_epoch(epoch)
             self.timers("read-data").start()
             for host_batch in train_dataloader:
+                if steps_to_skip > 0:
+                    steps_to_skip -= 1
+                    continue
                 self.state.data_step += 1
+                if args.skip_data_intervals and any(
+                        lo <= self.state.data_step <= hi for lo, hi in args.skip_data_intervals):
+                    # hop over loss-spiking data regions (reference
+                    # skip_data_intervals, training_args.py:882): the interval
+                    # is in DATA steps — those batches are consumed untrained
+                    self.state.consumed_samples += args.global_train_batch_size
+                    continue
+                step_t0 = time.perf_counter()
                 self.control = self.callback_handler.on_step_begin(args, self.state, self.control)
                 self.timers("read-data").stop()
                 self.timers("forward-backward-optimizer").start()
@@ -295,7 +284,19 @@ class Trainer:
                     tokens_seen += step_tokens
                 self.control = self.callback_handler.on_step_end(args, self.state, self.control,
                                                                  step_tokens=step_tokens, seq_len=seq_len)
-                self._maybe_log_evaluate(last_metrics, train_start, tokens_seen)
+                TRACER.add_span("train_step", TRACER.epoch_time(step_t0), time.perf_counter() - step_t0,
+                                cat="trainer", trace="train", step=self.state.global_step, tokens=step_tokens)
+                if args.profiler_options:
+                    # torch.profiler over the configured step window, started
+                    # and stopped on this thread (reference add_profiler_step),
+                    # after the step's callbacks and span: starting or stopping
+                    # the window (which writes the trace) is no step's time
+                    if self._profiler is None:
+                        from ..utils.profiler import ProfilerOptions, ProfilerStepper
+
+                        self._profiler = ProfilerStepper(ProfilerOptions.parse(args.profiler_options))
+                    self._profiler.step(self.state.global_step)
+                self._maybe_log_save_evaluate(last_metrics, train_start, tokens_seen)
                 if self.control.should_training_stop or self.state.global_step >= max_steps:
                     break
                 self.timers("read-data").start()
@@ -304,7 +305,7 @@ class Trainer:
                 t_rd.stop()
             epoch += 1
             self.control = self.callback_handler.on_epoch_end(args, self.state, self.control)
-            self._maybe_log_evaluate(last_metrics, train_start, tokens_seen)
+            self._maybe_log_save_evaluate(last_metrics, train_start, tokens_seen)
             if not has_length(train_dataloader):
                 break
 
@@ -313,6 +314,16 @@ class Trainer:
                                 num_steps=self.state.global_step, num_tokens=tokens_seen,
                                 model_flops=self._total_flops(tokens_seen))
         metrics["train_loss"] = final_loss
+        if self._profiler is not None:
+            # flush an open trace even when training ended inside the window
+            self._profiler.close()
+            self._profiler = None
+        # trainer exit: a live async-save thread must land (and be reaped)
+        # before train() returns — callers may rotate, rsync, or exit the
+        # process the moment this function hands back control
+        from .unified_checkpoint import join_pending_saves
+
+        join_pending_saves(timeout=None)
         self.control = self.callback_handler.on_train_end(args, self.state, self.control)
         return TrainOutput(self.state.global_step, final_loss, metrics)
 
@@ -321,7 +332,7 @@ class Trainer:
             return self.model.get_model_flops(1, 1) * tokens_seen
         return None
 
-    def _maybe_log_evaluate(self, metrics, train_start, tokens_seen):
+    def _maybe_log_save_evaluate(self, metrics, train_start, tokens_seen):
         args = self.args
         if self.control.should_log and metrics is not None:
             interval = [float(x) for x in self._interval_losses] or [float(metrics["loss"])]
@@ -338,18 +349,72 @@ class Trainer:
             self.timers.log(["read-data", "forward-backward-optimizer"], normalizer=max(len(interval), 1))
             self.control = self.callback_handler.on_log(args, self.state, self.control, logs=logs)
         if self.control.should_evaluate:
-            metrics_out = self.evaluate()
+            with TRACER.span("evaluate", cat="trainer", trace="train", step=self.state.global_step):
+                metrics_out = self.evaluate()
             self.control = self.callback_handler.on_evaluate(args, self.state, self.control, metrics=metrics_out)
+        if self.control.should_save:
+            with TRACER.span("checkpoint", cat="trainer", trace="train", step=self.state.global_step):
+                self._save_checkpoint()
+            self.control = self.callback_handler.on_save(args, self.state, self.control)
 
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
+    def _eval_step(self, host_batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The JAX trainer's eval step (:379): logits, and the loss when the
+        batch has labels."""
+        inputs = self._to_device(host_batch)
+        labels = inputs.pop("labels", None)
+        logits = self.model.forward(**inputs)
+        if labels is None:
+            return {"logits": logits}
+        loss = self.criterion(logits, labels) if self.criterion is not None else \
+            causal_lm_loss(logits, labels, shift=True)
+        return {"loss": loss, "logits": logits}
+
+    def _host_logits(self, logits, host_batch, n_batches: int) -> np.ndarray:
+        """``preprocess_logits_for_metrics`` if given; otherwise, when holding
+        the full eval's logits would exceed ``eval_logits_host_bytes_limit`` of
+        host RAM, refuse loudly (or reduce them to argmax ids with the
+        explicit ``eval_reduce_logits_to_argmax``) (JAX :836-870)."""
+        if self.preprocess_logits_for_metrics is not None:
+            labels = host_batch.get("labels")
+            logits = self.preprocess_logits_for_metrics(
+                logits, None if labels is None else torch.as_tensor(np.asarray(labels)).to(self.device))
+        else:
+            limit = getattr(self.args, "eval_logits_host_bytes_limit", 2 << 30)
+            if logits.ndim == 3 and limit and logits.numel() * 4 * n_batches > limit:
+                need_gb = logits.numel() * 4 * n_batches / 1e9
+                if getattr(self.args, "eval_reduce_logits_to_argmax", False):
+                    logger.warning_once(
+                        f"accumulating eval logits would need ~{need_gb:.1f} GB host RAM "
+                        f"(> eval_logits_host_bytes_limit={limit}); reducing to argmax token ids "
+                        "on device (eval_reduce_logits_to_argmax=True)")
+                    logits = torch.argmax(logits, dim=-1)
+                else:
+                    raise ValueError(
+                        f"accumulating eval logits would need ~{need_gb:.1f} GB host RAM "
+                        f"(> eval_logits_host_bytes_limit={limit}). Pass preprocess_logits_for_metrics "
+                        "to reduce them yourself, raise eval_logits_host_bytes_limit, or set "
+                        "eval_reduce_logits_to_argmax=True to accept [B, T] argmax ids.")
+        logits = logits.detach().cpu()
+        return (logits.float() if logits.dtype == torch.bfloat16 else logits).numpy()
+
     def evaluate(self, eval_dataset=None, ignore_keys=None, metric_key_prefix: str = "eval") -> Dict[str, float]:
-        """Mean loss (and perplexity) over the eval set, no gradient."""
+        """Mean loss (and perplexity) over the eval set, no gradient; with
+        ``compute_metrics``, its metrics over every batch's logits (JAX :786)."""
         dataloader = self.get_eval_dataloader(eval_dataset)
         start = time.time()
         losses, n_batches = [], 0
+        all_logits, all_labels = [], []
+        run_metrics = self.compute_metrics is not None
         for host_batch in dataloader:
-            losses.append(float(self.compute_loss(self._to_device(host_batch))))
+            out = self._eval_step(host_batch)
+            if "loss" in out:
+                losses.append(float(out["loss"]))
+            if run_metrics:
+                all_logits.append(self._host_logits(out["logits"], host_batch, len(dataloader)))
+                if "labels" in host_batch:
+                    all_labels.append(np.asarray(host_batch["labels"]))
             n_batches += 1
         metrics = {}
         if losses:
@@ -358,12 +423,33 @@ class Trainer:
                 metrics[f"{metric_key_prefix}_ppl"] = float(np.exp(np.mean(losses)))
             except OverflowError:
                 pass
+        if run_metrics and all_logits:
+            preds = np.concatenate(all_logits, axis=0)
+            labels = np.concatenate(all_labels, axis=0) if all_labels else None
+            extra = self.compute_metrics(EvalPrediction(predictions=preds, label_ids=labels))
+            metrics.update({f"{metric_key_prefix}_{k}" if not k.startswith(metric_key_prefix) else k: v
+                            for k, v in extra.items()})
         metrics.update(speed_metrics(metric_key_prefix, start, num_steps=n_batches))
         self.state.log_history.append(dict(metrics))
         return metrics
 
-    def predict(self, test_dataset, ignore_keys=None, metric_key_prefix: str = "test"):
-        raise NotImplementedError(f"Trainer.predict is not part of the port yet ({_TRAINING_LEFT})")
+    def predict(self, test_dataset, ignore_keys=None, metric_key_prefix: str = "test") -> PredictionOutput:
+        """Logits (or what ``preprocess_logits_for_metrics`` makes of them) and
+        labels over ``test_dataset``, with ``compute_metrics`` (JAX :881)."""
+        dataloader = self.get_eval_dataloader(test_dataset)
+        logits_all, labels_all = [], []
+        for host_batch in dataloader:
+            out = self._eval_step(host_batch)
+            logits_all.append(self._host_logits(out["logits"], host_batch, len(dataloader)))
+            if "labels" in host_batch:
+                labels_all.append(np.asarray(host_batch["labels"]))
+        preds = np.concatenate(logits_all, axis=0) if logits_all else None
+        labels = np.concatenate(labels_all, axis=0) if labels_all else None
+        metrics = {}
+        if self.compute_metrics is not None and preds is not None and labels is not None:
+            metrics = {f"{metric_key_prefix}_{k}": v for k, v in
+                       self.compute_metrics(EvalPrediction(predictions=preds, label_ids=labels)).items()}
+        return PredictionOutput(predictions=preds, label_ids=labels, metrics=metrics)
 
     def compress(self, strategy: str = "ptq", output_dir: Optional[str] = None, **kwargs):
         """Post-training compression (reference ``Trainer.compress``,
@@ -380,6 +466,43 @@ class Trainer:
         self.model.save_pretrained(output_dir or self.args.output_dir)
         if self.tokenizer is not None and hasattr(self.tokenizer, "save_pretrained"):
             self.tokenizer.save_pretrained(output_dir or self.args.output_dir)
+
+    # ------------------------------------------------------------------ checkpoint
+    def _save_checkpoint(self):
+        from .unified_checkpoint import join_pending_saves, rotate_checkpoints, save_unified_checkpoint
+
+        args = self.args
+        # one async writer at a time: joining here reaps finished threads and
+        # keeps the new save from racing a previous in-flight one
+        join_pending_saves(timeout=None)
+        ckpt_dir = os.path.join(args.output_dir, f"{PREFIX_CHECKPOINT_DIR}-{self.state.global_step}")
+        # rotation runs on the writer thread right after the commit rename
+        # lands — an async save stays async and rotation always sees the new
+        # checkpoint as committed
+        best = self.state.best_model_checkpoint
+        save_unified_checkpoint(
+            ckpt_dir, model=self.model, optimizer=self.optimizer, trainer_state=self.state, tokenizer=self.tokenizer,
+            async_save=args.async_save,
+            after_commit=lambda: rotate_checkpoints(args.output_dir, args.save_total_limit,
+                                                    best_model_checkpoint=best))
+
+    def _load_checkpoint(self, ckpt_dir: str):
+        from .unified_checkpoint import load_unified_checkpoint
+
+        logger.info(f"resuming from checkpoint {ckpt_dir}")
+        trainer_state = load_unified_checkpoint(ckpt_dir, model=self.model, optimizer=self.optimizer)
+        if trainer_state is not None:
+            self.state = trainer_state
+
+    def _rotate_checkpoints(self):
+        """Manual rotation entry point (saves rotate themselves post-commit)."""
+        from .unified_checkpoint import join_pending_saves, rotate_checkpoints
+
+        # an in-flight async save must land before we decide what is stale:
+        # with async_save the newest checkpoint may still be a staging dir
+        join_pending_saves(timeout=None)
+        rotate_checkpoints(self.args.output_dir, self.args.save_total_limit,
+                           best_model_checkpoint=self.state.best_model_checkpoint)
 
     def log(self, logs: Dict[str, float]):
         self.state.log_history.append(logs)

@@ -43,11 +43,14 @@ class TrainerState:
     data_step: int = 0  # yielded-batch counter (skip_data_intervals indexing; resume-safe)
     trial_params: Optional[Dict[str, Any]] = None
 
+    def to_json_string(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True, default=str)
+
     def save_to_json(self, json_path: str):
         # tmp+rename: a crash mid-dump must leave the previous state file
         # intact, never a truncated JSON that load_from_json chokes on
         with atomic_write(json_path) as f:
-            json.dump(dataclasses.asdict(self), f, indent=2, sort_keys=True, default=str)
+            f.write(self.to_json_string())
 
     @classmethod
     def load_from_json(cls, json_path: str) -> "TrainerState":

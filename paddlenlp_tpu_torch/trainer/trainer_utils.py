@@ -22,7 +22,9 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 
 __all__ = [
+    "EvalPrediction",
     "IntervalStrategy",
+    "PredictionOutput",
     "SchedulerType",
     "TrainOutput",
     "set_seed",
@@ -37,6 +39,19 @@ PREFIX_CHECKPOINT_DIR = "checkpoint"
 _re_checkpoint = re.compile(r"^" + PREFIX_CHECKPOINT_DIR + r"-(\d+)$")
 
 Schedule = Callable[[int], float]
+
+
+class EvalPrediction:
+    def __init__(self, predictions, label_ids):
+        self.predictions = predictions
+        self.label_ids = label_ids
+
+
+class PredictionOutput:
+    def __init__(self, predictions, label_ids, metrics):
+        self.predictions = predictions
+        self.label_ids = label_ids
+        self.metrics = metrics
 
 
 class ExplicitEnum(str, Enum):
@@ -147,10 +162,10 @@ def speed_metrics(split: str, start_time: float, num_samples: Optional[int] = No
                   model_flops: Optional[float] = None) -> Dict[str, float]:
     """Throughput metrics incl. ``*_tokens_per_second_per_device`` and the
     hardware TFLOP/s; the model-flops utilization only where the card's peak
-    is known (``observability/goodput.device_peak_flops``)."""
+    is known (``utils/env.device_peak_flops``)."""
     import torch
 
-    from ..observability.goodput import device_peak_flops
+    from ..utils.env import device_peak_flops
 
     runtime = time.time() - start_time
     result = {f"{split}_runtime": round(runtime, 4)}

@@ -4,7 +4,9 @@ Port of ``paddlenlp_tpu/trainer/training_args.py``: the same fields with the
 reference's spelling, so the ``llm/config/*.json`` launch files parse, and
 the same ``__post_init__`` normalization. The port trains on one device:
 :meth:`TrainingArguments.check_supported` (called by the ``Trainer``) raises
-``NotImplementedError`` for what it does not do yet, naming the ROADMAP item.
+``NotImplementedError`` for the parallel degrees, naming the ROADMAP item.
+``load_best_model_at_end`` is accepted and only validated (its
+``metric_for_best_model`` default), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from .trainer_utils import IntervalStrategy, SchedulerType
 __all__ = ["TrainingArguments"]
 
 _PARALLEL = "parallel training (ROADMAP Queue 1 item 12)"
-_TRAINING_LEFT = "ROADMAP Queue 1 item 15"
 
 
 @dataclass
@@ -93,8 +94,10 @@ class TrainingArguments:
                           "rather than [B, T, V] logits)"})
     profiler_options: Optional[str] = field(
         default=None,
-        metadata={"help": 'profiler trace window, e.g. "batch_range=[10,20];profile_path=./prof" '
-                          "(reference utils/profiler.py ProfilerOptions); not part of the port yet"})
+        metadata={"help": 'torch.profiler trace window, e.g. "batch_range=[10,20];profile_path=./prof" '
+                          "(reference utils/profiler.py ProfilerOptions). The same window also "
+                          "dumps the host-side span timeline (Chrome trace JSON) next to the "
+                          "device trace."})
     metrics_port: Optional[int] = field(
         default=None,
         metadata={"help": "start a background HTTP observability exporter for this training job "
@@ -198,7 +201,7 @@ class TrainingArguments:
     # ------------------------------------------------------------------ support
     def check_supported(self):
         """Raise ``NotImplementedError`` for every option the port's trainer
-        does not run yet, naming where it is planned."""
+        does not run yet (the parallel degrees), naming where it is planned."""
         degrees = {"tensor_parallel_degree": self.tensor_parallel_degree,
                    "pipeline_parallel_degree": self.pipeline_parallel_degree,
                    "sharding_parallel_degree": self.sharding_parallel_degree,
@@ -217,19 +220,6 @@ class TrainingArguments:
         if not self.use_flash_attention:
             raise NotImplementedError("use_flash_attention=False: the port's attention is the flash kernels; "
                                       "the other path is ROADMAP Queue 1 item 14")
-        later = {
-            "resume_from_checkpoint": self.resume_from_checkpoint not in (None, False, ""),
-            "report_to": bool(self.report_to) and list(self.report_to) != ["none"],
-            "metrics_port": self.metrics_port is not None,
-            "profiler_options": bool(self.profiler_options),
-            "skip_data_intervals": bool(self.skip_data_intervals),
-            "async_save": self.async_save,
-            "do_predict": self.do_predict,
-            "load_best_model_at_end": self.load_best_model_at_end,
-        }
-        for name, on in later.items():
-            if on:
-                raise NotImplementedError(f"{name}: not part of the port's trainer yet ({_TRAINING_LEFT})")
 
     # ------------------------------------------------------------------ topology (one device)
     @property

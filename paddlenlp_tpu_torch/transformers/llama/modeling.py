@@ -13,21 +13,22 @@ model (``experimental/inference_model.py``) reads it directly, and
 - :meth:`LlamaForCausalLM.forward` is the training forward (``:190-387``,
   ``:513-518``): differentiable in the (fp32 master) parameters, computed in
   ``compute_dtype``, attention through the flash kernels
-  (``ops/flash_attention.py``), with the remat policies ``"full"`` and
-  ``"save_qkv_attn"`` as ``torch.utils.checkpoint`` segments.
+  (``ops/flash_attention.py``), with the eight remat policies of the JAX
+  ``_remat_policy`` (:336) as ``torch.utils.checkpoint`` segments.
 - :meth:`LlamaForCausalLM.save_pretrained` writes the HF layout
   (``model_utils.py:285``).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.flash_attention import dot_product_attention
 from ...ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
@@ -42,9 +43,34 @@ __all__ = ["LlamaForCausalLM", "layer_params", "rms_norm"]
 SAFE_WEIGHTS_NAME = "model.safetensors"
 SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
 
-#: recompute granularities of the training forward; the JAX package's others
-#: (``_remat_policy`` :336) are not part of the port yet
-RECOMPUTE_GRANULARITIES = ("full", "save_qkv_attn")
+#: recompute granularities of the training forward (the JAX ``_remat_policy``
+#: :336): what each keeps for the backward is in :meth:`LlamaForCausalLM.forward`
+RECOMPUTE_GRANULARITIES = ("full", "full_attn", "core_attn", "save_core_attn", "save_qkv_attn", "save_attn_mlp",
+                           "save_dots", "offload_attn")
+
+#: the matrix products ``save_dots`` keeps (``dots_with_no_batch_dims_saveable``:
+#: a projection ``x @ W`` of a [B, T, D] activation dispatches as ``aten.mm``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _offload_to_host():
+    """Saved tensors go to host memory and come back in the backward (pinned
+    memory and copies that do not block the host for CUDA tensors, a plain
+    host copy for CPU ones): ``offload_attn``'s ``offload_dst="pinned_host"``."""
+    def pack(t):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        host.copy_(t, non_blocking=t.is_cuda)
+        return t.device, host
+
+    def unpack(packed):
+        device, host = packed
+        return host.to(device, non_blocking=True)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -267,9 +293,21 @@ class LlamaForCausalLM:
         compute dtype, norms stay fp32, and the tied head is ``h @ embed.T``
         (the JAX ``dtype=compute, param_dtype=float32`` model). With
         ``config.recompute``, ``recompute_granularity`` ``"full"`` recomputes
-        each layer in the backward and ``"save_qkv_attn"`` keeps only the
-        post-rope q/k/v and the attention output: the flash call sits between
-        two checkpointed segments."""
+        each layer in the backward; the others keep, by the JAX tags
+        ``attn_qkv`` (post-rope q/k/v), ``core_attn`` (the attention output,
+        with the flash call's log-sum-exp) and ``mlp_act`` (silu(gate) * up):
+
+        - ``full_attn``: everything but q/k/v and the attention output;
+        - ``core_attn``: everything but the attention output;
+        - ``save_core_attn``: the attention output only;
+        - ``save_qkv_attn``: q/k/v and the attention output;
+        - ``save_attn_mlp``: q/k/v, the attention output and ``mlp_act``;
+        - ``save_dots``: the outputs of the matrix products (``aten.mm``);
+        - ``offload_attn``: q/k/v and the attention output in host memory
+          (the output also stays on the device as the next segment's input).
+
+        Every policy computes the same forward: only what the backward
+        recomputes differs. An unknown granularity raises ``ValueError``."""
         cfg = self.config
         params = self.params if params is None else params
         if attention_mask is not None:
@@ -281,8 +319,7 @@ class LlamaForCausalLM:
         recompute = bool(getattr(cfg, "recompute", False))
         granularity = getattr(cfg, "recompute_granularity", "full")
         if recompute and granularity not in RECOMPUTE_GRANULARITIES:
-            raise NotImplementedError(f"recompute_granularity {granularity!r} is not part of the port yet "
-                                      f"(ROADMAP Queue 1 item 15); it has {RECOMPUTE_GRANULARITIES}")
+            raise ValueError(f"unknown recompute_granularity {granularity!r}; one of {RECOMPUTE_GRANULARITIES}")
         m = params["model"]
         embed = m["embed_tokens"]["embedding"]
         dtype = self.compute_dtype or embed.dtype
@@ -309,34 +346,68 @@ class LlamaForCausalLM:
             bias = lp.get(name + "/bias")
             return y if bias is None else y + bias
 
-        def attn_in(h, lp):
-            x = rms_norm(h, lp["input_layernorm/scale"], eps)
+        def qkv(x, lp):
             q = dense(lp, "self_attn/q_proj", x).reshape(B, T, N, H)
             k = dense(lp, "self_attn/k_proj", x).reshape(B, T, K, H)
             v = dense(lp, "self_attn/v_proj", x).reshape(B, T, K, H)
-            q, k = apply_rotary_pos_emb(q, k, cos, sin)
-            return q, k, v
+            return apply_rotary_pos_emb(q, k, cos, sin) + (v,)
+
+        def attn_in(h, lp):
+            return qkv(rms_norm(h, lp["input_layernorm/scale"], eps), lp)
 
         def attn_core(q, k, v):
             return dot_product_attention(q, k, v, segment_ids=segment_ids, window=window)
 
-        def attn_out_mlp(h, o, lp):
-            h = h + dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
+        def o_proj(o, lp):
+            return dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
+
+        def mlp_act(h, lp):
             x = rms_norm(h, lp["post_attention_layernorm/scale"], eps)
-            return h + dense(lp, "mlp/down_proj", F.silu(dense(lp, "mlp/gate_proj", x)) * dense(lp, "mlp/up_proj", x))
+            return F.silu(dense(lp, "mlp/gate_proj", x)) * dense(lp, "mlp/up_proj", x)
+
+        def attn_out_act(h, o, lp):
+            h = h + o_proj(o, lp)
+            return h, mlp_act(h, lp)
+
+        def attn_out_mlp(h, o, lp):
+            h, act = attn_out_act(h, o, lp)
+            return h + dense(lp, "mlp/down_proj", act)
 
         def layer(h, lp):
             return attn_out_mlp(h, attn_core(*attn_in(h, lp)), lp)
 
+        ckpt = functools.partial(checkpoint, use_reentrant=False)
         for i in range(cfg.num_hidden_layers):
             lp = {path: ts[i] for path, ts in per_layer.items()}
             if not recompute:
                 h = layer(h, lp)
             elif granularity == "full":
-                h = checkpoint(layer, h, lp, use_reentrant=False)
-            else:  # save_qkv_attn
-                q, k, v = checkpoint(attn_in, h, lp, use_reentrant=False)
-                h = checkpoint(attn_out_mlp, h, attn_core(q, k, v), lp, use_reentrant=False)
+                h = ckpt(layer, h, lp)
+            elif granularity == "full_attn":
+                x = rms_norm(h, lp["input_layernorm/scale"], eps)
+                h = h + ckpt(lambda x, lp: o_proj(attn_core(*qkv(x, lp)), lp), x, lp)
+                h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
+            elif granularity == "core_attn":
+                q, k, v = attn_in(h, lp)
+                h = h + ckpt(lambda q, k, v, lp: o_proj(attn_core(q, k, v), lp), q, k, v, lp)
+                h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
+            elif granularity == "save_core_attn":
+                o = ckpt(lambda h, lp: attn_core(*attn_in(h, lp)), h, lp)
+                h = ckpt(attn_out_mlp, h, o, lp)
+            elif granularity == "save_attn_mlp":
+                q, k, v = ckpt(attn_in, h, lp)
+                h, act = ckpt(attn_out_act, h, attn_core(q, k, v), lp)
+                h = h + dense(lp, "mlp/down_proj", act)
+            elif granularity == "save_dots":
+                h = ckpt(layer, h, lp, context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+            else:  # save_qkv_attn, offload_attn
+                q, k, v = ckpt(attn_in, h, lp)
+                if granularity == "offload_attn":
+                    with _offload_to_host():
+                        o = attn_core(q, k, v)
+                else:
+                    o = attn_core(q, k, v)
+                h = ckpt(attn_out_mlp, h, o, lp)
         h = rms_norm(h, m["norm"]["scale"], eps)
         if "lm_head" in params:
             return h @ params["lm_head"]["kernel"].to(dtype)
@@ -359,10 +430,12 @@ class LlamaForCausalLM:
     def save_pretrained(self, save_directory: str, max_shard_size: int = 5 * 1024**3, params: Optional[dict] = None):
         """Write ``config.json`` and the HF layout (HF keys, ``[out, in]``
         Linear weights, one key per layer), sharded at ``max_shard_size``
-        bytes with an index, in the parameters' dtype (``model_utils.py:285``)."""
+        bytes with an index, in the parameters' dtype (``model_utils.py:285``).
+        Keys come in the JAX package's order (its trees flatten by sorted
+        path), so both packages write the same bytes for the same tree."""
         os.makedirs(save_directory, exist_ok=True)
         params = self.params if params is None else params
-        flat = flatten_params(params)
+        flat = dict(sorted(flatten_params(params).items(), key=lambda kv: kv[0].split("/")))
         self.config.dtype = str(next(iter(flat.values())).dtype).removeprefix("torch.")
         self.config.architectures = [type(self).__name__]
         self.config.save_pretrained(save_directory)

@@ -727,3 +727,113 @@ def test_quantized_engine_kernel_path_matches_plain_path(dev, algo):
                                              torch.float32, 8)
         dense = model(torch.tensor([fed], device=dev), dtype=torch.float32)[0, len(prompts[0]) - 1:]
         assert (paged - dense).abs().max().item() <= 1e-4 * dense.abs().max().item()
+
+
+# ----------------------------------------------------------------- checkpoints, resume and recompute
+class _Tokens:
+    """32 rows of 96 random token ids (labels = ids)."""
+
+    def __init__(self, vocab=256, seed=0):
+        self.ids = np.random.default_rng(seed).integers(0, vocab, (32, 96)).astype(np.int32)
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i], "labels": self.ids[i].copy()}
+
+
+_SMALL = dict(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=2, head_dim=64, tie_word_embeddings=True, recompute=True,
+              recompute_granularity="save_qkv_attn")
+
+
+def _card_trainer(dev, out, seed=0, **kw):
+    model = Qwen2ForCausalLM.init_random(Qwen2Config(**_SMALL), seed=seed, device=dev, dtype=torch.float32)
+    model.compute_dtype = torch.bfloat16
+    args = TrainingArguments(output_dir=str(out), per_device_train_batch_size=4, gradient_accumulation_steps=2,
+                             learning_rate=1e-3, warmup_steps=1, max_steps=4, save_steps=2, logging_steps=1,
+                             weight_decay=0.01, seed=0, **kw)
+    return Trainer(model=model, args=args, train_dataset=_Tokens())
+
+
+def test_resume_on_the_card_continues_bit_for_bit(dev, tmp_path):
+    """bf16 compute over fp32 masters through the Hopper flash kernels: 4
+    straight steps and 2 + resume (from other random weights) + 2 give the
+    same losses, grad norms and final parameters, bit for bit; the resumed
+    run's async checkpoint-4 holds the same model and optimizer bytes."""
+    import filecmp
+
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    straight = _card_trainer(dev, tmp_path / "straight")
+    straight.train()
+    resumed = _card_trainer(dev, tmp_path / "resumed", seed=1, async_save=True)
+    resumed.train(resume_from_checkpoint=str(tmp_path / "straight" / "checkpoint-2"))
+    keys = ("global_step", "loss", "grad_norm", "learning_rate")
+    logs = [[[h[k] for k in keys] for h in t.state.log_history if "grad_norm" in h] for t in (straight, resumed)]
+    assert logs[0] == logs[1] and len(logs[0]) == 4
+    a, b = flatten_params(straight.model.params), flatten_params(resumed.model.params)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for name in ("model.safetensors", "optimizer.safetensors"):
+        assert filecmp.cmp(tmp_path / "straight" / "checkpoint-4" / name,
+                           tmp_path / "resumed" / "checkpoint-4" / name, shallow=False), name
+
+
+def test_async_save_from_card_tensors(dev, tmp_path):
+    """The async save copies the card's parameters and moments to the host
+    before it returns: updating them in place right after does not reach the
+    checkpoint, which loads back bit for bit."""
+    from paddlenlp_tpu_torch.trainer import TrainerState
+    from paddlenlp_tpu_torch.trainer import unified_checkpoint as uc
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    trainer = _card_trainer(dev, tmp_path / "run")
+    trainer.create_optimizer_and_scheduler(4)
+    trainer.training_step({k: np.stack([_Tokens()[i][k] for i in range(8)]) for k in ("input_ids", "labels")})
+    want = {k: t.detach().cpu().clone() for k, t in flatten_params(trainer.model.params).items()}
+    want_mu = {k: t.cpu().clone() for k, t in trainer.optimizer.mu.items()}
+    ckpt = str(tmp_path / "checkpoint-1")
+    uc.save_unified_checkpoint(ckpt, model=trainer.model, optimizer=trainer.optimizer,
+                               trainer_state=TrainerState(global_step=1), async_save=True)
+    with torch.no_grad():
+        for t in flatten_params(trainer.model.params).values():
+            t.add_(1.0)
+        for t in trainer.optimizer.mu.values():
+            t.add_(1.0)
+    assert uc.join_pending_saves(timeout=120.0) == 0
+    assert uc.validate_checkpoint(ckpt) is None
+    other = _card_trainer(dev, tmp_path / "other", seed=5)
+    other.create_optimizer_and_scheduler(4)
+    assert uc.load_unified_checkpoint(ckpt, other.model, other.optimizer).global_step == 1
+    got = flatten_params(other.model.params)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    assert all(torch.equal(other.optimizer.mu[k].cpu(), want_mu[k]) for k in want_mu)
+    assert other.optimizer.count == 1
+
+
+def test_offload_attn_on_the_card(dev):
+    """``offload_attn`` keeps q/k/v and the attention output in pinned host
+    memory: the same loss and gradients, bit for bit, as ``save_qkv_attn``,
+    with the flash kernels on the Hopper route."""
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    ids = torch.from_numpy(_Tokens().ids[:4]).to(dev)
+    out = {}
+    for granularity in ("save_qkv_attn", "offload_attn"):
+        cfg = Qwen2Config(**{**_SMALL, "recompute_granularity": granularity})
+        model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+        model.compute_dtype = torch.bfloat16
+        leaves = flatten_params(model.params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        sm90 = dict(fa.LAUNCHES_SM90)
+        loss = causal_lm_loss(model.forward(ids), ids, shift=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+        out[granularity] = (loss.item(), {k: t.grad.cpu() for k, t in leaves.items()})
+    (want_loss, want), (got_loss, got) = out["save_qkv_attn"], out["offload_attn"]
+    assert got_loss == want_loss
+    assert all(torch.equal(got[k], want[k]) for k in want)

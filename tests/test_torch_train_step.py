@@ -8,8 +8,9 @@ through the port's ``LlamaForCausalLM.forward`` + ``causal_lm_loss`` +
 ``backward``. Configs: the tiny LLaMA of ``tests/trainer/test_trainer.py`` and
 a tiny Qwen2 (q/k/v biases, tied head, a 3-way GQA fold). Tolerances: the loss
 within atol 1e-5; every gradient leaf within 1e-4 of its largest element
-(fp32, summation order only). Recompute off, ``"full"`` and
-``"save_qkv_attn"`` give the same numbers; other granularities raise.
+(fp32, summation order only). Recompute off and each of the eight
+recompute granularities give the same numbers (``offload_attn`` keeps its
+saved tensors in plain host memory on the CPU); an unknown one raises.
 """
 
 import jax
@@ -26,6 +27,7 @@ from paddlenlp_tpu.transformers import Qwen2ForCausalLM as JQwen2
 from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss, cross_entropy_with_ignore
 from paddlenlp_tpu_torch.transformers import LlamaConfig, LlamaForCausalLM, Qwen2Config, Qwen2ForCausalLM
 from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+from paddlenlp_tpu_torch.transformers.llama.modeling import RECOMPUTE_GRANULARITIES
 
 LOSS_ATOL = 1e-5
 GRAD_REL = 1e-4
@@ -77,7 +79,7 @@ def _port_loss_and_grads(name, params, ids, labels, **cfg_kw):
     return loss.item(), {k: t.grad.numpy() for k, t in leaves.items()}
 
 
-@pytest.mark.parametrize("recompute", [None, "full", "save_qkv_attn"])
+@pytest.mark.parametrize("recompute", (None,) + RECOMPUTE_GRANULARITIES)
 def test_loss_and_grads_match_jax(jax_reference, recompute):
     name, params, ids, labels, want_loss, want_grads = jax_reference
     cfg_kw = {} if recompute is None else dict(recompute=True, recompute_granularity=recompute)
@@ -89,22 +91,30 @@ def test_loss_and_grads_match_jax(jax_reference, recompute):
         assert err <= GRAD_REL * np.abs(want).max(), (path, err, np.abs(want).max())
 
 
-def test_recompute_modes_agree_exactly_in_loss():
+@pytest.mark.parametrize("granularity", RECOMPUTE_GRANULARITIES)
+def test_recompute_modes_agree_exactly_in_loss(granularity):
     _jcls, pcls, _jcfg, pcfg_cls, kw = MODELS["qwen2"]
     ids, labels = _batch(kw["vocab_size"], seed=3)
-    losses = []
-    for cfg_kw in ({}, dict(recompute=True, recompute_granularity="full"),
-                   dict(recompute=True, recompute_granularity="save_qkv_attn")):
+    losses, grads = [], []
+    for cfg_kw in ({}, dict(recompute=True, recompute_granularity=granularity)):
         model = pcls.init_random(pcfg_cls(**kw, **cfg_kw), seed=0, device="cpu", dtype=torch.float32)
-        losses.append(causal_lm_loss(model.forward(torch.from_numpy(ids)), torch.from_numpy(labels), shift=True))
-    assert losses[0].item() == losses[1].item() == losses[2].item()
+        params = flatten_params(model.params)
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = causal_lm_loss(model.forward(torch.from_numpy(ids)), torch.from_numpy(labels), shift=True)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad for k, p in params.items()})
+    assert losses[0] == losses[1]
+    # what the backward saves or recomputes reaches only the gradients
+    assert all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
 
 
-def test_other_recompute_granularities_raise():
+def test_unknown_recompute_granularity_raises():
     _jcls, pcls, _jcfg, pcfg_cls, kw = MODELS["llama"]
-    model = pcls.init_random(pcfg_cls(**kw, recompute=True, recompute_granularity="core_attn"), seed=0,
+    model = pcls.init_random(pcfg_cls(**kw, recompute=True, recompute_granularity="save_everything"), seed=0,
                              device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="save_everything"):
         model.forward(torch.zeros(1, 8, dtype=torch.long))
 
 

@@ -201,15 +201,15 @@ def test_save_pretrained_loads_bitwise_in_jax(tmp_path):
         assert torch.equal(t, want[path]), path
 
 
-@pytest.mark.parametrize("change", [dict(save_steps=2, save_strategy="steps"), dict(report_to=["wandb"]),
-                                    dict(resume_from_checkpoint="ckpt"), dict(skip_data_intervals=[[1, 2]]),
-                                    dict(tensor_parallel_degree=2)],
-                         ids=["save_steps", "report_to", "resume", "skip_data", "tp"])
-def test_trainer_options_outside_the_slice_raise(tmp_path, change):
-    model = LlamaForCausalLM.init_random(LlamaConfig(**TINY), seed=0, device="cpu", dtype=torch.float32)
+@pytest.mark.parametrize("change,item", [(dict(tensor_parallel_degree=2), 12), (dict(attention_dropout=0.1), 15)],
+                         ids=["tp", "dropout"])
+def test_trainer_options_outside_the_slice_raise(tmp_path, change, item):
+    cfg = {k: v for k, v in change.items() if k == "attention_dropout"}
+    model = LlamaForCausalLM.init_random(LlamaConfig(**TINY, **cfg), seed=0, device="cpu", dtype=torch.float32)
     args = dict(output_dir=str(tmp_path), max_steps=4, per_device_train_batch_size=8, save_strategy="no")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model=model, args=TrainingArguments(**{**args, **change}), train_dataset=ToyLMDataset()).train()
+    args.update({k: v for k, v in change.items() if k not in cfg})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+        Trainer(model=model, args=TrainingArguments(**args), train_dataset=ToyLMDataset()).train()
 
 
 def test_run_pretrain_main_on_cpu(tmp_path):
