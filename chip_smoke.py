@@ -124,11 +124,29 @@ Serving, the paged engine at Qwen2-7B width and depth:
               profiled decode call on the bf16 model, wint8 and a8w8 (the
               dequant, the GEMMs, attention, the idle share); greedy HTTP
               streams over the a8w8 engine equal to ``generate``; every paged
-              launch on the Hopper route;
+              launch on the Hopper route; the wint8 facade's
+              ``QuantizedModel.generate`` on 2 greedy prompts against its
+              engine's streams (a divergence only within twice the bf16
+              distance);
+13. generate -- ``generate`` (the dense forward over a static KV cache,
+              attention on the dispatcher's XLA-path counterpart: no kernel)
+              on the same bf16 model: the engine phase's 8 prompts
+              left-padded into one [8, 2048] batch, 64 new tokens, each row
+              against the engine's greedy stream (a divergence only within
+              twice the bf16 distance from fp32 at that position; the bf16
+              gate's verdict printed) and a second run bit for bit, with prefill ms,
+              TPOT p50/p99, tokens/s, host syncs a token, peak memory and the
+              cache's bytes; seeded sampling (temperature 0.9, top-k 50,
+              top-p 0.9) twice equal, top-k 1 equal to greedy but at a tie of
+              the largest bf16 logit, the threefry
+              bits equal on the card and the CPU; beam (4) and group beam
+              (4 in 2 groups, diversity 1.0) on 2 prompts of 512 tokens,
+              twice equal, each score against a teacher-forced re-score of
+              its sequence;
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-13. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+14. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -138,11 +156,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-14. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+15. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-15. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+16. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -155,8 +173,8 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               step, the steady MFU beside it); the
               window's Chrome trace holds the three Hopper flash kernels; the
               saved checkpoint loads back bit for bit;
-16. train_profile -- ``torch.profiler`` over one more training step;
-17. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
+17. train_profile -- ``torch.profiler`` over one more training step;
+18. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
               Qwen2-1.5B widths and 12 layers (``RESUME_LAYERS``: the run keeps
               its disk writes under 45 GiB): a straight run
@@ -167,14 +185,14 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               parameters equal the straight run's bit for bit, the two
               checkpoint-4s' model and optimizer files hash alike; load
               GB/s, the loop's stall against the writer thread's time;
-18. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
+19. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
               each of the 8 recompute granularities at full depth: wall s,
               peak memory and flash launches each; the losses equal;
-19. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+20. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
               full logits at the step's head (hidden [2, 4096, 1536] bf16,
               the tied 1536 x 151936 head): the loss and both gradients
               within the bf16 gate, the peak memory of each;
-20. kernels -- every kernel with its launches on the serving runs (the two
+21. kernels -- every kernel with its launches on the serving runs (the two
               engine runs, the serve, spec, host_tier, lora and wquant phases;
               the kv_quant phase for the quantized entry) and the training runs
               (train, train_resume, train_recompute, and the spec phase's draft
@@ -2235,6 +2253,26 @@ def wquant_http(eng, serving, SamplingParams, prompts, greedy):
     return dict(prompts=[len(prompts[i]) for i in greedy], equal=equal)
 
 
+def wquant_generate(torch, np, qm, prompts, done, which):
+    """(6) of the wquant phase: ``QuantizedModel.generate`` over prompts
+    ``which``, left-padded, ``WQUANT_NEW`` new tokens, against the same
+    facade's engine greedy streams (``done``): equal, or parted only where
+    the two tokens' fp32 margin under the facade's function is within twice
+    its bf16 distance (``depth_divergence``)."""
+    ids, mask = left_pad(np, [prompts[i] for i in which])
+    out, _, timing = timed_generate(torch, qm, ids, attention_mask=mask, max_new_tokens=WQUANT_NEW)
+    eos = qm.config.eos_token_id
+    diverged = {}
+    for r, i in enumerate(which):
+        d = depth_divergence(torch, None, prompts[i], upto_eos(out[r].tolist(), eos), list(done[i].output_ids),
+                             fp32_logits=lambda seq: qm(torch.tensor([seq], device=DEVICE), dtype=torch.float32)[0, -1],
+                             bf16_logits=lambda seq: qm(torch.tensor([seq], device=DEVICE))[0, -1])
+        if d is not None:
+            diverged[i] = d
+    return dict(prompts=list(which), batch=list(ids.shape), equal_to_engine=len(which) - len(diverged),
+                of=len(which), diverged=diverged, **timing)
+
+
 def phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                  serving, quantization, modeling, seed):
     """Quantized weights at Qwen2-7B (``quantization.QuantizedModel``: wint8,
@@ -2262,7 +2300,9 @@ def phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInf
     (4) one profiled decode call on the bf16 model, wint8 and a8w8: the
     dequant's, the GEMMs' and attention's device ms, the idle share;
     (5) ``ServingServer`` over the a8w8 engine: greedy JSON and SSE streams
-    equal to ``generate``.
+    equal to ``generate``;
+    (6) the wint8 facade's dense ``generate`` on 2 of the greedy prompts
+    (``wquant_generate``) against its engine's streams.
 
     Quality against bf16 is printed, not gated (random weights)."""
     from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
@@ -2371,6 +2411,14 @@ def phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInf
         gates.append((footprint == want_bytes, f"{what}: memory_footprint {footprint}, the shapes give {want_bytes}"))
         gates.append((out["ledger_conserved"], f"{what}: goodput ledger conservation broken"))
         gates.append((torch.isfinite(got).all().item(), f"{what}: non-finite logits"))
+        if run == "wint8":
+            with uncounted(pa):
+                launched = pa.LAUNCHES
+                res["generate"] = wquant_generate(torch, np, qm, prompts, done, greedy[1:3])
+                gates.append((pa.LAUNCHES == launched, "wquant generate: a paged kernel launched"))
+            for i, d in res["generate"]["diverged"].items():
+                gates.append((d["within_depth_gate"], f"wquant generate: prompt {i} parts from the engine outside "
+                                                      f"twice the bf16 distance: {d}"))
         if run == "a8w8":
             res["http"] = wquant_http(eng, serving, SamplingParams, prompts, greedy[:2])
             for i, eq in res["http"]["equal"].items():
@@ -2391,6 +2439,280 @@ def phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInf
         torch.cuda.empty_cache()
     res["launches"] = total
     res["sm90_launches"] = total["sm90"]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    for ok, msg in gates:
+        check(ok, msg)
+    return res
+
+
+# ----------------------------------------------------------------------------- generate
+GEN_NEW = 64  # new tokens of the greedy batch: the engine phase's
+GEN_SHORT = 32  # new tokens of the sampled, beam and wint8 runs
+
+
+def left_pad(np, prompts, pad_id=0):
+    """[B, longest] ids and attention mask, each prompt at the right edge."""
+    T = max(len(p) for p in prompts)
+    ids = np.full((len(prompts), T), pad_id, np.int64)
+    mask = np.zeros((len(prompts), T), np.int64)
+    for b, p in enumerate(prompts):
+        ids[b, T - len(p):] = p
+        mask[b, T - len(p):] = 1
+    return ids, mask
+
+
+def upto_eos(row, eos):
+    """A generated row cut after its first eos: where the engine's stream
+    ends (``generate`` pads the rest)."""
+    row = [int(t) for t in row]
+    return row[:row.index(eos) + 1] if eos in row else row
+
+
+TOP_K_DISTANCE = 20  # the fp32 top tokens over which a bf16 path's distance from fp32 is read
+
+
+def bf16_distance(torch, fp32_row, bf16_row):
+    """A bf16 path's distance from fp32 at one position: the largest
+    |logit| difference over the fp32 top ``TOP_K_DISTANCE`` tokens."""
+    top = fp32_row.topk(TOP_K_DISTANCE).indices
+    return (bf16_row.float()[top] - fp32_row[top]).abs().max().item()
+
+
+def depth_divergence(torch, model, prompt, got, want, fp32_logits=None, bf16_logits=None):
+    """``divergence`` of two greedy streams computed by two different bf16
+    paths at full depth, with a second gate beside its bf16 gate. After 28
+    layers every bf16 path's logits sit 0.1-0.25 from the fp32 ones over
+    the top tokens (the plain dense forward, the cached one, ``generate``'s
+    batch and the engine alike: ``PERF.md`` §6), an order above one
+    rounding, so near-ties split two such paths outside ``2**-7 * |l| +
+    1e-3``. The second gate measures the bf16 distance D at the divergent
+    position (``bf16_distance`` of the bf16 dense forward, or of
+    ``bf16_logits(ids)``, from the fp32 one) and passes a margin within
+    2 * D: two paths each within D of fp32 can rank that pair either way."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        return divergence(torch, model, prompt, got, want)
+    ids = [int(t) for t in prompt] + list(want[:j])
+    l32 = model(torch.tensor([ids], device=DEVICE), dtype=torch.float32)[0, -1] if fp32_logits is None \
+        else fp32_logits(ids)
+    lbf = model(torch.tensor([ids], device=DEVICE))[0, -1] if bf16_logits is None else bf16_logits(ids)
+    d = divergence(torch, model, prompt, got, want, fp32_logits=lambda _ids: l32)
+    dist = bf16_distance(torch, l32, lbf)
+    d.update(bf16_distance=dist, depth_gate=2 * dist, within_depth_gate=d["margin"] <= 2 * dist)
+    del l32, lbf
+    return d
+
+
+class MaxTies:
+    """A logits processor that keeps, for every step, which tokens share each
+    row's largest logit, and leaves the logits as they are."""
+
+    def __init__(self):
+        self.tied = []
+
+    def __call__(self, ids_buf, logits, cur_len):
+        self.tied.append(logits == logits.amax(dim=-1, keepdim=True))
+        return logits
+
+
+def top1_split(greedy, k1, ties):
+    """Rows where top-k 1 sampling parts from greedy, each with its first
+    divergent position and whether the split is a tie: greedy's argmax takes
+    the lowest of the tokens sharing the largest logit, top-k 1 keeps all of
+    them and its draw picks one. Bf16 logits round to 2**-5 near 5, so
+    over 152,064 tokens the top two often share a value."""
+    out = {}
+    for r, (g, k) in enumerate(zip(greedy.tolist(), k1.tolist())):
+        j = next((i for i, (a, b) in enumerate(zip(g, k)) if a != b), None)
+        if j is not None:
+            tied = ties.tied[j][r]
+            out[r] = dict(position=j, tokens=[g[j], k[j]], tied=int(tied.sum()),
+                          is_tie=bool(tied.sum() > 1 and tied[g[j]] and tied[k[j]]))
+    return out
+
+
+def timed_generate(torch, model, *args, **kwargs):
+    """``model.generate`` with the entry time of each forward: (ids, scores,
+    timing). The loop reads its finished flags once a step, before the
+    step's forward, so the time between two entries is one step's; the
+    prefill's is from the call to the first step's entry."""
+    base = getattr(model, "model", model)  # a facade generates through its base model
+    inner = base._gen_forward
+    stamps = []
+
+    def stamped(*a, **k):
+        stamps.append(time.perf_counter())
+        return inner(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base._gen_forward = stamped
+    t0 = time.perf_counter()
+    try:
+        ids, scores = model.generate(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        del base._gen_forward
+    t1 = time.perf_counter()
+    steps = [b - a for a, b in zip(stamps[1:], stamps[2:] + [t1])]
+    stats = base.last_generate_stats
+    B, new = ids.shape
+    return ids, scores, dict(
+        wall_s=t1 - t0, prefill_ms=((stamps[1] if len(stamps) > 1 else t1) - t0) * 1e3, decode_steps=len(steps),
+        tpot_ms_p50=pct(steps, 0.5) * 1e3, tpot_ms_p99=pct(steps, 0.99) * 1e3, tokens_per_s=B * new / (t1 - t0),
+        host_syncs=stats["host_syncs"], host_syncs_per_token=stats["host_syncs"] / new,
+        cache_bytes=stats["cache_bytes"], peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def mean_logp(torch, model, prompt, gen, eos):
+    """The mean log-prob of ``gen`` (up to its first eos: a beam's length)
+    after ``prompt``, teacher-forced through one bf16 dense forward, and the
+    tolerance a beam score summed on the cached decode path gets against it.
+    A beam's tokens are top tokens of its path, so at each position each
+    bf16 path's log-prob of its token sits within D + |dLSE| of the fp32 one,
+    D the ``bf16_distance`` and dLSE the log-sum-exp's shift, both read here
+    from the dense pass against an fp32 pass: the two paths within twice
+    that, averaged over the tokens."""
+    gen = upto_eos(gen, eos)
+    ids = torch.tensor([list(prompt) + gen], device=DEVICE)
+    sl = slice(len(prompt) - 1, ids.shape[1] - 1)
+    tok = torch.tensor(gen, device=DEVICE)[:, None]
+    lbf = model(ids)[0, sl].float()
+    l32 = model(ids, dtype=torch.float32)[0, sl]
+    lp = torch.log_softmax(lbf, dim=-1).gather(1, tok)[:, 0]
+    dist = torch.tensor([bf16_distance(torch, l32[t], lbf[t]) for t in range(len(gen))])
+    dlse = (torch.logsumexp(lbf, dim=-1) - torch.logsumexp(l32, dim=-1)).abs().cpu()
+    return lp.mean().item(), (2 * (dist + dlse)).mean().item()
+
+
+def phase_generate(torch, np, model, pa, fa, InferenceEngine, SamplingParams, mono_streams, seed, engine=None):
+    """``generate`` on the bf16 Qwen2-7B (the dense forward over a static KV
+    cache; its attention the dispatcher's XLA-path counterpart, no kernel):
+
+    (a) greedy: the engine phase's 8 prompts (256-2048 tokens) left-padded
+    into one [8, 2048] batch, 64 new tokens, the engine's eos: each row
+    equals the engine's greedy stream of that prompt (the engine phase's for
+    its 6 greedy requests, an engine run here for the 2 it sampled), or
+    parts only where the fp32 margin is within twice the bf16 distance at
+    that position (``depth_divergence``; the bf16 gate's verdict printed
+    beside it); a second run equal bit
+    for bit; prefill ms, TPOT p50/p99, tokens/s, host syncs a token, peak
+    allocated memory and the cache's bytes (gated against the shapes); no
+    paged or flash kernel launched;
+    (b) sampled: 2 prompts (256 and 640 tokens), temperature 0.9, top-k 50,
+    top-p 0.9, seed 7, 32 new tokens: the same seed twice equal; top-k 1
+    equal to greedy up to a position where several tokens share the row's
+    largest bf16 logit (``top1_split``); the threefry bits of the 32 step
+    keys and of a [2, 152064] draw equal on the card and on the CPU;
+    (c) beam: 2 prompts of 512 tokens, 32 new tokens, ``num_beams=4`` and 4
+    beams in 2 groups with ``diversity_penalty=1.0``: two runs equal bit for
+    bit; each plain beam score within ``mean_logp``'s tolerance of the
+    returned sequence's teacher-forced mean log-prob (a group-beam score,
+    which carries the diversity penalties, at most that plus the
+    tolerance); beam and greedy mean log-probs printed. ``engine``, the
+    engine phase's result, puts its TPOT beside (a)'s."""
+    from paddlenlp_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab, eos = cfg.vocab_size, cfg.eos_token_id
+    prompts, sampled = traffic(np, vocab, seed)
+    res = dict(phase="generate", config="Qwen/Qwen2-7B", entry="Qwen2ForCausalLM.generate", dtype="bfloat16",
+               loop="eager; one host sync a step (the finished flags)")
+    gates = []
+
+    # the engine's greedy streams of the 8 prompts
+    want = {i: list(s) for i, s in mono_streams.items() if i not in sampled}
+    eng = InferenceEngine(model, **SERVE_ENGINE)
+    for i in sorted(sampled):
+        eng.clear_prefix_cache()
+        want[i] = list(eng.generate([prompts[i]], SamplingParams(max_new_tokens=GEN_NEW))[0])
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- (a) greedy over the left-padded batch
+    ids, mask = left_pad(np, prompts)
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+    reset_counts(fa)
+    out, _, timing = timed_generate(torch, model, ids, attention_mask=mask, max_new_tokens=GEN_NEW)
+    launches = dict(paged=pa.LAUNCHES, flash=sum(fa.LAUNCHES.values()))
+    again, _, timing2 = timed_generate(torch, model, ids, attention_mask=mask, max_new_tokens=GEN_NEW)
+    L, K, H = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    cache_bytes = 2 * L * ids.shape[0] * (ids.shape[1] + GEN_NEW) * K * H * 2  # K and V, bf16
+    diverged = {}
+    for i in range(len(prompts)):
+        d = depth_divergence(torch, model, prompts[i], upto_eos(out[i].tolist(), eos), want[i])
+        if d is not None:
+            diverged[i] = d
+            gates.append((d["within_depth_gate"], f"generate greedy: row {i} parts from the engine outside twice "
+                                                  f"the bf16 distance: {d}"))
+    res["greedy"] = dict(batch=list(ids.shape), new_tokens=GEN_NEW, prompt_lens=[len(p) for p in prompts],
+                         equal_to_engine=len(prompts) - len(diverged), of=len(prompts),
+                         within_bf16_gate=sum(d["within_gate"] for d in diverged.values()), diverged=diverged,
+                         second_run_equal=bool(torch.equal(out, again)), launches=launches,
+                         cache_bytes_from_shapes=cache_bytes, **timing,
+                         engine_tpot_ms=None if engine is None else dict(p50=engine["tpot_ms_p50"],
+                                                                         p99=engine["tpot_ms_p99"]),
+                         second_run=dict(prefill_ms=timing2["prefill_ms"], tpot_ms_p50=timing2["tpot_ms_p50"],
+                                         tpot_ms_p99=timing2["tpot_ms_p99"]))
+    gates.append((res["greedy"]["second_run_equal"], "generate greedy: a second run differs"))
+    gates.append((timing["cache_bytes"] == cache_bytes,
+                  f"generate greedy: cache of {timing['cache_bytes']} bytes, the shapes give {cache_bytes}"))
+    gates.append((launches == dict(paged=0, flash=0), f"generate greedy: kernels launched {launches}"))
+    del out, again
+    torch.cuda.empty_cache()
+
+    # ---- (b) sampled
+    sids, smask = left_pad(np, [prompts[1], prompts[3]])
+    kw = dict(max_new_tokens=GEN_SHORT, do_sample=True, temperature=0.9, top_k=50, top_p=0.9, seed=7)
+    a, _, stiming = timed_generate(torch, model, sids, attention_mask=smask, **kw)
+    b, _ = model.generate(sids, attention_mask=smask, **kw)
+    ties = MaxTies()
+    greedy, _ = model.generate(sids, attention_mask=smask, max_new_tokens=GEN_SHORT, logits_processors=[ties])
+    k1, _ = model.generate(sids, attention_mask=smask, max_new_tokens=GEN_SHORT, do_sample=True, top_k=1, seed=7)
+    split = top1_split(greedy, k1, ties)
+    del ties
+    key_g, key_c = prng.key(7, device=DEVICE), prng.key(7)
+    keys_equal, draw_equal = True, None
+    for step in range(GEN_SHORT):
+        key_g, sub_g = prng.split(key_g)
+        key_c, sub_c = prng.split(key_c)
+        keys_equal &= [int(t) for t in sub_g + key_g] == [int(t) for t in sub_c + key_c]
+        if step == 0:
+            draw_equal = bool(torch.equal(prng.random_bits(sub_g, (2, vocab)).cpu(), prng.random_bits(sub_c, (2, vocab))))
+    res["sampled"] = dict(batch=list(sids.shape), new_tokens=GEN_SHORT, settings=kw, same_seed_equal=bool(torch.equal(a, b)),
+                          top_k1_equals_greedy=bool(torch.equal(k1, greedy)), top_k1_split=split,
+                          top_k1_parts_only_at_ties=all(v["is_tie"] for v in split.values()),
+                          step_keys_equal=keys_equal,
+                          draw_bits_equal=draw_equal, differs_from_greedy=not bool(torch.equal(a, greedy)), **stiming)
+    for what in ("same_seed_equal", "top_k1_parts_only_at_ties", "step_keys_equal", "draw_bits_equal"):
+        gates.append((res["sampled"][what], f"generate sampled: {what} is false"))
+    del a, b, greedy, k1
+
+    # ---- (c) beam and group beam
+    bprompts = [prompts[3][:512], prompts[5][:512]]
+    bids = np.stack(bprompts)
+    res["beam"] = dict(batch=list(bids.shape), new_tokens=GEN_SHORT)
+    greedy, _ = model.generate(bids, max_new_tokens=GEN_SHORT)
+    for name, bkw in (("beam", dict(num_beams=4)),
+                      ("group_beam", dict(num_beams=4, num_beam_groups=2, diversity_penalty=1.0))):
+        seqs, scores, btiming = timed_generate(torch, model, bids, max_new_tokens=GEN_SHORT, **bkw)
+        seqs2, scores2 = model.generate(bids, max_new_tokens=GEN_SHORT, **bkw)
+        rows = []
+        for r in range(len(bprompts)):
+            rescored, tol = mean_logp(torch, model, bprompts[r], seqs[r].tolist(), eos)
+            greedy_lp, _ = mean_logp(torch, model, bprompts[r], greedy[r].tolist(), eos)
+            score = scores[r].item()
+            ok = abs(score - rescored) <= tol if name == "beam" else score <= rescored + tol
+            rows.append(dict(score=score, rescored=rescored, diff=score - rescored, tol=tol, within=ok,
+                             greedy_mean_logp=greedy_lp, beam_minus_greedy=rescored - greedy_lp))
+            gates.append((ok, f"generate {name}: row {r} score {score} against its re-score {rescored} (tol {tol})"))
+        equal = bool(torch.equal(seqs, seqs2) and torch.equal(scores, scores2))
+        gates.append((equal, f"generate {name}: a second run differs"))
+        res["beam"][name] = dict(settings=bkw, second_run_equal=equal, rows=rows, **btiming)
+    del greedy, seqs, seqs2
+    torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     emit(res)
     for ok, msg in gates:
@@ -2565,8 +2887,8 @@ class _PlainFlash:
 
         self.fn = Fn
 
-    def __call__(self, q, k, v, segment_ids=None, window=None):
-        assert segment_ids is None and window is None
+    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None):
+        assert attention_mask is None and segment_ids is None and window is None
         return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
 
 
@@ -3351,6 +3673,7 @@ def main(argv=None) -> int:
                       serving, LoRAModel, LoRAConfig, tenancy, args.seed)
     wquant = phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                           serving, quantization, modeling, args.seed)
+    phase_generate(torch, np, model, pa, fa, InferenceEngine, SamplingParams, mono_streams, args.seed, engine=mono)
     del model
     torch.cuda.empty_cache()
 

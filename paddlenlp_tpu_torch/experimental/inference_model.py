@@ -26,9 +26,9 @@ None (every row on the identity slot) skips the delta, which would add zeros.
 
 ``sample_tokens`` reproduces the JAX sampler exactly, including its random
 draws: ``jax.random.categorical(fold_in(key(seed), position), row)`` is
-rebuilt from threefry2x32 in integer ops (the partitionable bit layout and the
-"low" Gumbel mode of ``jax.random``), so a seeded request samples the same
-tokens in both packages.
+rebuilt from threefry2x32 in integer ops (``utils/prng.py``: the partitionable
+bit layout and the "low" Gumbel mode of ``jax.random``), so a seeded request
+samples the same tokens in both packages.
 """
 
 from __future__ import annotations
@@ -38,59 +38,28 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash_attention import plain_softmax
 from ..ops.paged_attention import ragged_paged_attention
 from ..ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
 from ..quantization.quantization_utils import linear
 from ..transformers.llama.modeling import layer_params, rms_norm
+from ..utils import prng
 from .paged_cache import PagedKVPool, gather_kv, write_kv_block
 
 __all__ = ["PagedInferenceModel", "gather_lora", "sample_tokens"]
-
-_U32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(k1, k2, x1, x2):
-    """Threefry-2x32 (20 rounds) on int64 tensors holding uint32 values; the
-    counterpart of ``jax._src.prng._threefry2x32_lowering``."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _U32
-    x2 = (x2 + ks[1]) & _U32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _U32
-            x2 = ((x2 << r) | (x2 >> (32 - r))) & _U32
-            x2 = x1 ^ x2
-        x1 = (x1 + ks[(i + 1) % 3]) & _U32
-        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _U32
-    return x1, x2
-
 
 def _uniform_rows(seeds, positions, V: int) -> torch.Tensor:
     """Row b: ``jax.random.uniform(fold_in(key(seeds[b]), positions[b]), (V,),
     minval=tiny, maxval=1.)`` in float32 (threefry, partitionable layout)."""
     zero = torch.zeros_like(seeds, dtype=torch.int64)
-    # key(seed) = (0, seed); fold_in hashes the count pair (0, data) under it
-    k1, k2 = _threefry2x32(zero, seeds.long() & _U32, zero, positions.long() & _U32)
-    counts = torch.arange(V, device=seeds.device, dtype=torch.int64)[None, :]
-    b1, b2 = _threefry2x32(k1[:, None], k2[:, None], torch.zeros_like(counts), counts)
-    bits = b1 ^ b2
-    # 23 random mantissa bits under exponent 0 give [1, 2); minus 1
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.finfo(torch.float32).tiny
-    return torch.clamp_min(floats + tiny, tiny)
+    k = prng.fold_in((zero, seeds.long() & prng.U32), positions)  # key(seed) = (0, seed)
+    return prng.uniform(k, (V,), minval=prng.TINY, maxval=1.0)
 
 
 def _gumbel_rows(seeds, positions, V: int) -> torch.Tensor:
     """Row b: ``jax.random.gumbel(fold_in(key(seeds[b]), positions[b]), (V,))``
     in float32 ("low" mode)."""
     return -torch.log(-torch.log(_uniform_rows(seeds, positions, V)))
-
-
-def _softmax(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax``'s arithmetic: exp(x - max) / sum."""
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
 
 
 def sample_tokens(
@@ -130,7 +99,7 @@ def sample_tokens(
     # top-k first, RENORMALIZE, then the nucleus cutoff over the renormalized
     # distribution
     keep_k = torch.where(top_k[:, None] > 0, ranks < top_k[:, None], True)
-    probs = _softmax(torch.where(keep_k, sorted_logits, neg_inf))
+    probs = plain_softmax(torch.where(keep_k, sorted_logits, neg_inf))
     csum = torch.cumsum(probs, dim=-1)
     keep = keep_k & ((csum - probs) < top_p[:, None])
     keep |= ranks == 0  # top-1 always kept

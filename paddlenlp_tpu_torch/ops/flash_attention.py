@@ -26,6 +26,15 @@ for tensors on the CPU. For CUDA tensors it checks the operands and launches
 its kernel, or raises: there is no fallback. ``LAUNCHES`` counts each
 kernel's launches on either route and ``LAUNCHES_SM90`` those of the
 Hopper route alone.
+
+:func:`dot_product_attention` is the dispatcher. It sends to the flash
+kernels exactly the calls the JAX dispatcher sends to Pallas
+(``pallas_eligible``, :108-116: causal self-attention with no padding mask and
+no cache offset, ``T == S``); every other call it serves takes
+:func:`dot_product_attention_dense`, the counterpart of XLA's
+``jax.nn.dot_product_attention``: the masked and cached attention of
+``generate``. That function is no kernel's plain version: it serves calls on
+the card, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -37,9 +46,9 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "dot_product_attention", "flash_attention",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd",
-           "flash_attention_fwd_ref"]
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "dense_attention_mask", "dot_product_attention",
+           "dot_product_attention_dense", "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_ref", "flash_attention_fwd", "flash_attention_fwd_ref", "plain_softmax"]
 
 NEG_INF = -1e30
 
@@ -52,13 +61,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # where the options outside this port's slice are planned (ROADMAP.md)
 _LATER = {
-    "attention_mask": "padding masks (ROADMAP Queue 1 item 14, breadth)",
-    "bias": "additive attention bias (ROADMAP Queue 1 item 14, breadth)",
-    "use_alibi": "ALiBi (ROADMAP Queue 1 item 14, breadth)",
+    "bias": "additive attention bias (ROADMAP Queue 1 item 14e, with T5's relative positions)",
+    "use_alibi": "ALiBi (ROADMAP Queue 1 item 14e, with the bloom and baichuan families)",
     "dropout_rate": "attention dropout (ROADMAP Queue 1 item 15, training left)",
     "positions": "permuted positions for context parallel (ROADMAP Queue 1 item 15, training left)",
-    "q_offset": "attention over a KV cache (ROADMAP Queue 1 item 14, generation)",
-    "causal": "non-causal attention in the dispatcher (ROADMAP Queue 1 item 14, breadth)",
+    "causal": "non-causal attention in the dispatcher (ROADMAP Queue 1 item 14e, the encoder families)",
 }
 
 
@@ -323,23 +330,83 @@ def flash_attention(q, k, v, segment_ids: Optional[torch.Tensor] = None, scale: 
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), segment_ids, scale, causal, window)
 
 
+def plain_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s arithmetic over the last axis: exp(x - max) / sum
+    (the port's samplers and this module's XLA-path counterpart share it)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def dot_product_attention_dense(query, key, value, mask: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Attention in plain PyTorch with the arithmetic of XLA's
+    ``jax.nn.dot_product_attention`` (``_dot_product_attention_core`` and
+    ``_apply_masks`` in jax 0.9): query [B,T,N,H] over key/value [B,S,K,H],
+    ``mask`` a bool [B|1, N|1, T, S] (True = attend). The logits are the
+    operands' product in fp32 (at least), scaled, and set to
+    ``-0.7 * finfo.max`` where masked; the softmax runs in fp32 and the
+    probabilities are cast to the value dtype before the PV product; query
+    head n reads KV head n // (N // K). A fully masked row attends uniformly
+    over all S positions: it comes out finite wherever V is finite."""
+    B, T, N, H = query.shape
+    S, K = key.shape[1], key.shape[2]
+    if N % K:
+        raise ValueError(f"dot_product_attention_dense: {N} query heads do not fold over {K} kv heads")
+    G = N // K
+    scale = H**-0.5 if scale is None else scale
+    ldt = torch.promote_types(query.dtype, torch.float32)
+    logits = torch.einsum("btkgh,bskh->bkgts", query.reshape(B, T, K, G, H).to(ldt), key.to(ldt))
+    logits = logits * torch.tensor(scale, dtype=ldt, device=logits.device)
+    if mask is not None:
+        mB, mN = mask.shape[0], mask.shape[1]
+        grouped = mask[:, :, None] if mN == 1 else mask.reshape(mB, K, G, T, S)
+        big_neg = torch.tensor(-0.7 * torch.finfo(ldt).max, dtype=ldt, device=logits.device)
+        logits = torch.where(grouped, logits, big_neg)
+    probs = plain_softmax(logits.float()).to(key.dtype)
+    return torch.einsum("bkgts,bskh->btkgh", probs, value).reshape(B, T, N, H)
+
+
+def dense_attention_mask(B, T, S, device, attention_mask, segment_ids, q_offset, window):
+    """[B, 1, T, S] bool: causal from ``q_offset`` (the absolute position of
+    query row 0) with an optional window, same segment, and the padding mask
+    (``paddlenlp_tpu/ops/flash_attention.py:135-153``)."""
+    rows = torch.arange(T, device=device)[:, None] + q_offset
+    cols = torch.arange(S, device=device)[None, :]
+    mask = cols <= rows
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    mask = mask[None, None].expand(B, 1, T, S)
+    if segment_ids is not None:
+        q_seg = segment_ids[:, -T:] if T != S else segment_ids
+        mask = mask & (q_seg[:, None, :, None] == segment_ids[:, None, None, :])
+    if attention_mask is not None:
+        mask = mask & attention_mask[:, None, None, :].to(device=device, dtype=torch.bool)
+    return mask
+
+
 def dot_product_attention(query, key, value, *, attention_mask=None, segment_ids=None, causal: bool = True,
                           q_offset=0, scale: Optional[float] = None, dropout_rate: float = 0.0,
                           window: Optional[int] = None, positions=None, use_alibi: bool = False,
                           bias=None) -> torch.Tensor:
-    """Causal self-attention through the flash kernels, with optional packed-batch
-    ``segment_ids`` [B, T] and a sliding ``window`` (the Pallas path of
-    ``paddlenlp_tpu/ops/flash_attention.py:72``). The dispatcher's other options
-    are not part of the port yet and raise ``NotImplementedError``."""
-    asked = {"attention_mask": attention_mask is not None, "bias": bias is not None, "use_alibi": use_alibi,
-             "dropout_rate": dropout_rate != 0.0, "positions": positions is not None,
-             "q_offset": not (isinstance(q_offset, int) and q_offset == 0), "causal": not causal}
+    """Causal attention, query [B,T,N,H] over key/value [B,S,K,H], with
+    optional packed-batch ``segment_ids`` [B, S], a sliding ``window``, a
+    padding ``attention_mask`` [B, S] (1 = keep) and ``q_offset``, the
+    absolute position of query row 0 over a KV cache (the dispatcher of
+    ``paddlenlp_tpu/ops/flash_attention.py:72``). Calls the JAX dispatcher
+    would send to Pallas (no mask, no offset, ``T == S``) run the flash
+    kernels; the rest run :func:`dot_product_attention_dense`. The options
+    outside the port's slice raise ``NotImplementedError``."""
+    asked = {"bias": bias is not None, "use_alibi": use_alibi, "dropout_rate": dropout_rate != 0.0,
+             "positions": positions is not None, "causal": not causal}
     for opt, on in asked.items():
         if on:
             raise NotImplementedError(f"dot_product_attention: {_LATER[opt]} is not part of the port yet")
-    if query.shape[1] != key.shape[1]:
-        raise NotImplementedError(f"dot_product_attention: T={query.shape[1]} != S={key.shape[1]}: "
-                                  f"{_LATER['q_offset']} is not part of the port yet")
+    B, T = query.shape[0], query.shape[1]
+    S = key.shape[1]
+    q_offset = int(q_offset)
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=query.device, dtype=torch.int32).contiguous()
-    return flash_attention(query, key, value, segment_ids, scale, True, window)
+    if attention_mask is None and q_offset == 0 and T == S:
+        return flash_attention(query, key, value, segment_ids, scale, True, window)
+    mask = dense_attention_mask(B, T, S, query.device, attention_mask, segment_ids, q_offset, window)
+    return dot_product_attention_dense(query, key, value, mask, scale)

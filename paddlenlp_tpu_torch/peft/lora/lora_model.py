@@ -11,11 +11,11 @@ paths, so a JAX ``save_pretrained`` directory loads here and the flat
 over one for one into ``serving.tenancy.AdapterRegistry``.
 
 What this module does: the seeded init (the JAX package's numpy draws, so
-both packages start from the same adapters), the merged dense forward,
-``merge_and_unload``, ``save_pretrained``/``from_pretrained`` and
-``export_adapter``, and the trainable mask as data. Training LoRA through the
-Trainer and the ``generate`` facade are ROADMAP Queue 1 item 14; the
-partition rules need the meshes of item 12.
+both packages start from the same adapters), the merged dense forward and
+``generate`` over the merged weights, ``merge_and_unload``,
+``save_pretrained``/``from_pretrained`` and ``export_adapter``, and the
+trainable mask as data. Training LoRA through the Trainer is ROADMAP Queue 1
+item 14c; the partition rules need the meshes of item 12b.
 """
 
 from __future__ import annotations
@@ -123,9 +123,10 @@ class LoRAModel:
         logger.info(f"trainable params: {trainable:,} / {total:,} ({100 * trainable / total:.3f}%)")
 
     # ------------------------------------------------------------------ facade
-    def merged_params(self) -> dict:
-        """The base tree with every adapter folded into its kernel."""
-        merged = _merge_lora(self.params, self.lora_config.scaling)
+    def merged_params(self, params: Optional[dict] = None) -> dict:
+        """The base tree with every adapter of ``params`` (default: the
+        facade's) folded into its kernel."""
+        merged = _merge_lora(self.params if params is None else params, self.lora_config.scaling)
         return unflatten_params({p: v for p, v in flatten_params(merged).items() if "/lora_" not in p})
 
     def __call__(self, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -140,13 +141,17 @@ class LoRAModel:
 
     def forward(self, *args, **kwargs):
         _not_ported("training LoRA adapters (the differentiable merged forward, the Trainer's mask)",
-                    "Queue 1 item 14")
+                    "Queue 1 item 14c")
 
     def generate(self, *args, **kwargs):
-        _not_ported("LoRAModel.generate", "Queue 1 item 14")
+        """The base model's ``generate`` over the merged weights (JAX
+        ``:156-163``); ``params``, when given, is a LoRA tree to merge in
+        place of the facade's."""
+        merged = self.merged_params(kwargs.pop("params", None))
+        return self.model.generate(*args, params=merged, **kwargs)
 
     def get_partition_rules_instance(self):
-        _not_ported("LoRA partition rules (meshes)", "Queue 1 item 12")
+        _not_ported("LoRA partition rules (meshes)", "Queue 1 item 12b")
 
     # ------------------------------------------------------------------ save/load
     def merge_and_unload(self):

@@ -219,8 +219,12 @@ class QuantizedModel:
         return self.model(input_ids, dtype=dtype, params=params, quantization_config=self.quantization_config)
 
     def generate(self, *args, **kwargs):
-        raise NotImplementedError("QuantizedModel.generate is not part of the PyTorch port yet: the port has no "
-                                  "generate (ROADMAP Queue 1 item 14); serve it through InferenceEngine")
+        """The base model's ``generate`` over the quantized leaves (every
+        projection through :func:`linear`), JAX ``:213-220``. The facade's
+        tree and config are passed as arguments, so no earlier call of the
+        base model or of another facade changes what it computes."""
+        kwargs.setdefault("params", self.params)
+        return self.model.generate(*args, quantization_config=self.quantization_config, **kwargs)
 
     def memory_footprint(self) -> int:
         """Bytes of the quantized tree's leaves (the facade's base model not

@@ -1,6 +1,6 @@
 """The training loop of the PyTorch port (``paddlenlp_tpu/trainer``): arguments,
 parser, callbacks and reporting integrations, timers, LR schedules, unified
-checkpoints and the ``Trainer``."""
+checkpoints, the ``Trainer`` and the ``Seq2SeqTrainer``."""
 
 from .argparser import PdArgumentParser  # noqa: F401
 from .integrations import (  # noqa: F401
@@ -30,6 +30,7 @@ from .trainer_utils import (  # noqa: F401
     get_last_checkpoint,
     get_scheduler,
 )
+from .trainer_seq2seq import Seq2SeqTrainer  # noqa: F401
 from .training_args import TrainingArguments  # noqa: F401
 from .unified_checkpoint import (  # noqa: F401
     CorruptCheckpointError,

@@ -8,15 +8,20 @@ a leading ``[L]`` axis under ``model/layers``, and projection kernels are
 model (``experimental/inference_model.py``) reads it directly, and
 :meth:`LlamaForCausalLM.from_jax_params` is a plain conversion.
 
-- ``model(input_ids)`` is a plain dense causal forward with no cache and no
-  gradient: the reference the paged path is held against.
+- ``model(input_ids)`` is a plain dense causal forward with no gradient: the
+  reference the paged path is held against. With a padding
+  ``attention_mask``, ``position_ids`` and a ``cache`` (``KVCache``) it is
+  the cached forward ``generate`` runs (``:224-286``), its attention the
+  dispatcher's XLA-path counterpart (``ops/flash_attention.py``
+  ``dot_product_attention_dense``).
 - :meth:`LlamaForCausalLM.forward` is the training forward (``:190-387``,
   ``:513-518``): differentiable in the (fp32 master) parameters, computed in
   ``compute_dtype``, attention through the flash kernels
   (``ops/flash_attention.py``), with the eight remat policies of the JAX
   ``_remat_policy`` (:336) as ``torch.utils.checkpoint`` segments.
 - :meth:`LlamaForCausalLM.save_pretrained` writes the HF layout
-  (``model_utils.py:285``).
+  (``model_utils.py:285``), and the ``generation_config`` when there is one.
+- ``generate`` is ``generation.GenerationMixin``'s.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from ...ops.flash_attention import dot_product_attention
+from ...generation.configuration_utils import GenerationConfig
+from ...generation.utils import GenerationMixin
+from ...ops.flash_attention import dense_attention_mask, dot_product_attention, dot_product_attention_dense
 from ...ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
+from ...utils.env import GENERATION_CONFIG_NAME
 from ...utils.log import logger
 from ...utils.safetensors_io import SafeFile, save_file, shard_checkpoint
+from ..cache_utils import KVCache, update_layer_kv
 from ..conversion_utils import (StackedLayerMapping, auto_name_mappings, convert_state_dict, flatten_params,
                                 tensor_from_numpy, unflatten_params)
 from .configuration import LlamaConfig
@@ -102,7 +111,7 @@ def _weight_files(model_dir: str):
     return [os.path.join(model_dir, f) for f in found]
 
 
-class LlamaForCausalLM:
+class LlamaForCausalLM(GenerationMixin):
     """Parameters + a dense forward. ``params`` is the nested dict
     ``{"model": {"embed_tokens", "layers", "norm"}, "lm_head"}`` of the JAX
     package's scanned layout."""
@@ -112,6 +121,8 @@ class LlamaForCausalLM:
     def __init__(self, config, params: dict):
         self.config = config
         self.params = params
+        #: the default decoding settings of ``generate`` (``generation_config.json``)
+        self.generation_config: Optional[GenerationConfig] = None
         #: dtype the training forward computes in (the JAX module's ``dtype``);
         #: None computes in the parameters' dtype
         self.compute_dtype: Optional[torch.dtype] = None
@@ -209,7 +220,10 @@ class LlamaForCausalLM:
         if missing:
             raise ValueError(f"checkpoint under {model_dir} lacks {missing}")
         flat = {k: v.to(device=device, dtype=dtype or v.dtype) for k, v in flat.items()}
-        return cls._from_flat(config, flat)
+        model = cls._from_flat(config, flat)
+        if os.path.isfile(os.path.join(model_dir, GENERATION_CONFIG_NAME)):  # model_utils.py:372-380
+            model.generation_config = GenerationConfig.from_pretrained(model_dir)
+        return model
 
     # ------------------------------------------------------------------ forward
     @property
@@ -220,13 +234,34 @@ class LlamaForCausalLM:
     def dtype(self) -> torch.dtype:
         return self.params["model"]["embed_tokens"]["embedding"].dtype
 
+    def _forward_dtype(self, params: Optional[dict] = None) -> torch.dtype:
+        """The dense forward's compute dtype by default: the embedding's."""
+        return (self.params if params is None else params)["model"]["embed_tokens"]["embedding"].dtype
+
+    def _gen_forward(self, params, input_ids, attention_mask, position_ids, cache, quantization_config):
+        """``generate``'s forward: the cached dense forward over ``params``."""
+        return self(input_ids, params=params, quantization_config=quantization_config,
+                    attention_mask=attention_mask, position_ids=position_ids, cache=cache)
+
     @torch.no_grad()
     def __call__(self, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None, params: Optional[dict] = None,
                  quantization_config=None,
-                 observer: Optional[Callable[[str, torch.Tensor], None]] = None) -> torch.Tensor:
+                 observer: Optional[Callable[[str, torch.Tensor], None]] = None, attention_mask=None,
+                 position_ids=None, cache: Optional[KVCache] = None):
         """Dense causal forward over ``input_ids`` [B, T] (positions 0..T-1),
         computed in ``dtype`` (default: the parameters' dtype; each layer's
         weights are cast as the layer runs). Returns logits [B, T, V].
+
+        The cached path (JAX ``LlamaModule`` with a cache, ``:224-286``):
+        ``attention_mask`` [B, S] is the padding mask over the key positions
+        (1 = keep), ``position_ids`` [B, T] the rope positions (default: from
+        the cache's offset), and ``cache`` a ``KVCache`` whose layers take
+        this call's keys and values at its offset, in place. With a cache the
+        call returns ``(logits, cache)``, the cache's offset advanced by T.
+        With a cache or a mask, attention runs
+        ``ops.flash_attention.dot_product_attention_dense`` over causal,
+        padding and (``sliding_window``) window masks; a call with neither
+        keeps the inline attention below.
 
         ``params`` (default ``self.params``) may hold quantized leaves
         (``quantization.QuantizedModel``): every projection goes through
@@ -251,9 +286,18 @@ class LlamaForCausalLM:
         if getattr(cfg, "scale_embeddings", False):
             h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype)
         inv_freq = torch.from_numpy(rope_frequencies(H, cfg.rope_theta, cfg.rope_scaling)).to(h.device)
+        offset = cache.offset if cache is not None else 0
         pos = torch.arange(T, device=h.device)
-        cos, sin = rope_tables(pos[None, :].expand(B, T), inv_freq)
-        causal = pos[None, :] <= pos[:, None]  # [T(q), T(kv)]
+        if position_ids is None:
+            position_ids = (pos + offset)[None, :].expand(B, T)
+        cos, sin = rope_tables(position_ids.to(h.device), inv_freq)
+        dense = cache is not None or attention_mask is not None
+        if dense:
+            S = cache.keys.shape[2] if cache is not None else T
+            mask = dense_attention_mask(B, T, S, h.device, attention_mask, None, offset,
+                                        getattr(cfg, "sliding_window", None))
+        else:
+            causal = pos[None, :] <= pos[:, None]  # [T(q), T(kv)]
 
         def mm(p, name, x, where):
             if observer is not None:
@@ -268,12 +312,17 @@ class LlamaForCausalLM:
             k = mm(attn, "k_proj", x, at).reshape(B, T, K, H)
             v = mm(attn, "v_proj", x, at).reshape(B, T, K, H)
             q, k = apply_rotary_pos_emb(q, k, cos, sin)
-            if K != N:
-                k = k.repeat_interleave(N // K, dim=2)
-                v = v.repeat_interleave(N // K, dim=2)
-            s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * (H**-0.5)
-            s = torch.where(causal, s, torch.full_like(s, -1e30))
-            o = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.float()).to(dtype)
+            if dense:
+                if cache is not None:
+                    k, v = update_layer_kv(*cache.layer(i), k, v, offset)
+                o = dot_product_attention_dense(q, k, v, mask)
+            else:
+                if K != N:
+                    k = k.repeat_interleave(N // K, dim=2)
+                    v = v.repeat_interleave(N // K, dim=2)
+                s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * (H**-0.5)
+                s = torch.where(causal, s, torch.full_like(s, -1e30))
+                o = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.float()).to(dtype)
             h = h + mm(attn, "o_proj", o.reshape(B, T, N * H), at)
             x = rms_norm(h, lp["post_attention_layernorm"]["scale"], eps)
             mlp, ml = lp["mlp"], f"model/layers_{i}/mlp"
@@ -282,8 +331,12 @@ class LlamaForCausalLM:
         if "lm_head" in params:
             if observer is not None:
                 observer("lm_head/kernel", h)
-            return h @ params["lm_head"]["kernel"].to(dtype)
-        return h @ embed.T.to(dtype)
+            logits = h @ params["lm_head"]["kernel"].to(dtype)
+        else:
+            logits = h @ embed.T.to(dtype)
+        if cache is None:
+            return logits
+        return logits, KVCache(keys=cache.keys, values=cache.values, offset=offset + T)
 
     # ------------------------------------------------------------------ training forward
     def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
@@ -307,12 +360,12 @@ class LlamaForCausalLM:
           (the output also stays on the device as the next segment's input).
 
         Every policy computes the same forward: only what the backward
-        recomputes differs. An unknown granularity raises ``ValueError``."""
+        recomputes differs. An unknown granularity raises ``ValueError``.
+        A padding ``attention_mask`` [B, T] goes to the attention dispatcher,
+        as in the JAX ``LlamaAttention`` (:261-274): such a call runs its
+        XLA-path counterpart rather than the flash kernels."""
         cfg = self.config
         params = self.params if params is None else params
-        if attention_mask is not None:
-            raise NotImplementedError("forward: padding attention masks are not part of the port yet "
-                                      "(ROADMAP Queue 1 item 14)")
         if getattr(cfg, "attention_dropout", 0.0):
             raise NotImplementedError("forward: attention dropout is not part of the port yet "
                                       "(ROADMAP Queue 1 item 15)")
@@ -356,7 +409,8 @@ class LlamaForCausalLM:
             return qkv(rms_norm(h, lp["input_layernorm/scale"], eps), lp)
 
         def attn_core(q, k, v):
-            return dot_product_attention(q, k, v, segment_ids=segment_ids, window=window)
+            return dot_product_attention(q, k, v, attention_mask=attention_mask, segment_ids=segment_ids,
+                                         window=window)
 
         def o_proj(o, lp):
             return dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
@@ -439,6 +493,8 @@ class LlamaForCausalLM:
         self.config.dtype = str(next(iter(flat.values())).dtype).removeprefix("torch.")
         self.config.architectures = [type(self).__name__]
         self.config.save_pretrained(save_directory)
+        if self.generation_config is not None:
+            self.generation_config.save_pretrained(save_directory)
         tensors: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
             for mapping in auto_name_mappings({k: tuple(v.shape) for k, v in flat.items()}):

@@ -1,13 +1,16 @@
 """Device facts for throughput metrics.
 
 The port's counterpart of ``paddlenlp_tpu/utils/env.py`` ``device_peak_flops``,
-keyed on CUDA device names instead of TPU kinds."""
+keyed on CUDA device names instead of TPU kinds, and the name of a model
+directory's generation config (``GENERATION_CONFIG_NAME``, ``:40``)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["device_peak_flops"]
+__all__ = ["GENERATION_CONFIG_NAME", "device_peak_flops"]
+
+GENERATION_CONFIG_NAME = "generation_config.json"
 
 #: per-device peak dense FLOPs (bf16) by CUDA device-name substring (matched
 #: case-insensitively; NVIDIA's data sheet, SXM part, dense). Off-table

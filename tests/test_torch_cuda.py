@@ -837,3 +837,77 @@ def test_offload_attn_on_the_card(dev):
     (want_loss, want), (got_loss, got) = out["save_qkv_attn"], out["offload_attn"]
     assert got_loss == want_loss
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ----------------------------------------------------------------------------- generate
+def _bf16_gate_first_divergence(model32, prompt, got, want):
+    """None when the streams agree; else the first divergence's two tokens'
+    fp32 margin against the bf16 gate ``2**-7 * |logit| + 1e-3``."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        return None
+    row = model32(torch.tensor([list(prompt) + list(want[:j])]), dtype=torch.float32)[0, -1]
+    la, lb = row[got[j]].item(), row[want[j]].item()
+    return abs(la - lb) <= 2**-7 * max(abs(la), abs(lb)) + 1e-3
+
+
+def test_generate_on_the_card_matches_cpu(dev):
+    """Greedy ``generate`` of a small bf16 Qwen2 over a left-padded batch on
+    the card equals the same call on the CPU, or parts only where the two
+    tokens' fp32 margin is within the bf16 gate; one host sync a step."""
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params, unflatten_params
+
+    cfg = Qwen2Config(vocab_size=512, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512, eos_token_id=None,
+                      pad_token_id=0)
+    cpu = Qwen2ForCausalLM.init_random(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    card = Qwen2ForCausalLM(cfg, unflatten_params({k: v.to(dev) for k, v in flatten_params(cpu.params).items()}))
+    rng = np.random.default_rng(0)
+    lens = (40, 64, 17)
+    ids = np.zeros((3, 64), np.int64)
+    mask = np.zeros((3, 64), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, -n:] = rng.integers(1, 512, n)
+        mask[b, -n:] = 1
+    got, _ = card.generate(ids, attention_mask=mask, max_new_tokens=24)
+    assert got.is_cuda and card.last_generate_stats["host_syncs"] == 23
+    want, _ = cpu.generate(ids, attention_mask=mask, max_new_tokens=24)
+    cpu32 = Qwen2ForCausalLM(cfg, unflatten_params({k: v.float() for k, v in flatten_params(cpu.params).items()}))
+    for b, n in enumerate(lens):
+        ok = _bf16_gate_first_divergence(cpu32, ids[b, -n:], got[b].tolist(), want[b].tolist())
+        assert ok is None or ok, f"row {b} parts outside the bf16 gate"
+
+
+def test_threefry_bits_on_the_card_equal_cpu(dev):
+    from paddlenlp_tpu_torch.experimental.inference_model import _uniform_rows
+    from paddlenlp_tpu_torch.utils import prng
+
+    for seed in (0, 7, 2**31 - 1):
+        key_c, key_g = prng.key(seed), prng.key(seed, device=dev)
+        for shape in ((2, 152064), (8, 1000)):
+            key_c, sub_c = prng.split(key_c)
+            key_g, sub_g = prng.split(key_g)
+            assert [int(t) for t in sub_g] == [int(t) for t in sub_c]
+            assert torch.equal(prng.random_bits(sub_g, shape).cpu(), prng.random_bits(sub_c, shape))
+    seeds = torch.tensor([0, 1, 12345], dtype=torch.int32)
+    pos = torch.tensor([0, 5, 65535], dtype=torch.int32)
+    got = _uniform_rows(seeds.to(dev), pos.to(dev), 4099).cpu()
+    assert torch.equal(got.view(torch.int32), _uniform_rows(seeds, pos, 4099).view(torch.int32))
+
+
+def test_dense_attention_fully_masked_rows_on_the_card(dev):
+    """The dispatcher's XLA-path counterpart on the card, bf16 and fp32, with
+    left-pad query rows that see no key: finite everywhere, and within the
+    bf16 gate (fp32: 1e-5) of the same call on the CPU."""
+    rng = np.random.default_rng(1)
+    B, T, S, N, K, H = 2, 48, 48, 28, 4, 128
+    mask = torch.ones(B, S, dtype=torch.int64)
+    mask[0, :9] = 0
+    for dtype, (atol, rtol) in ((torch.bfloat16, (1e-3, 2**-7)), (torch.float32, (1e-5, 0.0))):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)
+                   for s in ((B, T, N, H), (B, S, K, H), (B, S, K, H)))
+        launches = dict(fa.LAUNCHES)
+        got = fa.dot_product_attention(q.to(dev), k.to(dev), v.to(dev), attention_mask=mask.to(dev))
+        assert fa.LAUNCHES == launches and torch.isfinite(got).all()
+        want = fa.dot_product_attention(q, k, v, attention_mask=mask)
+        torch.testing.assert_close(got.cpu().float(), want.float(), atol=atol, rtol=rtol)

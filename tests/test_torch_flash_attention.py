@@ -7,6 +7,14 @@ versions (``flash_attention_fwd_ref``/``flash_attention_bwd_ref``) and its
 ``torch.autograd.Function`` on the CPU. Tolerances are the JAX kernel tests'
 own (``tests/ops/test_pallas_flash.py``): atol 2e-5 on the forward (fp32,
 summation order only), atol 5e-4 / rtol 1e-3 on the gradients.
+
+The dispatcher's masked and cached calls (a padding mask, ``q_offset``,
+``T != S``) run its XLA-path counterpart, held against the JAX dispatcher's
+``jax.nn.dot_product_attention`` path: fp32 within atol 2e-6 (summation
+order), bf16 bit for bit (bf16 products are exact in fp32, and the bf16
+roundings of the probabilities and the output absorb the summation order),
+gradients against ``jax.grad`` within 1e-5 of their largest element; fully
+masked rows stay finite.
 """
 
 import functools
@@ -141,13 +149,13 @@ def test_rejects_like_the_pallas_kernel():
         fa.flash_attention(torch.zeros(1, 8, 3, 64), q, q)
 
 
-@pytest.mark.parametrize("option", [dict(attention_mask=torch.ones(1, 8)), dict(bias=torch.zeros(1, 1, 8, 8)),
-                                    dict(use_alibi=True), dict(dropout_rate=0.1), dict(positions=torch.arange(8)),
-                                    dict(q_offset=4), dict(causal=False)],
-                         ids=["mask", "bias", "alibi", "dropout", "positions", "q_offset", "non-causal"])
-def test_dispatcher_options_outside_the_slice_raise(option):
+@pytest.mark.parametrize("option,item", [(dict(bias=torch.zeros(1, 1, 8, 8)), "14e"), (dict(use_alibi=True), "14e"),
+                                         (dict(dropout_rate=0.1), "15"), (dict(positions=torch.arange(8)), "15"),
+                                         (dict(causal=False), "14e")],
+                         ids=["bias", "alibi", "dropout", "positions", "non-causal"])
+def test_dispatcher_options_outside_the_slice_raise(option, item):
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\b"):
         fa.dot_product_attention(q, q, q, **option)
 
 
@@ -261,3 +269,100 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
         print(f"bf16 parts {parts}:", {name: round(e["worst"], 3) for name, e in worst[parts].items()})
     for name, e in worst[2].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
+
+
+# ----------------------------------------------------------------------------- the XLA path
+# (B, T, S, N, K, H, q_offset, left pads per row, window): a left-padded prefill
+# (5 fully masked query rows), a cache prefill (T < S), a decode step over a
+# cache, an offset without a mask, and a window with padding
+DENSE_CASES = [(2, 24, 24, 4, 2, 16, 0, (5, 0), None), (2, 12, 20, 4, 2, 16, 0, (3, 0), None),
+               (2, 1, 20, 6, 2, 16, 13, (3, 0), None), (1, 4, 16, 4, 4, 16, 9, None, None),
+               (2, 24, 24, 4, 2, 16, 0, (2, 7), 6)]
+DENSE_IDS = ["left-pad", "cache-prefill", "cache-step", "offset", "pad-window"]
+DENSE_ATOL = 2e-6  # fp32: summation order only
+
+
+def _dense_inputs(B, T, S, N, K, H, pads, dtype, seed=4):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, N, H), dtype=np.float32)
+    k = rng.standard_normal((B, S, K, H), dtype=np.float32)
+    v = rng.standard_normal((B, S, K, H), dtype=np.float32)
+    do = rng.standard_normal((B, T, N, H), dtype=np.float32)
+    mask = None
+    if pads is not None:
+        mask = np.ones((B, S), np.int32)
+        for b, n in enumerate(pads):
+            mask[b, :n] = 0
+    to_j = (lambda x: jnp.asarray(x, jnp.bfloat16)) if dtype == "bfloat16" else jnp.asarray
+    to_t = (lambda x: torch.from_numpy(x).bfloat16()) if dtype == "bfloat16" else torch.from_numpy
+    return (q, k, v, do, mask), to_j, to_t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,S,N,K,H,q_offset,pads,window", DENSE_CASES, ids=DENSE_IDS)
+def test_dispatcher_xla_path_matches_jax(B, T, S, N, K, H, q_offset, pads, window, dtype):
+    """Masked and cached calls against the JAX dispatcher's XLA path
+    (``jax.nn.dot_product_attention``), with no kernel launched."""
+    from paddlenlp_tpu.ops.flash_attention import dot_product_attention as jax_dpa
+
+    (q, k, v, _do, mask), to_j, to_t = _dense_inputs(B, T, S, N, K, H, pads, dtype)
+    want = jax_dpa(to_j(q), to_j(k), to_j(v), attention_mask=None if mask is None else jnp.asarray(mask),
+                   q_offset=q_offset, window=window, use_pallas=False)
+    launches = dict(fa.LAUNCHES)
+    got = fa.dot_product_attention(to_t(q), to_t(k), to_t(v), attention_mask=None if mask is None else _t(mask),
+                                   q_offset=q_offset, window=window)
+    assert fa.LAUNCHES == launches and got.dtype == to_t(q).dtype
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=DENSE_ATOL, rtol=0)
+    else:  # exact products in fp32, then the bf16 roundings absorb the summation order
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("B,T,S,N,K,H,q_offset,pads,window", [DENSE_CASES[0], DENSE_CASES[2]],
+                         ids=["left-pad", "cache-step"])
+def test_dispatcher_xla_path_gradients_match_jax(B, T, S, N, K, H, q_offset, pads, window):
+    from paddlenlp_tpu.ops.flash_attention import dot_product_attention as jax_dpa
+
+    (q, k, v, do, mask), _, _ = _dense_inputs(B, T, S, N, K, H, pads, "float32", seed=5)
+
+    def jloss(q_, k_, v_):
+        out = jax_dpa(q_, k_, v_, attention_mask=jnp.asarray(mask), q_offset=q_offset, use_pallas=False)
+        return (out * jnp.asarray(do)).sum()
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = fa.dot_product_attention(qt, kt, vt, attention_mask=_t(mask), q_offset=q_offset)
+    out.backward(_t(do))
+    for name, t, w in zip(("dq", "dk", "dv"), (qt, kt, vt), want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_rows_attend_uniformly_and_stay_finite(dtype):
+    """A left-pad query row sees no key: like XLA's it attends uniformly over
+    all S positions (``-0.7 * finfo.max`` logits, not -inf), so it comes out
+    finite, and the next layer's V at that pad position cannot poison real
+    rows through 0 * NaN."""
+    (q, k, v, _do, mask), _, to_t = _dense_inputs(2, 24, 24, 4, 2, 16, (5, 0), dtype)
+    out = fa.dot_product_attention(to_t(q), to_t(k), to_t(v), attention_mask=_t(mask)).float()
+    assert torch.isfinite(out).all()
+    vt = to_t(v).float().repeat_interleave(2, dim=2)  # [B, S, N, H]
+    want = vt[0].mean(dim=0)  # [N, H]: uniform over all 24 positions
+    for t in range(5):
+        torch.testing.assert_close(out[0, t], want.to(to_t(q).dtype).float(), atol=1e-2 if dtype == "bfloat16" else 1e-6,
+                                   rtol=0)
+
+
+def test_eligible_calls_keep_the_flash_path():
+    """No mask, no offset and T == S: the flash kernels' path, bit for bit
+    (its plain version on the CPU); a mask of ones takes the XLA path and
+    agrees to summation order."""
+    q, k, v, _do, _seg = _inputs(1, 64, 4, 2, 32, False, seed=7)
+    got = fa.dot_product_attention(_t(q), _t(k), _t(v))
+    torch.testing.assert_close(got, fa.flash_attention(_t(q), _t(k), _t(v)), atol=0, rtol=0)
+    ones = fa.dot_product_attention(_t(q), _t(k), _t(v), attention_mask=torch.ones(1, 64, dtype=torch.int32))
+    torch.testing.assert_close(ones, got, atol=FWD_ATOL, rtol=0)

@@ -7,6 +7,9 @@
 - ``from_jax_params`` of the JAX package's scanned params gives the JAX
   ``LlamaForCausalLM`` logits (atol 1e-4) for a LLaMA config and a Qwen2
   config with q/k/v biases and a 7-way GQA fold, and with rope scaling.
+- The cached forward over a left-padded batch (prefill, then 3 steps over a
+  ``KVCache``) gives the JAX module's logits and cache contents, and the
+  training forward with a padding mask the JAX loss and gradients.
 """
 
 import os
@@ -107,3 +110,73 @@ def test_rope_scaled_forward_from_jax_params():
               num_key_value_heads=2, max_position_embeddings=64, rope_scaling=ROPE_SCALINGS[3])
     got, want = _logits_both(*_jax_and_port(JLlama, LlamaForCausalLM, JLlamaConfig, LlamaConfig, 3, **kw))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+# ----------------------------------------------------------------------------- cached and masked forwards
+PAD_IDS = np.asarray([[0, 0, 0, 3, 1, 4, 1, 5, 9], [2, 6, 5, 3, 5, 8, 9, 7, 9]], np.int64)
+PAD_MASK = np.asarray([[0, 0, 0, 1, 1, 1, 1, 1, 1], [1] * 9], np.int64)
+
+
+def test_cached_call_matches_jax_cache():
+    """The cached dense forward over a left-padded batch (generate's prefill
+    with ``clip(cumsum(mask) - 1, 0)`` positions, then 3 one-token steps over
+    a 12-slot cache) equals the JAX module applied with a ``KVCache``: the
+    logits of every call and the cache's keys and values after each."""
+    from paddlenlp_tpu.transformers.cache_utils import init_cache as jax_init_cache
+    from paddlenlp_tpu_torch.transformers.cache_utils import init_cache
+
+    kw = dict(vocab_size=160, hidden_size=112, intermediate_size=96, num_hidden_layers=2, num_attention_heads=7,
+              num_key_value_heads=1, head_dim=16, rope_theta=1e6, max_position_embeddings=64)
+    jm, pm = _jax_and_port(JQwen2, Qwen2ForCausalLM, JQwen2Config, Qwen2Config, 4, **kw)
+    B, T0, S = PAD_IDS.shape[0], PAD_IDS.shape[1], 12
+    mask = np.concatenate([PAD_MASK, np.ones((B, S - T0), np.int64)], axis=1)
+    steps = np.asarray([[7, 8, 9], [10, 11, 12]], np.int64)
+    apply = jax.jit(lambda p, ids, m, pos, kv: jm.module.apply({"params": p}, input_ids=ids, attention_mask=m,
+                                                             position_ids=pos, cache=kv, deterministic=True))
+    jkv = jax_init_cache(jm.config, B, S, dtype=jnp.float32)
+    kv = init_cache(pm.config, B, S, dtype=torch.float32, device="cpu")
+    pos = np.maximum(np.cumsum(PAD_MASK, axis=1) - 1, 0)
+    feeds = [(PAD_IDS, pos)] + [(steps[:, i:i + 1], PAD_MASK.sum(1, keepdims=True) + i) for i in range(3)]
+    for ids, p in feeds:
+        out = apply(jm.params, jnp.asarray(ids, jnp.int32), jnp.asarray(mask, jnp.int32), jnp.asarray(p, jnp.int32),
+                    jkv)
+        jkv = out.past_key_values
+        got, kv = pm(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask), position_ids=torch.from_numpy(p),
+                     cache=kv)
+        np.testing.assert_allclose(got.numpy(), np.asarray(out.logits), atol=ATOL, rtol=0)
+        assert kv.offset == int(jkv.offset)
+        np.testing.assert_allclose(kv.keys.numpy(), np.asarray(jkv.keys), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(kv.values.numpy(), np.asarray(jkv.values), atol=1e-5, rtol=0)
+
+
+def test_masked_training_forward_matches_jax():
+    """The training forward with a padding mask: the loss within atol 1e-5
+    and every gradient leaf within 1e-4 of its largest element against
+    ``jax.value_and_grad`` of the JAX module's masked forward."""
+    from paddlenlp_tpu.ops.cross_entropy import causal_lm_loss as jax_causal_lm_loss
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    kw = dict(vocab_size=128, hidden_size=64, intermediate_size=112, num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=2, max_position_embeddings=64)
+    jm, pm = _jax_and_port(JLlama, LlamaForCausalLM, JLlamaConfig, LlamaConfig, 5, **kw)
+    labels = np.where(PAD_MASK > 0, (PAD_IDS * 7 + 3) % 128, -100)
+
+    def loss_fn(p):
+        logits = jm.module.apply({"params": p}, input_ids=jnp.asarray(PAD_IDS, jnp.int32),
+                                 attention_mask=jnp.asarray(PAD_MASK, jnp.int32), deterministic=True).logits
+        return jax_causal_lm_loss(logits, jnp.asarray(labels, jnp.int32), shift=True)
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(jm.params)
+    leaves = flatten_params(pm.params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = causal_lm_loss(pm.forward(torch.from_numpy(PAD_IDS), attention_mask=torch.from_numpy(PAD_MASK)),
+                          torch.from_numpy(labels), shift=True)
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= 1e-5
+    from paddlenlp_tpu.transformers.conversion_utils import flatten_params as jflatten
+
+    for path, g in jflatten(jax.device_get(want_grads)).items():
+        g = np.asarray(g)
+        np.testing.assert_allclose(leaves[path].grad.numpy(), g, atol=1e-4 * np.abs(g).max(), rtol=0, err_msg=path)

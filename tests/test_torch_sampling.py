@@ -4,6 +4,8 @@
 penalties, top-k, top-p and seeded draws: the port rebuilds
 ``jax.random.categorical(fold_in(key(seed), position), row)`` from threefry2x32
 in integer ops and uses a stable sort where JAX's ``argsort`` is stable.
+``generate``'s ``split`` and [B, V] ``categorical`` (``utils/prng.py``) draw
+``jax.random``'s bits too.
 """
 
 import jax
@@ -14,6 +16,7 @@ import torch
 
 from paddlenlp_tpu.experimental.inference_model import sample_tokens as jax_sample_tokens
 from paddlenlp_tpu_torch.experimental.inference_model import _uniform_rows, sample_tokens
+from paddlenlp_tpu_torch.utils import prng
 
 SEEDS = [0, 1, 7, 12345, 2**31 - 1]
 POSITIONS = [0, 1, 5, 1000, 65535]
@@ -102,3 +105,26 @@ def test_mixed_rows_and_positions():
                   top_p=np.full(n, 0.95, np.float32), do_sample=np.arange(n) % 3 != 0)
     got, want = _both(logits, params)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 13, 2**31 - 1, -5])
+def test_split_and_categorical_match_jax(seed):
+    """``generate``'s draws: ``key(seed)``, then each step ``key, sub =
+    split(key)`` and ``categorical(sub, logits)`` over [B, V]: the keys and
+    the [B, V] bits bitwise, the uniform floats bitwise, the picked ids
+    equal, over odd and even shapes."""
+    jkey, key = jax.random.key(seed), prng.key(seed)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(jkey)), [int(key[0]), int(key[1])])
+    for step, shape in enumerate([(1, 96), (2, 257), (3, 1000), (2, 4096)]):
+        jkey, jsub = jax.random.split(jkey)
+        key, sub = prng.split(key)
+        for jk, k in ((jkey, key), (jsub, sub)):
+            np.testing.assert_array_equal(np.asarray(jax.random.key_data(jk)), [int(k[0]), int(k[1])])
+        np.testing.assert_array_equal(prng.random_bits(sub, shape).numpy().astype(np.uint32),
+                                      np.asarray(jax.random.bits(jsub, shape, jnp.uint32)))
+        tiny = float(jnp.finfo(jnp.float32).tiny)
+        np.testing.assert_array_equal(prng.uniform(sub, shape, minval=tiny).numpy().view(np.uint32),
+                                      np.asarray(jax.random.uniform(jsub, shape, minval=tiny)).view(np.uint32))
+        logits = (np.random.default_rng(step).standard_normal(shape) * 3).astype(np.float32)
+        np.testing.assert_array_equal(prng.categorical(sub, torch.from_numpy(logits)).numpy(),
+                                      np.asarray(jax.random.categorical(jsub, jnp.asarray(logits))))
