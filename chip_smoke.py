@@ -50,7 +50,29 @@ Serving, the paged engine at Qwen2-7B width and depth:
               paged kernel; two in-process weight swaps with their canary
               digests and a refused uncommitted checkpoint; every paged
               launch on the Hopper route;
-8. spec    -- speculative decoding on the same model and engine settings:
+8. router  -- two replicas of that server (one engine each over the one
+              model) behind ``paddlenlp_tpu_torch.serving.router.RouterServer``
+              with prefix affinity, launched by ``launch_fleet``: 4 greedy
+              prompts through the router (JSON and SSE) equal to each sent
+              alone to the replica the response names; the engine phase's 8
+              requests from 8 clients at once against their solo runs (a
+              divergence only within twice the bf16 distance), client
+              TTFT/TPOT, the split across replicas, the TTFT split into the
+              router hop, the engine and the way back, single-request TTFT
+              through the router minus direct, tokens/s beside ``serve``'s,
+              and the burst again with one replica drained and with the
+              interpreter's thread switch interval at 1 ms;
+              an injected ``engine.step`` fault on the replica a shared
+              prefix pins (mid-stream streams end ``replica_error``, a
+              token-less one fails over token-exact, a POST in the window
+              answers 200, the replica returns HEALTHY); ``POST
+              /replicas/drain`` with two streams in flight (both finish); one
+              autoscaler tick under a forced fast burn provisions a third
+              replica that probes HEALTHY; ``lint_federation`` of the
+              replicas' ``/metrics``, ``/fleet/slo``, ``/fleet/usage``,
+              ``/debug/efficiency`` and a stitched two-tier ``/debug/trace``;
+              every paged launch on the Hopper route;
+9. spec    -- speculative decoding on the same model and engine settings:
               (a) the n-gram proposer (4 drafts, 2-grams) on 8 greedy
               requests of 512-960 extractive tokens (a random 128-token
               segment repeated), 64 new tokens each, against the same
@@ -68,7 +90,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
               conserved; every verify launch on the Hopper paged kernel and
               every draft forward on the Hopper flash kernel; the draft's
               attention launch (q [4, L, 14, 64]) against its plain version;
-9. host_tier -- the host KV tier: a 256-block pool over a 512-block tier
+10. host_tier -- the host KV tier: a 256-block pool over a 512-block tier
               against a 2048-block pool that never evicts (and the small
               pool without the tier): turn 1 of 1024 tokens, a flood that
               evicts it, turn 2 on turn 1 and its output, twice; turn 2 promotes
@@ -76,7 +98,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
               never-evicting engine's tokens; D2H and H2D rates, turn-2
               TTFT against a cold re-prefill; then the same as a chat over
               HTTP, whose turn 2 counts the promoted span as cached;
-10. kv_quant -- the engine phase's 8 requests on the same model over an int8
+11. kv_quant -- the engine phase's 8 requests on the same model over an int8
               pool (monolithic and 512-token chunked prefill) and an fp8
               pool (monolithic), every paged launch on the Hopper kernel's
               quantized entry; prefix-cache hits, the ledger conserved; the
@@ -89,7 +111,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
               TTFT/TPOT, tokens/s, peak memory, pool bytes and the
               agreement with a bf16 pool's streams, printed; one profiled
               decode call's paged-attention device ms;
-11. lora   -- multi-LoRA on the same model and engine settings: an
+12. lora   -- multi-LoRA on the same model and engine settings: an
               ``AdapterRegistry`` (max rank 16, 4 pool slots, fp32; the pool's
               bytes printed) with three random adapters (ranks 16, 16, 8) and
               one a ``LoRAModel`` exported to a file; the engine phase's 8
@@ -109,7 +131,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
               TTFT/TPOT and tokens/s with adapters and on the base model,
               profiled decode calls of each, the device pool's re-place
               times; every paged launch on the Hopper route;
-12. wquant -- quantized weights on the same model and engine settings
+13. wquant -- quantized weights on the same model and engine settings
               (``quantization.QuantizedModel``: wint8, wint4, fp8, and a8w8
               with dynamic and with calibrated activation scales), one facade
               at a time: layer 0's slice of every projection quantized and
@@ -128,7 +150,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
               ``QuantizedModel.generate`` on 2 greedy prompts against its
               engine's streams (a divergence only within twice the bf16
               distance);
-13. generate -- ``generate`` (the dense forward over a static KV cache,
+14. generate -- ``generate`` (the dense forward over a static KV cache,
               attention on the dispatcher's XLA-path counterpart: no kernel)
               on the same bf16 model: the engine phase's 8 prompts
               left-padded into one [8, 2048] batch, 64 new tokens, each row
@@ -146,7 +168,7 @@ Serving, the paged engine at Qwen2-7B width and depth:
 
 Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
 
-14. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+15. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -156,11 +178,11 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-15. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+16. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-16. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+17. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -173,8 +195,8 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               step, the steady MFU beside it); the
               window's Chrome trace holds the three Hopper flash kernels; the
               saved checkpoint loads back bit for bit;
-17. train_profile -- ``torch.profiler`` over one more training step;
-18. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
+18. train_profile -- ``torch.profiler`` over one more training step;
+19. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
               Qwen2-1.5B widths and 12 layers (``RESUME_LAYERS``: the run keeps
               its disk writes under 45 GiB): a straight run
@@ -185,15 +207,16 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               parameters equal the straight run's bit for bit, the two
               checkpoint-4s' model and optimizer files hash alike; load
               GB/s, the loop's stall against the writer thread's time;
-19. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
+20. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
               each of the 8 recompute granularities at full depth: wall s,
               peak memory and flash launches each; the losses equal;
-20. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+21. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
               full logits at the step's head (hidden [2, 4096, 1536] bf16,
               the tied 1536 x 151936 head): the loss and both gradients
               within the bf16 gate, the peak memory of each;
-21. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs, the serve, spec, host_tier, lora and wquant phases;
+22. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, router, spec, host_tier, lora and wquant
+              phases;
               the kv_quant phase for the quantized entry) and the training runs
               (train, train_resume, train_recompute, and the spec phase's draft
               forwards), each on its own route, and its check.
@@ -978,6 +1001,425 @@ def phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, 
     check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
           f"serve: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
     del server, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------------- router
+ROUTER_PARITY_NEW = 32  # new tokens of a parity request
+ROUTER_SUPERVISOR = dict(max_retries=0, backoff_base_s=2.0, backoff_max_s=4.0)
+
+
+def fleet_stream(port, payload, on_token=None, timeout=600):
+    """An SSE completion through a router or a replica: a dict of the
+    status, the completion id, the token ids, the finish reason, the replica
+    the terminal chunk names, the client's send time and each token's
+    arrival time. ``on_token(n)`` runs after the n-th token."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        out = dict(status=None, id=None, tokens=[], finish=None, replica=None, t0=time.time(), times=[])
+        conn.request("POST", "/v1/completions", body=json.dumps(dict(payload, stream=True)),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        if resp.status != 200:
+            return out
+        for line in resp:
+            line = line.strip()
+            if line == b"data: [DONE]":
+                break
+            if not line.startswith(b"data: "):
+                continue
+            chunk = json.loads(line[6:])
+            out["id"] = chunk.get("id", out["id"])
+            choice = chunk["choices"][0]
+            if choice.get("finish_reason") is not None:
+                out["finish"], out["replica"] = choice["finish_reason"], chunk.get("replica")
+            elif choice.get("token") is not None:
+                out["tokens"].append(choice["token"])
+                out["times"].append(time.time())
+                if on_token is not None:
+                    on_token(len(out["tokens"]))
+        return out
+    finally:
+        conn.close()
+
+
+def phase_router(torch, np, model, pa, InferenceEngine, SamplingParams, serving, seed, serve_res):
+    """Two Qwen2-7B replicas (``ServingServer`` each, one engine each over the
+    phase's one model) behind the port's ``RouterServer`` on 127.0.0.1, with
+    prefix affinity: (a) greedy parity through the router against the named
+    replica alone; (b) the engine phase's 8 requests from 8 clients at once
+    against their solo runs, client TTFT/TPOT, the split across replicas, the
+    router's share of TTFT and aggregate tokens/s, then the same burst with
+    one replica drained and with the interpreter's switch interval at 1 ms;
+    (c) an injected ``engine.step`` fault on the replica a shared prefix
+    pins; (d) a drain with streams in flight, then one autoscaler tick that
+    provisions a third replica; (e) the fleet planes; (f) every paged launch
+    on the Hopper route."""
+    from paddlenlp_tpu_torch.experimental.inference_model import _gumbel_rows
+    from paddlenlp_tpu_torch.serving import router as rt
+    from paddlenlp_tpu_torch.utils.faults import FAULTS
+
+    t_phase = time.perf_counter()
+    prompts, sampled = traffic(np, model.config.vocab_size, seed)
+    vocab = model.config.vocab_size
+    engines = []
+
+    def factory():
+        eng = InferenceEngine(model, **SERVE_ENGINE)
+        check(eng.backend.device.type == DEVICE and eng.infer.use_paged_kernel,
+              f"router: a replica's engine is on {eng.backend.device}, kernel path {eng.infer.use_paged_kernel}")
+        engines.append(eng.backend.device.type)
+        return eng
+
+    def body_of(i, new=64):
+        b = {"prompt": prompts[i].tolist(), "max_tokens": new}
+        if i in sampled:
+            b.update(do_sample=True, temperature=0.8, top_p=0.9, seed=10 + i)
+        return b
+
+    replica_kw = dict(scheduler_config=serving.SchedulerConfig(max_inflight=32, default_timeout_s=600),
+                      supervisor_policy=serving.SupervisorPolicy(**ROUTER_SUPERVISOR))
+    FAULTS.reset()
+    torch.cuda.synchronize()
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    fleet = rt.launch_fleet(2, factory, policy=rt.PrefixAffinityPolicy(), poll_interval_s=0.05, **replica_kw)
+    router, rport = fleet.router, fleet.router_port
+    ids = [fleet.replica_id(i) for i in range(2)]
+    port_of = dict(zip(ids, fleet.ports))
+    res = dict(phase="router", config="Qwen/Qwen2-7B", replicas=2, policy="prefix_affinity",
+               router="paddlenlp_tpu_torch.serving.router.RouterServer", engine=SERVE_ENGINE,
+               supervisor=ROUTER_SUPERVISOR)
+    prov = None
+
+    def clear_caches():
+        for s in fleet.servers:
+            s.loop.run_on_loop(s.loop.engine.clear_prefix_cache)
+
+    def state_of(rid):
+        return {s.id: s.state for s in router.pool.snapshots()}.get(rid)
+
+    def wait(cond, what, timeout=120):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if cond():
+                return
+            time.sleep(0.01)
+        check(False, f"router: timed out waiting for {what}")
+
+    def burst(what="burst"):
+        """The engine phase's 8 requests from 8 clients at once through the
+        router (odd ones SSE) on cleared caches: (results, wall s)."""
+        clear_caches()
+        results = [None] * len(prompts)
+
+        def client(i):
+            if i % 2:
+                results[i] = dict(fleet_stream(rport, body_of(i)), sse=True, end=time.time())
+            else:
+                t0 = time.time()
+                status, body = http_json(rport, "POST", "/v1/completions", body_of(i))
+                results[i] = dict(sse=False, status=status, tokens=body["choices"][0]["token_ids"],
+                                  finish=body["choices"][0]["finish_reason"], replica=body["replica"],
+                                  id=body["id"], t0=t0, end=time.time())
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t_load
+        check(all(not t.is_alive() for t in threads) and all(results), f"router: a {what} client never finished")
+        for i, r in enumerate(results):
+            check(r["status"] == 200 and r["finish"] in ("length", "stop"),
+                  f"router: {what} request {i} {r['status']} ended {r['finish']}")
+            check(all(0 <= t < vocab for t in r["tokens"]), f"router: {what} request {i} emitted out-of-vocab ids")
+        return results, wall
+
+    def burst_summary(results, wall):
+        sse = [r for r in results if r["sse"]]
+        n = sum(len(r["tokens"]) for r in results)
+        return dict(tokens_per_s=n / wall, wall_s=wall,
+                    client_ttft_ms_p50=pct([(r["times"][0] - r["t0"]) * 1e3 for r in sse], 0.5),
+                    client_tpot_ms_p50=pct([(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3
+                                            for r in sse if len(r["times"]) > 1], 0.5),
+                    split_across_replicas={str(ids.index(rid)): sum(r["replica"] == rid for r in results)
+                                           for rid in ids})
+
+    try:
+        # (a) parity: greedy prompts one at a time through the router, each
+        # against the same prompt sent alone to the replica the response names
+        greedy = [i for i in range(len(prompts)) if i not in sampled][:4]
+        parity, solo = {}, {}
+        for i in greedy:
+            clear_caches()
+            status, body = http_json(rport, "POST", "/v1/completions", body_of(i, ROUTER_PARITY_NEW))
+            check(status == 200, f"router: parity request {i} answered {status}")
+            rid = body["replica"]
+            clear_caches()
+            _, direct = http_json(port_of[rid], "POST", "/v1/completions", body_of(i, ROUTER_PARITY_NEW))
+            clear_caches()
+            s = fleet_stream(rport, body_of(i, ROUTER_PARITY_NEW))
+            if s["replica"] == rid:
+                s_direct = direct["choices"][0]["token_ids"]
+            else:
+                clear_caches()
+                s_direct = fleet_stream(port_of[s["replica"]], body_of(i, ROUTER_PARITY_NEW))["tokens"]
+            parity[i] = dict(replica=ids.index(rid), sse_replica=ids.index(s["replica"]),
+                             batch_equal=body["choices"][0]["token_ids"] == direct["choices"][0]["token_ids"],
+                             sse_equal=s["status"] == 200 and s["tokens"] == s_direct)
+        res["parity"] = dict(new_tokens=ROUTER_PARITY_NEW, prompts=[len(prompts[i]) for i in greedy], by_prompt=parity)
+        check(all(p["batch_equal"] and p["sse_equal"] for p in parity.values()),
+              f"router: streams through the router differ from the replica alone: {parity}")
+
+        # (b) burst: the engine phase's 8 requests from 8 clients at once (4
+        # SSE), each against the same request alone and directly on a replica
+        for i in range(len(prompts)):
+            clear_caches()
+            _, body = http_json(fleet.ports[i % 2], "POST", "/v1/completions", body_of(i))
+            solo[i] = body["choices"][0]["token_ids"]
+        span_mark = router.tracer.now()
+        results, load_wall = burst()
+
+        def gumbel(i):
+            return lambda pos: 0.8 * _gumbel_rows(torch.tensor([10 + i], device=DEVICE),
+                                                  torch.tensor([pos], device=DEVICE), vocab)[0]
+
+        diverged = {}
+        for i, r in enumerate(results):
+            d = depth_divergence(torch, model, prompts[i], r["tokens"], solo[i],
+                                 noise=gumbel(i) if i in sampled else None)
+            if d is not None:
+                diverged[i] = d
+        # the router's spans of the burst and each replica's own record of it
+        spans = [s for s in router.tracer.snapshot(since_ts=span_mark) if s.dur is not None]
+        route_ms = {}
+        arrival = {}
+        for s in spans:
+            if s.name == "route":
+                route_ms[s.trace] = route_ms.get(s.trace, 0.0) + s.dur * 1e3
+            elif s.name == "router_request":
+                arrival[s.trace] = s.ts
+        recent = {}
+        for rid in ids:
+            for rec in http_json(port_of[rid], "GET", "/debug/requests")[1]["recent"]:
+                recent[rec["trace"]] = rec
+        sse = [r for r in results if r["sse"]]  # the router's id of a request is its trace on both tiers
+        c_ttft = [(r["times"][0] - r["t0"]) * 1e3 for r in sse]
+        c_tpot = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3 for r in sse if len(r["times"]) > 1]
+        split = dict(client_to_router=[], router_to_engine=[], route_decision=[], engine_ttft=[], delivery=[])
+        for r in sse:
+            rec = recent[r["id"]]
+            split["client_to_router"].append((arrival[r["id"]] - r["t0"]) * 1e3)
+            split["router_to_engine"].append((rec["arrival_t"] - arrival[r["id"]]) * 1e3)
+            split["route_decision"].append(route_ms.get(r["id"], 0.0))
+            split["engine_ttft"].append(rec["ttft_s"] * 1e3)
+            split["delivery"].append((r["times"][0] - rec["arrival_t"] - rec["ttft_s"]) * 1e3)
+        n_out = sum(len(r["tokens"]) for r in results)
+        router_share = [(a + d) / c for a, d, c in zip(split["router_to_engine"], split["delivery"], c_ttft)]
+        res["burst"] = dict(
+            requests=len(results), sse=len(sse), output_tokens=n_out, wall_s=load_wall, tokens_per_s=n_out / load_wall,
+            serve_tokens_per_s=serve_res["load"]["tokens_per_s"],
+            tokens_per_s_ratio=n_out / load_wall / serve_res["load"]["tokens_per_s"],
+            equal_to_solo=len(results) - len(diverged), of=len(results), diverged=diverged,
+            split_across_replicas={str(ids.index(rid)): sum(r["replica"] == rid for r in results) for rid in ids},
+            client_ttft_ms_p50=pct(c_ttft, 0.5), client_ttft_ms_p99=pct(c_ttft, 0.99),
+            client_tpot_ms_p50=pct(c_tpot, 0.5), client_tpot_ms_p99=pct(c_tpot, 0.99),
+            ttft_split_ms_p50={k: pct(v, 0.5) for k, v in split.items()},
+            ttft_split_ms_max={k: max(v) for k, v in split.items()},
+            router_and_hops_share_of_client_ttft_p50=pct(router_share, 0.5))
+        for i, d in diverged.items():
+            check(d["within_depth_gate"], f"router: burst request {i} leaves its solo stream at {d['position']} "
+                                          f"outside twice the bf16 distance: {d}")
+
+        # the same burst behind the same router with one replica (the other
+        # drained): against ``serve``'s number it prices the router, against
+        # the two-replica burst the second engine loop in the process
+        check(http_json(rport, "POST", "/replicas/drain", {"id": ids[1], "deadline_s": 600})[0] == 200,
+              "router: draining replica 1 for the one-replica burst")
+        one = burst_summary(*burst("one-replica burst"))
+        router.pool.cancel_drain(ids[1])
+        http_json(port_of[ids[1]], "POST", "/admin/drain", {"undo": True})
+        wait(lambda: state_of(ids[1]) == "healthy", "replica 1 to rejoin")
+        # and the two-replica burst with the interpreter's thread switch
+        # interval at 1 ms (from 5): the two loops' host work shares one GIL
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(0.001)
+        try:
+            fast_switch = burst_summary(*burst("1 ms switch burst"))
+        finally:
+            sys.setswitchinterval(switch)
+        res["burst"].update(one_replica=one, switch_interval_1ms=fast_switch, default_switch_interval_s=switch)
+
+        # single-request TTFT through the router minus direct: 8 alternating
+        # pairs on a 256-token prompt, each on cold caches
+        short = int(np.argmin([len(p) for p in prompts]))
+        pin = router.policy.select(router.pool.snapshots(), prompt=prompts[short].tolist())[0].id
+        through, direct_ttft = [], []
+        for k in range(16):
+            clear_caches()
+            via_router = k % 2 == 0
+            s = fleet_stream(rport if via_router else port_of[pin], {"prompt": prompts[short].tolist(),
+                                                                      "max_tokens": 2})
+            check(s["status"] == 200 and len(s["times"]) == 2, f"router: TTFT probe answered {s['status']}")
+            (through if via_router else direct_ttft).append((s["times"][0] - s["t0"]) * 1e3)
+        res["single_ttft_ms"] = dict(router_p50=pct(through, 0.5), direct_p50=pct(direct_ttft, 0.5),
+                                     router_minus_direct_p50=pct([a - b for a, b in zip(through, direct_ttft)], 0.5),
+                                     prompt_tokens=len(prompts[short]))
+
+        # (c) failover: two streams on the shared prefix are mid-stream on the
+        # replica it pins when that replica's next step fails (and its first
+        # rebuild too); a third, sent as the fault is armed, has no token yet
+        shared = [i for i in range(len(prompts)) if len(prompts[i]) > 1024 and i not in sampled]
+        pinned = router.policy.select(router.pool.snapshots(), prompt=prompts[shared[0]].tolist())[0].id
+        other = next(r for r in ids if r != pinned)
+        clear_caches()
+        tail = {"prompt": prompts[shared[2]].tolist(), "max_tokens": 16}
+        want_tail = http_json(port_of[other], "POST", "/v1/completions", tail)[1]["choices"][0]["token_ids"]
+        clear_caches()
+        fo = {}
+        started = [threading.Event(), threading.Event()]
+
+        def mid(k):
+            fo[k] = fleet_stream(rport, {"prompt": prompts[shared[k]].tolist(), "max_tokens": 64},
+                                 on_token=lambda n: started[k].set())
+
+        mids = [threading.Thread(target=mid, args=(k,)) for k in range(2)]
+        for t in mids:
+            t.start()
+        for e in started:
+            check(e.wait(120), "router: a failover stream never started")
+        FAULTS.arm("engine.step", nth=1)
+        FAULTS.arm("engine.rebuild", nth=1)
+        t_fault = time.perf_counter()
+        late = fleet_stream(rport, tail)
+        for t in mids:
+            t.join(timeout=600)
+        wait(lambda: state_of(pinned) != "healthy" or FAULTS.fired("engine.rebuild"), "the pinned replica's fault")
+        in_window = state_of(pinned)
+        status_w, body_w = http_json(rport, "POST", "/v1/completions",
+                                     {"prompt": prompts[1].tolist(), "max_tokens": 4})
+        wait(lambda: state_of(pinned) == "healthy", "the pinned replica to return HEALTHY", timeout=180)
+        res["failover"] = dict(
+            pinned=ids.index(pinned), fired=FAULTS.fired("engine.step"), rebuild_failed=FAULTS.fired("engine.rebuild"),
+            mid_stream=[dict(status=fo[k]["status"], tokens=len(fo[k]["tokens"]), finish=fo[k]["finish"],
+                             replica=ids.index(fo[k]["replica"]) if fo[k]["replica"] in ids else None)
+                        for k in range(2)],
+            token_less=dict(status=late["status"], tokens=len(late["tokens"]), finish=late["finish"],
+                            equal=late["tokens"] == want_tail,
+                            replica=ids.index(late["replica"]) if late["replica"] in ids else None),
+            window_state=in_window, window_post=dict(status=status_w, replica=ids.index(body_w.get("replica", pinned))
+                                                      if status_w == 200 else None),
+            healthy_again_s=time.perf_counter() - t_fault,
+            failovers=router.metrics.failovers.value(), rerouted=router.metrics.rerouted.value())
+        FAULTS.reset()
+        for k in range(2):
+            check(fo[k]["status"] == 200 and fo[k]["finish"] == "replica_error" and 1 <= len(fo[k]["tokens"]) < 64,
+                  f"router: mid-stream failover stream {k}: {res['failover']['mid_stream'][k]}")
+        check(late["status"] == 200 and late["finish"] == "length" and late["tokens"] == want_tail
+              and late["replica"] == other,
+              f"router: the token-less stream did not fail over token-exact: {res['failover']['token_less']}")
+        check(in_window != "healthy" and status_w == 200,
+              f"router: the POST in the window answered {status_w} (pinned replica {in_window})")
+
+        # (d) drain a replica with two streams in flight: both finish whole
+        clear_caches()
+        drained = {}
+        first = [threading.Event(), threading.Event()]
+
+        def drained_stream(k):
+            drained[k] = fleet_stream(rport, {"prompt": prompts[shared[k]].tolist(), "max_tokens": 64},
+                                      on_token=lambda n: first[k].set())
+
+        dts = [threading.Thread(target=drained_stream, args=(k,)) for k in range(2)]
+        for t in dts:
+            t.start()
+        for e in first:
+            check(e.wait(120), "router: a stream to drain never started")
+        victim = pinned
+        status_d, drain_doc = http_json(rport, "POST", "/replicas/drain", {"id": victim, "deadline_s": 120})
+        open_at_drain = router._open_forwards_on(victim)
+        status_n, body_n = http_json(rport, "POST", "/v1/completions",
+                                     {"prompt": prompts[shared[3]].tolist(), "max_tokens": 4})
+        for t in dts:
+            t.join(timeout=600)
+        wait(lambda: (router.pool.drain_status(victim) or {}).get("drained"), "the drain to complete")
+        router.pool.cancel_drain(victim)
+        http_json(port_of[victim], "POST", "/admin/drain", {"undo": True})
+        wait(lambda: state_of(victim) == "healthy", "the drained replica to rejoin")
+        res["drain"] = dict(status=status_d, state=drain_doc["drain"]["state"], open_forwards=open_at_drain,
+                            streams=[dict(status=drained[k]["status"], tokens=len(drained[k]["tokens"]),
+                                          finish=drained[k]["finish"]) for k in range(2)],
+                            new_request=dict(status=status_n, on_other=body_n.get("replica") == other))
+        check(status_d == 200 and open_at_drain == 2, f"router: drain with {open_at_drain} streams: {drain_doc}")
+        check(all(drained[k]["status"] == 200 and drained[k]["finish"] == "length"
+                  and len(drained[k]["tokens"]) == 64 for k in range(2)),
+              f"router: a stream was lost in the drain: {res['drain']['streams']}")
+        check(status_n == 200 and body_n.get("replica") == other, "router: a new request went to the draining replica")
+
+        # one autoscaler tick under a forced fast burn provisions a third replica
+        prov = rt.InProcessProvisioner(factory, replica_kw=replica_kw)
+        scaler = rt.Autoscaler(("127.0.0.1", rport), prov, registry=serving.MetricsRegistry(),
+                               policy=rt.AutoscalerPolicy(min_replicas=2, max_replicas=3, hysteresis_up=1,
+                                                          max_step_up=1))
+        obs = scaler.observe()
+        obs.ttft_burn = 100.0
+        t_up = time.perf_counter()
+        summary = scaler.evaluate_once(observation=obs)
+        new = [f"{h}:{p}" for h, p in prov.servers]
+        check(len(new) == 1, f"router: the autoscaler provisioned {len(new)} replicas: {summary}")
+        wait(lambda: state_of(new[0]) == "healthy", "the third replica to probe HEALTHY")
+        up_s = time.perf_counter() - t_up
+        status_3, _ = http_json(int(new[0].rsplit(":", 1)[1]), "POST", "/v1/completions",
+                                {"prompt": prompts[1].tolist(), "max_tokens": 4})
+        res["scale_up"] = dict(actions=[a[0] for a in summary["actions"]], replicas=len(router.pool),
+                               time_to_healthy_s=up_s, direct_status=status_3)
+        check(len(router.pool) == 3 and status_3 == 200, f"router: scale-up: {res['scale_up']}")
+        http_json(rport, "POST", "/replicas/drain", {"id": new[0], "deadline_s": 30})
+        wait(lambda: (router.pool.drain_status(new[0]) or {}).get("drained"), "the third replica to drain")
+        check(http_json(rport, "DELETE", f"/replicas/{new[0]}")[0] == 200, "router: removing the third replica")
+        prov.close()
+        prov = None
+
+        # (e) the fleet planes
+        texts = {rid: http_call(port_of[rid], "GET", "/metrics")[1].decode() for rid in ids}
+        lint = rt.lint_federation(texts)
+        status_f, fed = http_call(rport, "GET", "/fleet/metrics")
+        slo = http_json(rport, "GET", "/fleet/slo")[1]
+        usage = http_json(rport, "GET", "/fleet/usage")[1]
+        eff = http_json(rport, "GET", "/debug/efficiency")[1]
+        status_t, traced = http_json(rport, "POST", "/v1/completions", {"prompt": prompts[3].tolist(), "max_tokens": 4})
+        trace_id = traced["id"]
+        stitched = http_json(rport, "GET", f"/debug/trace?trace={trace_id}")[1]
+        lanes = {e.get("pid") for e in stitched["traceEvents"] if e.get("ph") == "X"}
+        res["planes"] = dict(lint_federation=lint, federated_bytes=len(fed), replicas_in_slo=len(slo["replicas"]),
+                             slo_windows=sorted(slo["windows"]), usage_records=usage["fleet"]["records"],
+                             fleet_goodput=eff["fleet"]["goodput_ratio"], stitched_trace=trace_id,
+                             stitched_lanes=len(lanes), stitched_events=len(stitched["traceEvents"]),
+                             stitched_names=sorted({e["name"] for e in stitched["traceEvents"] if e.get("ph") == "X"}))
+        check(lint == [] and status_f == 200, f"router: lint_federation: {lint}")
+        check(len(slo["replicas"]) == 2 and not slo["skipped"], f"router: /fleet/slo folded {slo['replicas']}")
+        check(len(lanes) == 2 and "route" in res["planes"]["stitched_names"],
+              f"router: the stitched trace of {trace_id} holds {res['planes']['stitched_names']}")
+    finally:
+        FAULTS.reset()
+        if prov is not None:
+            prov.close()
+        fleet.shutdown(drain_timeout_s=120)
+    torch.cuda.synchronize()
+    # (f) every paged launch of the phase on the Hopper route
+    res.update(kernel_launches=pa.LAUNCHES, sm90_launches=pa.LAUNCHES_SM90, engines_built=len(engines),
+               engine_devices=sorted(set(engines)), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wall_s=time.perf_counter() - t_phase)
+    emit(res)
+    check(set(engines) == {DEVICE}, f"router: replica engines on {sorted(set(engines))}")
+    check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
+          f"router: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
+    del fleet
     torch.cuda.empty_cache()
     return res
 
@@ -2479,7 +2921,7 @@ def bf16_distance(torch, fp32_row, bf16_row):
     return (bf16_row.float()[top] - fp32_row[top]).abs().max().item()
 
 
-def depth_divergence(torch, model, prompt, got, want, fp32_logits=None, bf16_logits=None):
+def depth_divergence(torch, model, prompt, got, want, fp32_logits=None, bf16_logits=None, noise=None):
     """``divergence`` of two greedy streams computed by two different bf16
     paths at full depth, with a second gate beside its bf16 gate. After 28
     layers every bf16 path's logits sit 0.1-0.25 from the fp32 ones over
@@ -2489,7 +2931,9 @@ def depth_divergence(torch, model, prompt, got, want, fp32_logits=None, bf16_log
     1e-3``. The second gate measures the bf16 distance D at the divergent
     position (``bf16_distance`` of the bf16 dense forward, or of
     ``bf16_logits(ids)``, from the fp32 one) and passes a margin within
-    2 * D: two paths each within D of fp32 can rank that pair either way."""
+    2 * D: two paths each within D of fp32 can rank that pair either way.
+    For sampled streams ``noise`` is ``divergence``'s: the margin is then the
+    two tokens' sampling scores', which carry the same logit error."""
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if j is None:
         return divergence(torch, model, prompt, got, want)
@@ -2497,7 +2941,7 @@ def depth_divergence(torch, model, prompt, got, want, fp32_logits=None, bf16_log
     l32 = model(torch.tensor([ids], device=DEVICE), dtype=torch.float32)[0, -1] if fp32_logits is None \
         else fp32_logits(ids)
     lbf = model(torch.tensor([ids], device=DEVICE))[0, -1] if bf16_logits is None else bf16_logits(ids)
-    d = divergence(torch, model, prompt, got, want, fp32_logits=lambda _ids: l32)
+    d = divergence(torch, model, prompt, got, want, fp32_logits=lambda _ids: l32, noise=noise)
     dist = bf16_distance(torch, l32, lbf)
     d.update(bf16_distance=dist, depth_gate=2 * dist, within_depth_gate=d["margin"] <= 2 * dist)
     del l32, lbf
@@ -3664,6 +4108,7 @@ def main(argv=None) -> int:
 
     logits = phase_logits(torch, np, model, pa, PagedInferenceModel, init_paged_pool, args.seed)
     serve = phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
+    router = phase_router(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed, serve)
     spec = phase_spec(torch, np, model, pa, fa, InferenceEngine, SamplingParams, Qwen2ForCausalLM, Qwen2Config,
                       mono_streams, args.seed)
     host = phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
@@ -3686,17 +4131,17 @@ def main(argv=None) -> int:
     # the decode call, the launch the engine makes most), the SIMT kernel
     # (fp32 queries: times at the fp32 case) and the Hopper kernel's quantized
     # entry (bf16 over int8 and fp8: times at the int8 decode call). Launches
-    # of the first two are the engine runs', the serve, spec, host_tier and
-    # lora phases' on each route: the main path never takes the SIMT kernel, which
+    # of the first two are the engine runs', the serve, router, spec,
+    # host_tier, lora and wquant phases' on each route: the main path never takes the SIMT kernel, which
     # the fp32 logits run checks; the quantized entry's are the kv_quant
     # phase's, whose launches all took it
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
-    sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"]
+    sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"] + router["sm90_launches"]
             + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"]
             + wquant["launches"]["sm90"])
     simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
-            + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"]
+            + router["kernel_launches"] + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"]
             + wquant["launches"]["paged"] - sm90 + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
     for route, timed_case, name, launches in (
             ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
@@ -3714,14 +4159,15 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
                     worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
         if route == "sm90":
-            info.update(launched_by="engine, serve, spec, host_tier, lora, wquant",
-                        serve_launches=serve["sm90_launches"], spec_launches=spec["launches"]["paged_sm90"],
+            info.update(launched_by="engine, serve, router, spec, host_tier, lora, wquant",
+                        serve_launches=serve["sm90_launches"], router_launches=router["sm90_launches"],
+                        spec_launches=spec["launches"]["paged_sm90"],
                         host_tier_launches=host["launches"]["paged_sm90"], lora_launches=lora["launches"]["sm90"],
                         wquant_launches=wquant["launches"]["sm90"],
                         launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                            for k in mono["launches_by_shape"]})
         elif route == "simt":
-            info.update(launched_by="engine, serve, spec, host_tier, kv_quant, lora, wquant",
+            info.update(launched_by="engine, serve, router, spec, host_tier, kv_quant, lora, wquant",
                         check_launches=logits["launches"]["float32"]["kernels"])
         else:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]

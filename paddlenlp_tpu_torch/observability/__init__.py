@@ -16,9 +16,12 @@
 - :mod:`.goodput` — the per-step device-efficiency ledger (exact
   ``fed == useful + padding + spec_rejected + rework`` conservation), step
   anatomy and the serving MFU estimator behind ``GET /debug/efficiency``.
+- :mod:`.prometheus` — text-format parsing + exposition lint for scrapers.
+- :mod:`.slo` — multi-window availability/TTFT burn rates over federated
+  replica counters (the router's ``/fleet/slo`` plane), with a fast-burn
+  trigger hook.
 
-Copies of ``paddlenlp_tpu/observability/``; the router tier's ``slo.py`` and
-``prometheus.py`` come with the router (ROADMAP Queue 1 item 12).
+Copies of ``paddlenlp_tpu/observability/``.
 """
 
 from .event_catalog import EVENT_CATALOG, EVENT_REASONS  # noqa: F401
@@ -26,6 +29,13 @@ from .exporter import ProfileCapture  # noqa: F401
 from .flight_recorder import RECORDER, FlightEvent, FlightRecorder  # noqa: F401
 from .goodput import GoodputLedger, device_peak_flops, efficiency_doc, estimate_model_flops_per_token  # noqa: F401
 from .postmortem import PostmortemDumper, handle_postmortem_request  # noqa: F401
+from .prometheus import (  # noqa: F401
+    MetricFamily,
+    histogram_quantile,
+    lint_exposition,
+    parse_prometheus_text,
+)
+from .slo import SLOObjectives, SLOTracker, slo_inputs_from_families  # noqa: F401
 from .tracer import (  # noqa: F401
     TRACER,
     Span,

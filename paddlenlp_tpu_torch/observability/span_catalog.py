@@ -14,9 +14,10 @@ Grouped by emitting tier. Keep docs to one line — they are the catalog, not
 the design doc (that lives in the emitting module's docstring).
 
 This module stays stdlib-only (no torch, no package-relative imports). A
-copy of ``paddlenlp_tpu/observability/span_catalog.py``; the router,
-trainer and profiler-window entries name call sites the port does not have
-yet (ROADMAP Queue 1 items 12 and 15).
+copy of ``paddlenlp_tpu/observability/span_catalog.py``; every entry but the
+disaggregated backend's ``kv_migrate``/``kv_migrated`` has its call site in
+the port (the router's in ``serving/router``; the disaggregated backend is
+ROADMAP Queue 1 item 12b).
 """
 
 from __future__ import annotations

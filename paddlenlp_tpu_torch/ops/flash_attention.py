@@ -40,6 +40,7 @@ the card, and autograd differentiates it.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -56,6 +57,9 @@ NEG_INF = -1e30
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: the launches of those that took the Hopper bf16 route (flash_attention_sm90.cu)
 LAUNCHES_SM90 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+#: guards both dicts: threads of one process may launch at the same time, and
+#: ``+=`` on a dict entry can lose a bump
+_COUNT_LOCK = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -218,9 +222,10 @@ def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
                                                          stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed ({symbol}): CUDA error {rc}")
-    LAUNCHES[what] += 1
-    if sm90:
-        LAUNCHES_SM90[what] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[what] += 1
+        if sm90:
+            LAUNCHES_SM90[what] += 1
 
 
 def _device(name, q):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
@@ -46,6 +47,9 @@ LAUNCHES = 0
 LAUNCHES_SM90 = 0
 #: the launches of those that took the Hopper route over an int8 or fp8 pool
 LAUNCHES_SM90_QUANT = 0
+#: guards the three counts: the engine loops of several in-process replicas
+#: launch at the same time, and ``+=`` on a module global can lose a bump
+_COUNT_LOCK = threading.Lock()
 
 KV_TILE = 64  # kv positions of the Hopper kernel's tile, the unit of a partition
 ROW_TILE = 64  # folded query rows of its block
@@ -209,7 +213,6 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     [B, T, N, H] in q's dtype with rows ``t >= q_lens[b]`` zeroed. bf16 q
     over a bf16, int8 or fp8 pool runs the Hopper kernel, fp32 q or an fp32
     pool the SIMT one."""
-    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_SM90_QUANT
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, pool_k, pool_v, block_tables, q_start, q_lens, scale,
                                           k_scale, v_scale)
@@ -224,11 +227,10 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     scale = float(H**-0.5 if scale is None else scale)
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = _kernel_fn(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "simt":
-            rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
+            _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
                     ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, mb,
                     _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], scale, stream)
         else:
@@ -240,20 +242,28 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
                 part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
             geometry = (B, T, N, K, H, bs, mb, parts, part_len)
             if route == "sm90":
-                rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens), ptr(out),
-                        ptr(part_o), ptr(part_ml), *geometry, scale, stream)
+                _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
+                        ptr(out), ptr(part_o), ptr(part_ml), *geometry, scale, stream)
             else:
-                rc = fn(ptr(q), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(block_tables),
+                _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(block_tables),
                         ptr(q_start), ptr(q_lens), ptr(out), ptr(part_o), ptr(part_ml), *geometry,
                         _KV_DTYPES[pool_k.dtype], scale, stream)
+    return out
+
+
+def _launch(route, *args):
+    """Call ``route``'s C entry with ``args`` and count the launch. A refused
+    launch raises and counts nothing."""
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_SM90_QUANT
+    rc = _kernel_fn(route)(*args)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed ({_ENTRIES[route][1]}): CUDA error {rc}")
-    LAUNCHES += 1
-    if route != "simt":
-        LAUNCHES_SM90 += 1
-    if route == "sm90_quant":
-        LAUNCHES_SM90_QUANT += 1
-    return out
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        if route != "simt":
+            LAUNCHES_SM90 += 1
+        if route == "sm90_quant":
+            LAUNCHES_SM90_QUANT += 1
 
 
 def paged_decode_attention(q, pool_k, pool_v, block_tables, context_lens, scale=None,

@@ -2,9 +2,11 @@
 admission control, OpenAI-style HTTP API with SSE streaming, Prometheus
 metrics plane).
 
-Copies of ``paddlenlp_tpu/serving/`` over the port's ``InferenceEngine``;
-the multi-replica router tier (``serving/router``) is not part of the port
-yet (ROADMAP Queue 1 item 12). :mod:`.metrics` is stdlib-only.
+Copies of ``paddlenlp_tpu/serving/`` over the port's ``InferenceEngine``,
+with the multi-replica router tier in :mod:`.router` (``RouterServer``,
+``ReplicaPool``, the policies, the autoscaler and the fleet launcher; stdlib
+host code over N port ``ServingServer`` replicas). :mod:`.metrics` is
+stdlib-only.
 """
 
 from .api import ServingServer  # noqa: F401

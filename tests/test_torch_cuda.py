@@ -92,7 +92,41 @@ def test_decode_wrapper_and_launch_count(dev, dtype):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
-POOLS = {"bf16": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_two_threads_launch_and_count_exactly(dev, kv_dtype):
+    """Two threads of one process launch the Hopper kernel at once, as two
+    in-process replicas' engine loops do behind the router: every launch is
+    counted on its route and each gives the single-thread bits."""
+    import threading
+
+    q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, torch.bfloat16, kv_dtype, 128, 16, 7)
+    want = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    before, sm90, quant = pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT
+    per_thread, start, mismatches, errors = 200, threading.Barrier(2), [], []
+
+    def run():
+        try:
+            start.wait(timeout=60)
+            outs = [pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+                    for _ in range(per_thread)]
+            torch.cuda.synchronize()
+            mismatches.extend(i for i, o in enumerate(outs) if not torch.equal(o, want))
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert not mismatches
+    assert pa.LAUNCHES - before == pa.LAUNCHES_SM90 - sm90 == 2 * per_thread
+    assert pa.LAUNCHES_SM90_QUANT - quant == (2 * per_thread if ks is not None else 0)
+
+
+POOLS ={"bf16": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 @pytest.mark.parametrize("pool", list(POOLS))
