@@ -165,10 +165,25 @@ Serving, the paged engine at Qwen2-7B width and depth:
               (4 in 2 groups, diversity 1.0) on 2 prompts of 512 tokens,
               twice equal, each score against a teacher-forced re-score of
               its sequence;
+15. predict -- ``llm.predict.predictor`` and ``flask_server`` on the same
+              model, with a tokenizer spanning Qwen2's ids (a ``WordLevel``
+              one of ``w<id>`` words with Qwen2's special tokens and a ChatML
+              template, through the port's ``PretrainedTokenizer``; the run
+              fails at its start where ``tokenizers`` does not import): the
+              block predictor (8 rows, the engine phase's settings, 64 new
+              tokens, greedy) on the engine phase's 8 prompts as text, its
+              texts the decode of ``InferenceEngine.generate``'s ids bit for
+              bit and its streams against the engine phase's (a divergence
+              only within the bf16 gates); ``stream_predict`` pieces joining
+              to ``predict``'s text; the eager predictor (2 prompts of 256
+              tokens, 16 new) against ``model.generate``; ``/generate`` JSON
+              and SSE bodies; ``serve_v1`` answering a string prompt with the
+              engine's ids; TTFT/TPOT and tokens/s; every paged launch on the
+              Hopper route;
 
-Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
+Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 
-15. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+16. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -178,15 +193,16 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-16. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+17. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-17. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+18. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
-              Markov-chain corpus from ``--seed``, with the metrics exporter
+              Markov-chain corpus from ``--seed``, the predict phase's
+              tokenizer as ``tokenizer_name_or_path``, with the metrics exporter
               on an ephemeral port and a ``profiler_options`` window over
               steps 3-4; per-step loss, grad norm, time, tokens/s, MFU and
               peak memory; the forward, dq and dk/dv launches all on the
@@ -194,11 +210,12 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               tokens, ``train_mfu`` within 10% of the phase's MFU of that
               step, the steady MFU beside it); the
               window's Chrome trace holds the three Hopper flash kernels; the
-              saved checkpoint loads back bit for bit;
-18. train_profile -- ``torch.profiler`` over one more training step;
-19. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
+              saved checkpoint (and the tokenizer beside it) loads back bit
+              for bit;
+19. train_profile -- ``torch.profiler`` over one more training step;
+20. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
-              Qwen2-1.5B widths and 12 layers (``RESUME_LAYERS``: the run keeps
+              Qwen2-1.5B widths and 10 layers (``RESUME_LAYERS``: the run keeps
               its disk writes under 45 GiB): a straight run
               saves committed checkpoint-2 and -4 (each validated with its
               hashes; save, hash and step times); a second run resumes
@@ -207,19 +224,40 @@ Training, ``run_pretrain`` at Qwen2-1.5B width and depth:
               parameters equal the straight run's bit for bit, the two
               checkpoint-4s' model and optimizer files hash alike; load
               GB/s, the loop's stall against the writer thread's time;
-20. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
+21. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
               each of the 8 recompute granularities at full depth: wall s,
               peak memory and flash launches each; the losses equal;
-21. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+22. finetune -- ``paddlenlp_tpu_torch.llm.run_finetune.main`` on the repo's
+              SFT recipe (``llm/config/qwen2/sft_argument.json``) cut to one
+              card (no tp2, no stage2, 4 steps, no saves between, one
+              evaluate; each cut printed under ``reduced``), from the train
+              phase's saved model and tokenizer through ``AutoConfig``,
+              ``AutoModelForCausalLM`` and ``AutoTokenizer`` at full width and
+              depth (fp32 masters, bf16 compute), zero padding, recompute,
+              1 x 2048 x 4 micro-batches, lr 3e-5: 96 rows of ``src``/``tgt``
+              and ``messages`` over the corpus's chain packed 4 to a row with
+              a padding segment; finite falling losses; the three flash
+              kernels' launches as the path implies (28 a micro-step, the
+              forward again under ``full`` recompute, one forward a layer
+              for the evaluate), all on the Hopper route; the saved model
+              loads back through ``AutoModelForCausalLM`` bit for bit;
+23. finetune_predict -- ``create_predictor(mode="block")`` on the SFT output
+              directory alone (weights, config and tokenizer from disk), 4
+              prompts, 32 new tokens, greedy: the ids equal an engine's over
+              the trainer's final weights cast to bf16; every paged launch on
+              the Hopper route;
+24. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
               full logits at the step's head (hidden [2, 4096, 1536] bf16,
               the tied 1536 x 151936 head): the loss and both gradients
               within the bf16 gate, the peak memory of each;
-22. kernels -- every kernel with its launches on the serving runs (the two
-              engine runs, the serve, router, spec, host_tier, lora and wquant
-              phases;
+25. kernels -- every kernel with its launches on the serving runs (the two
+              engine runs, the serve, router, spec, host_tier, lora, wquant,
+              predict and finetune_predict phases;
               the kv_quant phase for the quantized entry) and the training runs
-              (train, train_resume, train_recompute, and the spec phase's draft
-              forwards), each on its own route, and its check.
+              (train, train_resume, train_recompute, finetune, and the spec
+              phase's draft forwards), each on its own route, and its check;
+26. disk   -- the bytes this process wrote (``/proc/self/io``), checked
+              against the 45 GiB a run may write, and the run's seconds.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object (nine rows: the paged kernel, the flash forward, dq and dk/dv, each on
@@ -3164,6 +3202,250 @@ def phase_generate(torch, np, model, pa, fa, InferenceEngine, SamplingParams, mo
     return res
 
 
+# ----------------------------------------------------------------------------- tokenizer and predictor
+# Qwen2's special tokens at their published ids (Qwen/Qwen2-7B tokenizer_config.json), after one word
+# for each regular id: w0 ... w151642
+QWEN2_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
+WORDS = 151643
+CHATML = ("{% for m in messages %}<|im_start|>{{ m['role'] }}\n{{ m['content'] }}<|im_end|>\n{% endfor %}"
+          "{% if add_generation_prompt %}<|im_start|>assistant\n{% endif %}")
+TOKENIZER = "tokenizers WordLevel: w<id> words and Qwen2's special tokens, a ChatML template"
+
+
+def tokenizer_libs():
+    """The versions of ``tokenizers`` and ``jinja2``, None where one does not import."""
+    import importlib
+
+    out = {}
+    for name in ("tokenizers", "jinja2"):
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "unknown")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def check_tokenizer_libs(libs):
+    """Emit the ``tokenizer_libs`` line; fail where ``tokenizers`` does not
+    import (the port's ``PretrainedTokenizer`` needs it)."""
+    emit(dict(phase="tokenizer_libs", tokenizers=libs["tokenizers"], jinja2=libs["jinja2"], tokenizer=TOKENIZER))
+    check(libs["tokenizers"] is not None, "tokenizer_libs: the tokenizers package does not import")
+
+
+def make_tokenizer(path):
+    """A tokenizer spanning Qwen2's 151,936 ids, saved under ``path`` with
+    ``save_pretrained``: a ``WordLevel`` one (``w<id>`` words, Qwen2's
+    special tokens at their ids, a ChatML template) through the port's
+    ``PretrainedTokenizer``."""
+    from tokenizers import AddedToken, Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import WhitespaceSplit
+
+    from paddlenlp_tpu_torch.transformers import PretrainedTokenizer
+
+    vocab = {f"w{i}": i for i in range(WORDS)}
+    vocab.update(QWEN2_SPECIALS)
+    t = Tokenizer(WordLevel(vocab, unk_token="<|endoftext|>"))
+    t.pre_tokenizer = WhitespaceSplit()
+    t.add_special_tokens([AddedToken(s, special=True, normalized=False) for s in QWEN2_SPECIALS])
+    tok = PretrainedTokenizer(tokenizer_object=t, eos_token="<|endoftext|>", pad_token="<|endoftext|>",
+                              chat_template=CHATML)
+    tok.save_pretrained(path)
+    check(tok.encode("w0 w151642 <|im_start|>") == [0, 151642, 151644], "tokenizer: the ids of a probe text")
+    return tok
+
+
+def as_text(tok, ids):
+    """Prompt ids as the tokenizer's text; ids past its last one (Qwen2-7B's
+    embedding has 152,064 rows, the tokenizer 151,646 ids) fold into the
+    words, and the count of folded ids is returned beside the text."""
+    ids = [int(i) for i in ids]
+    folded = [i if i < WORDS + len(QWEN2_SPECIALS) else i % WORDS for i in ids]
+    return tok.decode(folded, skip_special_tokens=False), sum(a != b for a, b in zip(ids, folded))
+
+
+PREDICT_NEW = 64  # new tokens of the block predictor: the engine phase's
+EAGER_NEW = 16
+
+
+def phase_predict(torch, np, model, pa, InferenceEngine, SamplingParams, tok, mono_streams, seed):
+    """``llm.predict.predictor`` and ``flask_server`` over the bf16 Qwen2-7B:
+
+    (a) ``create_predictor(mode="block")`` (8 rows, prompts to 2048 tokens,
+    64 new, greedy, block 16, 2048 blocks, 256 a sequence: the engine
+    phase's settings) on the engine phase's 8 prompts as text: its texts
+    equal the tokenizer's decode of ``InferenceEngine.generate`` with the
+    same settings over the same ids, bit for bit; against the engine phase's
+    monolithic greedy streams (same prompts, other batching), equal or
+    parting only within the bf16 gate or twice the bf16 distance
+    (``depth_divergence``);
+    TTFT, TPOT and tokens/s of the predictor's run;
+    (b) ``stream_predict`` on 2 prompts, each alone on a cleared prefix
+    cache: the pieces join to ``predict`` of that prompt alone;
+    (c) ``create_predictor(mode="eager")`` on 2 prompts of 256 tokens, 16 new:
+    its texts equal the decode of ``model.generate``'s ids;
+    (d) ``flask_server.make_handler`` on an ephemeral port: ``/generate``
+    JSON and SSE bodies equal (b)'s; ``serve_v1`` answers a string prompt on
+    ``/v1/completions`` with the engine's ids;
+    (e) every paged launch of the block predictor on the Hopper route."""
+    from http.server import ThreadingHTTPServer
+
+    from paddlenlp_tpu_torch.llm.predict import flask_server
+    from paddlenlp_tpu_torch.llm.predict import predictor as P
+    from paddlenlp_tpu_torch.serving import api
+
+    t_phase = time.perf_counter()
+    prompts, sampled = traffic(np, model.config.vocab_size, seed)
+    rendered = [as_text(tok, p) for p in prompts]
+    texts = [t for t, _ in rendered]
+    ids = [tok.encode(t) for t in texts]
+    check(all(len(a) == len(p) for a, p in zip(ids, prompts)), "predict: a prompt's text does not encode back")
+    settings = dict(batch_size=8, src_length=2048, max_length=PREDICT_NEW, decode_strategy="greedy_search",
+                    block_size=16, num_kv_blocks=2048, max_blocks_per_seq=256)
+    args = P.PredictorArgument(model_name_or_path="(in memory)", mode="block", dtype="bfloat16", **settings)
+    pred = P.create_predictor(args, model=model, tokenizer=tok)
+    check(pred.engine.infer.use_paged_kernel, "predict: the predictor's engine must run the kernel path")
+    res = dict(phase="predict", config="Qwen/Qwen2-7B", tokenizer=TOKENIZER, entry="paddlenlp_tpu_torch.llm.predict",
+               settings=settings, folded_prompt_ids=[f for _, f in rendered])
+
+    # (a) the predictor's batch, its requests recorded as the engine finishes them
+    done, outs = [], []
+
+    def recording(step):
+        def fn():
+            out = step()
+            done.extend(out)
+            return out
+        return fn
+
+    def keep_ids(generate):
+        def fn(*a, **kw):
+            out = generate(*a, **kw)
+            outs.append(out)
+            return out
+        return fn
+
+    torch.cuda.synchronize()
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    t0 = time.perf_counter()
+    with patched(pred.engine, "step", recording), patched(pred.engine, "generate", keep_ids):
+        got = pred.predict(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    out_tokens = sum(len(r.output_ids) for r in done)
+    ttft = [r.ttft * 1e3 for r in done]
+    tpot = [r.decode_time / (len(r.output_ids) - 1) * 1e3 for r in done if len(r.output_ids) > 1]
+    res["batch"] = dict(requests=len(done), output_tokens=out_tokens, wall_s=wall, tokens_per_s=out_tokens / wall,
+                        ttft_ms_p50=pct(ttft, 0.5), ttft_ms_p99=pct(ttft, 0.99), tpot_ms_p50=pct(tpot, 0.5),
+                        tpot_ms_p99=pct(tpot, 0.99), measured_on=torch.cuda.get_device_name(0))
+    with uncounted(pa):  # the reference: an engine with the predictor's settings
+        ref_eng = InferenceEngine(model, max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256,
+                                  dtype=torch.bfloat16)
+        want_ids = ref_eng.generate(ids, SamplingParams(max_new_tokens=PREDICT_NEW))
+        del ref_eng
+    want = [tok.decode(x, skip_special_tokens=True) for x in want_ids]
+    res["batch"]["text_equal_engine"] = [g == w for g, w in zip(got, want)]
+    res["batch"]["ids_equal_engine"] = outs[0] == want_ids
+    check(got == want, f"predict: texts differ from the engine's decode: {res['batch']['text_equal_engine']}")
+    check(outs[0] == want_ids, "predict: the predictor's ids differ from InferenceEngine.generate's")
+    vs_mono = {}
+    for i in range(len(prompts)):
+        if i in sampled or rendered[i][1]:
+            continue  # a sampled request, or a prompt the text changed: other settings
+        d = depth_divergence(torch, model, prompts[i], outs[0][i], mono_streams[i])
+        vs_mono[i] = d
+        check(d is None or d["within_gate"] or d["within_depth_gate"],
+              f"predict: request {i} parts from the engine phase's stream outside the bf16 gates: {d}")
+    res["vs_engine_phase"] = dict(compared=sorted(vs_mono), equal=[i for i, d in vs_mono.items() if d is None],
+                                  diverged={i: d for i, d in vs_mono.items() if d is not None})
+
+    # (b) stream_predict, each prompt alone on a cleared prefix cache
+    singles = {}
+    for i in (1, 3):
+        pred.engine.clear_prefix_cache()
+        ts = [time.perf_counter()]
+        pieces = []
+        for p in pred.stream_predict(texts[i]):
+            pieces.append(p)
+            ts.append(time.perf_counter())
+        pred.engine.clear_prefix_cache()
+        single = pred.predict([texts[i]])[0]
+        singles[i] = dict(pieces=pieces, text=single)
+        check("".join(pieces) == single, f"predict: stream_predict pieces of prompt {i} do not join to predict's")
+    res["stream"] = {i: dict(pieces=len(s["pieces"]), chars=len(s["text"]), joined_equal=True)
+                     for i, s in singles.items()}
+
+    # (d) the HTTP servers: the legacy handler, then serve_v1 (ServingServer)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), flask_server.make_handler(pred, threading.Lock()))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    http = {}
+    try:
+        check(http_json(port, "GET", "/health")[1] == {"status": "ok"}, "predict: /health")
+        for i, s in singles.items():
+            pred.engine.clear_prefix_cache()
+            status, body = http_json(port, "POST", "/generate", {"src": texts[i]})
+            pred.engine.clear_prefix_cache()
+            sse_status, raw = http_call(port, "POST", "/generate", {"src": texts[i], "stream": True})
+            lines = [ln for ln in raw.decode().splitlines() if ln]
+            pieces = [json.loads(ln[6:])["token"] for ln in lines if ln.startswith("data:") and "[DONE]" not in ln]
+            http[i] = dict(json_equal=status == 200 and body["output"] == s["text"],
+                           sse_equal=sse_status == 200 and pieces == s["pieces"] and lines[-1] == "data: [DONE]")
+            check(http[i]["json_equal"] and http[i]["sse_equal"], f"predict: /generate bodies of prompt {i}: {http[i]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    servers = []
+    with patched(api.ServingServer, "run", lambda original: lambda self, host="0.0.0.0", port=8011: servers.append(
+            (self, self.start_in_thread(host="127.0.0.1", port=0)))):
+        flask_server.serve_v1(pred, port=0)
+    v1, v1_port = servers[0]
+    try:
+        i = 1
+        pred.engine.clear_prefix_cache()
+        status, body = http_json(v1_port, "POST", "/v1/completions", {"prompt": texts[i], "max_tokens": PREDICT_NEW})
+        with uncounted(pa):
+            alone = InferenceEngine(model, max_batch_size=8, block_size=16, num_blocks=2048, max_blocks_per_seq=256,
+                                    dtype=torch.bfloat16)
+            want_v1 = alone.generate([ids[i]], SamplingParams(max_new_tokens=PREDICT_NEW))[0]
+            del alone
+        http["v1_string_prompt"] = dict(status=status, ids_equal=status == 200 and
+                                        body["choices"][0]["token_ids"] == want_v1,
+                                        text_equal=status == 200 and body["choices"][0]["text"] == singles[i]["text"])
+        check(http["v1_string_prompt"]["ids_equal"], f"predict: serve_v1 string prompt: {http['v1_string_prompt']}")
+    finally:
+        v1.shutdown(drain_timeout_s=60)
+    torch.cuda.synchronize()
+    res["http"] = http
+    res["kernel_launches"], res["sm90_launches"] = pa.LAUNCHES, pa.LAUNCHES_SM90
+    res["batch_launches"] = dict(kernel=launches, sm90=sm90)
+    check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
+          f"predict: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} paged launches on the Hopper route")
+    del pred
+    torch.cuda.empty_cache()
+
+    # (c) the eager predictor: model.generate, no kernel
+    eprompts = [p[:256] for p in prompts[1:3]]
+    etexts = [as_text(tok, p)[0] for p in eprompts]
+    eids = np.asarray([tok.encode(t) for t in etexts])
+    eargs = P.PredictorArgument(model_name_or_path="(in memory)", mode="eager", dtype="bfloat16", src_length=2048,
+                                max_length=EAGER_NEW, decode_strategy="greedy_search")
+    eager = P.create_predictor(eargs, model=model, tokenizer=tok)
+    t0 = time.perf_counter()
+    etext = eager.predict(etexts)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    gen, _ = model.generate(torch.as_tensor(eids, device=DEVICE), max_new_tokens=EAGER_NEW)
+    ewant = [tok.decode(r.tolist(), skip_special_tokens=True) for r in gen.cpu()]
+    res["eager"] = dict(prompts=[len(p) for p in eprompts], new_tokens=EAGER_NEW, wall_s=eager_s,
+                        text_equal=[a == b for a, b in zip(etext, ewant)])
+    check(etext == ewant, f"predict: the eager predictor's texts differ from model.generate's: {res['eager']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 # ----------------------------------------------------------------------------- flash attention
 # Qwen/Qwen2-1.5B config.json (https://huggingface.co/Qwen/Qwen2-1.5B/blob/main/config.json)
 QWEN2_1_5B = dict(
@@ -3239,71 +3521,79 @@ def flash_bound(torch, fa, q, k, seg, window, what):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_flash_kernel(torch, fa, seed):
-    """The three flash kernels against their plain versions, elementwise, at
-    the training path's shape and three more; times against the bound, the
-    plain versions and scaled_dot_product_attention."""
+def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
+    """One case of the three flash kernels: each against its plain version,
+    elementwise (``flash_worst``), then timed against its bound, the plain
+    versions and, without segments or a window, scaled_dot_product_attention.
+    These launches are checks: they run outside every main-path count."""
     import torch.nn.functional as F
 
+    dtype = str(q.dtype).removeprefix("torch.")
+    opts = dict(segment_ids=seg, causal=True, window=window)
+    sm90_before = dict(fa.LAUNCHES_SM90)
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
+    # bf16: all three on the Hopper route; fp32: the SIMT kernels
+    route = "sm90" if dtype == "bfloat16" else "simt"
+    sm90 = {w: fa.LAUNCHES_SM90[w] - sm90_before[w] for w in sm90_before}
+    dq_again = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
+    ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
+    torch.cuda.synchronize()
+    want_sm90 = int(route == "sm90")
+    check(sm90 == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
+          f"flash {name}: {route} case took the Hopper route {sm90} times")
+    # each block owns its rows of dq: no atomics, the same bits twice
+    check(route == "simt" or torch.equal(dq, dq_again), f"flash {name}: two dq launches differ")
+    del dq_again
+    errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
+                       dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
+    del out, lse, dq, dk, dv, ref
+    for t, e in errs.items():
+        check(e["finite"], f"flash {name}: non-finite {t}")
+        check(e["worst"] <= 1.0, f"flash {name}: {t} exceeds its bound (worst element at {e['worst']:.3g}x)")
+    ms = dict(fwd=time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v, **opts), 10, flush),
+              bwd_dq=time_cuda(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts),
+                               10, flush),
+              bwd_dkv=time_cuda(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts),
+                                10, flush))
+    # the plain backward, like the library's, computes dq, dk and dv in one call
+    plain_fwd = time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, **opts), 2, flush)
+    plain_bwd = time_cuda(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts),
+                          2, flush)
+    bounds = {what: flash_bound(torch, fa, q, k, seg, window, what) for what in ms}
+    library = dict(fwd=None, bwd=None)
+    if seg is None and window is None:  # the yardstick: one library call, never on the path
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            library["fwd"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 20, flush)
+        # its backward alone: one graph, run again and again without the forward
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+        library["bwd"] = time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                                      retain_graph=True), 20, flush)
+        del qh, kh, vh, doh, lib_out
+    case = dict(case=name, dtype=dtype, route=route, q=list(q.shape), kv=list(k.shape), segments=seg is not None,
+                window=window, errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
+                plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+                bound_ms={w: b[0] for w, b in bounds.items()}, bound_by={w: b[1] for w, b in bounds.items()},
+                library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
+    emit(dict(phase="flash_kernel", **case))
+    return case
+
+
+def phase_flash_kernel(torch, fa, seed):
+    """The three flash kernels against their plain versions, elementwise, at
+    the training path's shape and three more (``flash_check``)."""
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
     cases = []
     for name, dtype, T, segments, window in FLASH_CASES:
         q, k, v, do, seg = flash_case(torch, dtype, T, segments, seed)
-        opts = dict(segment_ids=seg, causal=True, window=window)
-        sm90_before = dict(fa.LAUNCHES_SM90)
-        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
-        ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
-        delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
-        # bf16: all three on the Hopper route; fp32: the SIMT kernels
-        route = "sm90" if dtype == "bfloat16" else "simt"
-        sm90 = {w: fa.LAUNCHES_SM90[w] - sm90_before[w] for w in sm90_before}
-        dq_again = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
-        ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
-        torch.cuda.synchronize()
-        want_sm90 = int(route == "sm90")
-        check(sm90 == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
-              f"flash {name}: {route} case took the Hopper route {sm90} times")
-        # each block owns its rows of dq: no atomics, the same bits twice
-        check(route == "simt" or torch.equal(dq, dq_again), f"flash {name}: two dq launches differ")
-        del dq_again
-        errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
-                           dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
-        del out, lse, dq, dk, dv, ref
-        for t, e in errs.items():
-            check(e["finite"], f"flash {name}: non-finite {t}")
-            check(e["worst"] <= 1.0, f"flash {name}: {t} exceeds its bound (worst element at {e['worst']:.3g}x)")
-        ms = dict(fwd=time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v, **opts), 10, flush),
-                  bwd_dq=time_cuda(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts),
-                                   10, flush),
-                  bwd_dkv=time_cuda(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts),
-                                    10, flush))
-        # the plain backward, like the library's, computes dq, dk and dv in one call
-        plain_fwd = time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, **opts), 2, flush)
-        plain_bwd = time_cuda(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts),
-                              2, flush)
-        bounds = {what: flash_bound(torch, fa, q, k, seg, window, what) for what in ms}
-        library = dict(fwd=None, bwd=None)
-        if seg is None and window is None:  # the yardstick: one library call, never on the path
-            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-            doh = do.transpose(1, 2).contiguous()
-            with torch.no_grad():
-                library["fwd"] = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, enable_gqa=True), 20, flush)
-            # its backward alone: one graph, run again and again without the forward
-            lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
-            library["bwd"] = time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
-                                                                          retain_graph=True), 20, flush)
-            del qh, kh, vh, doh, lib_out
-        case = dict(case=name, dtype=dtype, route=route, q=list(q.shape), kv=list(k.shape), segments=segments,
-                    window=window, errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
-                    plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
-                    bound_ms={w: b[0] for w, b in bounds.items()}, bound_by={w: b[1] for w, b in bounds.items()},
-                    library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
-        emit(dict(phase="flash_kernel", **case))
-        cases.append(case)
-        del q, k, v, do, seg, ref_out, ref_lse, delta
+        cases.append(flash_check(torch, fa, name, q, k, v, do, seg, window, flush))
+        del q, k, v, do, seg
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -3440,13 +3730,18 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     return res
 
 
+def markov_chain(rng, vocab):
+    """A Markov chain over a 64-token alphabet of ``vocab``: (alphabet ids,
+    [64, 4] successor indices)."""
+    return rng.choice(vocab, 64, replace=False), rng.integers(0, 64, (64, 4))
+
+
 def markov_corpus(np, prefix, vocab, seed, MMapIndexedDatasetBuilder, n_docs=512):
     """Documents from a Markov chain over a 64-token alphabet (each token has 4
     successors), written as int32: Qwen2 ids reach 151935, past the builder's
     uint16 default. Returns the token count."""
     rng = np.random.default_rng(seed)
-    alphabet = rng.choice(vocab, 64, replace=False)
-    succ = rng.integers(0, 64, (64, 4))
+    alphabet, succ = markov_chain(rng, vocab)
     builder = MMapIndexedDatasetBuilder(prefix, dtype=np.int32)
     total = 0
     for _ in range(n_docs):
@@ -3603,10 +3898,12 @@ def reset_counts(fa):
             counts[name] = 0
 
 
-def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder, workdir, seed):
+def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder, workdir, seed, tok_dir):
     """``run_pretrain.main`` on the repo's Qwen2 recipe cut to one card and 4
     steps, at Qwen2-1.5B's published widths and full depth, with the metrics
-    exporter on an ephemeral port and a profiler window over steps 3-4."""
+    exporter on an ephemeral port and a profiler window over steps 3-4; the
+    tokenizer saved under ``tok_dir`` is the recipe's ``tokenizer_name_or_path``,
+    so ``save_model`` writes it beside the weights."""
     import os
 
     from paddlenlp_tpu_torch.trainer import Trainer
@@ -3621,14 +3918,16 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
         json.dump(QWEN2_1_5B, f)
     corpus_tokens = markov_corpus(np, os.path.join(data_dir, "corpus"), QWEN2_1_5B["vocab_size"], seed,
                                   MMapIndexedDatasetBuilder)
-    cuts = dict(model_name_or_path=model_dir, tokenizer_name_or_path=None, input_dir=data_dir, output_dir=out_dir,
+    cuts = dict(model_name_or_path=model_dir, tokenizer_name_or_path=tok_dir, input_dir=data_dir, output_dir=out_dir,
                 tensor_parallel_degree=1, sharding_parallel_degree=1, pipeline_parallel_degree=1, sharding="",
                 gradient_accumulation_steps=2, max_steps=4, warmup_steps=1, do_eval=False, save_steps=5000,
                 metrics_port=0, profiler_options=f"batch_range=[2,4];profile_path={profile_dir}")
     reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items()
-               if k not in ("model_name_or_path", "input_dir", "output_dir", "metrics_port", "profiler_options")
+               if k not in ("model_name_or_path", "tokenizer_name_or_path", "input_dir", "output_dir", "metrics_port",
+                            "profiler_options")
                and recipe.get(k) != v}
     reduced["model"] = "Qwen/Qwen2-1.5B config.json (recipe: Qwen/Qwen2-7B), random weights from --seed"
+    reduced["tokenizer"] = f"{TOKENIZER}, over Qwen2's ids (recipe: Qwen/Qwen2-7B's)"
     reduced["data"] = f"{corpus_tokens} tokens of a 64-token Markov chain, int32, from --seed"
     args_path, args = pretrain_args(workdir, recipe, seed, **cuts)
 
@@ -3640,6 +3939,7 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
         trainer = run_pretrain.main([args_path], device=DEVICE, callbacks=[rec.callback])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(trainer.tokenizer is not None, "train: run_pretrain did not load the tokenizer")
     launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
     trainers.clear()
 
@@ -3689,15 +3989,18 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
 
     # the checkpoint save_model wrote loads back bit for bit
     t_load = time.perf_counter()
-    saved = type(model).from_pretrained(out_dir, device=DEVICE, dtype=torch.float32)
+    saved = type(model).from_pretrained(out_dir, device=DEVICE, param_dtype=torch.float32)
     trained = flatten_params(model.params)
     loaded = flatten_params(saved.params)
     check(loaded.keys() == trained.keys() and all(torch.equal(loaded[k], trained[k].detach()) for k in trained),
           "train: the saved checkpoint does not load back bit for bit")
     files = sorted(f for f in os.listdir(out_dir) if f.endswith(".safetensors"))
+    tok_files = sorted(f for f in os.listdir(out_dir) if f.startswith("tokenizer"))
+    check(tok_files, f"train: save_model wrote no tokenizer under the output dir: {os.listdir(out_dir)}")
     del saved, loaded, trained
     torch.cuda.empty_cache()
     res = dict(phase="train", entry="paddlenlp_tpu_torch.llm.run_pretrain.main", recipe=RECIPE, reduced=reduced,
+               tokenizer=dict(kind=TOKENIZER, saved=tok_files),
                params=model.num_parameters(), layers=cfg.num_hidden_layers, micro_batch=[2, args["max_seq_length"]],
                accum=accum, steps=n_steps, wall_s=wall, losses=losses, grad_norms=[s.get("grad_norm") for s in steps],
                step_s_steady=sum(s["step_s"] for s in steady) / len(steady),
@@ -3715,8 +4018,10 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
 # count). Three checkpoints and two final saves of Qwen2-1.5B
 # with fp32 AdamW state write 67.9 GB (12 bytes a parameter a checkpoint, 4
 # a final save), so the resume pair runs at this depth: 44 bytes a parameter
-# over 794,949,120 parameters, 35.0 GB, beside the train run's 6.2 GB.
-RESUME_LAYERS = 12
+# over 701,353,472 parameters, 30.9 GB, beside the train run's and the SFT
+# run's final saves of 6.2 GB each: 43.3 GB (40.3 GiB) in all. At 12 layers
+# (35.0 GB) the SFT save would bring the run to 47.4 GB.
+RESUME_LAYERS = 10
 
 
 def phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalLM, workdir, seed, base):
@@ -3844,6 +4149,232 @@ def phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalL
     check(launches == {"fwd": per_run, "bwd_dq": per_run, "bwd_dkv": per_run} and sm90 == launches,
           f"train_resume: flash launches {launches}, Hopper route {sm90}, want {per_run} of each")
     return trainer, res
+
+
+SFT_RECIPE = "llm/config/qwen2/sft_argument.json"
+SFT_ROWS = 96  # examples of the SFT set: 24 packed rows of 2048 tokens, >= the 16 that 4 steps take
+SFT_DEV_ROWS = 8
+
+
+def markov_text(np, rng, alphabet, succ, n):
+    """A walk of ``n`` steps over the pretraining corpus's Markov chain, as words."""
+    state = int(rng.integers(0, len(alphabet)))
+    out = []
+    for pick in rng.integers(0, succ.shape[1], n):
+        out.append(f"w{alphabet[state]}")
+        state = int(succ[state, pick])
+    return " ".join(out)
+
+
+def sft_data(np, data_dir, seed, n_rows, n_dev):
+    """``train.json`` and ``dev.json`` of ``src``/``tgt`` rows (a prompt and
+    its continuation, walks of the pretraining corpus's chain over the ids
+    the tokenizer has words for), every fourth a ``messages`` row (a user
+    turn and an assistant turn) for the chat template. Every example is
+    410-508 tokens long with its eos or the template's 6 tokens, so each pack
+    of 2048 holds exactly 4 examples and a padding tail of >= 16 tokens
+    (``n_rows`` and ``n_dev`` are multiples of 4). Returns the row counts."""
+    import os
+
+    alphabet, succ = markov_chain(np.random.default_rng(seed), QWEN2_1_5B["vocab_size"])
+    alphabet = np.where(alphabet < WORDS, alphabet, alphabet % WORDS)  # ids the tokenizer has words for
+    rng = np.random.default_rng(seed + 1)
+    os.makedirs(data_dir, exist_ok=True)
+    kinds = {"src_tgt": 0, "messages": 0}
+    for name, n in (("train.json", n_rows), ("dev.json", n_dev)):
+        with open(os.path.join(data_dir, name), "w") as f:
+            for r in range(n):
+                messages = r % 4 == 3
+                words = int(rng.integers(410, 509)) - (6 if messages else 1)
+                n_src = int(rng.integers(words // 4, 3 * words // 4))
+                src = markov_text(np, rng, alphabet, succ, n_src)
+                tgt = markov_text(np, rng, alphabet, succ, words - n_src)
+                if messages:
+                    row = {"messages": [{"role": "user", "content": src}, {"role": "assistant", "content": tgt}]}
+                else:
+                    row = {"src": src, "tgt": tgt}
+                kinds["messages" if messages else "src_tgt"] += name == "train.json"
+                f.write(json.dumps(row) + "\n")
+    return kinds
+
+
+def phase_finetune(torch, np, fa, run_finetune, TrainerCallback, Qwen2ForCausalLM, AutoModelForCausalLM, workdir,
+                   seed, model_dir):
+    """``run_finetune.main`` on the repo's Qwen2 SFT recipe cut to one card,
+    from the ``train`` phase's saved model and tokenizer (``model_dir``)
+    through ``AutoConfig``/``AutoModelForCausalLM``/``AutoTokenizer`` at
+    Qwen2-1.5B's full width and depth (fp32 masters, bf16 compute), zero
+    padding on: 4 steps of 1 x 2048 x 4 micro-batches, every row packed from
+    >= 2 examples with a padding segment; finite falling losses; each flash
+    kernel's launches as the path implies, all on the Hopper route; the
+    three kernels against their plain versions on the first packed row's
+    segments at the launch shape (``flash_check``); the
+    ``save_model`` output loads back through ``AutoModelForCausalLM``
+    bit for bit."""
+    import os
+
+    from paddlenlp_tpu_torch.trainer import Trainer
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params, unflatten_params
+
+    t_phase = time.perf_counter()
+    with open(SFT_RECIPE) as f:
+        recipe = json.load(f)
+    data_dir, out_dir = os.path.join(workdir, "sft_data"), os.path.join(workdir, "sft_out")
+    kinds = sft_data(np, data_dir, seed, SFT_ROWS, SFT_DEV_ROWS)
+    cuts = dict(model_name_or_path=model_dir, dataset_name_or_path=data_dir, output_dir=out_dir,
+                tensor_parallel_degree=1, sharding="", max_steps=4, warmup_steps=1, save_strategy="no",
+                evaluation_strategy="no", seed=seed)
+    reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items()
+               if k not in ("model_name_or_path", "dataset_name_or_path", "output_dir", "seed")
+               and recipe.get(k) != v}
+    reduced["model"] = ("Qwen/Qwen2-1.5B config.json (recipe: Qwen/Qwen2-7B; full fine-tuning of 7B holds ~122 GB "
+                        "of fp32 state), the train phase's weights")
+    reduced["data"] = (f"{SFT_ROWS} rows ({kinds}) and a {SFT_DEV_ROWS}-row dev.json over the pretraining corpus's "
+                       "chain, from --seed")
+    reduced["eval"] = "one evaluate() after training (recipe: at every epoch)"
+    args = {**recipe, **cuts}
+    path = os.path.join(workdir, "sft_argument.json")
+    with open(path, "w") as f:
+        json.dump(args, f)
+
+    steps, trainers = [], []
+    rec = StepRecorder(torch, TrainerCallback, trainers)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(steps, trainers)):
+        trainer = run_finetune.main([path], device=DEVICE, callbacks=[rec.callback])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    trainers.clear()
+    model = trainer.model
+    cfg = model.config
+    check(type(model) is Qwen2ForCausalLM and model.param_dtype == torch.float32
+          and model.compute_dtype == torch.bfloat16, "finetune: not an fp32-master, bf16-compute Qwen2ForCausalLM")
+    rows = [trainer.train_dataset[i] for i in range(len(trainer.train_dataset))]
+    segments = [int(len(np.unique(r["segment_ids"]))) for r in rows]
+    padded = [bool(r["segment_ids"][-1] == len(np.unique(r["segment_ids"]))) for r in rows]
+    check(all(s == 5 for s in segments) and all(padded),
+          f"finetune: a packed row lacks 2 examples or a padding segment: segments {segments}, padded {padded}")
+    losses = [s[0] for s in steps]
+    check(len(steps) == 4 and all(math.isfinite(x) for x in losses), f"finetune: losses {losses}")
+    check(losses[-1] < losses[0], f"finetune: the loss did not fall ({losses})")
+    accum = args["gradient_accumulation_steps"]
+    micro = accum * len(steps)
+    n_eval = math.ceil(len(trainer.eval_dataset) / trainer.args.global_eval_batch_size)
+    # recompute "full" runs each layer's forward again in the backward; the
+    # closing evaluate() runs one forward a batch, under no_grad
+    L = cfg.num_hidden_layers
+    want = {"fwd": L * micro * (2 if cfg.recompute and cfg.recompute_granularity == "full" else 1) + L * n_eval,
+            "bwd_dq": L * micro, "bwd_dkv": L * micro}
+    check(launches == want, f"finetune: flash launches {launches}, want {want} (28 a micro-step and kernel)")
+    check(sm90 == launches, f"finetune: Hopper-route launches {sm90}, want all {launches}")
+    # the first packed row's segments (its examples and the padding tail)
+    # through the three kernels against their plain versions, at the launch
+    # shape: q [1, T, 12, 128] over k/v [1, T, 2, 128] bf16, causal, no window
+    seg = torch.as_tensor(np.asarray(rows[0]["segment_ids"], np.int32), device=DEVICE)[None]
+    T, N, K = seg.shape[1], cfg.num_attention_heads, cfg.num_key_value_heads
+    H = cfg.hidden_size // N
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, do = (torch.randn(1, T, N, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, T, K, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    packed = flash_check(torch, fa, "sft packed row", q, k, v, do, seg, None, flush)
+    del q, k, v, do, seg, flush
+
+    # the save_model output loads back through the Auto classes
+    t_load = time.perf_counter()
+    saved = AutoModelForCausalLM.from_pretrained(out_dir, param_dtype="float32", device=DEVICE)
+    trained = flatten_params(model.params)
+    loaded = flatten_params(saved.params)
+    check(loaded.keys() == trained.keys() and all(torch.equal(loaded[k], trained[k].detach()) for k in trained),
+          "finetune: the saved model does not load back bit for bit")
+    load_s = time.perf_counter() - t_load
+    del saved, loaded
+    torch.cuda.empty_cache()
+    final_bf16 = {k: t.detach().to(torch.bfloat16) for k, t in trained.items()}
+    del trained
+    tokens = [s["tokens"] for s in rec.steps]
+    res = dict(phase="finetune", entry="paddlenlp_tpu_torch.llm.run_finetune.main", recipe=SFT_RECIPE,
+               tokenizer=TOKENIZER, reduced=reduced, params=model.num_parameters(), layers=L,
+               micro_batch=[1, args["max_length"]], accum=accum, steps=len(steps), wall_s=wall,
+               losses=losses, grad_norms=[s[1] for s in steps], step_s=[s["step_s"] for s in rec.steps],
+               tokens=tokens, packed_rows=len(rows), segments_per_row=dict(min=min(segments), max=max(segments)),
+               recompute=dict(on=cfg.recompute, granularity=cfg.recompute_granularity),
+               eval_loss=next((h["eval_loss"] for h in trainer.state.log_history if "eval_loss" in h), None),
+               peak_mem_gb=max(s["peak_mem_gb"] for s in rec.steps), kernel_launches=launches, sm90_launches=sm90,
+               flash_case=packed,
+               checkpoint=dict(files=sorted(os.listdir(out_dir)), load_check_s=load_s, bitwise=True),
+               seconds=time.perf_counter() - t_phase, measured_on=torch.cuda.get_device_name(0))
+    emit(res)
+    config = model.config
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, out_dir, Qwen2ForCausalLM(config, unflatten_params(final_bf16))
+
+
+FT_PREDICT_NEW = 32
+
+
+def phase_finetune_predict(torch, pa, InferenceEngine, SamplingParams, out_dir, reference):
+    """The user's path after SFT: ``create_predictor(mode="block",
+    model_name_or_path=<the SFT output>)``, which loads the weights (bf16),
+    the config and the tokenizer from disk, on 4 prompts of the SFT set's
+    chain, 32 new tokens greedily: the ids equal an ``InferenceEngine`` over
+    the trainer's own final weights cast to bf16 (``reference``), and every
+    paged launch takes the Hopper route."""
+    import os
+
+    from paddlenlp_tpu_torch.llm.predict import predictor as P
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(os.path.dirname(out_dir), "sft_data", "dev.json")) as f:
+        rows = [json.loads(line) for line in f][:4]
+    texts = [r["src"] if "src" in r else r["messages"][0]["content"] for r in rows]
+    settings = dict(batch_size=4, src_length=1024, max_length=FT_PREDICT_NEW, decode_strategy="greedy_search",
+                    block_size=16, num_kv_blocks=512, max_blocks_per_seq=128)
+    outs = []
+
+    def keep_ids(generate):
+        def fn(*a, **kw):
+            outs.append(generate(*a, **kw))
+            return outs[-1]
+        return fn
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = P.create_predictor(P.PredictorArgument(model_name_or_path=out_dir, mode="block", dtype="bfloat16",
+                                                  **settings), device=DEVICE)
+    load_s = time.perf_counter() - t0
+    check(pred.model.param_dtype == torch.bfloat16 and pred.engine.infer.use_paged_kernel,
+          "finetune_predict: the predictor's model is not bf16 on the kernel path")
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    t0 = time.perf_counter()
+    with patched(pred.engine, "generate", keep_ids):
+        got = pred.predict(texts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    ids = [pred.tokenizer.encode(t)[-settings["src_length"]:] for t in texts]
+    del pred
+    torch.cuda.empty_cache()
+    with uncounted(pa):
+        eng = InferenceEngine(reference, max_batch_size=4, block_size=16, num_blocks=512, max_blocks_per_seq=128,
+                              dtype=torch.bfloat16)
+        want = eng.generate(ids, SamplingParams(max_new_tokens=FT_PREDICT_NEW))
+        del eng
+    out_tokens = sum(len(x) for x in outs[0])
+    res = dict(phase="finetune_predict", entry="paddlenlp_tpu_torch.llm.predict.predictor.create_predictor",
+               model_dir="the finetune phase's save_model output (config, safetensors, tokenizer)", tokenizer=TOKENIZER,
+               settings=settings, prompts=[len(x) for x in ids], load_s=load_s, wall_s=wall,
+               tokens_per_s=out_tokens / wall, ids_equal=outs[0] == want, texts=len(got),
+               kernel_launches=launches, sm90_launches=sm90, seconds=time.perf_counter() - t_phase,
+               measured_on=torch.cuda.get_device_name(0))
+    emit(res)
+    check(outs[0] == want, "finetune_predict: ids differ from an engine over the trainer's final weights in bf16")
+    check(launches > 0 and sm90 == launches, f"finetune_predict: {sm90} of {launches} paged launches on Hopper")
+    return res
 
 
 def grad_max_recorder(torch, step, out):
@@ -4009,19 +4540,28 @@ def phase_train_profile(torch, trainer):
     return res
 
 
-def run_training_phases(torch, np, fa, seed):
-    """The run_pretrain phases in order: ``train`` and ``train_profile``,
-    ``train_resume``, ``train_recompute`` and ``fused_ce``. Returns the
-    results of ``train``, ``train_resume`` and ``train_recompute``, whose
-    flash launches the kernels line counts."""
+def run_training_phases(torch, np, fa, seed, tok_dir=None):
+    """The training phases in order: ``train`` and ``train_profile``,
+    ``train_resume``, ``train_recompute``, ``finetune``, ``finetune_predict``
+    and ``fused_ce``. ``tok_dir`` is the saved tokenizer the ``train`` phase
+    names (made here when None). Returns the results of ``train``,
+    ``train_resume``, ``train_recompute``, ``finetune`` and
+    ``finetune_predict``, whose launches the kernels line counts."""
+    import os
+
     from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
-    from paddlenlp_tpu_torch.llm import run_pretrain
+    from paddlenlp_tpu_torch.experimental import InferenceEngine, SamplingParams
+    from paddlenlp_tpu_torch.llm import run_finetune, run_pretrain
+    from paddlenlp_tpu_torch.ops import paged_attention as pa
     from paddlenlp_tpu_torch.trainer import Trainer, TrainerCallback, TrainingArguments
-    from paddlenlp_tpu_torch.transformers import Qwen2Config, Qwen2ForCausalLM
+    from paddlenlp_tpu_torch.transformers import AutoModelForCausalLM, Qwen2Config, Qwen2ForCausalLM
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        if tok_dir is None:
+            tok_dir = os.path.join(workdir, "tokenizer")
+            make_tokenizer(tok_dir)
         trainer, train, base = phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDatasetBuilder,
-                                           workdir, seed)
+                                           workdir, seed, tok_dir)
         batch = next(iter(trainer.get_train_dataloader()))
         phase_train_profile(torch, trainer)
         # two 1.5B trainers with fp32 moments do not fit beside the activations
@@ -4035,11 +4575,38 @@ def run_training_phases(torch, np, fa, seed):
         torch.cuda.empty_cache()
         recompute = phase_train_recompute(torch, fa, Qwen2Config, Qwen2ForCausalLM, Trainer, TrainingArguments,
                                           batch, workdir, seed)
+        # the resume pair's checkpoints are spent: free the disk they hold before the SFT save
+        for d in ("out_ckpt", "out_resume"):
+            shutil.rmtree(os.path.join(workdir, d), ignore_errors=True)
+        finetune, sft_dir, reference = phase_finetune(torch, np, fa, run_finetune, TrainerCallback, Qwen2ForCausalLM,
+                                                      AutoModelForCausalLM, workdir, seed,
+                                                      os.path.join(workdir, "out"))
+        ft_predict = phase_finetune_predict(torch, pa, InferenceEngine, SamplingParams, sft_dir, reference)
+        del reference
+        gc.collect()
+        torch.cuda.empty_cache()
     phase_fused_ce(torch, seed)
-    return train, resume, recompute
+    return train, resume, recompute, finetune, ft_predict
+
+
+def disk_writes():
+    """This process's bytes written (``/proc/self/io``): ``wchar`` passed to
+    write calls (files, pipes and sockets: the checkpoints are nearly all of
+    it), ``write_bytes`` that reached the block layer and
+    ``cancelled_write_bytes`` of files deleted before writeback (both 0 on a
+    file system that does not account them); None off Linux."""
+    try:
+        with open("/proc/self/io") as f:
+            io = dict(line.split(": ") for line in f.read().splitlines())
+    except OSError:
+        return None
+    return {k: int(io[k]) for k in ("write_bytes", "cancelled_write_bytes", "wchar") if k in io}
 
 
 # ----------------------------------------------------------------------------- main
+T_START = time.perf_counter()  # the run's seconds on the disk line count from the import
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights, the traffic and the corpus")
@@ -4077,6 +4644,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda))
+    check_tokenizer_libs(tokenizer_libs())
 
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
@@ -4119,13 +4687,19 @@ def main(argv=None) -> int:
     wquant = phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                           serving, quantization, modeling, args.seed)
     phase_generate(torch, np, model, pa, fa, InferenceEngine, SamplingParams, mono_streams, args.seed, engine=mono)
+    tok_home = tempfile.mkdtemp(prefix="chip_smoke_tokenizer_")
+    tok = make_tokenizer(tok_home)
+    predict = phase_predict(torch, np, model, pa, InferenceEngine, SamplingParams, tok, mono_streams, args.seed)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
+    emit(dict(phase="serving_done", allocated_gb=torch.cuda.memory_allocated() / 1e9))
 
-    # ---- training: run_pretrain at Qwen2-1.5B width and depth
+    # ---- training: run_pretrain, then run_finetune and its predictor, at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
     grad = phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
-    train, resume, recompute = run_training_phases(torch, np, fa, args.seed)
+    train, resume, recompute, finetune, ft_predict = run_training_phases(torch, np, fa, args.seed, tok_home)
+    shutil.rmtree(tok_home, ignore_errors=True)
 
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
     # the decode call, the launch the engine makes most), the SIMT kernel
@@ -4139,10 +4713,11 @@ def main(argv=None) -> int:
     kernels, checks = [], []
     sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"] + router["sm90_launches"]
             + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"]
-            + wquant["launches"]["sm90"])
+            + wquant["launches"]["sm90"] + predict["sm90_launches"] + ft_predict["sm90_launches"])
     simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
             + router["kernel_launches"] + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"]
-            + wquant["launches"]["paged"] - sm90 + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
+            + wquant["launches"]["paged"] + predict["kernel_launches"] + ft_predict["kernel_launches"] - sm90
+            + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
     for route, timed_case, name, launches in (
             ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
             ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", simt),
@@ -4159,7 +4734,8 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
                     worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
         if route == "sm90":
-            info.update(launched_by="engine, serve, router, spec, host_tier, lora, wquant",
+            info.update(launched_by="engine, serve, router, spec, host_tier, lora, wquant, predict, finetune_predict",
+                        predict_launches=predict["sm90_launches"], finetune_predict_launches=ft_predict["sm90_launches"],
                         serve_launches=serve["sm90_launches"], router_launches=router["sm90_launches"],
                         spec_launches=spec["launches"]["paged_sm90"],
                         host_tier_launches=host["launches"]["paged_sm90"], lora_launches=lora["launches"]["sm90"],
@@ -4167,7 +4743,8 @@ def main(argv=None) -> int:
                         launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                            for k in mono["launches_by_shape"]})
         elif route == "simt":
-            info.update(launched_by="engine, serve, router, spec, host_tier, kv_quant, lora, wquant",
+            info.update(launched_by="engine, serve, router, spec, host_tier, kv_quant, lora, wquant, predict, "
+                                    "finetune_predict",
                         check_launches=logits["launches"]["float32"]["kernels"])
         else:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]
@@ -4175,9 +4752,11 @@ def main(argv=None) -> int:
         checks.append(info)
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
     # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
-    # train, train_resume and train_recompute runs' on each route, and for the
-    # forward the spec phase's draft forwards too: the main path never takes
-    # the SIMT kernels, which the fp32 train_grad step checks
+    # train, train_resume, train_recompute and finetune runs' on each route,
+    # and for the forward the spec phase's draft forwards too: the main path
+    # never takes the SIMT kernels, which the fp32 train_grad step checks.
+    # The finetune phase's packed-row case counts among the checked cases
+    flash.append(finetune["flash_case"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
@@ -4187,7 +4766,7 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["route"] == route]
-        runs = (train, resume, recompute)
+        runs = (train, resume, recompute, finetune)
         sm90 = sum(r["sm90_launches"][what] for r in runs)
         launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
@@ -4205,13 +4784,17 @@ def main(argv=None) -> int:
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
         checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
-                           launched_by="train, train_resume, train_recompute" + (", spec (draft)" if what == "fwd"
-                                                                                  else ""),
+                           launched_by="train, train_resume, train_recompute, finetune" + (
+                               ", spec (draft)" if what == "fwd" else ""),
                            train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
                            recompute_launches=recompute["sm90_launches"][what],
+                           finetune_launches=finetune["sm90_launches"][what],
                            check_launches=check_launches,
                            worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
+    writes = disk_writes()
+    emit(dict(phase="disk", **(writes or {}), limit_bytes=45 * 2**30, seconds=time.perf_counter() - T_START))
+    check(writes is None or max(writes.values()) <= 45 * 2**30, f"disk: {writes} past the 45 GiB a run may write")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

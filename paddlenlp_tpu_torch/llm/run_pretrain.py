@@ -10,16 +10,19 @@ the card with
 
     python -m paddlenlp_tpu_torch.llm.run_pretrain args.json
 
-``model_name_or_path`` is a local directory holding a ``config.json`` (there
-is no hub download); ``from_scratch`` draws random weights from ``seed``
-(``init_random``), otherwise the directory's safetensors are loaded. The
-weights are fp32 masters; ``dtype`` is the compute dtype. A tokenizer is not
-part of the port yet: the corpus is already tokenized.
+``model_name_or_path`` is a local directory (or a name under the
+``MODEL_HOME`` cache) holding a ``config.json``, read through ``AutoConfig``
+(there is no hub download); ``from_scratch`` draws random weights from
+``seed`` (``AutoModelForCausalLM.from_config``), otherwise the directory's
+safetensors are loaded (``from_pretrained``). The weights are fp32 masters;
+``dtype`` is the compute dtype. A tokenizer is loaded whenever
+``tokenizer_name_or_path`` names one or the run is not from scratch (JAX
+:84-87), and ``save_model`` writes it beside the weights; the corpus itself
+is already tokenized (``llm/tools/preprocess_data.py``).
 """
 
 from __future__ import annotations
 
-import json
 import os
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -28,13 +31,10 @@ import torch
 
 from ..data import build_train_valid_test_datasets
 from ..trainer import PdArgumentParser, Trainer, TrainingArguments, get_last_checkpoint
-from ..transformers import LlamaConfig, LlamaForCausalLM, LlmMetaConfig, Qwen2Config, Qwen2ForCausalLM
+from ..transformers import AutoConfig, AutoModelForCausalLM, AutoTokenizer, LlmMetaConfig
 from ..utils.log import logger
 
 __all__ = ["DataArguments", "ModelArguments", "PreTrainingArguments", "main"]
-
-#: model_type of config.json -> (config class, model class)
-MODELS = {"llama": (LlamaConfig, LlamaForCausalLM), "qwen2": (Qwen2Config, Qwen2ForCausalLM)}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -96,28 +96,19 @@ def _resolve_prefix(input_dir: str) -> str:
     raise FileNotFoundError(f"no .bin/.idx corpus found at {input_dir}")
 
 
-def _model_classes(model_dir: str):
-    with open(os.path.join(model_dir, "config.json")) as f:
-        model_type = json.load(f).get("model_type", "llama")
-    if model_type not in MODELS:
-        raise NotImplementedError(f"model_type {model_type!r}: the port trains {sorted(MODELS)} "
-                                  "(the other families are ROADMAP Queue 1 item 14)")
-    return MODELS[model_type]
-
-
 def main(argv: Optional[List[str]] = None, device="cuda", callbacks: Optional[list] = None) -> Trainer:
     """Train as ``argv`` (a JSON file or CLI flags) says; returns the trainer.
     ``callbacks`` are added to the trainer's."""
     parser = PdArgumentParser((ModelArguments, DataArguments, PreTrainingArguments))
     model_args, data_args, training_args = parser.parse_args_into_dataclasses(argv)
-    if model_args.tokenizer_name_or_path:
-        raise NotImplementedError("tokenizers are not part of the port yet (ROADMAP Queue 1 item 14); "
-                                  "pretraining reads an already tokenized corpus")
     if model_args.dtype not in _DTYPES:
         raise ValueError(f"dtype {model_args.dtype!r} not in {list(_DTYPES)}")
 
-    config_cls, model_cls = _model_classes(model_args.model_name_or_path)
-    config = config_cls.from_pretrained(model_args.model_name_or_path)
+    tokenizer = None
+    if model_args.tokenizer_name_or_path or not model_args.from_scratch:
+        tokenizer = AutoTokenizer.from_pretrained(model_args.tokenizer_name_or_path or model_args.model_name_or_path)
+
+    config = AutoConfig.from_pretrained(model_args.model_name_or_path)
     LlmMetaConfig.set_llm_config(config, training_args)
     if model_args.num_hidden_layers is not None:
         config.num_hidden_layers = model_args.num_hidden_layers
@@ -126,16 +117,16 @@ def main(argv: Optional[List[str]] = None, device="cuda", callbacks: Optional[li
     config.use_cache = False
 
     if model_args.from_scratch:
-        model = model_cls.init_random(config, seed=training_args.seed, device=device, dtype=torch.float32)
+        model = AutoModelForCausalLM.from_config(config, dtype=model_args.dtype, param_dtype="float32",
+                                                 seed=training_args.seed, device=device)
     else:
-        model = model_cls.from_pretrained(model_args.model_name_or_path, device=device, dtype=torch.float32,
-                                          config=config)
-    model.compute_dtype = _DTYPES[model_args.dtype]
+        model = AutoModelForCausalLM.from_pretrained(model_args.model_name_or_path, config=config,
+                                                     dtype=model_args.dtype, param_dtype="float32", device=device)
     logger.info(f"model: {type(model).__name__} ({model.num_parameters():,} params) on {model.device}")
 
     train_ds, valid_ds, _ = create_pretrained_dataset(data_args, training_args)
     trainer = Trainer(model=model, args=training_args, train_dataset=train_ds, eval_dataset=valid_ds,
-                      callbacks=callbacks)
+                      tokenizer=tokenizer, callbacks=callbacks)
     checkpoint = training_args.resume_from_checkpoint
     if checkpoint is None and not training_args.overwrite_output_dir:
         checkpoint = get_last_checkpoint(training_args.output_dir)

@@ -478,12 +478,12 @@ class ServingServer:
         model's dtype (placement onto the model's device happens inside the
         quiesced swap via ``sync_params``). Built against the LIVE config so
         the tree structure is guaranteed identical; a leaf-shape surprise
-        inside the loader (torn shard, wrong file) is still a 409, not a
-        500."""
+        inside the loader (torn shard, wrong file, a leaf the checkpoint
+        lacks) is still a 409, not a 500."""
         model = self.loop.engine.model
         try:
             loaded = type(model).from_pretrained(
-                ckpt_dir, device="cpu", dtype=model.dtype, config=model.config)
+                ckpt_dir, device="cpu", param_dtype=model.param_dtype, config=model.config, strict=True)
         except ValueError as e:
             raise WeightSwapConflictError(
                 f"checkpoint {ckpt_dir} does not match the live parameter "

@@ -73,7 +73,7 @@ class Trainer:
             args = TrainingArguments(output_dir="tmp_trainer")
         args.check_supported()
         if hasattr(model, "trainable_mask"):
-            raise NotImplementedError("PEFT trainable masks are not part of the port yet (ROADMAP Queue 1 item 14)")
+            raise NotImplementedError("PEFT trainable masks are not part of the port yet (ROADMAP Queue 1 item 14c)")
         cfg = model.config
         if any(getattr(cfg, a, 0.0) for a in ("attention_dropout", "hidden_dropout", "resid_pdrop", "embd_pdrop",
                                               "attn_pdrop", "hidden_dropout_prob",

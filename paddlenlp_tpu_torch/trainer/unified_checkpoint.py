@@ -391,7 +391,8 @@ def load_unified_checkpoint(ckpt_dir: str, model, optimizer=None):
     """Restore ``model``'s parameters and ``optimizer``'s state from
     ``ckpt_dir``, copying into the existing tensors (their devices, dtypes
     and order stay), and return the checkpoint's ``TrainerState`` (None when
-    it has no ``trainer_state.json``).
+    it has no ``trainer_state.json``). A checkpoint that lacks a leaf of
+    ``model`` raises ValueError.
 
     The commit manifest is validated first: a dir with a manifest that does not
     match the bytes on disk raises :class:`CorruptCheckpointError` (use
@@ -408,7 +409,8 @@ def load_unified_checkpoint(ckpt_dir: str, model, optimizer=None):
         logger.warning(f"checkpoint {ckpt_dir} has no {COMMIT_MANIFEST}; loading as legacy "
                        "(pre-commit-protocol) checkpoint without integrity validation")
 
-    loaded = flatten_params(type(model).from_pretrained(ckpt_dir, device="cpu", config=model.config).params)
+    loaded = flatten_params(type(model).from_pretrained(ckpt_dir, device="cpu", config=model.config,
+                                                         param_dtype=model.param_dtype, strict=True).params)
     for path, t in flatten_params(model.params).items():
         t.copy_(loaded.pop(path))
     del loaded

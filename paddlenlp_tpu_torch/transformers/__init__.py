@@ -1,5 +1,19 @@
-"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2)."""
+"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2), the Auto
+classes, ``PretrainedModel`` and the tokenizer."""
 
+from .auto import (  # noqa: F401
+    AutoConfig,
+    AutoModel,
+    AutoModelForCausalLM,
+    AutoModelForCausalLMPipe,
+    AutoModelForMaskedLM,
+    AutoModelForSequenceClassification,
+    AutoModelForTokenClassification,
+    AutoTokenizer,
+)
+from .cache_utils import KVCache, init_cache  # noqa: F401
 from .configuration_utils import LlmMetaConfig, PretrainedConfig  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .model_utils import PretrainedModel  # noqa: F401
 from .qwen2 import Qwen2Config, Qwen2ForCausalLM  # noqa: F401
+from .tokenizer_utils import BatchEncoding, PretrainedTokenizer  # noqa: F401

@@ -2,8 +2,9 @@
 
 PyTorch port of ``paddlenlp_tpu/transformers/configuration_utils.py``:
 ``PretrainedConfig`` with ``attribute_map`` legacy-key translation, built from a
-dict or a local ``config.json``, and the trainer-arg bridge ``LlmMetaConfig``.
-The hub downloader is not part of the port.
+dict or a local ``config.json`` (a directory, a file, or a name under the
+``MODEL_HOME`` cache: ``utils/downloader.py``), and the trainer-arg bridge
+``LlmMetaConfig``.
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ import json
 import os
 from typing import Any, Dict, Tuple
 
+from ..utils.downloader import resolve_file
+from ..utils.env import CONFIG_NAME
 from ..utils.log import logger
 
 __all__ = ["PretrainedConfig", "LlmMetaConfig", "attribute_map", "CONFIG_NAME"]
-
-CONFIG_NAME = "config.json"
 
 
 def attribute_map(config: "PretrainedConfig", kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -115,13 +116,9 @@ class PretrainedConfig:
 
     @classmethod
     def get_config_dict(cls, pretrained_model_name_or_path, **kwargs) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """Read ``config.json`` from a local directory (or the file itself);
-        the port has no downloader."""
-        path = str(pretrained_model_name_or_path)
-        if os.path.isdir(path):
-            path = os.path.join(path, CONFIG_NAME)
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"no {CONFIG_NAME} at {pretrained_model_name_or_path}")
+        """Read ``config.json`` from a local directory, the file itself, or
+        the ``MODEL_HOME`` cache."""
+        path = resolve_file(pretrained_model_name_or_path, CONFIG_NAME)
         with open(path) as f:
             return json.load(f), kwargs
 

@@ -20,9 +20,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StateDictNameMapping", "StackedLayerMapping", "auto_name_mappings", "convert_state_dict",
-           "flatten_params", "resolve_stacked_key", "sorted_tree", "tensor_from_numpy", "unflatten_params",
-           "target_to_hf_key"]
+__all__ = ["StateDictNameMapping", "StackedLayerMapping", "auto_name_mappings", "flatten_params",
+           "resolve_stacked_key", "sorted_tree", "tensor_from_numpy", "unflatten_params", "target_to_hf_key"]
 
 
 @dataclasses.dataclass
@@ -171,19 +170,3 @@ def auto_name_mappings(flat_shapes: Dict[str, Tuple[int, ...]]):
         else:
             mappings.append(StateDictNameMapping(target_to_hf_key(path), path, action))
     return mappings
-
-
-def convert_state_dict(
-    get_source: Callable[[str], Optional[torch.Tensor]],
-    mappings,
-) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """Pull each mapped tensor through its conversion; returns (flat target dict, missing paths)."""
-    out: Dict[str, torch.Tensor] = {}
-    missing: List[str] = []
-    for m in mappings:
-        arr = m.apply_stack(get_source)
-        if arr is None:
-            missing.append(m.target_name)
-        else:
-            out[m.target_name] = arr
-    return out, missing

@@ -19,38 +19,29 @@ model (``experimental/inference_model.py``) reads it directly, and
   ``compute_dtype``, attention through the flash kernels
   (``ops/flash_attention.py``), with the eight remat policies of the JAX
   ``_remat_policy`` (:336) as ``torch.utils.checkpoint`` segments.
-- :meth:`LlamaForCausalLM.save_pretrained` writes the HF layout
-  (``model_utils.py:285``), and the ``generation_config`` when there is one.
-- ``generate`` is ``generation.GenerationMixin``'s.
+- loading, saving and the constructors are ``model_utils.PretrainedModel``'s
+  (``from_pretrained``/``save_pretrained`` in the HF layout, ``from_config``,
+  ``init_random``, ``from_jax_params``), and ``generate`` is
+  ``generation.GenerationMixin``'s.
 """
 
 from __future__ import annotations
 
 import functools
-import json
-import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from ...generation.configuration_utils import GenerationConfig
-from ...generation.utils import GenerationMixin
 from ...ops.flash_attention import dense_attention_mask, dot_product_attention, dot_product_attention_dense
 from ...ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
-from ...utils.env import GENERATION_CONFIG_NAME
-from ...utils.log import logger
-from ...utils.safetensors_io import SafeFile, save_file, shard_checkpoint
 from ..cache_utils import KVCache, update_layer_kv
-from ..conversion_utils import (StackedLayerMapping, auto_name_mappings, convert_state_dict, flatten_params,
-                                tensor_from_numpy, unflatten_params)
+from ..conversion_utils import flatten_params
+from ..model_utils import PretrainedModel
 from .configuration import LlamaConfig
 
 __all__ = ["LlamaForCausalLM", "layer_params", "rms_norm"]
-
-SAFE_WEIGHTS_NAME = "model.safetensors"
-SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
 
 #: recompute granularities of the training forward (the JAX ``_remat_policy``
 #: :336): what each keeps for the backward is in :meth:`LlamaForCausalLM.forward`
@@ -96,36 +87,13 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
-def _weight_files(model_dir: str):
-    index = os.path.join(model_dir, SAFE_WEIGHTS_INDEX_NAME)
-    if os.path.isfile(index):
-        with open(index) as f:
-            files = sorted(set(json.load(f)["weight_map"].values()))
-        return [os.path.join(model_dir, f) for f in files]
-    single = os.path.join(model_dir, SAFE_WEIGHTS_NAME)
-    if os.path.isfile(single):
-        return [single]
-    found = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
-    if not found:
-        raise FileNotFoundError(f"no safetensors weights found under {model_dir}")
-    return [os.path.join(model_dir, f) for f in found]
-
-
-class LlamaForCausalLM(GenerationMixin):
+class LlamaForCausalLM(PretrainedModel):
     """Parameters + a dense forward. ``params`` is the nested dict
     ``{"model": {"embed_tokens", "layers", "norm"}, "lm_head"}`` of the JAX
     package's scanned layout."""
 
     config_class = LlamaConfig
-
-    def __init__(self, config, params: dict):
-        self.config = config
-        self.params = params
-        #: the default decoding settings of ``generate`` (``generation_config.json``)
-        self.generation_config: Optional[GenerationConfig] = None
-        #: dtype the training forward computes in (the JAX module's ``dtype``);
-        #: None computes in the parameters' dtype
-        self.compute_dtype: Optional[torch.dtype] = None
+    _keys_to_ignore_on_load_missing = [r"lm_head"]
 
     # ------------------------------------------------------------------ layout
     @staticmethod
@@ -165,65 +133,6 @@ class LlamaForCausalLM(GenerationMixin):
             raise NotImplementedError(f"hidden_act {config.hidden_act!r}: the port serves SwiGLU (silu) models")
         if getattr(config, "rms_norm_add_unit_offset", False):
             raise NotImplementedError("rms_norm_add_unit_offset (gemma) is not part of the port yet")
-
-    @classmethod
-    def _from_flat(cls, config, flat: Dict[str, torch.Tensor]) -> "LlamaForCausalLM":
-        cls._check_config(config)
-        shapes = cls.param_shapes(config)
-        if set(flat) != set(shapes):
-            raise ValueError(f"parameter tree mismatch: missing {sorted(set(shapes) - set(flat))}, "
-                             f"unexpected {sorted(set(flat) - set(shapes))}")
-        for path, shape in shapes.items():
-            if tuple(flat[path].shape) != shape:
-                raise ValueError(f"shape mismatch for {path}: got {tuple(flat[path].shape)}, want {shape}")
-        return cls(config, unflatten_params(flat))
-
-    # ------------------------------------------------------------------ constructors
-    @classmethod
-    def init_random(cls, config, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> "LlamaForCausalLM":
-        """Random weights drawn on ``device`` from a seeded ``torch.Generator``:
-        norms are ones, every other leaf is N(0, initializer_range)."""
-        gen = torch.Generator(device=device).manual_seed(seed)
-        std = float(getattr(config, "initializer_range", 0.02))
-        flat = {}
-        for path, shape in cls.param_shapes(config).items():
-            if path.endswith("/scale"):
-                flat[path] = torch.ones(shape, dtype=dtype, device=device)
-            else:
-                flat[path] = torch.empty(shape, dtype=dtype, device=device).normal_(0.0, std, generator=gen)
-        return cls._from_flat(config, flat)
-
-    @classmethod
-    def from_jax_params(cls, config, params, device="cuda", dtype=None) -> "LlamaForCausalLM":
-        """From the JAX package's scanned param tree (numpy leaves or
-        anything ``np.asarray`` accepts)."""
-        flat = {}
-        for path, leaf in flatten_params(params).items():
-            t = tensor_from_numpy(leaf)
-            flat[path] = t.to(device=device, dtype=dtype or t.dtype)
-        return cls._from_flat(config, flat)
-
-    @classmethod
-    def from_pretrained(cls, model_dir: str, device="cuda", dtype=None, config=None) -> "LlamaForCausalLM":
-        """From a local HF-layout directory: ``config.json`` plus safetensors
-        with HF keys and torch ``[out, in]`` Linear weights."""
-        config = config if config is not None else cls.config_class.from_pretrained(model_dir)
-        files = [SafeFile(f) for f in _weight_files(model_dir)]
-        try:
-            by_key = {k: sf for sf in files for k in sf.keys()}
-            flat, missing = convert_state_dict(
-                lambda key: by_key[key].get_torch(key) if key in by_key else None,
-                auto_name_mappings(cls.param_shapes(config)))
-        finally:
-            for sf in files:
-                sf.close()
-        if missing:
-            raise ValueError(f"checkpoint under {model_dir} lacks {missing}")
-        flat = {k: v.to(device=device, dtype=dtype or v.dtype) for k, v in flat.items()}
-        model = cls._from_flat(config, flat)
-        if os.path.isfile(os.path.join(model_dir, GENERATION_CONFIG_NAME)):  # model_utils.py:372-380
-            model.generation_config = GenerationConfig.from_pretrained(model_dir)
-        return model
 
     # ------------------------------------------------------------------ forward
     @property
@@ -468,10 +377,6 @@ class LlamaForCausalLM(GenerationMixin):
         return h @ table.T
 
     # ------------------------------------------------------------------ accounting
-    def num_parameters(self, params: Optional[dict] = None) -> int:
-        params = self.params if params is None else params
-        return int(sum(t.numel() for t in flatten_params(params).values()))
-
     def get_model_flops(self, batch_size: int, seq_length: int) -> float:
         """Training flops of one step (``modeling.py:675``): 6·N·tokens for the
         matmuls plus the causal attention term, forward and backward."""
@@ -479,34 +384,3 @@ class LlamaForCausalLM(GenerationMixin):
         n = self.num_parameters()
         return 6.0 * n * batch_size * seq_length + 6.0 * cfg.num_hidden_layers * cfg.head_dim * \
             cfg.num_attention_heads * (seq_length**2) * batch_size
-
-    # ------------------------------------------------------------------ saving
-    def save_pretrained(self, save_directory: str, max_shard_size: int = 5 * 1024**3, params: Optional[dict] = None):
-        """Write ``config.json`` and the HF layout (HF keys, ``[out, in]``
-        Linear weights, one key per layer), sharded at ``max_shard_size``
-        bytes with an index, in the parameters' dtype (``model_utils.py:285``).
-        Keys come in the JAX package's order (its trees flatten by sorted
-        path), so both packages write the same bytes for the same tree."""
-        os.makedirs(save_directory, exist_ok=True)
-        params = self.params if params is None else params
-        flat = dict(sorted(flatten_params(params).items(), key=lambda kv: kv[0].split("/")))
-        self.config.dtype = str(next(iter(flat.values())).dtype).removeprefix("torch.")
-        self.config.architectures = [type(self).__name__]
-        self.config.save_pretrained(save_directory)
-        if self.generation_config is not None:
-            self.generation_config.save_pretrained(save_directory)
-        tensors: Dict[str, torch.Tensor] = {}
-        with torch.no_grad():
-            for mapping in auto_name_mappings({k: tuple(v.shape) for k, v in flat.items()}):
-                leaf = flat[mapping.target_name].detach().cpu()
-                if isinstance(mapping, StackedLayerMapping):
-                    tensors.update(mapping.reverse_unstack(leaf))
-                else:
-                    tensors[mapping.source_name] = mapping.reverse(leaf)
-        shards, index = shard_checkpoint(tensors, max_shard_size, SAFE_WEIGHTS_NAME)
-        for fname, shard in shards:
-            save_file(shard, os.path.join(save_directory, fname), metadata={"format": "np"})
-        if index is not None:
-            with open(os.path.join(save_directory, SAFE_WEIGHTS_INDEX_NAME), "w") as f:
-                json.dump(index, f, indent=2)
-        logger.info(f"model saved to {save_directory}")

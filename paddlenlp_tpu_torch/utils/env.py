@@ -1,16 +1,29 @@
-"""Device facts for throughput metrics.
+"""Cache directory, artifact file names and device facts.
 
-The port's counterpart of ``paddlenlp_tpu/utils/env.py`` ``device_peak_flops``,
-keyed on CUDA device names instead of TPU kinds, and the name of a model
-directory's generation config (``GENERATION_CONFIG_NAME``, ``:40``)."""
+The port's counterpart of ``paddlenlp_tpu/utils/env.py``: ``MODEL_HOME``
+(``PDNLP_TPU_HOME``, default ``~/.paddlenlp_tpu``), the canonical artifact
+names (``:38-44``) and ``device_peak_flops``, keyed on CUDA device names
+instead of TPU kinds."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
-__all__ = ["GENERATION_CONFIG_NAME", "device_peak_flops"]
+__all__ = ["MODEL_HOME", "DATA_HOME", "PDNLP_TPU_HOME", "CONFIG_NAME", "GENERATION_CONFIG_NAME",
+           "SAFE_WEIGHTS_NAME", "SAFE_WEIGHTS_INDEX_NAME", "TOKENIZER_CONFIG_NAME", "CHAT_TEMPLATE_NAME",
+           "device_peak_flops"]
 
+PDNLP_TPU_HOME = os.environ.get("PDNLP_TPU_HOME") or os.path.join(os.path.expanduser("~"), ".paddlenlp_tpu")
+MODEL_HOME = os.path.join(PDNLP_TPU_HOME, "models")
+DATA_HOME = os.path.join(PDNLP_TPU_HOME, "datasets")
+
+CONFIG_NAME = "config.json"
 GENERATION_CONFIG_NAME = "generation_config.json"
+SAFE_WEIGHTS_NAME = "model.safetensors"
+SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+TOKENIZER_CONFIG_NAME = "tokenizer_config.json"
+CHAT_TEMPLATE_NAME = "chat_template.json"
 
 #: per-device peak dense FLOPs (bf16) by CUDA device-name substring (matched
 #: case-insensitively; NVIDIA's data sheet, SXM part, dense). Off-table

@@ -171,6 +171,22 @@ def test_resume_continues_bit_for_bit(tmp_path):
     assert uc._pending_saves == []  # train() joined and reaped the writer
 
 
+def test_resume_refuses_a_checkpoint_that_lacks_a_leaf(tmp_path):
+    """A tied-embedding checkpoint has no ``lm_head``: restoring it into an
+    untied model of the same dimensions raises, and leaves the model as it
+    was, where ``from_pretrained`` alone would initialize the head."""
+    tied = LlamaForCausalLM.init_random(LlamaConfig(tie_word_embeddings=True, **TINY), seed=1, device="cpu",
+                                        dtype=torch.float32)
+    uc.save_unified_checkpoint(str(tmp_path / "tied"), tied)
+    model = LlamaForCausalLM.init_random(LlamaConfig(**TINY), seed=0, device="cpu", dtype=torch.float32)
+    before = {k: t.clone() for k, t in flatten_params(model.params).items()}
+    with pytest.raises(ValueError, match=r"lacks \['lm_head/kernel'\]"):
+        uc.load_unified_checkpoint(str(tmp_path / "tied"), model)
+    assert all(torch.equal(before[k], t) for k, t in flatten_params(model.params).items())
+    assert "lm_head" in LlamaForCausalLM.from_pretrained(str(tmp_path / "tied"), config=model.config,
+                                                         device="cpu").params
+
+
 def test_async_mid_run_checkpoint_resumes_bit_for_bit(tmp_path):
     """checkpoint-2's async writer is held back (a 1 s delay at its first
     shard) while steps 3-4 train: the checkpoint must still record step 2's

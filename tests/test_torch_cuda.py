@@ -265,7 +265,12 @@ def _flash_case(dev, dtype, B, T, N, K, H, segments, seed=0):
     q, do = (torch.from_numpy(rng.standard_normal((B, T, N, H), dtype=np.float32)).to(dev, dtype) for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal((B, T, K, H), dtype=np.float32)).to(dev, dtype) for _ in range(2))
     seg = None
-    if segments:  # packed documents with boundaries off the 64-row tiles
+    if segments == "packed":  # a zero-padding row: examples 0-3, then the padding tail's own segment 5
+        seg = torch.full((B, T), 5, dtype=torch.int32)
+        for i, (a, b) in enumerate(zip((0, 461, 950, 1403), (461, 950, 1403, 1900))):
+            seg[:, a * T // 2048:b * T // 2048] = i
+        seg = seg.to(dev)
+    elif segments:  # packed documents with boundaries off the 64-row tiles
         seg = torch.zeros(B, T, dtype=torch.int32)
         seg[:, T // 3:] = 1
         seg[:, T // 2 + 7:] = 2
@@ -289,6 +294,7 @@ def _close(got, want, dtype):
     (256, 4, 2, 64, True, None, False),    # group 2, H 64
     (129, 7, 1, 64, False, None, False),   # group 7, full attention
     (333, 2, 2, 128, True, 100, True),     # group 1, window + segments
+    (2048, 12, 2, 128, True, None, "packed"),  # packed SFT rows at their launch shape: causal, no window
     (1024, 12, 2, 128, True, None, False),  # the training path's heads, group 6, at a smaller T
     (300, 12, 2, 128, False, None, False),  # full attention, T not a multiple of 128
 ])
@@ -945,3 +951,73 @@ def test_dense_attention_fully_masked_rows_on_the_card(dev):
         assert fa.LAUNCHES == launches and torch.isfinite(got).all()
         want = fa.dot_product_attention(q, k, v, attention_mask=mask)
         torch.testing.assert_close(got.cpu().float(), want.float(), atol=atol, rtol=rtol)
+
+
+# ----------------------------------------------------------------- the predictor and packed SFT rows
+class _IdCodec:
+    """A tokenizer stand-in (``w<id>`` words, one space between them): the
+    predictor's host code needs no ``tokenizers`` here."""
+
+    padding_side, chat_template, eos_token_id, pad_token_id = "right", None, 2, 0
+
+    def encode(self, text, **kw):
+        return [int(w[1:]) for w in text.split()]
+
+    def decode(self, ids, skip_special_tokens=True, **kw):
+        return " ".join(f"w{int(i)}" for i in ids if not (skip_special_tokens and int(i) in (0, 2)))
+
+
+def test_block_predictor_takes_the_hopper_route(dev):
+    """``create_predictor(mode="block")`` over a bf16 model on the card: its
+    texts are the decode of ``InferenceEngine.generate`` with the same
+    settings, and every paged launch takes the Hopper route."""
+    from paddlenlp_tpu_torch.llm.predict import predictor as P
+
+    model = Qwen2ForCausalLM.init_random(Qwen2Config(**dict(_SMALL, eos_token_id=2)), seed=0, device=dev,
+                                         dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, 256, n).tolist() for n in (40, 97, 130, 5)]
+    tok = _IdCodec()
+    args = P.PredictorArgument(model_name_or_path="(in memory)", mode="block", dtype="bfloat16", batch_size=4,
+                               max_length=12, decode_strategy="greedy_search", block_size=16, num_kv_blocks=64,
+                               max_blocks_per_seq=16)
+    pred = P.create_predictor(args, model=model, tokenizer=tok)
+    assert pred.engine.infer.use_paged_kernel
+    before, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    got = pred.predict([tok.decode(p) for p in prompts])
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES - before > 0 and pa.LAUNCHES_SM90 - sm90 == pa.LAUNCHES - before
+    eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=16,
+                          dtype=torch.bfloat16)
+    want = [tok.decode(x) for x in eng.generate(prompts, SamplingParams(max_new_tokens=12))]
+    assert got == want
+
+
+def test_packed_sft_rows_take_the_hopper_flash_route(dev):
+    """Zero-padding rows (``segment_ids`` of >= 2 examples and a padding
+    tail, per-segment ``position_ids``) through a bf16-compute training step
+    on the card: one launch of each flash kernel a layer and micro-batch,
+    all on the Hopper route, and a finite loss."""
+    from paddlenlp_tpu_torch.datasets import ZeroPaddingMapDataset
+
+    rng = np.random.default_rng(0)
+    examples = []
+    for _ in range(24):
+        ids = rng.integers(3, 256, int(rng.integers(20, 60))).astype(np.int32)
+        examples.append({"input_ids": ids, "labels": np.where(np.arange(len(ids)) < 8, -100, ids)})
+    rows = ZeroPaddingMapDataset(examples, max_length=128)
+    assert all(len(np.unique(rows[i]["segment_ids"])) >= 3 for i in range(4))  # the rows the step takes
+    model = Qwen2ForCausalLM.init_random(Qwen2Config(**_SMALL), seed=0, device=dev, dtype=torch.float32)
+    model.compute_dtype = torch.bfloat16
+    args = TrainingArguments(output_dir="unused", per_device_train_batch_size=4, gradient_accumulation_steps=2,
+                             learning_rate=1e-3, max_steps=1, save_strategy="no")
+    trainer = Trainer(model=model, args=args, train_dataset=rows)
+    trainer.create_optimizer_and_scheduler(1)
+    batch = {k: np.stack([rows[i][k] for i in range(4)]) for k in rows[0]}
+    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    out = trainer.training_step(batch)
+    torch.cuda.synchronize()
+    want = {"fwd": 2 * 2, "bwd_dq": 2 * 2, "bwd_dkv": 2 * 2}  # 2 layers x 2 micro-batches (save_qkv_attn)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == want
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == want
+    assert np.isfinite(out["loss"].item())

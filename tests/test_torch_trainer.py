@@ -43,7 +43,7 @@ from paddlenlp_tpu_torch.llm import run_pretrain
 from paddlenlp_tpu_torch.ops.cross_entropy import cross_entropy_with_ignore
 from paddlenlp_tpu_torch.trainer import PdArgumentParser, Trainer, TrainingArguments
 from paddlenlp_tpu_torch.trainer.trainer_utils import get_scheduler
-from paddlenlp_tpu_torch.transformers import LlamaConfig, LlamaForCausalLM
+from paddlenlp_tpu_torch.transformers import LlamaConfig, LlamaForCausalLM, Qwen2ForCausalLM
 from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,6 +231,6 @@ def test_run_pretrain_main_on_cpu(tmp_path):
     losses = [h["loss"] for h in trainer.state.log_history if "grad_norm" in h]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert trainer.model.compute_dtype == torch.bfloat16 and trainer.model.config.recompute
-    saved = run_pretrain.MODELS["qwen2"][1].from_pretrained(str(tmp_path / "out"), device="cpu")
+    saved = Qwen2ForCausalLM.from_pretrained(str(tmp_path / "out"), device="cpu")
     for path, t in flatten_params(saved.params).items():
         assert torch.equal(t, flatten_params(trainer.model.params)[path].detach()), path

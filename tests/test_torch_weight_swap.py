@@ -172,12 +172,33 @@ def test_pre_swap_prefix_blocks_never_serve_after_the_swap(swapped):
 
 
 def test_post_swap_stream_matches_a_fresh_engine_on_the_checkpoint(swapped, ckpts):
-    fresh = InferenceEngine(LlamaForCausalLM.from_pretrained(str(ckpts / "v1"), device="cpu", dtype=torch.float32),
+    fresh = InferenceEngine(LlamaForCausalLM.from_pretrained(str(ckpts / "v1"), device="cpu",
+                                                             param_dtype=torch.float32),
                             **ENG_KW)
     want = fresh.generate([SHARED], SamplingParams(max_new_tokens=6))[0]
     assert swapped["port"]["post_shared"]["choices"][0]["token_ids"] == want
     assert swapped["port"]["swap"][1]["canary_digest"] == canary_digest(
         fresh.generate([list(CANARY_PROMPT_IDS)], SamplingParams(max_new_tokens=64))[0])
+
+
+def test_checkpoint_lacking_a_leaf_is_a_conflict(tmp_path):
+    """A committed checkpoint of a tied-embedding model (no ``lm_head``) with
+    the live model's dimensions passes the dimension gate; swapping it into
+    the untied live model is a 409 with the engine untouched, not a head of
+    random weights."""
+    jm = JLlama.from_config(JLlamaConfig(use_scan_layers=True, tie_word_embeddings=True, **MODEL_KW), seed=1)
+    save_unified_checkpoint(str(tmp_path / "tied"), jm, None)
+    pm = LlamaForCausalLM.init_random(LlamaConfig(**MODEL_KW), seed=0, device="cpu", dtype=torch.float32)
+    srv = ServingServer(InferenceEngine(pm, **ENG_KW), registry=MetricsRegistry(),
+                        scheduler_config=SchedulerConfig(default_timeout_s=TIMEOUT))
+    port = srv.start_in_thread()
+    try:
+        params0 = srv.loop.engine.model.params
+        status, body = post(port, "/admin/weights", {"ckpt_dir": str(tmp_path / "tied"), "version": "tied"})
+        assert status == 409 and "lacks ['lm_head/kernel']" in json.dumps(body)
+        assert srv.loop.engine.model.params is params0 and srv.loop.weights_version == "v0"
+    finally:
+        srv.shutdown(drain_timeout_s=10)
 
 
 @pytest.mark.parametrize("key", ["torn", "narrow", "missing"])

@@ -1,10 +1,10 @@
 """The training phases of ``chip_smoke.py`` alone, on one CUDA card.
 
-Builds the two flash-attention sources and runs ``chip_smoke``'s
-``run_training_phases`` (``train``, ``train_profile``, ``train_resume``,
-``train_recompute``, ``fused_ce``) with the same checks, printing their JSON
-lines: a shorter run for work on the training path. From the root of a
-checkout:
+Builds the kernel sources (one ``nvcc`` each, started together) and runs
+``chip_smoke``'s ``run_training_phases`` (``train``, ``train_profile``,
+``train_resume``, ``train_recompute``, ``finetune``, ``finetune_predict``,
+``fused_ce``) with the same checks, printing their JSON lines: a shorter run
+for work on the training path. From the root of a checkout:
 
     python3 tools/chip_smoke_train.py [--seed 0]
 """
@@ -34,9 +34,13 @@ def main(argv=None) -> int:
     from paddlenlp_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
+
     print(cs.nvidia_smi())
-    for stem in ("flash_attention_sm90", "flash_attention"):
-        cs.emit(dict(phase="build", source=_build.SOURCES[stem], seconds=_build.build(stem)["seconds"]))
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        for stem, b in zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)):
+            cs.emit(dict(phase="build", source=_build.SOURCES[stem], seconds=b["seconds"]))
+    cs.check_tokenizer_libs(cs.tokenizer_libs())
     t0 = time.perf_counter()
     cs.run_training_phases(torch, np, fa, args.seed)
     cs.emit(dict(phase="done", seconds=time.perf_counter() - t0))
