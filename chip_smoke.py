@@ -246,17 +246,52 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               prompts, 32 new tokens, greedy: the ids equal an engine's over
               the trainer's final weights cast to bf16; every paged launch on
               the Hopper route;
-24. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+PEFT and alignment at Qwen2-1.5B width and depth, each from the train
+phase's saved model and tokenizer, each freeing its models:
+
+24. finetune_lora -- ``run_finetune.main`` with ``lora`` on the repo's
+              recipe (``llm/config/qwen2/lora_argument.json``) cut to one
+              card (no stage2, accumulation 1, 3 steps, warmup 1, no saves
+              or evaluations between; rank 8, lr 3e-4, recompute, padded
+              batches kept): 4 rows of 1.9k-2k tokens a step with a padding
+              mask (the dense attention path, as in the JAX package: no
+              flash launch); every base leaf bit for bit unchanged, the
+              adapters moved, the trainable count the JAX formula's, the
+              adapter directory loads back bit for bit; the trained adapter
+              exported to an ``AdapterRegistry`` serves one greedy request of
+              32 tokens through the bf16 engine (Hopper paged kernel) that
+              matches ``LoRAModel.generate`` within the depth gate;
+25. finetune_prefix -- the same cut with ``prefix_tuning`` (64 tokens), 2
+              steps: base leaves unchanged, ``prefix_kv`` moved;
+26. vera   -- ``VeRAModel`` (rank 64 on q/k/v/o) through ``Trainer``, 2
+              steps on the finetune phase's packed rows: the flash kernels,
+              all on the Hopper route; base leaves and shared bases unchanged;
+27. dpo    -- ``DPOTrainer`` on ``dpo_argument.json`` cut to one card (1 x
+              accumulation 2, 3 steps; max_length 4096, prompt 2048, sigmoid,
+              beta 0.1, lr 1e-6), rows from ``load_preference_rows``: step 1's
+              loss ln 2 within 1e-4, every flash launch (policy, recompute,
+              frozen reference at [2, 4095, 12, 128]) on the Hopper route, the
+              three kernels against their plain versions at T = 4095;
+28. rm     -- ``RewardTrainer`` over ``Qwen2ForSequenceClassification`` of the
+              train phase's directory, 2 steps at max_length 1024;
+29. ppo    -- ``PPOTrainer`` in GRPO mode for 2 rounds (the rm phase's reward
+              model; 2 prompts of 128-256 tokens x 4 rollouts x 32 new
+              tokens through one fp32 engine): every paged launch on the SIMT
+              fp32 route; in round 2 the engine's paged model over the
+              updated weights against their dense fp32 forward at rel 1e-4;
+30. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
               full logits at the step's head (hidden [2, 4096, 1536] bf16,
               the tied 1536 x 151936 head): the loss and both gradients
               within the bf16 gate, the peak memory of each;
-25. kernels -- every kernel with its launches on the serving runs (the two
+31. kernels -- every kernel with its launches on the serving runs (the two
               engine runs, the serve, router, spec, host_tier, lora, wquant,
-              predict and finetune_predict phases;
-              the kv_quant phase for the quantized entry) and the training runs
-              (train, train_resume, train_recompute, finetune, and the spec
-              phase's draft forwards), each on its own route, and its check;
-26. disk   -- the bytes this process wrote (``/proc/self/io``), checked
+              predict and finetune_predict phases and the finetune_lora
+              phase's served adapter; the kv_quant phase for the quantized
+              entry; the ppo phase's fp32 rollouts for the SIMT route) and the
+              training runs (train, train_resume, train_recompute, finetune,
+              vera, dpo, and the spec phase's draft forwards), each on its own
+              route, and its check;
+32. disk   -- the bytes this process wrote (``/proc/self/io``), checked
               against the 45 GiB a run may write, and the run's seconds.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
@@ -417,6 +452,21 @@ def time_cuda(torch, fn, iters, flush):
     return total / iters
 
 
+def paged_error(torch, args, out, ref, q_dtype, name):
+    """``out`` of the paged kernel against ``ref``, its plain version on the
+    same ``args``: finite, within ``KERNEL_TOL`` elementwise, dead rows exact
+    zeros; returns (max |err|, worst err over its bound, rtol, atol)."""
+    rtol, atol = KERNEL_TOL[q_dtype]
+    err = (out.float() - ref.float()).abs()
+    worst = (err / (rtol * ref.float().abs() + atol)).max().item()  # <= 1 passes
+    check(torch.isfinite(out.float()).all().item(), f"kernel {name}: non-finite output")
+    check(worst <= 1.0, f"kernel {name}: |kernel - plain| exceeds {rtol}*|plain| + {atol} "
+                        f"(worst element at {worst:.3g}x its bound)")
+    for b, qlen in enumerate(args["q_lens"].tolist()):
+        check(bool((out[b, qlen:] == 0).all()), f"kernel {name}: dead rows of sequence {b} are not exact zeros")
+    return err.max().item(), worst, rtol, atol
+
+
 def phase_kernel(torch, pa, quantize_kv, seed):
     import torch.nn.functional as F
 
@@ -437,14 +487,7 @@ def phase_kernel(torch, pa, quantize_kv, seed):
                              f"want {want} on the {route} route")
         # no atomics on the Hopper route: the same inputs give the same bits
         check(route == "simt" or torch.equal(out, again), f"kernel {name}: two launches differ")
-        rtol, atol = KERNEL_TOL[q_dtype]
-        err = (out.float() - ref.float()).abs()
-        worst = (err / (rtol * ref.float().abs() + atol)).max().item()  # <= 1 passes
-        check(torch.isfinite(out.float()).all().item(), f"kernel {name}: non-finite output")
-        check(worst <= 1.0, f"kernel {name}: |kernel - plain| exceeds {rtol}*|plain| + {atol} "
-                            f"(worst element at {worst:.3g}x its bound)")
-        for b, qlen in enumerate(args["q_lens"].tolist()):
-            check(bool((out[b, qlen:] == 0).all()), f"kernel {name}: dead rows of sequence {b} are not exact zeros")
+        max_err, worst, rtol, atol = paged_error(torch, args, out, ref, q_dtype, name)
         ms = time_cuda(torch, lambda: pa.ragged_paged_attention(**args), 20, flush)
         plain_ms = time_cuda(torch, lambda: pa.ragged_paged_attention_ref(**args), 3, flush)
         # the yardstick: one library call on K/V gathered (and dequantized) beforehand
@@ -466,13 +509,13 @@ def phase_kernel(torch, pa, quantize_kv, seed):
         library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask, enable_gqa=True), 20, flush)
         bound_ms, bound_by = kernel_bound(args)
-        case = dict(batch=batch, q=q_dtype, pool=kv, route=route, max_abs_err=err.max().item(), rtol=rtol, atol=atol,
+        case = dict(batch=batch, q=q_dtype, pool=kv, route=route, max_abs_err=max_err, rtol=rtol, atol=atol,
                     worst_err_over_tol=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
                     shapes=dict(q=list(args["q"].shape), pool=list(args["pool_k"].shape)))
         emit(dict(phase="kernel", **case))
         cases.append(case)
-        del args, out, again, ref, err, kg, vg, mask
+        del args, out, again, ref, kg, vg, mask
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -621,21 +664,24 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, q
 
 # ----------------------------------------------------------------------------- logits
 def paged_logits(torch, model, PagedInferenceModel, init_paged_pool, prompt, dtype, n_decode, feed=None, quant=None,
-                 kernel=True, lora=None, adapter=0):
+                 kernel=True, lora=None, adapter=0, infer=None):
     """Prefill ``prompt`` then ``n_decode`` decode steps through the paged
     forward, over a fresh pool (int8 / fp8 with ``quant``), on the kernel path
     or, with ``kernel=False``, on the plain gather path, feeding the greedy
     token (or ``feed[i]`` when given), with the LoRA delta of pool slot
-    ``adapter`` of the device adapter pool ``lora`` when given; returns
+    ``adapter`` of the device adapter pool ``lora`` when given, through
+    ``infer`` (an engine's own paged model) when given; returns
     (logits [1 + n_decode, V] fp32, fed token ids)."""
     from paddlenlp_tpu_torch.experimental.inference_model import gather_lora
 
     bs = 16
     n_blocks = (len(prompt) + n_decode) // bs + 2
-    infer = PagedInferenceModel(model, block_size=bs, num_blocks=n_blocks + 1, max_blocks_per_seq=n_blocks,
-                                dtype=dtype)
-    check(infer.use_paged_kernel, "logits: the paged model on CUDA must run the kernel path")
-    infer.use_paged_kernel = kernel  # the plain path only where the caller asks for it
+    if infer is None:
+        infer = PagedInferenceModel(model, block_size=bs, num_blocks=n_blocks + 1, max_blocks_per_seq=n_blocks,
+                                    dtype=dtype)
+        check(infer.use_paged_kernel, "logits: the paged model on CUDA must run the kernel path")
+        infer.use_paged_kernel = kernel  # the plain path only where the caller asks for it
+    check(infer.use_paged_kernel == kernel, f"logits: the paged model's kernel path is {infer.use_paged_kernel}")
     pool = init_paged_pool(model.config, n_blocks + 1, bs, dtype=dtype, quant=quant, device=DEVICE)
     tables = torch.arange(1, n_blocks + 1, dtype=torch.int32, device=DEVICE)[None]
     S = n_blocks * bs
@@ -4540,13 +4586,644 @@ def phase_train_profile(torch, trainer):
     return res
 
 
+# ----------------------------------------------------------------------------- PEFT and alignment
+LORA_RECIPE = "llm/config/qwen2/lora_argument.json"
+DPO_RECIPE = "llm/config/qwen2/dpo_argument.json"
+PEFT_ROWS = 12  # src/tgt rows of 1.9k-2k tokens: the 3 LoRA steps of 4 rows take them all
+DPO_ROWS = 8  # preference pairs padded to 4096: 3 steps of 1 x 2 take 6
+RM_ROWS = 4  # pairs padded to 1024: 2 steps of 2
+PPO_ROUNDS = 2
+PPO_PROMPTS = 2  # prompts a round, each rolled out 4 times
+
+
+def align_text(np, seed, rows, spans, path):
+    """``rows`` jsonl rows over the pretraining corpus's chain, one field a
+    span: ``spans`` maps a field to its (lo, hi) word counts."""
+    alphabet, succ = markov_chain(np.random.default_rng(seed), QWEN2_1_5B["vocab_size"])
+    alphabet = np.where(alphabet < WORDS, alphabet, alphabet % WORDS)
+    rng = np.random.default_rng(seed + 7)
+    with open(path, "w") as f:
+        for _ in range(rows):
+            f.write(json.dumps({k: markov_text(np, rng, alphabet, succ, int(rng.integers(lo, hi)))
+                                for k, (lo, hi) in spans.items()}) + "\n")
+
+
+class FrozenLeaves:
+    """A trainer callback that copies the frozen leaves of the model it trains
+    (its ``trainable_mask``'s False leaves, on the card) when training
+    begins; ``unchanged()`` compares them after, bit for bit."""
+
+    def __init__(self, torch, TrainerCallback, where):
+        keeper = self
+        self.saved, self.where = {}, where
+
+        class Callback(TrainerCallback):
+            def on_train_begin(self, args, state, control, model=None, **kw):
+                from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+                mask = flatten_params(model.trainable_mask())
+                keeper.saved = {k: v.detach().clone() for k, v in flatten_params(model.params).items()
+                                if not mask[k]}
+                keeper.trainable = {k: v.detach().clone() for k, v in flatten_params(model.params).items()
+                                    if mask[k]}
+
+        self.callback = Callback()
+
+    def check(self, torch, model):
+        from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+        live = flatten_params(model.params)
+        same = all(torch.equal(live[k], v) for k, v in self.saved.items())
+        moved = sum(not torch.equal(live[k].detach(), v) for k, v in self.trainable.items())
+        check(len(self.saved) > 0 and same, f"{self.where}: a frozen leaf changed")
+        check(moved == len(self.trainable), f"{self.where}: {len(self.trainable) - moved} trainable leaves did "
+                                            "not move")
+        n = len(self.saved)
+        self.saved = self.trainable = {}
+        return dict(frozen_leaves=n, frozen_bitwise=same, trainable_leaves=moved)
+
+
+def lora_trainable_count(cfg, r):
+    """The JAX ``print_trainable_parameters`` count of rank-``r`` adapters on
+    all seven projections: r * (in + out) a kernel and layer."""
+    D, I, K = cfg.hidden_size, cfg.intermediate_size, cfg.num_key_value_heads * (cfg.hidden_size //
+                                                                                 cfg.num_attention_heads)
+    dims = [(D, D), (D, K), (D, K), (D, D), (D, I), (D, I), (I, D)]
+    return cfg.num_hidden_layers * r * sum(a + b for a, b in dims)
+
+
+def peft_finetune(torch, np, fa, run_finetune, TrainerCallback, workdir, seed, base_dir, flag, steps, out_name):
+    """``run_finetune.main`` on the LoRA recipe cut to one card with ``flag``
+    (``lora`` or ``prefix_tuning``) set: (trainer, step losses, frozen-leaf
+    report, reduced, args, wall s, flash launches)."""
+    import os
+
+    with open(LORA_RECIPE) as f:
+        recipe = json.load(f)
+    data_dir = os.path.join(workdir, "peft_data")
+    if not os.path.isdir(data_dir):
+        os.makedirs(data_dir)
+        align_text(np, seed + 31, PEFT_ROWS, {"src": (1030, 1100), "tgt": (960, 1100)},
+                   os.path.join(data_dir, "train.json"))
+    cuts = dict(model_name_or_path=base_dir, dataset_name_or_path=data_dir, output_dir=os.path.join(workdir, out_name),
+                sharding="", gradient_accumulation_steps=1, max_steps=steps, warmup_steps=1, save_strategy="no",
+                evaluation_strategy="no", do_eval=False, seed=seed, lora=flag == "lora",
+                prefix_tuning=flag == "prefix_tuning")
+    if flag == "prefix_tuning":
+        cuts["num_prefix_tokens"] = 64
+    reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items()
+               if k not in ("model_name_or_path", "dataset_name_or_path", "output_dir", "seed")
+               and recipe.get(k) != v}
+    reduced["model"] = ("Qwen/Qwen2-1.5B config.json (recipe: Qwen/Qwen2-7B: a 7B base written to disk would be "
+                        "15.2 GB, past the run's writes), the train phase's weights")
+    reduced["data"] = f"{PEFT_ROWS} src/tgt rows of 1.9k-2k tokens over the pretraining corpus's chain, from --seed"
+    args = {**recipe, **cuts}
+    path = os.path.join(workdir, f"{out_name}.json")
+    with open(path, "w") as f:
+        json.dump(args, f)
+    from paddlenlp_tpu_torch.trainer import Trainer
+
+    losses, trainers = [], []
+    frozen = FrozenLeaves(torch, TrainerCallback, flag)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(losses, trainers)):
+        trainer = run_finetune.main([path], device=DEVICE, callbacks=[frozen.callback])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    trainers.clear()
+    check(len(losses) == steps and all(math.isfinite(x[0]) for x in losses), f"{flag}: losses {losses}")
+    # a padding mask takes the dense attention path, as in the JAX package: no flash launch
+    check(sum(launches.values()) == 0, f"{flag}: flash launches {launches} on a padded batch")
+    return trainer, losses, frozen.check(torch, trainer.model), reduced, args, wall, launches
+
+
+def phase_finetune_lora(torch, np, fa, pa, run_finetune, TrainerCallback, InferenceEngine, SamplingParams, tenancy,
+                        Qwen2ForCausalLM, workdir, seed, base_dir):
+    """``run_finetune.main`` with ``lora`` on ``llm/config/qwen2/lora_argument.json``
+    cut to one card (no stage2, accumulation 1, 3 steps, warmup 1, no saves or
+    evaluations between; rank 8, lr 3e-4, recompute, ``zero_padding: false``
+    kept), micro-batches of 4 rows of 1.9k-2k tokens with a padding mask (the
+    dense attention path: no flash launch, as in the JAX package): every base
+    leaf bit for bit unchanged, the adapters moved, the trainable count the
+    JAX formula's, the adapter directory loads back bit for bit, and the
+    trained adapter, exported to the serving format and added to an
+    ``AdapterRegistry``, serves one greedy request of 32 tokens through the
+    bf16 engine (Hopper paged kernel, counted) that matches
+    ``LoRAModel.generate`` (fp32) within the depth-divergence gate."""
+    import os
+
+    from paddlenlp_tpu_torch.peft import LoRAModel
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params, unflatten_params
+
+    t_phase = time.perf_counter()
+    trainer, losses, frozen, reduced, args, wall, flash = peft_finetune(
+        torch, np, fa, run_finetune, TrainerCallback, workdir, seed, base_dir, "lora", 3, "lora_out")
+    lm = trainer.model
+    cfg = lm.config
+    check(type(lm) is LoRAModel, f"lora: run_finetune trained a {type(lm).__name__}")
+    trainable, total = lm.print_trainable_parameters()
+    want = lora_trainable_count(cfg, args["lora_rank"])
+    check(trainable == want and total == lm.model.num_parameters() + want,
+          f"lora: {trainable:,} of {total:,} trainable, want {want:,} (the JAX formula)")
+    out_dir = args["output_dir"]
+    saved = LoRAModel.saved_leaves(out_dir)
+    live = {k: v for k, v in flatten_params(lm.params).items() if "/lora_" in k}
+    check(saved.keys() == live.keys() and all(torch.equal(saved[k].to(DEVICE), live[k].detach()) for k in live),
+          "lora: the adapter directory does not load back bit for bit")
+
+    # the trained adapter through the serving path: export -> registry -> the bf16 engine
+    exported = os.path.join(workdir, "lora_adapter.safetensors")
+    lm.export_adapter(exported)
+    reg = tenancy.AdapterRegistry(cfg, max_rank=args["lora_rank"], pool_slots=1)
+    reg.add("sft", exported)
+    base_bf16 = Qwen2ForCausalLM(cfg, unflatten_params({k: v.detach().to(torch.bfloat16)
+                                                        for k, v in flatten_params(lm.model.params).items()}))
+    with open(os.path.join(args["dataset_name_or_path"], "train.json")) as f:
+        prompt = trainer.tokenizer.encode(json.loads(f.readline())["src"])[:512]
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    eng = InferenceEngine(base_bf16, adapter_registry=reg, max_batch_size=1, block_size=16, num_blocks=64,
+                          max_blocks_per_seq=40, dtype=torch.bfloat16)
+    rid = eng.add_request(prompt, SamplingParams(max_new_tokens=FT_PREDICT_NEW), adapter_id="sft")
+    done = {}
+    while eng.has_work():
+        for r in eng.step():
+            done[r.req_id] = list(r.output_ids)
+    got = done[rid]
+    torch.cuda.synchronize()
+    serve = dict(launches=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90)
+    del eng, reg, base_bf16
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        want_ids, _ = lm.generate(torch.tensor([prompt], device=DEVICE), max_new_tokens=FT_PREDICT_NEW)
+    want = upto_eos(want_ids[0].tolist(), cfg.eos_token_id)
+    merged = Qwen2ForCausalLM(cfg, lm.merged_params())
+    with uncounted(pa):
+        d = depth_divergence(torch, merged, prompt, upto_eos(got, cfg.eos_token_id), want,
+                             bf16_logits=lambda ids: merged(torch.tensor([ids], device=DEVICE),
+                                                           dtype=torch.bfloat16)[0, -1])
+    del merged
+    check(d is None or d["within_depth_gate"], f"lora: the served adapter's stream parts from LoRAModel.generate "
+                                               f"outside the depth gate: {d}")
+    check(serve["launches"] > 0 and serve["sm90"] == serve["launches"],
+          f"lora: {serve['sm90']} of {serve['launches']} paged launches of the served adapter on Hopper")
+    res = dict(phase="finetune_lora", entry="paddlenlp_tpu_torch.llm.run_finetune.main (lora)", recipe=LORA_RECIPE,
+               reduced=reduced, rank=args["lora_rank"], lr=args["learning_rate"],
+               micro_batch=[args["per_device_train_batch_size"], args["max_length"]], steps=len(losses),
+               losses=[x[0] for x in losses], grad_norms=[x[1] for x in losses], wall_s=wall,
+               step_s=wall / max(len(losses), 1), trainable=trainable, total=total, frozen=frozen,
+               flash_launches=flash, adapter_files=sorted(os.listdir(out_dir)),
+               adapter_bytes=os.path.getsize(os.path.join(out_dir, "lora_model.safetensors")),
+               served=dict(prompt=len(prompt), new=len(got), equal=d is None, divergence=d,
+                           paged_launches=serve["launches"], sm90_launches=serve["sm90"]),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=time.perf_counter() - t_phase)
+    emit(res)
+    del trainer, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_finetune_prefix(torch, np, fa, run_finetune, TrainerCallback, workdir, seed, base_dir):
+    """``run_finetune.main`` with ``prefix_tuning`` (64 virtual tokens) on the
+    same cut, 2 steps: every base leaf bit for bit unchanged, ``prefix_kv``
+    moved; the prefix's keys and values ahead of every layer's in bf16 (the
+    cache dtype under bf16 compute) through the dense path."""
+    import os
+
+    from paddlenlp_tpu_torch.peft import PrefixModelForCausalLM
+
+    t_phase = time.perf_counter()
+    trainer, losses, frozen, reduced, args, wall, flash = peft_finetune(
+        torch, np, fa, run_finetune, TrainerCallback, workdir, seed, base_dir, "prefix_tuning", 2, "prefix_out")
+    pm = trainer.model
+    check(type(pm) is PrefixModelForCausalLM, f"prefix: run_finetune trained a {type(pm).__name__}")
+    n, total = pm.print_trainable_parameters()
+    cfg = pm.config
+    want = cfg.num_hidden_layers * 2 * args["num_prefix_tokens"] * cfg.num_key_value_heads * \
+        (cfg.hidden_size // cfg.num_attention_heads)
+    check(n == want, f"prefix: {n:,} trainable, want {want:,}")
+    out_dir = args["output_dir"]
+    saved = PrefixModelForCausalLM.saved_leaves(out_dir)["prefix_kv"]
+    check(torch.equal(saved.to(DEVICE), pm.params["prefix_kv"].detach()), "prefix: the saved prefix differs")
+    res = dict(phase="finetune_prefix", entry="paddlenlp_tpu_torch.llm.run_finetune.main (prefix_tuning)",
+               recipe=LORA_RECIPE, reduced=dict(reduced, peft="prefix_tuning, 64 tokens, in place of lora"),
+               num_prefix_tokens=args["num_prefix_tokens"], steps=len(losses), losses=[x[0] for x in losses],
+               grad_norms=[x[1] for x in losses], wall_s=wall, step_s=wall / max(len(losses), 1), trainable=n,
+               total=total, frozen=frozen, flash_launches=flash, adapter_files=sorted(os.listdir(out_dir)),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=time.perf_counter() - t_phase)
+    emit(res)
+    del trainer, pm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+VERA_STEPS = 2
+
+
+def phase_vera(torch, np, fa, run_finetune, TrainerCallback, AutoModelForCausalLM, AutoTokenizer, workdir, seed,
+               base_dir):
+    """``VeRAModel`` (rank 64 on q/k/v/o, the JAX defaults) over the train
+    phase's model through ``Trainer`` (VeRA has no ``run_finetune`` flag in
+    the JAX package), 2 steps on the finetune phase's packed SFT rows
+    (zero padding: the flash kernels): base leaves and shared bases bit for
+    bit unchanged, the vectors moved, every flash launch on the Hopper route."""
+    import os
+
+    from paddlenlp_tpu_torch.datasets import ZeroPaddingMapDataset
+    from paddlenlp_tpu_torch.peft import VeRAConfig, VeRAModel
+    from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    t_phase = time.perf_counter()
+    tok = AutoTokenizer.from_pretrained(base_dir)
+    data_args = run_finetune.DataArguments(max_length=2048, src_length=1024)
+    rows = run_finetune.load_sft_dataset(os.path.join(workdir, "sft_data", "train.json"), tok, data_args)
+    ds = ZeroPaddingMapDataset(run_finetune.ListDataset(rows), tok, data_args.max_length)
+    model = AutoModelForCausalLM.from_pretrained(base_dir, dtype="bfloat16", param_dtype="float32", device=DEVICE)
+    model.config.recompute = True
+    model.config.recompute_granularity = "full"
+    vm = VeRAModel(model, VeRAConfig())
+    trainable, total = vm.print_trainable_parameters()
+    losses, trainers = [], []
+    frozen = FrozenLeaves(torch, TrainerCallback, "vera")
+    args = TrainingArguments(output_dir=os.path.join(workdir, "vera_out"), per_device_train_batch_size=1,
+                             max_steps=VERA_STEPS, learning_rate=1e-3, warmup_steps=0, logging_steps=1,
+                             save_strategy="no", seed=seed)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(losses, trainers)):
+        trainer = Trainer(model=vm, args=args, train_dataset=ds, callbacks=[frozen.callback])
+        trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    trainers.clear()
+    L = model.config.num_hidden_layers
+    want = {"fwd": 2 * L * VERA_STEPS, "bwd_dq": L * VERA_STEPS, "bwd_dkv": L * VERA_STEPS}
+    check(launches == want, f"vera: flash launches {launches}, want {want} (full recompute: the forward twice)")
+    check(sm90 == launches, f"vera: Hopper-route launches {sm90}, want all {launches}")
+    check(len(losses) == VERA_STEPS and all(math.isfinite(x[0]) for x in losses), f"vera: losses {losses}")
+    report = frozen.check(torch, vm)
+    mask = flatten_params(vm.trainable_mask())
+    check(any(k.startswith("vera_shared/") and not on for k, on in mask.items()),
+          "vera: no shared basis among the frozen leaves")
+    res = dict(phase="vera", entry="paddlenlp_tpu_torch.peft.VeRAModel + trainer.Trainer", r=vm.vera_config.r,
+               targets="q/k/v/o_proj (VeRAConfig defaults)", rows=len(ds), steps=len(losses),
+               losses=[x[0] for x in losses], grad_norms=[x[1] for x in losses], wall_s=wall,
+               step_s=wall / VERA_STEPS, trainable=trainable, total=total, frozen=report, kernel_launches=launches,
+               sm90_launches=sm90, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reduced=dict(model="Qwen2-1.5B, the train phase's weights", steps=VERA_STEPS,
+                            data="the finetune phase's packed SFT rows (1 x 2048)"),
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    del trainer, vm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+DPO_STEPS = 3
+
+
+def phase_dpo(torch, np, fa, AutoModelForCausalLM, AutoTokenizer, workdir, seed, base_dir):
+    """``DPOTrainer`` over ``AutoModelForCausalLM`` of the train phase's
+    directory (fp32 masters, bf16 compute), its rows from
+    ``load_preference_rows`` (``dpo`` mode), on ``dpo_argument.json`` cut to
+    one card (no tp2 x sharding4, 1 x accumulation 2, 3 steps, no save;
+    max_length 4096, prompt 2048, sigmoid, beta 0.1, lr 1e-6, recompute
+    kept): step 1's loss is ln 2 within 1e-4 (policy and frozen reference are
+    the same weights), every policy leaf moved while the reference stayed bit
+    for bit (in storage of its own), the policy, reference and recomputed
+    forwards and both
+    backward kernels at [2, 4095, 12, 128] all on the Hopper flash route, and
+    the three kernels against their plain versions at that shape
+    (``flash_check``: T = 4095 is no multiple of a tile)."""
+    import os
+
+    from paddlenlp_tpu_torch.llm.alignment.data_utils import ListDataset, load_preference_rows
+    from paddlenlp_tpu_torch.trainer import TrainingArguments
+    from paddlenlp_tpu_torch.trl import DPOCriterion, DPOTrainer
+
+    t_phase = time.perf_counter()
+    with open(DPO_RECIPE) as f:
+        recipe = json.load(f)
+    data = os.path.join(workdir, "dpo_train.json")
+    align_text(np, seed + 41, DPO_ROWS, {"src": (1900, 2100), "chosen": (1500, 2100), "rejected": (1500, 2100)},
+               data)
+    tok = AutoTokenizer.from_pretrained(base_dir)
+    rows = load_preference_rows(data, tok, recipe["max_length"], recipe["max_prompt_length"], mode="dpo")
+    model = AutoModelForCausalLM.from_pretrained(base_dir, dtype="bfloat16", param_dtype="float32", device=DEVICE)
+    model.config.recompute = bool(recipe["recompute"])
+    model.config.recompute_granularity = "full"
+    cuts = dict(gradient_accumulation_steps=2, max_steps=DPO_STEPS, save_strategy="no", evaluation_strategy="no",
+                do_eval=False, tensor_parallel_degree=1, sharding_parallel_degree=1, sharding="")
+    keep = ("per_device_train_batch_size", "learning_rate", "warmup_steps", "logging_steps", "bf16")
+    args = TrainingArguments(output_dir=os.path.join(workdir, "dpo_out"),
+                             **{k: recipe[k] for k in keep if k in recipe}, **{**cuts, "seed": seed})
+    reduced = {k: dict(recipe=recipe.get(k), run=v) for k, v in cuts.items() if recipe.get(k) != v}
+    reduced["model"] = ("Qwen/Qwen2-1.5B (recipe: Qwen/Qwen2-7B: full-parameter DPO at 7B holds ~122 GB of fp32 "
+                        "state), the train phase's weights; its own frozen copy as the reference")
+    reduced["data"] = f"{DPO_ROWS} preference pairs over the pretraining corpus's chain, from --seed"
+    losses, trainers = [], []
+    from paddlenlp_tpu_torch.trainer import Trainer
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    before = {k: v.detach().clone() for k, v in flatten_params(model.params).items()}
+    reset_counts(fa)
+
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(losses, trainers)):
+        trainer = DPOTrainer(model=model, dpo_criterion=DPOCriterion(beta=recipe["beta"],
+                                                                      loss_type=recipe["loss_type"]),
+                             args=args, train_dataset=ListDataset(rows), tokenizer=tok)
+        trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    trainers.clear()
+    L = model.config.num_hidden_layers
+    micro = DPO_STEPS * args.gradient_accumulation_steps
+    # policy forward, its recompute under "full", the reference forward: 3 a micro-step and layer
+    want = {"fwd": 3 * L * micro, "bwd_dq": L * micro, "bwd_dkv": L * micro}
+    check(launches == want, f"dpo: flash launches {launches}, want {want}")
+    check(sm90 == launches, f"dpo: Hopper-route launches {sm90}, want all {launches}")
+    first = losses[0][0] if losses else float("nan")
+    check(len(losses) == DPO_STEPS and all(math.isfinite(x[0]) for x in losses), f"dpo: losses {losses}")
+    check(abs(first - math.log(2)) <= 1e-4, f"dpo: step 1's loss {first} is not ln 2 within 1e-4")
+    live, ref = flatten_params(model.params), flatten_params(trainer.ref_params)
+    check(sorted(ref) == sorted(before), "dpo: the reference's leaves are not the policy's")
+    ref_same = [k for k in before if torch.equal(ref[k], before[k])]
+    policy_moved = [k for k in before if not torch.equal(live[k].detach(), before[k])]
+    shared = [k for k in before if ref[k].data_ptr() == live[k].data_ptr()]
+    check(len(ref_same) == len(before) and not shared,
+          f"dpo: {len(before) - len(ref_same)} reference leaves changed, {len(shared)} alias the policy's")
+    check(len(policy_moved) == len(before), f"dpo: {len(before) - len(policy_moved)} policy leaves did not move")
+    del trainer, before, live, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the three kernels at the DPO forward's shape: q [2, 4095, 12, 128] over k/v [2, 4095, 2, 128]
+    cfg = model.config
+    T, N, K = rows[0]["chosen_input_ids"].shape[0] - 1, cfg.num_attention_heads, cfg.num_key_value_heads
+    H = cfg.hidden_size // N
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 43)
+    q, do = (torch.randn(2, T, N, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, T, K, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    case = flash_check(torch, fa, "dpo T=4095", q, k, v, do, None, None, flush)
+    del q, k, v, do, flush
+    res = dict(phase="dpo", entry="paddlenlp_tpu_torch.trl.DPOTrainer", recipe=DPO_RECIPE, reduced=reduced,
+               loss_type=recipe["loss_type"], beta=recipe["beta"], lr=args.learning_rate,
+               rows=[2 * args.per_device_train_batch_size, T], accum=args.gradient_accumulation_steps,
+               steps=len(losses), losses=[x[0] for x in losses], grad_norms=[x[1] for x in losses],
+               first_minus_ln2=first - math.log(2), leaves=len(ref_same), ref_bitwise=True,
+               policy_leaves_moved=len(policy_moved), wall_s=wall, step_s=wall / DPO_STEPS,
+               kernel_launches=launches, sm90_launches=sm90, flash_case=case,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=time.perf_counter() - t_phase)
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+RM_STEPS = 2
+
+
+def phase_rm(torch, np, AutoModelForSequenceClassification, AutoTokenizer, workdir, seed, base_dir):
+    """``RewardTrainer`` over ``Qwen2ForSequenceClassification`` of the train
+    phase's directory (``AutoModelForSequenceClassification``, ``num_labels``
+    1: the causal checkpoint's ``score`` head initialized, its ``lm_head``
+    left unread), 2 steps of 2 pairs at max_length 1024 with padding masks
+    (the dense attention path); returns the trained classifier for PPO."""
+    import os
+
+    from paddlenlp_tpu_torch.llm.alignment.data_utils import ListDataset, load_preference_rows
+    from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
+    from paddlenlp_tpu_torch.transformers import Qwen2ForSequenceClassification
+    from paddlenlp_tpu_torch.trl import RewardTrainer
+
+    t_phase = time.perf_counter()
+    data = os.path.join(workdir, "rm_train.json")
+    align_text(np, seed + 51, RM_ROWS, {"src": (300, 500), "chosen": (200, 520), "rejected": (200, 520)}, data)
+    tok = AutoTokenizer.from_pretrained(base_dir)
+    rows = load_preference_rows(data, tok, 1024, 512, mode="rm")
+    model = AutoModelForSequenceClassification.from_pretrained(base_dir, dtype="bfloat16", param_dtype="float32",
+                                                               device=DEVICE, num_labels=1)
+    check(type(model) is Qwen2ForSequenceClassification, f"rm: Auto gave a {type(model).__name__}")
+    args = TrainingArguments(output_dir=os.path.join(workdir, "rm_out"), per_device_train_batch_size=2,
+                             max_steps=RM_STEPS, learning_rate=1e-5, warmup_steps=0, logging_steps=1,
+                             save_strategy="no", seed=seed)
+    losses, trainers = [], []
+    t0 = time.perf_counter()
+    with patched(Trainer, "training_step", step_spy(losses, trainers)):
+        trainer = RewardTrainer(model=model, args=args, train_dataset=ListDataset(rows), tokenizer=tok)
+        trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainers.clear()
+    check(len(losses) == RM_STEPS and all(math.isfinite(x[0]) for x in losses), f"rm: losses {losses}")
+    with torch.no_grad():
+        ids = torch.as_tensor(np.stack([r["chosen_input_ids"] for r in rows[:2]]), device=DEVICE)
+        mask = torch.as_tensor(np.stack([r["chosen_attention_mask"] for r in rows[:2]]), device=DEVICE)
+        scores = model(ids, attention_mask=mask).float()
+    check(tuple(scores.shape) == (2, 1) and bool(torch.isfinite(scores).all()), f"rm: scores {scores}")
+    res = dict(phase="rm", entry="paddlenlp_tpu_torch.trl.RewardTrainer", model=type(model).__name__,
+               rows=[2 * args.per_device_train_batch_size, 1024], steps=len(losses), losses=[x[0] for x in losses],
+               grad_norms=[x[1] for x in losses], wall_s=wall, step_s=wall / RM_STEPS,
+               scores=scores[:, 0].tolist(), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reduced=dict(model="Qwen2-1.5B, the train phase's weights", steps=RM_STEPS, max_length=1024,
+                            data=f"{RM_ROWS} preference pairs over the corpus's chain, from --seed"),
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, model
+
+
+PPO_NEW = 32
+
+
+def phase_ppo(torch, np, pa, PagedInferenceModel, init_paged_pool, AutoModelForCausalLM, AutoTokenizer, workdir,
+              seed, base_dir, reward_model):
+    """``PPOTrainer`` in GRPO mode for 2 rounds: the policy and its frozen
+    reference from the train phase's directory, the rm phase's classifier as
+    the reward model; 2 prompts of 128-256 tokens a round, 4 rollouts each,
+    32 new tokens, through one fp32 ``InferenceEngine`` (every paged launch
+    on the SIMT fp32 route, counted); in round 2 the engine's own paged model
+    over one prompt (prefill and 4 decode steps) against a dense fp32
+    forward of the updated policy at rel 1e-4: the rollout reads the live
+    weights, which moved from the pre-update ones by far more. Round 1's
+    first prefill and first decode launch are copied as the engine gives
+    them to the SIMT kernel (q [8, T, 12, 128] fp32 over the fp32 pool) and
+    the kernel is held against its plain version on them (``kernel_cases``,
+    among the SIMT row's checked cases)."""
+    import os
+
+    from paddlenlp_tpu_torch.trl import PPOConfig, PPOTrainer
+    from paddlenlp_tpu_torch.trainer import TrainingArguments
+
+    t_phase = time.perf_counter()
+    tok = AutoTokenizer.from_pretrained(base_dir)
+    data = os.path.join(workdir, "ppo_prompts.json")
+    align_text(np, seed + 61, PPO_ROUNDS * PPO_PROMPTS, {"src": (128, 257)}, data)
+    with open(data) as f:
+        prompts = [{"input_ids": np.asarray(tok.encode(json.loads(line)["src"])[:256], np.int32)} for line in f]
+    policy = AutoModelForCausalLM.from_pretrained(base_dir, dtype="bfloat16", param_dtype="float32", device=DEVICE)
+    cfg = PPOConfig(num_rollouts_per_prompt=4, max_new_tokens=PPO_NEW, max_prompt_length=256)
+    args = TrainingArguments(output_dir=os.path.join(workdir, "ppo_out"), per_device_train_batch_size=PPO_PROMPTS,
+                             max_steps=PPO_ROUNDS, learning_rate=2e-5, warmup_steps=0, save_strategy="no",
+                             seed=seed)
+    trainer = PPOTrainer(model=policy, reward_model=reward_model, args=args, train_dataset=prompts, ppo_config=cfg)
+    probe = [int(t) for t in prompts[PPO_PROMPTS]["input_ids"][:128]]
+    with torch.no_grad():
+        before = policy(torch.tensor([probe], device=DEVICE), dtype=torch.float32)[0, -1]
+    rounds, live = [], {}
+    rollout, score, update = trainer.rollout, trainer._score, trainer._ppo_update
+
+    def _rollout(batch_prompts):
+        if rounds:  # round 2: the engine's paged model over the updated weights
+            with uncounted(pa), torch.no_grad():
+                got, fed = paged_logits(torch, policy, PagedInferenceModel, init_paged_pool, probe, torch.float32, 4,
+                                        infer=trainer._engine.infer)
+                # the dense forward's rows at the prompt's last position and the 4 fed tokens
+                want = policy(torch.tensor([fed], device=DEVICE), dtype=torch.float32)[0, len(probe) - 1:]
+                live.update(rel_err=((got - want).abs().max() / want.abs().max()).item(),
+                            moved=((want[0] - before).abs().max() / before.abs().max()).item())
+        t0 = time.perf_counter()
+        out = rollout(batch_prompts)
+        torch.cuda.synchronize()
+        rounds.append(dict(rollout_s=time.perf_counter() - t0, rows=list(out["input_ids"].shape),
+                           new_tokens=int((out["labels"] != -100).sum())))
+        return out
+
+    def _score(*a):
+        r = score(*a)
+        rounds[-1]["reward_mean"] = float(np.mean(r))
+        return r
+
+    def _update(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a)
+        torch.cuda.synchronize()
+        rounds[-1].update(update_s=time.perf_counter() - t0, loss=float(out["loss"]),
+                          grad_norm=float(out["grad_norm"]))
+        return out
+
+    model_module = sys.modules[PagedInferenceModel.__module__]
+    wrapper = model_module.ragged_paged_attention
+    launched = {}
+
+    def captured(q, pool_k, pool_v, block_tables, q_start, q_lens, **kw):
+        shape = "decode" if q.shape[1] == 1 else "prefill"
+        if shape not in launched:
+            launched[shape] = dict(q=q.clone(), pool_k=pool_k.clone(), pool_v=pool_v.clone(),
+                                   block_tables=block_tables.clone(), q_start=q_start.clone(),
+                                   q_lens=q_lens.clone(), **kw)
+        return wrapper(q, pool_k, pool_v, block_tables, q_start, q_lens, **kw)
+
+    trainer.rollout, trainer._score, trainer._ppo_update = _rollout, _score, _update
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_QUANT = 0
+    model_module.ragged_paged_attention = captured
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        model_module.ragged_paged_attention = wrapper
+    wall = time.perf_counter() - t0
+    launches, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90 + pa.LAUNCHES_SM90_QUANT
+    kernel_cases = []
+    check(sorted(launched) == ["decode", "prefill"], f"ppo: the rollouts launched {sorted(launched)}")
+    with uncounted(pa):
+        for shape, inp in launched.items():
+            name = f"ppo {shape} q float32 pool fp32"
+            route = pa.kernel_route(inp["q"].dtype, inp["pool_k"].dtype)
+            check(route == "simt", f"kernel {name}: on the {route} route")
+            out = pa.ragged_paged_attention(**inp)
+            ref = pa.ragged_paged_attention_ref(**inp)
+            torch.cuda.synchronize()
+            max_err, worst, rtol, atol = paged_error(torch, inp, out, ref, "float32", name)
+            kernel_cases.append(dict(batch=f"ppo_{shape}", q="float32", pool="fp32", route=route, max_abs_err=max_err,
+                                     rtol=rtol, atol=atol, worst_err_over_tol=worst,
+                                     q_lens=inp["q_lens"].tolist(),
+                                     contexts=(inp["q_start"] + inp["q_lens"]).tolist(),
+                                     shapes=dict(q=list(inp["q"].shape), pool=list(inp["pool_k"].shape))))
+            del out, ref
+    del launched
+    check(len(rounds) == PPO_ROUNDS and all(math.isfinite(r["loss"]) and math.isfinite(r["reward_mean"])
+                                            for r in rounds), f"ppo: rounds {rounds}")
+    check(launches > 0 and sm90 == 0, f"ppo: {launches - sm90} of {launches} paged launches on the SIMT route")
+    check(live.get("rel_err", 1.0) <= LOGITS_REL_TOL, f"ppo: round 2's paged logits against the updated policy's "
+                                                      f"dense ones: {live}")
+    check(live["moved"] > 10 * live["rel_err"], f"ppo: round 1's update moved the logits too little to tell: {live}")
+    res = dict(phase="ppo", entry="paddlenlp_tpu_torch.trl.PPOTrainer (GRPO)", rounds=rounds, wall_s=wall,
+               prompts_a_round=PPO_PROMPTS, rollouts_a_prompt=cfg.num_rollouts_per_prompt, new_tokens=PPO_NEW,
+               engine=dict(trainer._engine_kwargs, dtype="float32"), paged_launches=launches,
+               simt_launches=launches - sm90, kernel_cases=kernel_cases, live_weights=live, lr=args.learning_rate,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reduced=dict(model="Qwen2-1.5B policy, reference and reward model (the train and rm phases')",
+                            rounds=PPO_ROUNDS, prompts=f"{PPO_PROMPTS} a round of 128-256 tokens",
+                            value_model="off (GRPO); the value-model mode runs in the CPU tests"),
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    del trainer, policy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_alignment_phases(torch, np, fa, pa, seed, workdir, base_dir):
+    """The PEFT and alignment phases in order, each from the train phase's
+    saved model and tokenizer (``base_dir``), each freeing its models:
+    ``finetune_lora``, ``finetune_prefix``, ``vera``, ``dpo``, ``rm`` and
+    ``ppo``. Returns their results by phase."""
+    from paddlenlp_tpu_torch.experimental import InferenceEngine, PagedInferenceModel, SamplingParams
+    from paddlenlp_tpu_torch.experimental.paged_cache import init_paged_pool
+    from paddlenlp_tpu_torch.llm import run_finetune
+    from paddlenlp_tpu_torch.serving import tenancy
+    from paddlenlp_tpu_torch.trainer import TrainerCallback
+    from paddlenlp_tpu_torch.transformers import (AutoModelForCausalLM, AutoModelForSequenceClassification,
+                                                  AutoTokenizer, Qwen2ForCausalLM)
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    out["finetune_lora"] = phase_finetune_lora(torch, np, fa, pa, run_finetune, TrainerCallback, InferenceEngine,
+                                               SamplingParams, tenancy, Qwen2ForCausalLM, workdir, seed, base_dir)
+    torch.cuda.reset_peak_memory_stats()
+    out["finetune_prefix"] = phase_finetune_prefix(torch, np, fa, run_finetune, TrainerCallback, workdir, seed,
+                                                   base_dir)
+    torch.cuda.reset_peak_memory_stats()
+    out["vera"] = phase_vera(torch, np, fa, run_finetune, TrainerCallback, AutoModelForCausalLM, AutoTokenizer,
+                             workdir, seed, base_dir)
+    torch.cuda.reset_peak_memory_stats()
+    out["dpo"] = phase_dpo(torch, np, fa, AutoModelForCausalLM, AutoTokenizer, workdir, seed, base_dir)
+    torch.cuda.reset_peak_memory_stats()
+    out["rm"], reward_model = phase_rm(torch, np, AutoModelForSequenceClassification, AutoTokenizer, workdir, seed,
+                                       base_dir)
+    torch.cuda.reset_peak_memory_stats()
+    out["ppo"] = phase_ppo(torch, np, pa, PagedInferenceModel, init_paged_pool, AutoModelForCausalLM, AutoTokenizer,
+                           workdir, seed, base_dir, reward_model)
+    del reward_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_training_phases(torch, np, fa, seed, tok_dir=None):
     """The training phases in order: ``train`` and ``train_profile``,
     ``train_resume``, ``train_recompute``, ``finetune``, ``finetune_predict``
-    and ``fused_ce``. ``tok_dir`` is the saved tokenizer the ``train`` phase
+    then the PEFT and alignment phases (``run_alignment_phases``) and
+    ``fused_ce``. ``tok_dir`` is the saved tokenizer the ``train`` phase
     names (made here when None). Returns the results of ``train``,
-    ``train_resume``, ``train_recompute``, ``finetune`` and
-    ``finetune_predict``, whose launches the kernels line counts."""
+    ``train_resume``, ``train_recompute``, ``finetune``,
+    ``finetune_predict`` and the alignment phases (by phase), whose launches
+    the kernels line counts."""
     import os
 
     from paddlenlp_tpu_torch.data import MMapIndexedDatasetBuilder
@@ -4585,8 +5262,9 @@ def run_training_phases(torch, np, fa, seed, tok_dir=None):
         del reference
         gc.collect()
         torch.cuda.empty_cache()
+        align = run_alignment_phases(torch, np, fa, pa, seed, workdir, os.path.join(workdir, "out"))
     phase_fused_ce(torch, seed)
-    return train, resume, recompute, finetune, ft_predict
+    return train, resume, recompute, finetune, ft_predict, align
 
 
 def disk_writes():
@@ -4698,7 +5376,7 @@ def main(argv=None) -> int:
     # ---- training: run_pretrain, then run_finetune and its predictor, at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
     grad = phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
-    train, resume, recompute, finetune, ft_predict = run_training_phases(torch, np, fa, args.seed, tok_home)
+    train, resume, recompute, finetune, ft_predict, align = run_training_phases(torch, np, fa, args.seed, tok_home)
     shutil.rmtree(tok_home, ignore_errors=True)
 
     # paged rows: the Hopper kernel (bf16 over bf16, the main path: times at
@@ -4706,18 +5384,24 @@ def main(argv=None) -> int:
     # (fp32 queries: times at the fp32 case) and the Hopper kernel's quantized
     # entry (bf16 over int8 and fp8: times at the int8 decode call). Launches
     # of the first two are the engine runs', the serve, router, spec,
-    # host_tier, lora and wquant phases' on each route: the main path never takes the SIMT kernel, which
-    # the fp32 logits run checks; the quantized entry's are the kv_quant
-    # phase's, whose launches all took it
+    # host_tier, lora, wquant, predict, finetune_predict and finetune_lora
+    # (the trained adapter served) phases' on each route: the SIMT kernel's
+    # are the ppo phase's fp32 rollouts, whose first prefill and decode
+    # launches count among its checked cases (the fp32 logits run checks it too);
+    # the quantized entry's are the kv_quant phase's, whose launches all took it
+    cases = cases + align["ppo"]["kernel_cases"]  # the SIMT kernel on PPO's own launches
     by_batch = {(c["batch"], c["q"], c["pool"]): c for c in cases}
     kernels, checks = [], []
+    served = align["finetune_lora"]["served"]
     sm90 = (mono["sm90_launches"] + chunked["sm90_launches"] + serve["sm90_launches"] + router["sm90_launches"]
             + spec["launches"]["paged_sm90"] + host["launches"]["paged_sm90"] + lora["launches"]["sm90"]
-            + wquant["launches"]["sm90"] + predict["sm90_launches"] + ft_predict["sm90_launches"])
+            + wquant["launches"]["sm90"] + predict["sm90_launches"] + ft_predict["sm90_launches"]
+            + served["sm90_launches"])
     simt = (mono["kernel_launches"] + chunked["kernel_launches"] + serve["kernel_launches"]
             + router["kernel_launches"] + spec["launches"]["paged"] + host["launches"]["paged"] + lora["launches"]["paged"]
-            + wquant["launches"]["paged"] + predict["kernel_launches"] + ft_predict["kernel_launches"] - sm90
-            + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"])
+            + wquant["launches"]["paged"] + predict["kernel_launches"] + ft_predict["kernel_launches"]
+            + served["paged_launches"] - sm90 + kvq["launches"]["paged"] - kvq["launches"]["sm90_quant"]
+            + align["ppo"]["simt_launches"])
     for route, timed_case, name, launches in (
             ("sm90", ("decode", "bfloat16", "bf16"), "ragged_paged_attention_sm90", sm90),
             ("simt", ("ragged", "float32", "fp32"), "ragged_paged_attention", simt),
@@ -4734,8 +5418,10 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=" ".join(timed_case),
                     worst_err_over_tol=max(c["worst_err_over_tol"] for c in checked))
         if route == "sm90":
-            info.update(launched_by="engine, serve, router, spec, host_tier, lora, wquant, predict, finetune_predict",
+            info.update(launched_by="engine, serve, router, spec, host_tier, lora, wquant, predict, finetune_predict, "
+                                    "finetune_lora (the trained adapter served)",
                         predict_launches=predict["sm90_launches"], finetune_predict_launches=ft_predict["sm90_launches"],
+                        finetune_lora_launches=served["sm90_launches"],
                         serve_launches=serve["sm90_launches"], router_launches=router["sm90_launches"],
                         spec_launches=spec["launches"]["paged_sm90"],
                         host_tier_launches=host["launches"]["paged_sm90"], lora_launches=lora["launches"]["sm90"],
@@ -4743,8 +5429,8 @@ def main(argv=None) -> int:
                         launches_by_shape={k: mono["launches_by_shape"][k] + chunked["launches_by_shape"][k]
                                            for k in mono["launches_by_shape"]})
         elif route == "simt":
-            info.update(launched_by="engine, serve, router, spec, host_tier, kv_quant, lora, wquant, predict, "
-                                    "finetune_predict",
+            info.update(launched_by="ppo (fp32 rollouts)", ppo_launches=align["ppo"]["simt_launches"],
+                        ppo_cases={c["batch"]: c["worst_err_over_tol"] for c in align["ppo"]["kernel_cases"]},
                         check_launches=logits["launches"]["float32"]["kernels"])
         else:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]
@@ -4752,11 +5438,13 @@ def main(argv=None) -> int:
         checks.append(info)
     # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
     # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
-    # train, train_resume, train_recompute and finetune runs' on each route,
-    # and for the forward the spec phase's draft forwards too: the main path
-    # never takes the SIMT kernels, which the fp32 train_grad step checks.
-    # The finetune phase's packed-row case counts among the checked cases
+    # train, train_resume, train_recompute, finetune, vera and dpo runs' on
+    # each route, and for the forward the spec phase's draft forwards too: the
+    # main path never takes the SIMT kernels, which the fp32 train_grad step
+    # checks. The finetune phase's packed-row case and the dpo phase's
+    # T = 4095 case count among the checked cases
     flash.append(finetune["flash_case"])
+    flash.append(align["dpo"]["flash_case"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
@@ -4766,7 +5454,7 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["route"] == route]
-        runs = (train, resume, recompute, finetune)
+        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"])
         sm90 = sum(r["sm90_launches"][what] for r in runs)
         launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
@@ -4784,11 +5472,13 @@ def main(argv=None) -> int:
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
         checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
-                           launched_by="train, train_resume, train_recompute, finetune" + (
+                           launched_by="train, train_resume, train_recompute, finetune, vera, dpo" + (
                                ", spec (draft)" if what == "fwd" else ""),
                            train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
                            recompute_launches=recompute["sm90_launches"][what],
                            finetune_launches=finetune["sm90_launches"][what],
+                           vera_launches=align["vera"]["sm90_launches"][what],
+                           dpo_launches=align["dpo"]["sm90_launches"][what],
                            check_launches=check_launches,
                            worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))

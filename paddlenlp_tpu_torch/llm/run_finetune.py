@@ -13,9 +13,12 @@ segment) or padded batches (``DataCollatorForSeq2Seq``, whose
 ``model_name_or_path`` is a local directory (or a name under the
 ``MODEL_HOME`` cache) with the config, the safetensors and the tokenizer,
 loaded through ``AutoConfig``, ``AutoModelForCausalLM`` (fp32 master
-weights, ``dtype`` the compute dtype) and ``AutoTokenizer``. Full-parameter
-SFT only: ``lora`` and ``prefix_tuning`` raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 14c.
+weights, ``dtype`` the compute dtype) and ``AutoTokenizer``. ``lora``
+wraps the model in ``peft.LoRAModel`` (``lora_rank``, ``lora_alpha``,
+``lora_target_modules``, ``rslora``) and ``prefix_tuning`` in
+``peft.PrefixModelForCausalLM`` (``num_prefix_tokens``): the trainer then
+trains the adapters or the prefix alone, and ``save_model`` writes only
+them. ``lora`` wins when both are set, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,8 +37,6 @@ from ..transformers import AutoConfig, AutoModelForCausalLM, AutoTokenizer, LlmM
 from ..utils.log import logger
 
 __all__ = ["DataArguments", "ListDataset", "ModelArguments", "load_sft_dataset", "main"]
-
-PEFT_LEFT = "ROADMAP Queue 1 item 14c"
 
 
 @dataclass
@@ -106,9 +107,6 @@ def main(argv: Optional[List[str]] = None, device="cuda", callbacks: Optional[li
     trainer. ``callbacks`` are added to the trainer's."""
     parser = PdArgumentParser((ModelArguments, DataArguments, TrainingArguments))
     model_args, data_args, training_args = parser.parse_args_into_dataclasses(argv)
-    if model_args.lora or model_args.prefix_tuning:
-        raise NotImplementedError(f"{'lora' if model_args.lora else 'prefix_tuning'}: PEFT training is not part of "
-                                  f"the port yet ({PEFT_LEFT}); the port runs full-parameter SFT")
 
     tokenizer = AutoTokenizer.from_pretrained(model_args.model_name_or_path)
     config = AutoConfig.from_pretrained(model_args.model_name_or_path)
@@ -116,6 +114,19 @@ def main(argv: Optional[List[str]] = None, device="cuda", callbacks: Optional[li
     model = AutoModelForCausalLM.from_pretrained(
         model_args.model_name_or_path, config=config, dtype=model_args.dtype, param_dtype="float32", device=device
     )
+    if model_args.lora:
+        from ..peft import LoRAConfig, LoRAModel
+
+        lora_config = LoRAConfig(r=model_args.lora_rank, lora_alpha=model_args.lora_alpha,
+                                 lora_dropout=model_args.lora_dropout, target_modules=model_args.lora_target_modules,
+                                 rslora=model_args.rslora)
+        model = LoRAModel(model, lora_config)
+        model.mark_only_lora_as_trainable()
+        model.print_trainable_parameters()
+    elif model_args.prefix_tuning:
+        from ..peft import PrefixConfig, PrefixModelForCausalLM
+
+        model = PrefixModelForCausalLM(model, PrefixConfig(num_prefix_tokens=model_args.num_prefix_tokens))
 
     train_rows = load_sft_dataset(os.path.join(data_args.dataset_name_or_path, "train.json"), tokenizer, data_args)
     dev_path = os.path.join(data_args.dataset_name_or_path, "dev.json")

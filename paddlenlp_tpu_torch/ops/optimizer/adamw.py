@@ -12,6 +12,10 @@ outside the square root, decays every leaf except biases, norms and scales
 the unified checkpoint stores it (``<chain>/0/count``, ``<chain>/0/mu/<param>``,
 ``<chain>/0/nu/<param>``, ``<chain>/2/count``; ``<chain>`` is 1 behind the
 clip, 0 without it), so a checkpoint of either package resumes in the other.
+Under a PEFT mask (``masked=True``: ``params`` holds the trainable leaves
+only) the JAX chain sits inside ``optax.multi_transform``'s ``"train"``
+transform, so ``inner_states/train/inner_state/`` heads every path; the
+frozen leaves have no state.
 """
 
 from __future__ import annotations
@@ -44,12 +48,13 @@ class AdamW:
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Union[Callable[[int], float], float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: float = 0.0, decays: Callable[[str], bool] = _decays):
+                 max_grad_norm: float = 0.0, decays: Callable[[str], bool] = _decays, masked: bool = False):
         self.schedule = schedule if callable(schedule) else (lambda count, lr=float(schedule): lr)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.decays = decays
         self.max_grad_norm = max_grad_norm
+        self.state_prefix = "inner_states/train/inner_state/" if masked else ""
         self.mu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         self.count = 0  # updates applied so far (optax's shared step count)
@@ -82,7 +87,7 @@ class AdamW:
     # ------------------------------------------------------------------ state (optax leaf paths)
     @property
     def _chain(self) -> str:
-        return "1" if self.max_grad_norm and self.max_grad_norm > 0 else "0"
+        return self.state_prefix + ("1" if self.max_grad_norm and self.max_grad_norm > 0 else "0")
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The optax state's leaves by path, in ``jax.tree_util``'s order (the

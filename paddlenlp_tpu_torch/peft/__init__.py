@@ -1,7 +1,6 @@
-"""Parameter-efficient fine-tuning of the PyTorch port: LoRA adapters.
-
-Copy of ``paddlenlp_tpu/peft/``'s LoRA half. Prefix tuning and VeRA are not
-part of the port yet.
-"""
+"""Parameter-efficient fine-tuning of the PyTorch port: LoRA, prefix tuning
+and VeRA (the exports of ``paddlenlp_tpu/peft/``)."""
 
 from .lora import LoRAConfig, LoRAModel  # noqa: F401
+from .prefix import PrefixConfig, PrefixModelForCausalLM  # noqa: F401
+from .vera import VeRAConfig, VeRAModel  # noqa: F401

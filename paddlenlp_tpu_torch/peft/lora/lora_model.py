@@ -11,17 +11,17 @@ paths, so a JAX ``save_pretrained`` directory loads here and the flat
 over one for one into ``serving.tenancy.AdapterRegistry``.
 
 What this module does: the seeded init (the JAX package's numpy draws, so
-both packages start from the same adapters), the merged dense forward and
-``generate`` over the merged weights, ``merge_and_unload``,
-``save_pretrained``/``from_pretrained`` and ``export_adapter``, and the
-trainable mask as data. Training LoRA through the Trainer is ROADMAP Queue 1
-item 14c; the partition rules need the meshes of item 12b.
+both packages start from the same adapters), the differentiable merged
+:meth:`LoRAModel.forward` the ``Trainer`` trains through (its
+``trainable_mask`` leaves only A and B to the optimizer), the merged dense
+forward and ``generate``, ``merge_and_unload``,
+``save_pretrained``/``from_pretrained`` and ``export_adapter``. The partition
+rules need the meshes of ROADMAP Queue 1 item 12b.
 """
 
 from __future__ import annotations
 
 import math
-import os
 import re
 from typing import Dict, Optional
 
@@ -30,7 +30,8 @@ import torch
 
 from ...transformers.conversion_utils import flatten_params, sorted_tree, unflatten_params
 from ...utils.log import logger
-from ...utils.safetensors_io import SafeFile, save_file
+from ...utils.safetensors_io import save_file
+from ..facade import AdapterFacade, compile_targets
 from .lora_config import DEFAULT_TARGETS, LoRAConfig
 
 __all__ = ["LoRAModel"]
@@ -63,28 +64,56 @@ def _merge_lora(params: dict, scaling: float) -> dict:
     return walk(params)
 
 
+def _merged_for_training(params: dict, scaling: float) -> dict:
+    """The base tree with ``kernel + scaling * A @ B`` wherever adapters
+    exist, differentiable in A and B: the product in fp32 (``@`` batches the
+    stacked ``[L, in, r] @ [L, r, out]`` layout), cast to the kernel's dtype
+    (the fp32 master) as the JAX ``_merge_lora`` does; the forward then casts
+    each kernel to the compute dtype. The adapter leaves are dropped."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: walk(v) for k, v in node.items() if k not in ("lora_A", "lora_B")}
+        if "lora_A" in node and "lora_B" in node:
+            k = out["kernel"]
+            delta = (node["lora_A"].float() @ node["lora_B"].float()) * scaling
+            out["kernel"] = (k.float() + delta).to(k.dtype)
+        return out
+
+    return walk(params)
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not part of the PyTorch port yet: ROADMAP {item}")
 
 
-class LoRAModel:
+class LoRAModel(AdapterFacade):
     """Wraps a port ``LlamaForCausalLM`` (or ``Qwen2ForCausalLM``): ``params``
     is the base tree plus the ``lora_A``/``lora_B`` leaves (fp32, on the
-    model's device)."""
+    model's device). ``save_pretrained`` writes ONLY the adapters
+    (``lora_model.safetensors``) and ``lora_config.json``; its ``params`` is
+    the tree to save, which a checkpoint passes as its host copy of the live
+    adapters (the JAX package ignores it and saves the facade's tree, which
+    its trainer leaves at the initial adapters until training ends; ROADMAP
+    Queue 3)."""
+
+    WEIGHTS_NAME = LORA_WEIGHTS_NAME
+    CONFIG_CLASS = LoRAConfig
 
     def __init__(self, model, lora_config: Optional[LoRAConfig] = None, params: Optional[dict] = None):
         self.model = model
-        self.lora_config = lora_config or LoRAConfig()
+        self.lora_config = self.peft_config = lora_config or LoRAConfig()
         self.config = model.config
-        patterns = self.lora_config.target_modules or [t.rsplit("/", 1)[0] for t in DEFAULT_TARGETS]
-        self._target_res = [re.compile(p if p.endswith("$") or "/" in p else rf"\b{p}\b") for p in patterns]
+        self._target_res = compile_targets(self.lora_config.target_modules
+                                           or [t.rsplit("/", 1)[0] for t in DEFAULT_TARGETS])
         self.params = params if params is not None else self._init_lora_params(model.params)
 
-    # ------------------------------------------------------------------ init
-    def _matches(self, kernel_path: str) -> bool:
-        module_path = kernel_path.rsplit("/", 1)[0]
-        return any(p.search(module_path) or p.search(kernel_path) for p in self._target_res)
+    @staticmethod
+    def _trainable(path: str) -> bool:
+        return "/lora_A" in path or "/lora_B" in path
 
+    # ------------------------------------------------------------------ init
     def _init_lora_params(self, base_params: dict) -> dict:
         """A ~ N(0, 1)/sqrt(in) and B = 0 for every targeted kernel, drawn
         from ``np.random.default_rng(0)`` in the JAX package's order."""
@@ -111,16 +140,10 @@ class LoRAModel:
         return unflatten_params(out)
 
     # ------------------------------------------------------------------ trainable mask (data only)
-    def trainable_mask(self) -> dict:
-        """Tree of bool: True = trainable (lora_A/lora_B only)."""
-        flat = flatten_params(self.params)
-        return unflatten_params({p: ("/lora_A" in p or "/lora_B" in p) for p in flat})
-
-    def print_trainable_parameters(self):
-        flat = flatten_params(self.params)
-        total = sum(int(v.numel()) for v in flat.values())
-        trainable = sum(int(v.numel()) for p, v in flat.items() if "/lora_" in p)
-        logger.info(f"trainable params: {trainable:,} / {total:,} ({100 * trainable / total:.3f}%)")
+    def mark_only_lora_as_trainable(self) -> dict:
+        """The trainable mask (JAX ``:109``): the Trainer reads it and leaves
+        every other leaf frozen."""
+        return self.trainable_mask()
 
     # ------------------------------------------------------------------ facade
     def merged_params(self, params: Optional[dict] = None) -> dict:
@@ -139,9 +162,13 @@ class LoRAModel:
         finally:
             self.model.params = orig
 
-    def forward(self, *args, **kwargs):
-        _not_ported("training LoRA adapters (the differentiable merged forward, the Trainer's mask)",
-                    "Queue 1 item 14c")
+    def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, **kwargs) -> torch.Tensor:
+        """The base model's training forward over the merged weights,
+        differentiable in the adapters (JAX ``_LoRAMergedModule.apply``);
+        ``kwargs`` are the base forward's (``attention_mask``,
+        ``position_ids``, ``segment_ids``)."""
+        merged = _merged_for_training(self.params if params is None else params, self.lora_config.scaling)
+        return self.model.forward(input_ids, params=merged, **kwargs)
 
     def generate(self, *args, **kwargs):
         """The base model's ``generate`` over the merged weights (JAX
@@ -159,15 +186,6 @@ class LoRAModel:
         as the model's parameters and return the model."""
         self.model.params = self.merged_params()
         return self.model
-
-    def save_pretrained(self, save_directory: str, **kw):
-        """Save ONLY the adapters (``lora_model.safetensors``, keyed by tree
-        path) and ``lora_config.json``."""
-        os.makedirs(save_directory, exist_ok=True)
-        self.lora_config.save_pretrained(save_directory)
-        tensors = {p: v.detach().cpu() for p, v in flatten_params(self.params).items() if "/lora_" in p}
-        save_file(tensors, os.path.join(save_directory, LORA_WEIGHTS_NAME), metadata={"format": "np"})
-        logger.info(f"LoRA adapters saved to {save_directory}")
 
     def export_adapter(self, path: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Flatten the adapters into the serving exchange format: flat
@@ -203,19 +221,3 @@ class LoRAModel:
             logger.info(f"LoRA adapter exported to {path} "
                         f"({len(out)} tensors, scaling {self.lora_config.scaling:.3f})")
         return out
-
-    @classmethod
-    def from_pretrained(cls, model, lora_path: str) -> "LoRAModel":
-        """The adapters of a ``save_pretrained`` directory (either package's)
-        over ``model``."""
-        config = LoRAConfig.from_pretrained(lora_path)
-        obj = cls(model, config)
-        flat = flatten_params(obj.params)
-        with SafeFile(os.path.join(lora_path, LORA_WEIGHTS_NAME)) as sf:
-            for key in sf.keys():
-                if key not in flat:
-                    logger.warning(f"adapter key {key} not in model; skipping")
-                    continue
-                flat[key] = sf.get_torch(key).to(flat[key].device)
-        obj.params = unflatten_params(flat)
-        return obj

@@ -20,9 +20,16 @@ resumed run restores the parameters and the optimizer's moments and count in
 place, skips the batches the checkpoint's step consumed, and continues bit
 for bit as the run that saved it would have.
 
+PEFT models (``LoRAModel``, ``PrefixModelForCausalLM``, ``VeRAModel``) carry a
+``trainable_mask``: as under the JAX trainer's ``optax.multi_transform``
+(:164-167), only the trainable leaves get optimizer state, clipping and
+updates; the frozen ones are left bit for bit. Only the trainable leaves take
+gradients here, so ``grad_norm`` is their norm, the one the clip uses (the JAX
+step reports the norm over every leaf, frozen ones included; ROADMAP Queue 3).
+
 What the JAX trainer does and this one does not yet raises
 ``NotImplementedError`` naming the ROADMAP item: the parallel degrees
-(``TrainingArguments.check_supported``), PEFT masks and dropout.
+(``TrainingArguments.check_supported``) and dropout.
 """
 
 from __future__ import annotations
@@ -72,8 +79,6 @@ class Trainer:
         if args is None:
             args = TrainingArguments(output_dir="tmp_trainer")
         args.check_supported()
-        if hasattr(model, "trainable_mask"):
-            raise NotImplementedError("PEFT trainable masks are not part of the port yet (ROADMAP Queue 1 item 14c)")
         cfg = model.config
         if any(getattr(cfg, a, 0.0) for a in ("attention_dropout", "hidden_dropout", "resid_pdrop", "embd_pdrop",
                                               "attn_pdrop", "hidden_dropout_prob",
@@ -107,6 +112,16 @@ class Trainer:
         """The model's leaves by flat name (the same tensors, not copies)."""
         return flatten_params(self.model.params)
 
+    @property
+    def trainable_params(self) -> Dict[str, torch.Tensor]:
+        """The leaves the optimizer updates by flat name: those the model's
+        ``trainable_mask`` marks, or every leaf of a model without one."""
+        params = self.params
+        if not hasattr(self.model, "trainable_mask"):
+            return params
+        mask = flatten_params(self.model.trainable_mask())
+        return {k: v for k, v in params.items() if mask[k]}
+
     def create_optimizer_and_scheduler(self, num_training_steps: int):
         args = self.args
         if self.lr_scheduler is None:
@@ -114,9 +129,9 @@ class Trainer:
                                               args.get_warmup_steps(num_training_steps), num_training_steps,
                                               min_lr=args.min_learning_rate)
         if self.optimizer is None:
-            self.optimizer = AdamW(self.params, self.lr_scheduler, b1=args.adam_beta1, b2=args.adam_beta2,
+            self.optimizer = AdamW(self.trainable_params, self.lr_scheduler, b1=args.adam_beta1, b2=args.adam_beta2,
                                    eps=args.adam_epsilon, weight_decay=args.weight_decay,
-                                   max_grad_norm=args.max_grad_norm)
+                                   max_grad_norm=args.max_grad_norm, masked=hasattr(self.model, "trainable_mask"))
         return self.optimizer
 
     # ------------------------------------------------------------------ loss and step
@@ -146,9 +161,9 @@ class Trainer:
         if rows % accum:
             raise ValueError(f"global batch {rows} is not divisible by gradient_accumulation_steps={accum}")
         micro = rows // accum
-        params = self.params
-        for p in params.values():
-            p.requires_grad_(True)
+        params = self.trainable_params
+        for k, p in self.params.items():
+            p.requires_grad_(k in params)
             p.grad = None
         loss = None
         for i in range(accum):

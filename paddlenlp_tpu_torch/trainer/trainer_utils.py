@@ -32,6 +32,7 @@ __all__ = [
     "speed_metrics",
     "get_last_checkpoint",
     "has_length",
+    "copy_aliased_params",
     "PREFIX_CHECKPOINT_DIR",
 ]
 
@@ -202,3 +203,16 @@ def has_length(dataset) -> bool:
         return len(dataset) is not None
     except TypeError:
         return False
+
+
+def copy_aliased_params(params, policy_params):
+    """``params`` with a detached copy of each leaf whose storage a leaf of
+    ``policy_params`` shares (JAX ``trainer_utils.py:179``): the optimizer
+    updates the policy's leaves in place, so a frozen reference (DPO, PPO)
+    that shares them must own its copy, while a distinct model's leaves are
+    kept as they are (no second copy on the card)."""
+    from ..transformers.conversion_utils import flatten_params, unflatten_params
+
+    policy = {t.untyped_storage().data_ptr() for t in flatten_params(policy_params).values()}
+    return unflatten_params({k: (v.detach().clone() if v.untyped_storage().data_ptr() in policy else v)
+                             for k, v in flatten_params(params).items()})

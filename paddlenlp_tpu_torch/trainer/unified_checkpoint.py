@@ -409,10 +409,21 @@ def load_unified_checkpoint(ckpt_dir: str, model, optimizer=None):
         logger.warning(f"checkpoint {ckpt_dir} has no {COMMIT_MANIFEST}; loading as legacy "
                        "(pre-commit-protocol) checkpoint without integrity validation")
 
-    loaded = flatten_params(type(model).from_pretrained(ckpt_dir, device="cpu", config=model.config,
-                                                         param_dtype=model.param_dtype, strict=True).params)
-    for path, t in flatten_params(model.params).items():
-        t.copy_(loaded.pop(path))
+    if hasattr(model, "trainable_mask"):
+        # a PEFT facade saves only its own leaves (the JAX package's resume
+        # calls the facade's from_pretrained with a model's keywords and fails)
+        loaded = model.saved_leaves(ckpt_dir)
+        lacking = [p for p, on in flatten_params(model.trainable_mask()).items() if on and p not in loaded]
+        if lacking:
+            raise ValueError(f"checkpoint {ckpt_dir} lacks {lacking}")
+        live = flatten_params(model.params)
+        for path, t in loaded.items():
+            live[path].copy_(t)
+    else:
+        loaded = flatten_params(type(model).from_pretrained(ckpt_dir, device="cpu", config=model.config,
+                                                             param_dtype=model.param_dtype, strict=True).params)
+        for path, t in flatten_params(model.params).items():
+            t.copy_(loaded.pop(path))
     del loaded
 
     opt_files = _resolve_optimizer_files(ckpt_dir)

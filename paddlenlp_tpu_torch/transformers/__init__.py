@@ -13,7 +13,7 @@ from .auto import (  # noqa: F401
 )
 from .cache_utils import KVCache, init_cache  # noqa: F401
 from .configuration_utils import LlmMetaConfig, PretrainedConfig  # noqa: F401
-from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaForSequenceClassification  # noqa: F401
 from .model_utils import PretrainedModel  # noqa: F401
-from .qwen2 import Qwen2Config, Qwen2ForCausalLM  # noqa: F401
+from .qwen2 import Qwen2Config, Qwen2ForCausalLM, Qwen2ForSequenceClassification  # noqa: F401
 from .tokenizer_utils import BatchEncoding, PretrainedTokenizer  # noqa: F401

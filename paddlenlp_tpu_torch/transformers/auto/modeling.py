@@ -1,8 +1,9 @@
 """Auto model classes (reference: paddlenlp/transformers/auto/modeling.py).
 
 Port of ``paddlenlp_tpu/transformers/auto/modeling.py:25-295``. The port
-registers the one task its families have: ``causal_lm`` for ``llama`` and
-``qwen2`` (``AutoModelForCausalLM``). ``JAX_MODEL_TASKS`` is the JAX
+registers the tasks its families have: ``causal_lm`` and
+``sequence_classification`` for ``llama`` and ``qwen2``
+(``AutoModelForCausalLM``, ``AutoModelForSequenceClassification``). ``JAX_MODEL_TASKS`` is the JAX
 registry's tasks by ``model_type``: a family or task it has and the port does
 not (the backbone-only ``base`` models behind ``AutoModel``, the classifiers,
 every other family) raises ``NotImplementedError`` naming ROADMAP Queue 1
@@ -76,6 +77,8 @@ def _populate_models():
 
     register_model("llama", "causal_lm", llama.LlamaForCausalLM)
     register_model("qwen2", "causal_lm", qwen2.Qwen2ForCausalLM)
+    register_model("llama", "sequence_classification", llama.LlamaForSequenceClassification)
+    register_model("qwen2", "sequence_classification", qwen2.Qwen2ForSequenceClassification)
 
 
 class _AutoBase:

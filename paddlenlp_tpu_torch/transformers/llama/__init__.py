@@ -1,2 +1,2 @@
 from .configuration import LlamaConfig  # noqa: F401
-from .modeling import LlamaForCausalLM  # noqa: F401
+from .modeling import LlamaForCausalLM, LlamaForSequenceClassification  # noqa: F401

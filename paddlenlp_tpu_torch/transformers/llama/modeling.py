@@ -41,7 +41,7 @@ from ..conversion_utils import flatten_params
 from ..model_utils import PretrainedModel
 from .configuration import LlamaConfig
 
-__all__ = ["LlamaForCausalLM", "layer_params", "rms_norm"]
+__all__ = ["LlamaForCausalLM", "LlamaForSequenceClassification", "layer_params", "rms_norm"]
 
 #: recompute granularities of the training forward (the JAX ``_remat_policy``
 #: :336): what each keeps for the backward is in :meth:`LlamaForCausalLM.forward`
@@ -249,9 +249,9 @@ class LlamaForCausalLM(PretrainedModel):
 
     # ------------------------------------------------------------------ training forward
     def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
-                segment_ids=None, attention_mask=None) -> torch.Tensor:
+                segment_ids=None, attention_mask=None, prefix_kv=None) -> torch.Tensor:
         """Differentiable causal forward over ``input_ids`` [B, T]: logits
-        [B, T, V] in ``compute_dtype``. Kernels and biases are cast to the
+        [B, T, V] in ``compute_dtype`` (the trunk is :meth:`hidden_states`). Kernels and biases are cast to the
         compute dtype, norms stay fp32, and the tied head is ``h @ embed.T``
         (the JAX ``dtype=compute, param_dtype=float32`` model). With
         ``config.recompute``, ``recompute_granularity`` ``"full"`` recomputes
@@ -273,6 +273,30 @@ class LlamaForCausalLM(PretrainedModel):
         A padding ``attention_mask`` [B, T] goes to the attention dispatcher,
         as in the JAX ``LlamaAttention`` (:261-274): such a call runs its
         XLA-path counterpart rather than the flash kernels."""
+        h, table = self._trunk(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)
+        params = self.params if params is None else params
+        if "lm_head" in params:
+            return h @ params["lm_head"]["kernel"].to(table.dtype)
+        return h @ table.T
+
+    def hidden_states(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
+                      segment_ids=None, attention_mask=None, prefix_kv=None) -> torch.Tensor:
+        """The training forward's final-norm hidden states [B, T, D] (the JAX
+        ``LlamaModule``'s ``last_hidden_state``), differentiable.
+
+        ``prefix_kv`` [L, 2, P, K, H] is a learned prefix of keys and values
+        ahead of every row (``peft.PrefixModelForCausalLM``; the JAX package
+        pre-fills a ``KVCache`` with it, ``prefix_model.py:128-152``): each
+        layer attends over the prefix concatenated with its own keys and
+        values, in the cache's dtype (bf16 under a bf16 compute dtype, else
+        fp32), from query offset P, through the dense path, with P ones ahead
+        of a given ``attention_mask``; rope positions stay 0..T-1. The
+        concatenation keeps the prefix in the autograd graph, where the
+        cached ``__call__`` writes a cache in place."""
+        return self._trunk(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)[0]
+
+    def _trunk(self, input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv):
+        """(final-norm hidden states, the embedding table in the compute dtype)."""
         cfg = self.config
         params = self.params if params is None else params
         if getattr(cfg, "attention_dropout", 0.0):
@@ -297,6 +321,15 @@ class LlamaForCausalLM(PretrainedModel):
             position_ids = torch.arange(T, device=h.device)[None, :].expand(B, T)
         cos, sin = rope_tables(position_ids.to(h.device), inv_freq)
         window = getattr(cfg, "sliding_window", None)
+        prefix = None
+        if prefix_kv is not None:
+            if segment_ids is not None:
+                raise ValueError("prefix_kv: a learned prefix takes padded batches, not packed segment_ids")
+            P = prefix_kv.shape[2]
+            prefix = prefix_kv.to(torch.bfloat16 if dtype == torch.bfloat16 else torch.float32).unbind(0)
+            if attention_mask is not None:
+                attention_mask = torch.cat([torch.ones(B, P, dtype=attention_mask.dtype, device=attention_mask.device),
+                                            attention_mask], dim=1)
 
         # one cast of each stacked leaf, then per-layer views: the backward
         # stacks the layers' grads once instead of scattering into [L, ...]
@@ -317,9 +350,15 @@ class LlamaForCausalLM(PretrainedModel):
         def attn_in(h, lp):
             return qkv(rms_norm(h, lp["input_layernorm/scale"], eps), lp)
 
-        def attn_core(q, k, v):
-            return dot_product_attention(q, k, v, attention_mask=attention_mask, segment_ids=segment_ids,
-                                         window=window)
+        def attn_core(q, k, v, lp):
+            pkv = lp.get("prefix_kv")
+            if pkv is None:
+                return dot_product_attention(q, k, v, attention_mask=attention_mask, segment_ids=segment_ids,
+                                             window=window)
+            P = pkv.shape[1]
+            k = torch.cat([pkv[0][None].expand(B, P, K, H), k.to(pkv.dtype)], dim=1)
+            v = torch.cat([pkv[1][None].expand(B, P, K, H), v.to(pkv.dtype)], dim=1)
+            return dot_product_attention(q, k, v, attention_mask=attention_mask, q_offset=P, window=window)
 
         def o_proj(o, lp):
             return dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
@@ -337,29 +376,31 @@ class LlamaForCausalLM(PretrainedModel):
             return h + dense(lp, "mlp/down_proj", act)
 
         def layer(h, lp):
-            return attn_out_mlp(h, attn_core(*attn_in(h, lp)), lp)
+            return attn_out_mlp(h, attn_core(*attn_in(h, lp), lp), lp)
 
         ckpt = functools.partial(checkpoint, use_reentrant=False)
         for i in range(cfg.num_hidden_layers):
             lp = {path: ts[i] for path, ts in per_layer.items()}
+            if prefix is not None:
+                lp["prefix_kv"] = prefix[i]
             if not recompute:
                 h = layer(h, lp)
             elif granularity == "full":
                 h = ckpt(layer, h, lp)
             elif granularity == "full_attn":
                 x = rms_norm(h, lp["input_layernorm/scale"], eps)
-                h = h + ckpt(lambda x, lp: o_proj(attn_core(*qkv(x, lp)), lp), x, lp)
+                h = h + ckpt(lambda x, lp: o_proj(attn_core(*qkv(x, lp), lp), lp), x, lp)
                 h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
             elif granularity == "core_attn":
                 q, k, v = attn_in(h, lp)
-                h = h + ckpt(lambda q, k, v, lp: o_proj(attn_core(q, k, v), lp), q, k, v, lp)
+                h = h + ckpt(lambda q, k, v, lp: o_proj(attn_core(q, k, v, lp), lp), q, k, v, lp)
                 h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
             elif granularity == "save_core_attn":
-                o = ckpt(lambda h, lp: attn_core(*attn_in(h, lp)), h, lp)
+                o = ckpt(lambda h, lp: attn_core(*attn_in(h, lp), lp), h, lp)
                 h = ckpt(attn_out_mlp, h, o, lp)
             elif granularity == "save_attn_mlp":
                 q, k, v = ckpt(attn_in, h, lp)
-                h, act = ckpt(attn_out_act, h, attn_core(q, k, v), lp)
+                h, act = ckpt(attn_out_act, h, attn_core(q, k, v, lp), lp)
                 h = h + dense(lp, "mlp/down_proj", act)
             elif granularity == "save_dots":
                 h = ckpt(layer, h, lp, context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
@@ -367,14 +408,11 @@ class LlamaForCausalLM(PretrainedModel):
                 q, k, v = ckpt(attn_in, h, lp)
                 if granularity == "offload_attn":
                     with _offload_to_host():
-                        o = attn_core(q, k, v)
+                        o = attn_core(q, k, v, lp)
                 else:
-                    o = attn_core(q, k, v)
+                    o = attn_core(q, k, v, lp)
                 h = ckpt(attn_out_mlp, h, o, lp)
-        h = rms_norm(h, m["norm"]["scale"], eps)
-        if "lm_head" in params:
-            return h @ params["lm_head"]["kernel"].to(dtype)
-        return h @ table.T
+        return rms_norm(h, m["norm"]["scale"], eps), table
 
     # ------------------------------------------------------------------ accounting
     def get_model_flops(self, batch_size: int, seq_length: int) -> float:
@@ -384,3 +422,38 @@ class LlamaForCausalLM(PretrainedModel):
         n = self.num_parameters()
         return 6.0 * n * batch_size * seq_length + 6.0 * cfg.num_hidden_layers * cfg.head_dim * \
             cfg.num_attention_heads * (seq_length**2) * batch_size
+
+
+class LlamaForSequenceClassification(LlamaForCausalLM):
+    """The LLaMA trunk with a ``score`` head [D, num_labels] over the hidden
+    state of each row's last token (JAX ``LlamaForSequenceClassificationModule``,
+    ``modeling.py:532-555``): position ``attention_mask.sum - 1`` (at least 0)
+    under a right-padding mask, else T - 1. The tree is the causal model's
+    without ``lm_head``; a causal checkpoint loads with ``score`` initialized
+    (``_keys_to_ignore_on_load_missing``) and its head left unread."""
+
+    _keys_to_ignore_on_load_missing = [r"score"]
+
+    @staticmethod
+    def param_shapes(config) -> Dict[str, Tuple[int, ...]]:
+        shapes = {k: v for k, v in LlamaForCausalLM.param_shapes(config).items() if not k.startswith("lm_head/")}
+        shapes["score/kernel"] = (config.hidden_size, int(config.num_labels))
+        return shapes
+
+    def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
+                segment_ids=None, attention_mask=None, prefix_kv=None) -> torch.Tensor:
+        """Differentiable: logits [B, num_labels] in ``compute_dtype``."""
+        params = self.params if params is None else params
+        h = self.hidden_states(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)
+        B, T = input_ids.shape
+        if attention_mask is not None:
+            last = (attention_mask.sum(dim=-1).to(torch.int64) - 1).clamp(min=0)
+        else:
+            last = torch.full((B,), T - 1, dtype=torch.int64, device=h.device)
+        pooled = h[torch.arange(B, device=h.device), last.to(h.device)]
+        return pooled @ params["score"]["kernel"].to(h.dtype)
+
+    @torch.no_grad()
+    def __call__(self, input_ids: torch.Tensor, attention_mask=None, params: Optional[dict] = None) -> torch.Tensor:
+        """:meth:`forward` without a gradient."""
+        return self.forward(input_ids, params=params, attention_mask=attention_mask)

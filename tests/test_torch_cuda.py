@@ -297,6 +297,7 @@ def _close(got, want, dtype):
     (2048, 12, 2, 128, True, None, "packed"),  # packed SFT rows at their launch shape: causal, no window
     (1024, 12, 2, 128, True, None, False),  # the training path's heads, group 6, at a smaller T
     (300, 12, 2, 128, False, None, False),  # full attention, T not a multiple of 128
+    (4095, 12, 2, 128, True, None, False),  # DPO's forward over ids[:, :-1] of 4096-token rows
 ])
 def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
     """bf16 runs the forward, dq and dk/dv through the Hopper kernels
@@ -1021,3 +1022,112 @@ def test_packed_sft_rows_take_the_hopper_flash_route(dev):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == want
     assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == want
     assert np.isfinite(out["loss"].item())
+
+
+# ----------------------------------------------------------------------------- PEFT and alignment steps
+class _PlainAttention:
+    """The flash call through the plain versions on the card (fwd_ref and
+    bwd_ref): the reference a step through the kernels is held against."""
+
+    class _Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = fa.flash_attention_fwd_ref(q, k, v)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            do = do.contiguous()
+            return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do))
+
+    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None):
+        assert attention_mask is None and segment_ids is None and window is None
+        return self._Fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+#: Qwen2-1.5B's widths, cut to 2 layers
+_WIDE = dict(vocab_size=151936, hidden_size=1536, intermediate_size=8960, num_hidden_layers=2, num_attention_heads=12,
+             num_key_value_heads=2, tie_word_embeddings=True, rope_theta=1000000.0, rms_norm_eps=1e-6)
+
+
+def _kernels_vs_plain(step, leaves):
+    """``step()`` -> loss, once through the kernels and once through the
+    plain versions; the loss within rel 1e-5 and each of ``leaves``'s
+    gradients within 1e-4 of its largest element; the kernel run's launches."""
+    from paddlenlp_tpu_torch.transformers.llama import modeling
+
+    out = {}
+    for plain in (False, True):
+        for t in leaves.values():
+            t.grad = None
+        before = dict(fa.LAUNCHES)
+        kernel_attention = modeling.dot_product_attention
+        if plain:
+            modeling.dot_product_attention = _PlainAttention()
+        try:
+            loss = step()
+            loss.backward()
+        finally:
+            modeling.dot_product_attention = kernel_attention
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), {k: t.grad.clone() for k, t in leaves.items()},
+                      {n: fa.LAUNCHES[n] - before[n] for n in before})
+    (got, g_got, launches), (want, g_want, none) = out[False], out[True]
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    for name in g_want:
+        scale = g_want[name].abs().max().item()
+        assert scale > 0 and (g_got[name] - g_want[name]).abs().max().item() <= 1e-4 * scale, name
+    assert sum(none.values()) == 0
+    return launches
+
+
+def test_lora_step_through_kernels_equals_plain(dev):
+    """A LoRA forward and backward at fp32 over Qwen2-1.5B's widths (2
+    layers), rows without a padding mask (the flash kernels, SIMT route),
+    against the plain attention: the loss and the adapters' gradients."""
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.peft import LoRAConfig, LoRAModel
+    from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
+
+    model = Qwen2ForCausalLM.init_random(Qwen2Config(**_WIDE), seed=0, device=dev, dtype=torch.float32)
+    lm = LoRAModel(model, LoRAConfig(r=8, lora_alpha=16))
+    g = torch.Generator(device=dev).manual_seed(1)
+    adapters = {k: v for k, v in flatten_params(lm.params).items() if "/lora_" in k}
+    with torch.no_grad():
+        for k, v in adapters.items():
+            if k.endswith("lora_B"):
+                v.normal_(0.0, 0.01, generator=g)  # a trained B: A's gradient is not zero
+    for v in adapters.values():
+        v.requires_grad_(True)
+    ids = torch.randint(0, _WIDE["vocab_size"], (2, 512), generator=g, device=dev)
+    launches = _kernels_vs_plain(lambda: causal_lm_loss(lm.forward(ids), ids, shift=True), adapters)
+    assert launches == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+
+
+def test_dpo_step_through_kernels_equals_plain(dev):
+    """A DPO loss (sigmoid; the policy and its frozen reference through one
+    forward each over ids[:, :-1]) and its gradient at fp32 over Qwen2-1.5B's
+    widths (2 layers) at T = 1023 (no multiple of a tile), against the plain
+    attention; step 1's loss is ln 2."""
+    from paddlenlp_tpu_torch.trl import DPOTrainer
+
+    model = Qwen2ForCausalLM.init_random(Qwen2Config(**_WIDE), seed=0, device=dev, dtype=torch.float32)
+    trainer = DPOTrainer(model=model, args=TrainingArguments(output_dir="unused", per_device_train_batch_size=1,
+                                                             max_steps=1, save_strategy="no"))
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {}
+    for side in ("chosen", "rejected"):
+        ids = torch.randint(0, _WIDE["vocab_size"], (1, 1024), generator=g, device=dev)
+        labels = ids.clone()
+        labels[:, :300] = -100  # the prompt
+        batch.update({f"{side}_input_ids": ids, f"{side}_labels": labels})
+    leaves = trainer.params
+    for t in leaves.values():
+        t.requires_grad_(True)
+    launches = _kernels_vs_plain(lambda: trainer.compute_loss(batch), leaves)
+    # policy and reference forwards, then the policy's backward: 2 layers each
+    assert launches == {"fwd": 4, "bwd_dq": 2, "bwd_dkv": 2}
+    with torch.no_grad():
+        assert abs(trainer.compute_loss(batch).item() - float(np.log(2))) <= 1e-6

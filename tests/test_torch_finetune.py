@@ -12,7 +12,8 @@
   1e-5 (fp32; the JAX run spreads its batch over this suite's 8 virtual CPU
   devices, so the port gets ``per_device_train_batch_size`` x 8), the eval
   loss too, and the saved weights load back. ``lora`` and ``prefix_tuning``
-  raise naming ROADMAP Queue 1 item 14c.
+  train the adapters or the prefix alone and save only them (their parity
+  with the JAX ``main`` is in ``tests/test_torch_peft_train.py``).
 - ``llm/tools/preprocess_data``: the ``.bin``/``.idx`` files equal the JAX
   tool's byte for byte, including a vocabulary over 65,535 (uint32 tokens).
 - ``run_pretrain`` with ``tokenizer_name_or_path``: the tokenizer loads and
@@ -272,10 +273,16 @@ def test_sft_save_model_loads_back(sft_runs, zero_padding):
 
 @pytest.mark.parametrize("flag", ["lora", "prefix_tuning"])
 def test_peft_flags_raise_naming_14c(hub, tmp_path, flag):
-    args = dict(_sft_args(hub, tmp_path / "out", True, 8), **{flag: True})
+    """Queue 1 item 14c is ported: the flags no longer raise; the run trains
+    the adapters or the prefix alone and saves only them."""
+    args = dict(_sft_args(hub, tmp_path / "out", False, 8), max_steps=2, do_eval=False, **{flag: True})
     (tmp_path / "a.json").write_text(json.dumps(args))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14c"):
-        run_finetune.main([str(tmp_path / "a.json")], device="cpu")
+    trainer = run_finetune.main([str(tmp_path / "a.json")], device="cpu")
+    name = {"lora": "LoRAModel", "prefix_tuning": "PrefixModelForCausalLM"}[flag]
+    assert type(trainer.model).__name__ == name and trainer.state.global_step == 2
+    saved = {"lora": "lora_model.safetensors", "prefix_tuning": "prefix_model.safetensors"}[flag]
+    assert os.path.isfile(tmp_path / "out" / saved) and not os.path.isfile(tmp_path / "out" / "model.safetensors")
+    assert all(k.startswith("inner_states/train/") for k in trainer.optimizer.state_dict())
 
 
 # ----------------------------------------------------------------------------- preprocess_data and run_pretrain
