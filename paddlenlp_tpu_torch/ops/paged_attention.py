@@ -7,21 +7,25 @@ decode token, or nothing), reading its KV from the paged pool through
 ``block_tables[b]``. :func:`ragged_paged_attention_ref` computes the same
 function in plain PyTorch.
 
-Two kernels, the route chosen by dtype alone (:func:`kernel_route`). bf16
-queries over a bf16, int8 or fp8 pool, the serving path's types, take the
-Hopper tensor-core kernel of ``paddlenlp_tpu_torch/csrc/paged_attention_sm90.cu``
-(``cp.async`` gather ring, ``wgmma``; a quantized pool lands as raw bytes
-and is widened to bf16 in shared memory, its scales folded into the scores
-and the probabilities; when the grid is small, as in decode, the kv walk is
-split into :func:`kv_partitions` and a second kernel merges them in order).
-fp32 queries or an fp32 pool take the SIMT kernel of
-``paddlenlp_tpu_torch/csrc/paged_attention.cu``, the precise check.
+Three routes through the Hopper tensor-core kernels of
+``paddlenlp_tpu_torch/csrc/paged_attention_sm90.cu``, chosen by dtype alone
+(:func:`kernel_route`). bf16 queries over a bf16, int8 or fp8 pool, the
+serving path's types, take the ``wgmma`` kernel (``cp.async`` gather ring;
+a quantized pool lands as raw bytes and is widened to bf16 in shared memory,
+its scales folded into the scores and the probabilities). fp32 queries, or
+an fp32 pool, take the fp32 route: ``mma.sync`` products at fp32 accuracy
+from three TF32 products (3xTF32), the pool read raw through a ``cp.async``
+ring and widened as it is read, for the engines that compute in fp32 (PPO's
+rollouts) and the precise check. On every route, when the grid is small, as
+in decode, the kv walk is split into :func:`kv_partitions` and a second
+kernel merges them in order.
 
 :func:`ragged_paged_attention` takes the plain version only for tensors on the
 CPU. For CUDA tensors it checks the operands and launches its kernel, or
-raises: there is no fallback. ``LAUNCHES`` counts kernel launches on either
-route, ``LAUNCHES_SM90`` those of the Hopper route (either pool kind) and
-``LAUNCHES_SM90_QUANT`` those of the Hopper route over an int8 or fp8 pool.
+raises: there is no fallback. ``LAUNCHES`` counts kernel launches on every
+route, ``LAUNCHES_SM90`` those of the bf16 ``wgmma`` route (either pool
+kind), ``LAUNCHES_SM90_QUANT`` those of it over an int8 or fp8 pool and
+``LAUNCHES_SM90_F32`` those of the fp32 route.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_QUANT", "NEG_INF", "kernel_route", "kv_partitions",
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_F32", "LAUNCHES_SM90_QUANT", "NEG_INF", "kernel_route", "kv_partitions",
            "paged_decode_attention", "ragged_paged_attention", "ragged_paged_attention_ref"]
 
 NEG_INF = -1e30
@@ -43,17 +47,22 @@ NEG_INF = -1e30
 #: kernel launches since the counter was last set to 0 (by a caller that
 #: wants to know whether a run went through the kernel)
 LAUNCHES = 0
-#: the launches of those that took the Hopper route (paged_attention_sm90.cu)
+#: the launches of those that took the bf16 ``wgmma`` route ("sm90" or "sm90_quant")
 LAUNCHES_SM90 = 0
-#: the launches of those that took the Hopper route over an int8 or fp8 pool
+#: the launches of those that took it over an int8 or fp8 pool ("sm90_quant")
 LAUNCHES_SM90_QUANT = 0
-#: guards the three counts: the engine loops of several in-process replicas
+#: the launches of those that took the fp32 route ("sm90_f32")
+LAUNCHES_SM90_F32 = 0
+#: guards the four counts: the engine loops of several in-process replicas
 #: launch at the same time, and ``+=`` on a module global can lose a bump
 _COUNT_LOCK = threading.Lock()
 
-KV_TILE = 64  # kv positions of the Hopper kernel's tile, the unit of a partition
-ROW_TILE = 64  # folded query rows of its block
+KV_TILE = 64  # kv positions of the Hopper kernels' tile, the unit of a partition
 H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+#: route -> (folded query rows of its block, its blocks resident on an SM):
+#: the bf16 kernels' 64-row blocks fit two an SM; the fp32 route's 128-row
+#: blocks take ~190 KB of shared memory and up to 255 registers a thread: one
+ROUTE_BLOCKS = {"sm90": (64, 2), "sm90_quant": (64, 2), "sm90_f32": (128, 1)}
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -61,18 +70,18 @@ _QUANTIZED = (torch.int8, torch.float8_e4m3fn)
 #: route -> (library stem, C entry)
 _ENTRIES = {"sm90": ("paged_attention_sm90", "pdnlp_ragged_paged_attention_sm90"),
             "sm90_quant": ("paged_attention_sm90", "pdnlp_ragged_paged_attention_sm90_quant"),
-            "simt": ("paged_attention", "pdnlp_ragged_paged_attention")}
+            "sm90_f32": ("paged_attention_sm90", "pdnlp_ragged_paged_attention_sm90_f32")}
 #: pointers and ints each entry takes, before its float scale and its stream
-_ARGS = {"sm90": (9, 9), "sm90_quant": (11, 10), "simt": (9, 9)}
+_ARGS = {"sm90": (9, 9), "sm90_quant": (11, 10), "sm90_f32": (11, 11)}
 
 
 def kernel_route(q_dtype, kv_dtype) -> str:
-    """The kernel a (query, pool) dtype pair takes on CUDA: ``"sm90"`` for
-    bf16 queries over a bf16 pool, ``"sm90_quant"`` for bf16 queries over an
-    int8 or fp8 pool (both paged_attention_sm90.cu), ``"simt"``
-    (paged_attention.cu) for fp32 queries or an fp32 pool."""
+    """The entry of paged_attention_sm90.cu a (query, pool) dtype pair takes
+    on CUDA: ``"sm90"`` for bf16 queries over a bf16 pool, ``"sm90_quant"``
+    for bf16 queries over an int8 or fp8 pool, ``"sm90_f32"`` (3xTF32) for
+    fp32 queries or an fp32 pool."""
     if q_dtype != torch.bfloat16 or kv_dtype == torch.float32:
-        return "simt"
+        return "sm90_f32"
     return "sm90_quant" if kv_dtype in _QUANTIZED else "sm90"
 
 
@@ -164,24 +173,27 @@ def _check_cuda_operands(q, pool_k, pool_v, block_tables, q_start, q_lens, k_sca
                                  f"got {t.dtype} {tuple(t.shape)}")
 
 
-def kv_partitions(B, T, N, K, max_blocks, block_size, sms=H100_SMS) -> Tuple[int, int]:
-    """How the Hopper kernel splits the kv walk of each (row tile, kv head,
+def kv_partitions(B, T, N, K, max_blocks, block_size, sms=H100_SMS, route="sm90") -> Tuple[int, int]:
+    """How ``route``'s kernel splits the kv walk of each (row tile, kv head,
     sequence): ``(parts, part_len)``, partition p covering kv positions
     ``[p * part_len, (p + 1) * part_len)``, ``part_len`` a multiple of
     :data:`KV_TILE` and ``parts * part_len`` at least the tables' capacity.
 
-    A launch whose blocks already put two on every SM (prefill chunks) takes
-    one partition and no merge. Otherwise (decode: 8 rows x 4 kv heads give
-    32 blocks) the capacity is cut so that the grid holds about 8 blocks an
-    SM: a block whose partition starts past its rows' context exits at once,
-    and the engine's decode contexts (256-2,112 of 4,096) fill about a
-    third of their tables, which leaves ~2 live blocks an SM. Shapes only:
-    the contexts are on the device, and reading them would cost a sync."""
-    tiles = -(-T * (N // K) // ROW_TILE) * K * B
+    A launch whose blocks already fill every SM's resident slots
+    (:data:`ROUTE_BLOCKS`: prefill chunks) takes one partition and no merge.
+    Otherwise (decode: 8 rows x 4 kv heads give 32 blocks) the capacity is
+    cut so that the grid holds about four times the blocks the SMs hold at
+    once: a block whose partition starts past its rows' context exits at
+    once, and the engine's decode contexts (256-2,112 of 4,096) fill about a
+    third of their tables, which leaves about one wave of live blocks.
+    Shapes only: the contexts are on the device, and reading them would cost
+    a sync."""
+    rows, per_sm = ROUTE_BLOCKS[route]
+    tiles = -(-T * (N // K) // rows) * K * B
     cap = max_blocks * block_size
-    if tiles >= 2 * sms:
+    if tiles >= per_sm * sms:
         return 1, -(-cap // KV_TILE) * KV_TILE
-    want = max(1, min(-(-8 * sms // tiles), -(-cap // KV_TILE)))
+    want = max(1, min(-(-4 * per_sm * sms // tiles), -(-cap // KV_TILE)))
     part_len = -(-cap // (want * KV_TILE)) * KV_TILE
     return -(-cap // part_len), part_len
 
@@ -211,8 +223,8 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     block_tables [B, max_blocks], q_start/q_lens [B], all int32. Query token t
     of row b attends kv positions ``[0, q_start[b] + t]``; returns
     [B, T, N, H] in q's dtype with rows ``t >= q_lens[b]`` zeroed. bf16 q
-    over a bf16, int8 or fp8 pool runs the Hopper kernel, fp32 q or an fp32
-    pool the SIMT one."""
+    over a bf16, int8 or fp8 pool runs the bf16 ``wgmma`` kernel, fp32 q or
+    an fp32 pool the fp32 (3xTF32) one."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, pool_k, pool_v, block_tables, q_start, q_lens, scale,
                                           k_scale, v_scale)
@@ -229,38 +241,37 @@ def ragged_paged_attention(q, pool_k, pool_v, block_tables, q_start, q_lens, sca
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "simt":
+        parts, part_len = kv_partitions(B, T, N, K, mb, bs, _sm_count(q.device.index or 0), route)
+        part_o = part_ml = None
+        if parts > 1:  # each partition's unnormalised rows and their (max, sum), for the merge
+            rows = B * K * parts * T * (N // K)
+            part_o = torch.empty(rows * H, dtype=torch.float32, device=q.device)
+            part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+        geometry = (B, T, N, K, H, bs, mb, parts, part_len)
+        if route == "sm90":
             _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
-                    ptr(k_scale), ptr(v_scale), ptr(out), B, T, N, K, H, bs, mb,
-                    _Q_DTYPES[q.dtype], _KV_DTYPES[pool_k.dtype], scale, stream)
-        else:
-            parts, part_len = kv_partitions(B, T, N, K, mb, bs, _sm_count(q.device.index or 0))
-            part_o = part_ml = None
-            if parts > 1:  # each partition's unnormalised rows and their (max, sum), for the merge
-                rows = B * K * parts * T * (N // K)
-                part_o = torch.empty(rows * H, dtype=torch.float32, device=q.device)
-                part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
-            geometry = (B, T, N, K, H, bs, mb, parts, part_len)
-            if route == "sm90":
-                _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(block_tables), ptr(q_start), ptr(q_lens),
-                        ptr(out), ptr(part_o), ptr(part_ml), *geometry, scale, stream)
-            else:
-                _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(block_tables),
-                        ptr(q_start), ptr(q_lens), ptr(out), ptr(part_o), ptr(part_ml), *geometry,
-                        _KV_DTYPES[pool_k.dtype], scale, stream)
+                    ptr(out), ptr(part_o), ptr(part_ml), *geometry, scale, stream)
+        else:  # sm90_quant, sm90_f32: the scales' pointers (None over a float pool) after the pools
+            dtypes = (_KV_DTYPES[pool_k.dtype],) if route == "sm90_quant" else (_Q_DTYPES[q.dtype],
+                                                                               _KV_DTYPES[pool_k.dtype])
+            _launch(route, ptr(q), ptr(pool_k), ptr(pool_v), ptr(k_scale), ptr(v_scale), ptr(block_tables),
+                    ptr(q_start), ptr(q_lens), ptr(out), ptr(part_o), ptr(part_ml), *geometry, *dtypes, scale,
+                    stream)
     return out
 
 
 def _launch(route, *args):
     """Call ``route``'s C entry with ``args`` and count the launch. A refused
     launch raises and counts nothing."""
-    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_SM90_QUANT
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_SM90_QUANT, LAUNCHES_SM90_F32
     rc = _kernel_fn(route)(*args)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed ({_ENTRIES[route][1]}): CUDA error {rc}")
     with _COUNT_LOCK:
         LAUNCHES += 1
-        if route != "simt":
+        if route == "sm90_f32":
+            LAUNCHES_SM90_F32 += 1
+        else:
             LAUNCHES_SM90 += 1
         if route == "sm90_quant":
             LAUNCHES_SM90_QUANT += 1

@@ -60,19 +60,21 @@ def _case(dev, q_dtype, kv_dtype, H, bs, group, K=2, seed=0):
     (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn), (torch.float32, torch.int8)])
 @pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
 def test_kernel_matches_plain(dev, q_dtype, kv_dtype, H, bs, group):
-    """bf16 queries over a bf16, int8 or fp8 pool take the Hopper kernel
+    """bf16 queries over a bf16, int8 or fp8 pool take the bf16 wgmma kernel
     (``LAUNCHES_SM90``; the quantized pools also ``LAUNCHES_SM90_QUANT``),
-    fp32 queries the SIMT one."""
+    fp32 queries the fp32 route (``LAUNCHES_SM90_F32``)."""
     args = _case(dev, q_dtype, kv_dtype, H, bs, group)
     q, pk, pv, tables, q_start, q_lens, ks, vs = args
-    sm90, quant = pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT
+    sm90, quant, f32 = pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT, pa.LAUNCHES_SM90_F32
     got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert pa.LAUNCHES_SM90 - sm90 == int(q_dtype == torch.bfloat16)
     assert pa.LAUNCHES_SM90_QUANT - quant == int(q_dtype == torch.bfloat16 and ks is not None)
-    # fp32 output: summation order only; bf16 output: two roundings of fp32
-    # values that differ in summation order, at most one ulp (2**-7 * |x|) apart
+    assert pa.LAUNCHES_SM90_F32 - f32 == int(q_dtype == torch.float32)
+    # fp32 output: summation order and the 3xTF32 products (~2**-22 of each
+    # product) only; bf16 output: two roundings of fp32 values that differ in
+    # summation order, at most one ulp (2**-7 * |x|) apart
     atol, rtol = (2e-5, 0.0) if q_dtype == torch.float32 else (1e-3, 2**-7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -83,12 +85,13 @@ def test_kernel_matches_plain(dev, q_dtype, kv_dtype, H, bs, group):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_decode_wrapper_and_launch_count(dev, dtype):
     q, pk, pv, tables, q_start, _q_lens, _, _ = _case(dev, dtype, dtype, 128, 16, 7)
-    before, sm90 = pa.LAUNCHES, pa.LAUNCHES_SM90
+    before, sm90, f32 = pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_F32
     a = pa.paged_decode_attention(q[:, 0].contiguous(), pk, pv, tables, q_start)
     b = pa.ragged_paged_attention(q[:, :1].contiguous(), pk, pv, tables, q_start,
                                   torch.ones(4, dtype=torch.int32, device=dev))[:, 0]
     assert pa.LAUNCHES == before + 2
     assert pa.LAUNCHES_SM90 == sm90 + (2 if dtype == torch.bfloat16 else 0)
+    assert pa.LAUNCHES_SM90_F32 == f32 + (2 if dtype == torch.float32 else 0)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
@@ -167,8 +170,8 @@ def test_paged_sm90_route_matches_plain(dev, monkeypatch, H, bs, group, split, p
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
 def test_paged_sm90_failed_launch_raises(dev, monkeypatch, fault, pool):
     """A refused launch on the Hopper route, over a bf16, int8 or fp8 pool,
-    raises RuntimeError naming its entry: no counter moves, and neither the
-    SIMT kernel nor the plain version runs in its place."""
+    raises RuntimeError naming its entry: no counter moves, and neither
+    another route nor the plain version runs in its place."""
     q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, torch.bfloat16, POOLS[pool], 128, 16, 7)
     route = pa.kernel_route(q.dtype, pk.dtype)
     real = pa._kernel_fn
@@ -196,6 +199,141 @@ def test_paged_sm90_failed_launch_raises(dev, monkeypatch, fault, pool):
     assert (pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT) == (before, sm90, quant)
 
 
+F32_POOLS = {"fp32": (torch.float32, torch.float32), "bf16": (torch.float32, torch.bfloat16),
+             "int8": (torch.float32, torch.int8), "fp8": (torch.float32, torch.float8_e4m3fn),
+             "bf16 q over fp32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("pool", list(F32_POOLS))
+@pytest.mark.parametrize("split", [True, False], ids=["kv-partitions", "one-partition"])
+@pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
+def test_paged_sm90_f32_route_matches_plain(dev, monkeypatch, H, bs, group, split, pool):
+    """The fp32 route (3xTF32 ``mma.sync``) with fp32 queries over an fp32,
+    bf16, int8 or fp8 pool and with bf16 queries over an fp32 pool, its kv
+    walk split and whole: the ragged batch of ``_case`` plus a decode row
+    whose context ends on a partition boundary, a decode row one past it and
+    a q_lens 0 row; fp32 outputs within 1e-4 of the plain version (bf16
+    outputs within the bf16 gate), dead rows exact zeros, two launches the
+    same bits, every launch counted on the route."""
+    q_dtype, kv_dtype = F32_POOLS[pool]
+    q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, q_dtype, kv_dtype, H, bs, group)
+    B, T, N, _ = q.shape
+    mb = tables.shape[1]
+    parts, part_len = pa.kv_partitions(B + 3, T, N, N // group, mb, bs, pa._sm_count(dev.index or 0),
+                                       route="sm90_f32")
+    assert parts > 1
+    if not split:
+        monkeypatch.setattr(pa, "kv_partitions", lambda *a, **kw: (1, -(-mb * bs // 64) * 64))
+    more = torch.tensor([[part_len - 1, 1], [part_len, 1], [5, 0]], dtype=torch.int32, device=dev)
+    extra = torch.randn(3, T, N, H, device=dev, generator=torch.Generator(dev).manual_seed(1)).to(q_dtype)
+    q = torch.cat([q, extra])
+    tables = torch.cat([tables, tables[:3].flip(1)])
+    q_start, q_lens = torch.cat([q_start, more[:, 0]]), torch.cat([q_lens, more[:, 1]])
+    before, sm90, f32 = pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_F32
+    got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    again = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (pa.LAUNCHES - before, pa.LAUNCHES_SM90 - sm90, pa.LAUNCHES_SM90_F32 - f32) == (2, 0, 2)
+    assert got.dtype == q_dtype
+    atol, rtol = (1e-4, 0.0) if q_dtype == torch.float32 else (1e-3, 2**-7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert torch.equal(got, again)
+    for b, qlen in enumerate(q_lens.tolist()):
+        assert torch.all(got[b, qlen:] == 0), b
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["kv-partitions", "one-partition"])
+@pytest.mark.parametrize("H,bs,group", [(128, 16, 7), (64, 8, 1), (128, 64, 3), (64, 33, 2)])
+def test_paged_sm90_f32_one_key_rows_are_exact(dev, monkeypatch, H, bs, group, split):
+    """fp32 rows that see one key (single-token sequences: P = 1) come out
+    of the fp32 route as that key's V bit for bit, as the plain version's
+    fp32 arithmetic gives them: V is split in three exact TF32 parts."""
+    q, pk, pv, tables, _q_start, _q_lens, _, _ = _case(dev, torch.float32, torch.float32, H, bs, group)
+    B, T, N, _ = q.shape
+    mb = tables.shape[1]
+    if not split:
+        monkeypatch.setattr(pa, "kv_partitions", lambda *a, **kw: (1, -(-mb * bs // 64) * 64))
+    zeros, ones = torch.zeros(B, dtype=torch.int32, device=dev), torch.ones(B, dtype=torch.int32, device=dev)
+    got = pa.ragged_paged_attention(q, pk, pv, tables, zeros, ones)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, zeros, ones)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    first = pv[tables[:, 0].long(), :, 0]  # [B, K, H]: position 0 of each sequence
+    assert torch.equal(got[:, 0], first.repeat_interleave(group, dim=1))
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["kv-partitions", "one-partition"])
+@pytest.mark.parametrize("pool", ["fp32", "int8"])
+def test_paged_sm90_f32_long_table_matches_plain(dev, monkeypatch, pool, split):
+    """Tables of 12,000 one-position blocks: in one partition a block walks
+    them all and reads its table entries from the table itself (more than
+    the 2,048 it stages in shared memory, which at 12,000 would pass the
+    card's 227 KB a block); split, each partition stages its own. A
+    40-token chunk at position 11,000 (group 4: rows split over the warps),
+    a decode row at the tables' end and one at 3,000, within 1e-4 of the
+    plain version, two launches the same bits."""
+    from paddlenlp_tpu_torch.experimental.paged_cache import quantize_kv
+
+    rng = np.random.default_rng(3)
+    B, T, K, group, H, bs, mb = 3, 40, 2, 4, 128, 1, 12000
+    N, nb = K * group, B * mb + 1
+    q = torch.from_numpy(rng.standard_normal((B, T, N, H), dtype=np.float32)).to(dev)
+    pk = torch.from_numpy(rng.standard_normal((nb, K, bs, H), dtype=np.float32)).to(dev)
+    pv = torch.from_numpy(rng.standard_normal((nb, K, bs, H), dtype=np.float32)).to(dev)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb))[: B * mb].reshape(B, mb).astype(np.int32)).to(dev)
+    q_start = torch.tensor([11000, mb - 1, 3000], dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([T, 1, 1], dtype=torch.int32, device=dev)
+    ks = vs = None
+    if pool == "int8":
+        (pk, ks), (pv, vs) = quantize_kv(pk, torch.int8), quantize_kv(pv, torch.int8)
+    parts, _ = pa.kv_partitions(B, T, N, K, mb, bs, pa._sm_count(dev.index or 0), route="sm90_f32")
+    assert parts > 1
+    if not split:
+        monkeypatch.setattr(pa, "kv_partitions", lambda *a, **kw: (1, -(-mb * bs // 64) * 64))
+    f32 = pa.LAUNCHES_SM90_F32
+    got = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    again = pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_SM90_F32 - f32 == 2
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0.0)
+    assert torch.equal(got, again)
+    assert torch.all(got[1:, 1:] == 0)
+
+
+@pytest.mark.parametrize("pool", ["fp32", "int8"])
+@pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
+def test_paged_sm90_f32_failed_launch_raises(dev, monkeypatch, fault, pool):
+    """A refused launch on the fp32 route raises RuntimeError naming its
+    entry: no counter moves, and neither another route nor the plain version
+    runs in its place."""
+    q, pk, pv, tables, q_start, q_lens, ks, vs = _case(dev, torch.float32, F32_POOLS[pool][1], 128, 16, 7)
+    real = pa._kernel_fn
+
+    def entry(r):  # only the route's own entry is ever asked for
+        assert r == "sm90_f32", f"the {r} entry asked for in place of sm90_f32"
+        return (lambda *args: 700) if fault == "entry returns an error" else real(r)
+
+    monkeypatch.setattr(pa, "_kernel_fn", entry)
+    if fault == "pointer not 16-byte aligned":  # a contiguous view 4 bytes past a 16-byte boundary
+        off = 4 // pk.element_size()
+        buf = torch.empty(pk.numel() + off, dtype=pk.dtype, device=dev)
+        buf[off:].view(pk.shape).copy_(pk)
+        pk = buf[off:].view(pk.shape)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran in place of the kernel")
+
+    monkeypatch.setattr(pa, "ragged_paged_attention_ref", plain)
+    counts = lambda: (pa.LAUNCHES, pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_QUANT, pa.LAUNCHES_SM90_F32)  # noqa: E731
+    before = counts()
+    with pytest.raises(RuntimeError, match="_sm90_f32\\)"):
+        pa.ragged_paged_attention(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert counts() == before
+
+
 def test_wrapper_rejects_bad_operands(dev):
     q, pk, pv, tables, q_start, q_lens, _, _ = _case(dev, torch.bfloat16, torch.bfloat16, 128, 16, 7)
     launches = pa.LAUNCHES
@@ -219,7 +357,7 @@ def test_wrapper_rejects_bad_operands(dev):
 def test_engine_kernel_path_matches_plain_path(dev, quant):
     """Greedy streams through the kernel against the plain gather path, for
     monolithic and chunked prefill, in fp32 on the card. Over an fp32 pool
-    they are equal. Over an int8 pool (the SIMT kernel's quantized read) the
+    they are equal. Over an int8 pool (the kernel's quantized read) the
     two paths are two functions, as in the JAX package: the kernel
     dequantizes K and V in fp32, the gather path rounds them to bf16. So a
     stream may leave the other, but only at a near tie: at the first
@@ -257,6 +395,23 @@ def test_engine_kernel_path_matches_plain_path(dev, quant):
                                           torch.float32, 0, quant=quant)[0][-1]
             la, lb = row[got[j]].item(), row[want[j]].item()
             assert abs(la - lb) <= 2**-7 * max(abs(la), abs(lb)) + 1e-3, (chunk, j, la, lb)
+
+
+def test_engine_computes_in_bf16_by_default_on_the_card(dev):
+    """The engine's ``dtype=None`` is bf16 on a CUDA model (fp32 on the CPU),
+    where the JAX engine's default is fp32 (a port-only departure, ROADMAP
+    Queue 3): the default engine's paged launches take the bf16 route, an
+    engine asked for fp32 takes the fp32 entry."""
+    cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
+    model = Qwen2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+    for dtype, want in ((None, torch.bfloat16), (torch.float32, torch.float32)):
+        eng = InferenceEngine(model, max_batch_size=2, block_size=16, num_blocks=16, max_blocks_per_seq=4, dtype=dtype)
+        assert eng.infer.dtype == want
+        pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_F32 = 0
+        eng.generate([[5, 6, 7]], SamplingParams(max_new_tokens=2))
+        assert pa.LAUNCHES > 0
+        assert (pa.LAUNCHES_SM90, pa.LAUNCHES_SM90_F32) == ((pa.LAUNCHES, 0) if want == torch.bfloat16 else (0, pa.LAUNCHES))
 
 
 # ----------------------------------------------------------------- flash attention
@@ -582,7 +737,7 @@ def _run_jobs(eng, jobs, n):
 
 def test_lora_engine_kernel_path_matches_plain_path(dev):
     """A batch mixing three adapters and a base row: in fp32 the kernel path
-    (the SIMT kernel) gives the plain gather path's greedy streams, for
+    (the fp32 route) gives the plain gather path's greedy streams, for
     monolithic and chunked prefill; in bf16 every paged launch takes the
     Hopper route and the adapters steer (four different streams)."""
     cfg = Qwen2Config(**LORA_CFG)
@@ -594,10 +749,11 @@ def test_lora_engine_kernel_path_matches_plain_path(dev):
                 eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
                                       dtype=dtype, prefill_chunk_tokens=chunk, adapter_registry=_lora_registry(cfg))
                 eng.infer.use_paged_kernel = kernel
-                pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+                pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_F32 = 0
                 outs[dtype, kernel, chunk] = _run_jobs(eng, LORA_JOBS, 12)
                 assert (pa.LAUNCHES > 0) == kernel
                 assert pa.LAUNCHES_SM90 == (pa.LAUNCHES if dtype == torch.bfloat16 else 0)
+                assert pa.LAUNCHES_SM90_F32 == (pa.LAUNCHES if dtype == torch.float32 else 0)
     for chunk in (None, 8):
         assert outs[torch.float32, True, chunk] == outs[torch.float32, False, chunk]
     assert len({tuple(s) for s in outs[torch.bfloat16, True, None]}) == len(LORA_JOBS)
@@ -728,7 +884,7 @@ def test_quantize_params_on_the_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("algo", ["wint8", "a8w8"])
 def test_quantized_engine_kernel_path_matches_plain_path(dev, algo):
-    """A ``QuantizedModel`` served in fp32: the kernel path (the SIMT kernel)
+    """A ``QuantizedModel`` served in fp32: the kernel path (the fp32 route)
     against the plain gather path, greedy, monolithic and chunked: streams
     equal; and the paged logits against the facade's dense forward at the
     fp32 gate (rel 1e-4) over single-token sequences, whose attention is
@@ -754,9 +910,9 @@ def test_quantized_engine_kernel_path_matches_plain_path(dev, algo):
             eng = InferenceEngine(model, max_batch_size=4, block_size=16, num_blocks=64, max_blocks_per_seq=8,
                                   prefill_chunk_tokens=chunk, dtype=torch.float32)
             eng.infer.use_paged_kernel = kernel
-            pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+            pa.LAUNCHES = pa.LAUNCHES_SM90 = pa.LAUNCHES_SM90_F32 = 0
             outs[kernel, chunk] = eng.generate(prompts, SamplingParams(max_new_tokens=12))
-            assert (pa.LAUNCHES > 0) == kernel and pa.LAUNCHES_SM90 == 0
+            assert (pa.LAUNCHES > 0) == kernel and pa.LAUNCHES_SM90 == 0 and pa.LAUNCHES_SM90_F32 == pa.LAUNCHES
     for chunk in (None, 8):
         assert outs[True, chunk] == outs[False, chunk], chunk
     single = [3, 5, 9, 17, 33, 65, 100, 127]

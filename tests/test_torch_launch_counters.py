@@ -54,19 +54,21 @@ def _hammer(fn):
     assert not errors, errors
 
 
-@pytest.mark.parametrize("route", ["sm90", "sm90_quant", "simt"])
+@pytest.mark.parametrize("route", ["sm90", "sm90_quant", "sm90_f32"])
 def test_paged_counts_sum_exactly_across_threads(monkeypatch, tight_switching, route):
     calls = []
     monkeypatch.setattr(pa, "_kernel_fn", lambda r: (lambda *args: calls.append(r) or 0))
     monkeypatch.setattr(pa, "LAUNCHES", 0)
     monkeypatch.setattr(pa, "LAUNCHES_SM90", 0)
     monkeypatch.setattr(pa, "LAUNCHES_SM90_QUANT", 0)
+    monkeypatch.setattr(pa, "LAUNCHES_SM90_F32", 0)
     _hammer(lambda: pa._launch(route, 1, 2, 3))
     n = THREADS * PER_THREAD
     assert len(calls) == n and set(calls) == {route}
     assert pa.LAUNCHES == n
-    assert pa.LAUNCHES_SM90 == (0 if route == "simt" else n)
+    assert pa.LAUNCHES_SM90 == (0 if route == "sm90_f32" else n)
     assert pa.LAUNCHES_SM90_QUANT == (n if route == "sm90_quant" else 0)
+    assert pa.LAUNCHES_SM90_F32 == (n if route == "sm90_f32" else 0)
 
 
 def test_paged_refused_launch_counts_nothing(monkeypatch):

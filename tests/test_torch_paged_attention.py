@@ -69,6 +69,15 @@ def test_chunk_on_block_boundary():
     _compare(*args, q_start=[8], q_lens=[8])
 
 
+def test_group6_head128_ppo_fold():
+    """PPO's rollout fold (Qwen2-1.5B's attention: 6 query heads per kv head,
+    head_dim 128, block 16): a chunk at 126, decode rows at contexts 130-290
+    and a dead row."""
+    q, pk, pv, tables, q_start, q_lens = (x.numpy() for x in _ppo_batch(12, torch.float32))
+    got = _compare(q, pk, pv, tables, q_start, q_lens)
+    assert np.all(got[4] == 0.0) and np.all(got[1:4, 1:] == 0.0)
+
+
 def test_group7_head128_bs16():
     """Qwen2-7B's attention geometry at a tiny size: 7 query heads per kv head
     (a fold that is not a power of two), head_dim 128, block 16."""
@@ -194,6 +203,17 @@ def _serving_batch(seed, dtype):
             torch.tensor([1, 1, 1, 6, 0], dtype=torch.int32))
 
 
+def _ppo_batch(seed, dtype):
+    """PPO's rollout fold at a small batch: group 6 (12 query heads over 2 kv
+    heads, Qwen2-1.5B's), head_dim 128, block 16, tables of 304 positions; a
+    4-token chunk at 126, decode rows at contexts 130, 200 and 290, a dead
+    row."""
+    q, pk, pv, tables = _inputs(seed, B=5, T=4, N=12, K=2, H=128, nb=96, bs=16, mb=19)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
+    return (t(q), t(pk), t(pv), torch.from_numpy(tables), torch.tensor([126, 129, 199, 289, 5], dtype=torch.int32),
+            torch.tensor([4, 1, 1, 1, 0], dtype=torch.int32))
+
+
 def test_sm90_roundings_and_partitions_fit_the_chip_gate():
     """The Hopper route's arithmetic (kv partitions from ``kv_partitions`` at
     this launch's shape, P in two bf16 parts, the fp32 merge in partition
@@ -246,13 +266,165 @@ def test_sm90_quantized_scale_fold_fits_the_chip_gate(quant):
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,route", [
     (torch.bfloat16, torch.bfloat16, "sm90"), (torch.bfloat16, torch.int8, "sm90_quant"),
-    (torch.bfloat16, torch.float8_e4m3fn, "sm90_quant"), (torch.float32, torch.float32, "simt"),
-    (torch.float32, torch.bfloat16, "simt"), (torch.float32, torch.int8, "simt"),
-    (torch.float32, torch.float8_e4m3fn, "simt"), (torch.bfloat16, torch.float32, "simt")])
+    (torch.bfloat16, torch.float8_e4m3fn, "sm90_quant"), (torch.float32, torch.float32, "sm90_f32"),
+    (torch.float32, torch.bfloat16, "sm90_f32"), (torch.float32, torch.int8, "sm90_f32"),
+    (torch.float32, torch.float8_e4m3fn, "sm90_f32"), (torch.bfloat16, torch.float32, "sm90_f32")])
 def test_kernel_route(q_dtype, kv_dtype, route):
-    """bf16 queries over a bf16, int8 or fp8 pool take the Hopper kernel; fp32
-    queries, or an fp32 pool, the SIMT kernel (the precise check)."""
+    """bf16 queries over a bf16, int8 or fp8 pool take the bf16 wgmma kernel;
+    fp32 queries, or an fp32 pool, the fp32 route (3xTF32 products, the
+    precise check)."""
     assert pa.kernel_route(q_dtype, kv_dtype) == route
+
+
+# ----------------------------------------------------------------- the fp32 route's arithmetic
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to TF32's 10 mantissa bits, to nearest
+    with ties away from zero (finite x)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the fp32 route's ``mma.sync`` products make it: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), then a_lo b_hi + a_hi b_lo
+    + a_hi b_hi in fp32 (``passes=3``), or a_hi b_hi alone (``passes=1``,
+    one TF32 pass)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _sm90_f32_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, passes=3, k_scale=None, v_scale=None):
+    """The fp32 route of ``paged_attention_sm90.cu`` step by step in torch, in
+    fp32: per (sequence, kv head), tiles of 128 folded rows; each kv
+    partition walks its 64-position tiles up to the tile's highest live
+    position with S = Q K^T and O += P V from TF32 operands
+    (:func:`_mm_tf32`); a tile with 16 or fewer live rows runs its first 16
+    rows on eight warps of 8 columns each, every warp with its own online
+    softmax (exp2 of scores times scale * log2(e)), combined in warp order
+    (a warp that saw nothing of a row adds nothing); otherwise one softmax a
+    row over the whole tile. The partitions then merge in partition order
+    over each row's live ones. A quantized pool is read as its raw values:
+    S's column c times its K scale before the mask, P's column c times its V
+    scale before the split, the row sum over P."""
+    B, T, N, H = q.shape
+    _nb, K, bs, _ = pk.shape
+    group, cap, rows_total = N // K, tables.shape[1] * bs, T * (N // K)
+    padded = -(-cap // 64) * 64
+    sl2 = H**-0.5 * math.log2(math.e)
+    neg = pa.NEG_INF
+    out = torch.zeros(B, T, N, H)
+    for b in range(B):
+        qlen = min(int(q_lens[b]), T)
+        blocks = tables[b].long()
+        tq = torch.arange(rows_total) // group
+        lim = torch.where(tq < qlen, torch.clamp_max(int(q_start[b]) + tq, cap - 1), torch.full_like(tq, -1))
+
+        def walked(pool, sc, kh):  # [padded, H] fp32 raw values and [padded] scales (1 for a float pool)
+            x = torch.zeros(padded, H)
+            x[:cap] = pool[blocks, kh].reshape(cap, H).float()
+            s = torch.ones(padded)
+            if sc is not None:
+                s[:cap] = sc[blocks, kh].reshape(cap)
+            return x, s
+
+        for kh in range(K):
+            (k, ks), (v, vs) = walked(pk, k_scale, kh), walked(pv, v_scale, kh)
+            rows_q = q[b, :, kh * group:(kh + 1) * group].reshape(rows_total, H).float()
+            res = torch.zeros(rows_total, H)
+            for row0 in range(0, rows_total, 128):
+                lim_t = lim[row0:row0 + 128]
+                hi = int(lim_t.max())
+                if hi < 0:
+                    continue
+                cw = 8 if int((lim_t >= 0).sum()) <= 16 else 1
+                n, nc = (16, 8) if cw == 8 else (len(lim_t), 64)
+                rows, lrow = rows_q[row0:row0 + n], lim_t[:n]
+                n = len(rows)
+                ms, ls, os_ = [], [], []
+                for p in range(parts):
+                    if p * part_len > hi:
+                        break
+                    m, l, o = torch.full((n, cw), neg), torch.zeros(n, cw), torch.zeros(n, cw, H)
+                    for c0 in range(p * part_len, min((p + 1) * part_len, hi + 1), 64):
+                        s = _mm_tf32(rows, k[c0:c0 + 64].T, passes) * ks[c0:c0 + 64]
+                        s = torch.where(torch.arange(c0, c0 + 64)[None, :] <= lrow[:, None], s, torch.full_like(s, neg))
+                        s = s.reshape(n, cw, nc)
+                        mn = torch.maximum(m, s.amax(-1))
+                        mu = torch.where(mn == neg, torch.zeros_like(mn), mn * sl2)
+                        a = torch.exp2(m * sl2 - mu)
+                        pr = torch.exp2(s * sl2 - mu[..., None])
+                        l = l * a + pr.sum(-1)
+                        pv_ = (pr * vs[c0:c0 + 64].reshape(cw, nc)).transpose(0, 1)  # [cw, n, nc]
+                        o = o * a[..., None] + _mm_tf32(pv_, v[c0:c0 + 64].reshape(cw, nc, H), passes).transpose(0, 1)
+                        m = mn
+                    mu = m.amax(-1)  # the block's combine of its warps, in warp order
+                    w = torch.where(m == neg, torch.zeros_like(m), torch.exp2(m * sl2 - (mu * sl2)[:, None]))
+                    den, acc = torch.zeros(n), torch.zeros(n, H)
+                    for c in range(cw):
+                        den = den + w[:, c] * l[:, c]
+                        acc = acc + w[:, c, None] * o[:, c]
+                    ms.append(torch.where(mu == neg, mu, mu * sl2))
+                    ls.append(den)
+                    os_.append(acc)
+                if parts == 1:
+                    got = os_[0] / torch.clamp_min(ls[0], 1e-37)[:, None]
+                else:  # in partition order over the partitions each row's positions reach
+                    live = torch.clamp(torch.div(lrow, part_len, rounding_mode="floor") + 1, 0, parts)
+                    mu = torch.full((n,), neg)
+                    for i, mp in enumerate(ms):
+                        mu = torch.where(i < live, torch.maximum(mu, mp), mu)
+                    den, acc = torch.zeros(n), torch.zeros(n, H)
+                    for i, (mp, lp, op) in enumerate(zip(ms, ls, os_)):
+                        w = torch.where(i < live, torch.exp2(mp - mu), torch.zeros_like(mu))
+                        den = den + w * lp
+                        acc = acc + w[:, None] * op
+                    got = acc / torch.clamp_min(den, 1e-37)[:, None]
+                res[row0:row0 + n] = got
+            out[b, :, kh * group:(kh + 1) * group] = res.reshape(T, group, H)
+    return out
+
+
+@pytest.mark.parametrize("pool", ["fp32", "int8", "fp8", "bf16 q"])
+@pytest.mark.parametrize("fold", ["qwen2_7b", "ppo"])
+def test_sm90_f32_3xtf32_fits_the_chip_gate(fold, pool):
+    """The fp32 route's arithmetic (3xTF32 products, 64-position tiles,
+    eight-warp column split on decode rows, the partitions of
+    ``kv_partitions`` at this launch's shape merged in order) against the
+    plain version under ``chip_smoke.py``'s fp32 gate (|err| <= 1e-4), at
+    Qwen2-7B's fold (group 7) and PPO's (group 6), over an fp32, int8 or fp8
+    pool and for bf16 queries over an fp32 pool (held in fp32 before the
+    output's bf16 rounding); dead rows exact zeros. Over an fp32 pool one
+    TF32 pass is printed beside it, not gated."""
+    import chip_smoke
+
+    from paddlenlp_tpu_torch.experimental.paged_cache import quantize_kv
+
+    batch = _serving_batch if fold == "qwen2_7b" else _ppo_batch
+    q, pk, pv, tables, q_start, q_lens = batch(11, torch.float32)
+    ks = vs = None
+    if pool == "bf16 q":
+        q = q.bfloat16().float()  # the kernel reads bf16 q exactly as these fp32 values
+    elif pool != "fp32":
+        qdtype = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+        (pk, ks), (pv, vs) = quantize_kv(pk, qdtype), quantize_kv(pv, qdtype)
+    B, T, N, H = q.shape
+    parts, part_len = pa.kv_partitions(B, T, N, pk.shape[1], tables.shape[1], pk.shape[2], route="sm90_f32")
+    assert parts > 1  # these decode-heavy launches take the split walk
+    want = pa.ragged_paged_attention_ref(q, pk, pv, tables, q_start, q_lens, k_scale=ks, v_scale=vs)
+    rtol, atol = chip_smoke.KERNEL_TOL["float32"]
+    worst = {}
+    for passes in (3, 1) if pool == "fp32" else (3,):
+        got = _sm90_f32_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, passes, k_scale=ks,
+                                  v_scale=vs)
+        worst[passes] = ((got - want).abs() / (rtol * want.abs() + atol)).max().item()
+        if passes == 3:
+            for b, qlen in enumerate(q_lens.tolist()):
+                assert torch.all(got[b, qlen:] == 0), b
+    print(f"paged sm90_f32 {fold} over {pool}: worst over the fp32 gate",
+          {f"{k} TF32 pass{'es' if k > 1 else ''}": round(w, 4) for k, w in worst.items()})
+    assert worst[3] <= 1.0
 
 
 @pytest.mark.parametrize("parts", range(1, 9))
@@ -286,3 +458,23 @@ def test_kv_partitions():
         assert part_len % 64 == 0 and parts >= 1 and parts * part_len >= mb * bs > (parts - 1) * part_len
         tiles = -(-T * (N // K) // 64) * K * B
         assert parts == 1 or tiles * parts <= 8 * 132 + tiles, (B, T, N, K, mb, bs, parts)
+
+
+def test_kv_partitions_f32_route():
+    """The fp32 route's blocks hold 128 folded rows, one resident an SM: a
+    decode launch (PPO's 8 rows x 2 kv heads, Qwen2-7B's 8 x 4, tables of
+    4,096 positions) splits into about four blocks an SM, where the bf16
+    routes' rule (64-row blocks, two an SM) gave twice the partitions, and
+    PPO's prefill [8, 256, 12, 128] (192 blocks) fills the SMs and takes
+    one partition."""
+    assert pa.kv_partitions(8, 1, 12, 2, 256, 16, route="sm90_f32") == (32, 128)
+    assert pa.kv_partitions(8, 1, 28, 4, 256, 16, route="sm90_f32") == (16, 256)
+    assert pa.kv_partitions(8, 256, 12, 2, 256, 16, route="sm90_f32") == (1, 4096)
+    assert pa.kv_partitions(8, 1, 12, 2, 256, 16) == (64, 64)
+    assert pa.kv_partitions(8, 1, 28, 4, 256, 16) == (32, 128)
+    for route, (rows, per_sm) in pa.ROUTE_BLOCKS.items():
+        for B, T, N, K in ((8, 1, 12, 2), (8, 5, 28, 4), (1, 1, 8, 8), (3, 40, 14, 2)):
+            parts, part_len = pa.kv_partitions(B, T, N, K, 256, 16, route=route)
+            tiles = -(-T * (N // K) // rows) * K * B
+            assert parts * part_len >= 4096 > (parts - 1) * part_len and part_len % 64 == 0
+            assert parts == 1 or tiles * parts <= 4 * per_sm * 132 + tiles, (route, B, T, N, K, parts)

@@ -84,8 +84,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.nvidia_smi())
-    for stem in ("paged_attention_sm90", "paged_attention"):
-        cs.emit(dict(phase="build", source=_build.SOURCES[stem], seconds=_build.build(stem)["seconds"]))
+    cs.emit(dict(phase="build", source=_build.SOURCES["paged_attention_sm90"],
+                 seconds=_build.build("paged_attention_sm90")["seconds"]))
     t0 = time.perf_counter()
     model = Qwen2ForCausalLM.init_random(Qwen2Config(**cs.QWEN2_7B), seed=args.seed, device=cs.DEVICE,
                                          dtype=torch.bfloat16)
