@@ -187,9 +187,34 @@ Serving, the paged engine at Qwen2-7B width and depth:
               engine's ids; TTFT/TPOT and tokens/s; every paged launch on the
               Hopper route;
 
+The MoE family, at Mixtral-8x7B's published widths (random bf16 weights from
+``--seed``; the Qwen2-7B serving model freed first):
+
+16. mixtral -- ``MixtralForCausalLM.generate`` at 16 of the 32 layers (the
+              dense dispatch), greedy over [4, 1024] + 32: prefill ms, TPOT,
+              tokens/s and peak memory, no kernel launched; its routing
+              recorded and replayed in the checks (top-k flips on a rounding
+              change): the ids against the argmax of the uncached dense path
+              along the stream, parting only within twice the bf16 distance
+              from the fp32 forward, and the cached prefill's logits within
+              twice the uncached bf16 forward's distance from fp32; one MoE
+              layer over 4096 tokens at full width: fp32 dense and sparse
+              against the per-expert loop (1e-4 of the largest element, the
+              aux loss rel 1e-5), bf16 sparse against dense within one bf16
+              rounding on the norm, two launches bit for bit (the sparse
+              backward too), each dispatch timed; the flash kernels at the
+              step's attention shape (q [1, 4096, 32, 128] over k/v
+              [1, 4096, 8, 128]); at 2 layers, under each dispatch, one
+              [1, 4096] step's loss (LM + aux) and every gradient leaf through
+              the kernels against the plain attention (``MIXTRAL_STEP_TOL``,
+              routing pinned to the plain step's; the bf16-vs-fp32 control
+              outside it), then two ``Trainer`` steps of 2 accumulated
+              [1, 4096] micro-batches: step time, tokens/s, MFU, peak memory,
+              every flash launch on the Hopper route;
+
 Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 
-16. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
+17. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               in fp32, with segments and a window, and at T = 4095; bf16 takes
@@ -199,11 +224,11 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               bf16 dq gives bitwise equal results over two launches; times
               against the bound, the plain versions and
               ``scaled_dot_product_attention``;
-17. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
+18. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
               plain versions, in fp32 (the SIMT kernels) and at bf16 compute
               (the Hopper kernels), with the bf16-vs-fp32 control;
-18. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
+19. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
               Qwen2-1.5B at full width and depth with random weights and a
@@ -218,8 +243,8 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               window's Chrome trace holds the three Hopper flash kernels; the
               saved checkpoint (and the tokenizer beside it) loads back bit
               for bit;
-19. train_profile -- ``torch.profiler`` over one more training step;
-20. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
+20. train_profile -- ``torch.profiler`` over one more training step;
+21. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
               Qwen2-1.5B widths and 10 layers (``RESUME_LAYERS``: the run keeps
               its disk writes under 45 GiB): a straight run
@@ -230,10 +255,10 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               parameters equal the straight run's bit for bit, the two
               checkpoint-4s' model and optimizer files hash alike; load
               GB/s, the loop's stall against the writer thread's time;
-21. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
+22. train_recompute -- one optimizer step (2 micro-batches of 2 x 4096) under
               each of the 8 recompute granularities at full depth: wall s,
               peak memory and flash launches each; the losses equal;
-22. finetune -- ``paddlenlp_tpu_torch.llm.run_finetune.main`` on the repo's
+23. finetune -- ``paddlenlp_tpu_torch.llm.run_finetune.main`` on the repo's
               SFT recipe (``llm/config/qwen2/sft_argument.json``) cut to one
               card (no tp2, no stage2, 4 steps, no saves between, one
               evaluate; each cut printed under ``reduced``), from the train
@@ -247,7 +272,7 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               forward again under ``full`` recompute, one forward a layer
               for the evaluate), all on the Hopper route; the saved model
               loads back through ``AutoModelForCausalLM`` bit for bit;
-23. finetune_predict -- ``create_predictor(mode="block")`` on the SFT output
+24. finetune_predict -- ``create_predictor(mode="block")`` on the SFT output
               directory alone (weights, config and tokenizer from disk), 4
               prompts, 32 new tokens, greedy: the ids equal an engine's over
               the trainer's final weights cast to bf16; every paged launch on
@@ -255,7 +280,7 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 PEFT and alignment at Qwen2-1.5B width and depth, each from the train
 phase's saved model and tokenizer, each freeing its models:
 
-24. finetune_lora -- ``run_finetune.main`` with ``lora`` on the repo's
+25. finetune_lora -- ``run_finetune.main`` with ``lora`` on the repo's
               recipe (``llm/config/qwen2/lora_argument.json``) cut to one
               card (no stage2, accumulation 1, 3 steps, warmup 1, no saves
               or evaluations between; rank 8, lr 3e-4, recompute, padded
@@ -267,38 +292,39 @@ phase's saved model and tokenizer, each freeing its models:
               exported to an ``AdapterRegistry`` serves one greedy request of
               32 tokens through the bf16 engine (Hopper paged kernel) that
               matches ``LoRAModel.generate`` within the depth gate;
-25. finetune_prefix -- the same cut with ``prefix_tuning`` (64 tokens), 2
+26. finetune_prefix -- the same cut with ``prefix_tuning`` (64 tokens), 2
               steps: base leaves unchanged, ``prefix_kv`` moved;
-26. vera   -- ``VeRAModel`` (rank 64 on q/k/v/o) through ``Trainer``, 2
+27. vera   -- ``VeRAModel`` (rank 64 on q/k/v/o) through ``Trainer``, 2
               steps on the finetune phase's packed rows: the flash kernels,
               all on the Hopper route; base leaves and shared bases unchanged;
-27. dpo    -- ``DPOTrainer`` on ``dpo_argument.json`` cut to one card (1 x
+28. dpo    -- ``DPOTrainer`` on ``dpo_argument.json`` cut to one card (1 x
               accumulation 2, 3 steps; max_length 4096, prompt 2048, sigmoid,
               beta 0.1, lr 1e-6), rows from ``load_preference_rows``: step 1's
               loss ln 2 within 1e-4, every flash launch (policy, recompute,
               frozen reference at [2, 4095, 12, 128]) on the Hopper route, the
               three kernels against their plain versions at T = 4095;
-28. rm     -- ``RewardTrainer`` over ``Qwen2ForSequenceClassification`` of the
+29. rm     -- ``RewardTrainer`` over ``Qwen2ForSequenceClassification`` of the
               train phase's directory, 2 steps at max_length 1024;
-29. ppo    -- ``PPOTrainer`` in GRPO mode for 2 rounds (the rm phase's reward
+30. ppo    -- ``PPOTrainer`` in GRPO mode for 2 rounds (the rm phase's reward
               model; 2 prompts of 128-256 tokens x 4 rollouts x 32 new
               tokens through one fp32 engine): every paged launch on the
               fp32 route (``sm90_f32``), the paged kernel's device ms in one
               profiled rollout round beside the round's wall; in round 2 the engine's paged model over the
               updated weights against their dense fp32 forward at rel 1e-4;
-30. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
+31. fused_ce -- ``fused_linear_cross_entropy`` against ``causal_lm_loss`` on
               full logits at the step's head (hidden [2, 4096, 1536] bf16,
               the tied 1536 x 151936 head): the loss and both gradients
               within the bf16 gate, the peak memory of each;
-31. kernels -- every kernel with its launches on the serving runs (the two
+32. kernels -- every kernel with its launches on the serving runs (the two
               engine runs, the serve, router, spec, host_tier, lora, wquant,
               predict and finetune_predict phases and the finetune_lora
               phase's served adapter; the kv_quant phase for the quantized
               entry; the ppo phase's fp32 rollouts for the fp32 entry) and the
               training runs (train, train_resume, train_recompute, finetune,
-              vera, dpo, and the spec phase's draft forwards), each on its own
+              vera, dpo, the mixtral phase's Trainer steps, and the spec
+              phase's draft forwards), each on its own
               route, and its check;
-32. disk   -- the bytes this process wrote (``/proc/self/io``), checked
+33. disk   -- the bytes this process wrote (``/proc/self/io``), checked
               against the 45 GiB a run may write, and the run's seconds.
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
@@ -3778,15 +3804,23 @@ class _PlainFlash:
 # The loss moves ~1e-5 under any change of rounding (kernels 5e-6-1.7e-5,
 # control 1.2e-5-5.8e-5): its bound only catches gross errors.
 BF16_STEP_TOL = dict(loss_rel=1e-4, leaf_rel=1.4e-2, all_rel=1.2e-2)
+# The same bounds for the mixtral phase's step (2 layers of Mixtral-8x7B's
+# widths, [1, 4096], routing pinned to the plain step's), placed between the
+# kernels' readings and the control's over seeds 0-3 and both dispatches on
+# an H100 (``tools/chip_smoke_mixtral.py --calibrate``; PERF.md): both
+# readings sit ~1.3x above the Qwen2 step's at [2, 1024] and at [1, 4096].
+MIXTRAL_STEP_TOL = dict(loss_rel=1e-4, leaf_rel=2.0e-2, all_rel=1.9e-2)
 
 
-def _grad_step(torch, fa, modeling, cfg, Qwen2ForCausalLM, causal_lm_loss, ids, seed, dtype, plain):
-    """One forward and backward of a fresh model (fp32 master weights, compute
-    in ``dtype``) with the attention through the kernels or, if ``plain``,
-    the plain versions: (loss, {leaf: grad}, launches, Hopper-route launches)."""
+def _grad_step(torch, fa, modeling, cfg, model_cls, causal_lm_loss, ids, seed, dtype, plain):
+    """One forward and backward of a fresh ``model_cls`` (fp32 master weights,
+    compute in ``dtype``) with the attention through the kernels or, if
+    ``plain``, the plain versions: (loss, {leaf: grad}, launches, Hopper-route
+    launches). An MoE model's loss is the LM loss plus its load-balancing
+    loss, as ``Trainer.compute_loss`` has it."""
     from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
 
-    model = Qwen2ForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+    model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
     model.compute_dtype = getattr(torch, dtype)
     leaves = flatten_params(model.params)
     for t in leaves.values():
@@ -3796,7 +3830,11 @@ def _grad_step(torch, fa, modeling, cfg, Qwen2ForCausalLM, causal_lm_loss, ids, 
     if plain:
         modeling.dot_product_attention = _PlainFlash(torch, fa)
     try:
-        loss = causal_lm_loss(model.forward(ids), ids, shift=True)
+        if model.returns_aux_loss:
+            logits, aux = model.forward(ids, return_aux=True)
+            loss = causal_lm_loss(logits, ids, shift=True) + aux
+        else:
+            loss = causal_lm_loss(model.forward(ids), ids, shift=True)
         loss.backward()
     finally:
         modeling.dot_product_attention = kernel_attention
@@ -5386,6 +5424,397 @@ def run_training_phases(torch, np, fa, seed, tok_dir=None):
     return train, resume, recompute, finetune, ft_predict, align
 
 
+# ----------------------------------------------------------------------------- the MoE family: Mixtral
+# mistralai/Mixtral-8x7B-v0.1 config.json (https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/main/config.json)
+MIXTRAL_8X7B = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=1e6, hidden_act="silu",
+    initializer_range=0.02, num_local_experts=8, num_experts_per_tok=2, router_aux_loss_coef=0.02,
+    sliding_window=None, tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+)
+MIXTRAL_GEN_LAYERS = 16  # 23.5B parameters, 47 GB in bf16: the whole 46.7B model does not fit the card
+MIXTRAL_GEN = (4, 1024, 32)  # generate: rows, prompt tokens, new tokens
+MIXTRAL_TRAIN_LAYERS = 2  # 3.17B parameters: fp32 masters, gradients and two AdamW moments come to ~51 GB
+MIXTRAL_MICRO = (1, 4096)  # the Trainer step's micro-batch; 2 accumulated
+
+
+def mixtral_generate(torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed):
+    """``generate`` at 16 of Mixtral-8x7B's 32 layers, dense dispatch, random
+    bf16 weights: greedy over [4, 1024] + 32, no kernel launched (the dense
+    path's attention is the XLA-path counterpart). Its routing is recorded
+    (``PinnedRouting``) and replayed in the checks, which run the dense path
+    uncached over the stream it fed (an all-ones mask: generate's attention
+    arithmetic) in bf16 and in fp32: top-k is discontinuous, and a rounding
+    change of a router's input sends a near-tied token to another expert,
+    which no rounding gate covers (the flipped share is printed, with the
+    distances of the unpinned bf16 forward). Checks: (a) each row's greedy
+    ids against the bf16 argmax along the stream, parting only where the two
+    tokens' fp32 margin is within twice the bf16 distance there
+    (``depth_divergence``'s gate; ``divergence``'s bf16 gate printed beside
+    it); (b) the cached prefill's logits at each row's last prompt position
+    within twice the uncached bf16 forward's distance from the fp32 one."""
+    from paddlenlp_tpu_torch.transformers import moe_layers
+    from paddlenlp_tpu_torch.transformers.cache_utils import init_cache
+
+    cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_GEN_LAYERS})
+    t0 = time.perf_counter()
+    model = MixtralForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, T, new = MIXTRAL_GEN
+    L, K = cfg.num_hidden_layers, cfg.num_experts_per_tok
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=DEVICE)
+    pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
+    reset_counts(fa)
+    routed = PinnedRouting(moe_layers)
+    with routed:
+        out, _, timing = timed_generate(torch, model, ids.cpu().numpy(), max_new_tokens=new)
+    launches = dict(paged=pa.LAUNCHES, flash=sum(fa.LAUNCHES.values()))
+    gates = [(launches == dict(paged=0, flash=0), f"mixtral generate: kernels launched {launches}"),
+             (len(routed.choices) == L * new, f"mixtral generate: {len(routed.choices)} routings, want the prefill's "
+                                              f"and {new - 1} decode steps' {L * new}")]
+    # generate's routing laid over the tokens it fed: the prompt, then the first new - 1 generated tokens
+    fed = PinnedRouting(moe_layers)
+    fed.choices = [torch.cat([routed.choices[l].reshape(B, T, K)] + [routed.choices[L * s + l].reshape(B, 1, K)
+                                                                    for s in range(1, new)], 1).reshape(-1, K)
+                   for l in range(L)]
+    stream = torch.cat([ids, out[:, :new - 1].to(DEVICE)], dim=1)
+    ones = torch.ones_like(stream)
+    with torch.no_grad():
+        with PinnedRouting(moe_layers, replay=fed):
+            lbf = model(stream, attention_mask=ones)[:, T - 1:]
+        with PinnedRouting(moe_layers, replay=fed):
+            l32 = model(stream, dtype=torch.float32, attention_mask=ones)[:, T - 1:]
+        own = PinnedRouting(moe_layers)
+        with own:
+            lown = model(stream, attention_mask=ones)[:, T - 1:]
+        prefill = PinnedRouting(moe_layers)
+        prefill.choices = routed.choices[:L]
+        with PinnedRouting(moe_layers, replay=prefill):
+            cached = model(ids, cache=init_cache(cfg, B, T, dtype=torch.bfloat16, device=DEVICE))[0][:, -1]
+    argmax, own_argmax = lbf.argmax(-1).tolist(), lown.argmax(-1).tolist()
+    rows = {}
+    for r in range(B):
+        got = upto_eos(out[r].tolist(), cfg.eos_token_id)
+        want = argmax[r][:len(got)]
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        row = dict(tokens=len(got), equal=j is None,
+                   own_routing_equal=own_argmax[r][:len(got)] == got,
+                   own_routing_distance=bf16_distance(torch, l32[r, 0], lown[r, 0]))
+        if j is not None:
+            la, lb = l32[r, j, got[j]].item(), l32[r, j, want[j]].item()
+            dist = bf16_distance(torch, l32[r, j], lbf[r, j])
+            margin, gate = abs(la - lb), 2**-7 * max(abs(la), abs(lb)) + 1e-3
+            row["divergence"] = dict(position=j, tokens=[got[j], want[j]], logits=[la, lb], margin=margin, gate=gate,
+                                     within_gate=margin <= gate, bf16_distance=dist, depth_gate=2 * dist,
+                                     within_depth_gate=margin <= 2 * dist)
+            gates.append((margin <= 2 * dist, f"mixtral generate: row {r} parts from the uncached argmax outside "
+                                              f"twice the bf16 distance: {row['divergence']}"))
+        plain_d, cached_d = bf16_distance(torch, l32[r, 0], lbf[r, 0]), bf16_distance(torch, l32[r, 0], cached[r])
+        row.update(plain_bf16_distance=plain_d, cached_bf16_distance=cached_d,
+                   same_top1=bool(cached[r].argmax() == l32[r, 0].argmax()))
+        gates.append((cached_d <= 2 * plain_d, f"mixtral generate: row {r}'s cached bf16 logits sit {cached_d} from "
+                                               f"fp32, past twice the uncached bf16 distance {plain_d}"))
+        rows[r] = row
+    flipped = own.flips(fed)
+    del model, cached, l32, lbf, lown, out, stream, routed, fed, own, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=MIXTRAL_GEN_LAYERS, params=cfg_params(MixtralForCausalLM, cfg), init_s=init_s,
+                batch=[B, T], new_tokens=new, dispatch="dense", launches=launches, rows=rows,
+                equal_rows=sum(v["equal"] for v in rows.values()), own_routing_flipped_choices=flipped,
+                **timing), gates
+
+
+def cfg_params(model_cls, cfg):
+    return int(sum(math.prod(s) for s in model_cls.param_shapes(cfg).values()))
+
+
+def moe_bf16_distance(got, want):
+    """Two bf16 MoE outputs that round their products in different orders
+    (the sparse dispatch rounds each weighted expert row before the sum over
+    its top-k, the dense one sums the weighted rows in fp32): the error's
+    norm over the output's norm (``rel_err``; one bf16 rounding is 2**-7),
+    and the largest element's error beside it. Elementwise gates do not hold
+    here: where a token's two expert rows cancel, one rounding of a summand
+    is far larger than the sum."""
+    d, w = (got.float() - want.float()), want.float()
+    return dict(rel_err=(d.norm() / w.norm()).item(), max_abs_err=d.abs().max().item(),
+                max_abs_want=w.abs().max().item())
+
+
+def mixtral_layer(torch, MixtralConfig, seed):
+    """One MoE layer at Mixtral-8x7B's widths (4096 -> 8 x 14336, top 2) over
+    4096 tokens: fp32 dense and sparse (capacity E/K: no drop) against the
+    per-expert loop within 1e-4 of the largest element (the summation order),
+    the aux loss within rel 1e-5; bf16 sparse against bf16 dense within one
+    bf16 rounding on the norm (``moe_bf16_distance``); each
+    bf16 dispatch's forward, and the sparse one's backward at the default
+    capacity, twice bit for bit; each dispatch's forward and the loop timed."""
+    from paddlenlp_tpu_torch.transformers.moe_layers import moe_mlp, moe_mlp_loop
+
+    E, K = MIXTRAL_8X7B["num_local_experts"], MIXTRAL_8X7B["num_experts_per_tok"]
+    D, F = MIXTRAL_8X7B["hidden_size"], MIXTRAL_8X7B["intermediate_size"]
+    cfgs = {(d, cf): MixtralConfig(**MIXTRAL_8X7B, moe_dispatch=d, moe_capacity_factor=cf)
+            for d in ("dense", "sparse") for cf in (E / K, 2.0)}
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    std = MIXTRAL_8X7B["initializer_range"]
+    x32 = torch.randn(1, MIXTRAL_MICRO[1], D, generator=g, device=DEVICE)
+    leaves32 = {"gate/kernel": torch.randn(D, E, generator=g, device=DEVICE) * std,
+                "w1": torch.randn(E, D, F, generator=g, device=DEVICE) * std,
+                "w3": torch.randn(E, D, F, generator=g, device=DEVICE) * std,
+                "w2": torch.randn(E, F, D, generator=g, device=DEVICE) * std}
+    res, gates = dict(tokens=MIXTRAL_MICRO[1], experts=E, top_k=K, hidden=D, intermediate=F), []
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    with torch.no_grad():
+        loop, loop_aux = moe_mlp_loop(cfgs["dense", 2.0], x32, leaves32["gate/kernel"], leaves32["w1"],
+                                      leaves32["w3"], leaves32["w2"])
+        res["fp32"] = dict(loop_ms=time_cuda(torch, lambda: moe_mlp_loop(
+            cfgs["dense", 2.0], x32, leaves32["gate/kernel"], leaves32["w1"], leaves32["w3"], leaves32["w2"]),
+            2, flush))
+        for d in ("dense", "sparse"):
+            out, aux = moe_mlp(cfgs[d, E / K], x32, None, leaves32.__getitem__)
+            err = (out - loop).abs().max().item() / loop.abs().max().item()
+            aux_rel = abs(aux.item() - loop_aux.item()) / abs(loop_aux.item())
+            res["fp32"][d] = dict(rel_err=err, aux=aux.item(), loop_aux=loop_aux.item(), aux_rel_err=aux_rel,
+                                  ms=time_cuda(torch, lambda: moe_mlp(cfgs[d, E / K], x32, None, leaves32.__getitem__),
+                                               2, flush))
+            gates.append((err <= 1e-4, f"mixtral layer fp32 {d}: {err} of the loop's largest element > 1e-4"))
+            gates.append((aux_rel <= 1e-5, f"mixtral layer fp32 {d}: aux rel err {aux_rel} > 1e-5"))
+            del out
+        del loop
+        x = x32.to(torch.bfloat16)
+        leaves = {k: v if k == "gate/kernel" else v.to(torch.bfloat16) for k, v in leaves32.items()}
+        del x32, leaves32
+        torch.cuda.empty_cache()
+        outs = {d: [moe_mlp(cfgs[d, E / K], x, None, leaves.__getitem__)[0] for _ in range(2)]
+                for d in ("dense", "sparse")}
+        worst = moe_bf16_distance(outs["sparse"][0], outs["dense"][0])
+        res["bf16"] = dict(sparse_vs_dense=worst, same_bits={d: bool(torch.equal(*o)) for d, o in outs.items()},
+                           ms={d: time_cuda(torch, lambda: moe_mlp(cfgs[d, cf], x, None, leaves.__getitem__), 5,
+                                            flush) for d, cf in (("dense", 2.0), ("sparse", 2.0))})
+        gates.append((worst["rel_err"] <= 2**-7, f"mixtral layer bf16: sparse parts from dense past one bf16 "
+                                                 f"rounding ({worst})"))
+        for d, same in res["bf16"]["same_bits"].items():
+            gates.append((same, f"mixtral layer bf16 {d}: two launches differ"))
+        del outs
+    grads = []
+    for _ in range(2):
+        xs = x.clone().requires_grad_(True)
+        ls = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        out, aux = moe_mlp(cfgs["sparse", 2.0], xs, None, ls.__getitem__)
+        (out.float().square().mean() + aux).backward()
+        grads.append([out.detach(), xs.grad] + [ls[k].grad for k in sorted(ls)])
+        del xs, ls, out, aux
+    res["bf16"]["sparse_backward_same_bits"] = all(torch.equal(a, b) for a, b in zip(*grads))
+    gates.append((res["bf16"]["sparse_backward_same_bits"], "mixtral layer bf16 sparse: two backwards differ"))
+    del grads, x, leaves, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, gates
+
+
+class PinnedRouting:
+    """Every MoE layer's top-k choice (``moe_layers.route``), recorded in
+    the order a forward makes them, or replayed from a recording: the
+    replaying forward keeps its own router probabilities and takes the
+    recorded experts, so a step that differs from another by rounding
+    routes each token as the other did. ``flips(other)`` is the share of
+    (layer, token) choices that differ from another recording."""
+
+    def __init__(self, moe_layers, replay=None):
+        self.moe_layers, self.replay, self.choices = moe_layers, replay, []
+
+    def __enter__(self):
+        route = self.orig = self.moe_layers.route
+
+        def pinned(router_logits, top_k, norm_topk_prob):
+            probs, topk_probs, idx = route(router_logits, top_k, norm_topk_prob)
+            if self.replay is not None:
+                idx = self.replay.choices[len(self.choices)]
+                topk_probs = probs.gather(1, idx)
+                if norm_topk_prob:
+                    topk_probs = topk_probs / topk_probs.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.choices.append(idx)
+            return probs, topk_probs, idx
+
+        self.moe_layers.route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_layers.route = self.orig
+
+    def flips(self, other):
+        """The share of (layer, token) expert sets that differ from ``other``'s."""
+        pairs = [(a.sort(dim=-1).values, b.sort(dim=-1).values) for a, b in zip(self.choices, other.choices)]
+        return sum((a != b).any(-1).sum().item() for a, b in pairs) / sum(len(a) for a, _ in pairs)
+
+
+def mixtral_train(torch, fa, modeling, causal_lm_loss, MixtralConfig, MixtralForCausalLM, Trainer,
+                  TrainingArguments, seed):
+    """At 2 of Mixtral-8x7B's 32 layers, bf16 compute over fp32 masters, under
+    each dispatch: (a) the loss (LM + aux) and every gradient leaf of one
+    [1, 4096] forward and backward through the flash kernels against the
+    same step with the plain attention, to ``MIXTRAL_STEP_TOL`` (the
+    ``BF16_STEP_TOL`` verdict printed beside it), with the
+    bf16-vs-fp32 control outside it (``_grad_step``, as ``train_grad``),
+    the routing of the kernel and fp32 steps pinned to the plain step's
+    (``PinnedRouting``): top-k is discontinuous, and a rounding-level
+    change of a router's input flips near-tied tokens to other experts,
+    which moves whole rows of their gradients; the kernel step with its own
+    routing is printed beside it, with the share of choices that flipped;
+    (b) two ``Trainer`` steps of 2 accumulated [1, 4096] micro-batches, the
+    flash launches of the steps counted (all on the Hopper route), the
+    second step's time, tokens/s, MFU (``get_model_flops``: every expert's
+    parameters, the work of the dense dispatch) and the peak memory."""
+    from paddlenlp_tpu_torch.transformers import moe_layers
+
+    res, gates, launches, sm90 = {}, [], {}, {}
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    ids = torch.randint(0, MIXTRAL_8X7B["vocab_size"], MIXTRAL_MICRO, generator=g, device=DEVICE)
+    batch = {"input_ids": torch.randint(0, MIXTRAL_8X7B["vocab_size"], (2 * MIXTRAL_MICRO[0], MIXTRAL_MICRO[1]),
+                                        generator=g, device=DEVICE).cpu().numpy()}
+    batch["labels"] = batch["input_ids"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mixtral_")
+    for dispatch in ("dense", "sparse"):
+        cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_TRAIN_LAYERS, "moe_dispatch": dispatch})
+        def step(dtype, plain, routing):
+            with routing:
+                out = _grad_step(torch, fa, modeling, cfg, MixtralForCausalLM, causal_lm_loss, ids, seed, dtype,
+                                 plain)
+            gc.collect()  # a finished step's model sits in a reference cycle: free it before the next one
+            torch.cuda.empty_cache()
+            return out
+
+        recorded = PinnedRouting(moe_layers)
+        ref = step("bfloat16", True, recorded)
+        free = PinnedRouting(moe_layers)
+        kern = step("bfloat16", False, free)
+        bf16_free = _step_errors(kern, ref)
+        losses = dict(bf16_kernels_own_routing=kern[0], bf16_plain=ref[0])
+        del kern
+        kern = step("bfloat16", False, PinnedRouting(moe_layers, replay=recorded))
+        bf16 = _step_errors(kern, ref)
+        check_launches = dict(kernels=kern[2], kernels_sm90=kern[3])
+        losses["bf16_kernels"] = kern[0]
+        del kern
+        f32 = step("float32", True, PinnedRouting(moe_layers, replay=recorded))
+        control = _step_errors(ref, f32)
+        losses["fp32_plain"] = f32[0]
+        del ref, f32
+        gates.append((bf16["loss_rel_err"] <= MIXTRAL_STEP_TOL["loss_rel"],
+                      f"mixtral train {dispatch}: kernels vs plain loss rel err {bf16['loss_rel_err']}"))
+        for key, got, ctl in (("leaf_rel", bf16["leaf"]["rel_err"], control["leaf"]["rel_err"]),
+                              ("all_rel", bf16["all_rel_err"], control["all_rel_err"])):
+            tol = MIXTRAL_STEP_TOL[key]
+            gates.append((got <= tol, f"mixtral train {dispatch}: kernels vs plain {key} {got} > {tol}"))
+            gates.append((ctl > tol, f"mixtral train {dispatch}: the bf16-vs-fp32 control's {key} {ctl} is inside "
+                                     f"{tol}: the bound would not tell the kernels from bf16 rounding"))
+        gates.append((check_launches["kernels_sm90"] == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2},
+                      f"mixtral train {dispatch}: the checked step's Hopper launches {check_launches}"))
+
+        # the Trainer: two optimizer steps of 2 accumulated micro-batches
+        model = MixtralForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+        model.compute_dtype = torch.bfloat16
+        args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=MIXTRAL_MICRO[0],
+                                 gradient_accumulation_steps=2, learning_rate=1e-5, warmup_steps=1, max_steps=2,
+                                 save_strategy="no", seed=seed)
+        trainer = Trainer(model=model, args=args)
+        trainer.create_optimizer_and_scheduler(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)
+        steps = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = trainer.training_step(batch)
+            torch.cuda.synchronize()
+            steps.append(dict(step_s=time.perf_counter() - t0, loss=out["loss"].item(),
+                              grad_norm=out["grad_norm"].item()))
+        step_launches, step_sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+        for n in step_launches:
+            launches[n] = launches.get(n, 0) + step_launches[n]
+            sm90[n] = sm90.get(n, 0) + step_sm90[n]
+        with torch.no_grad():
+            aux = model.forward(torch.from_numpy(batch["input_ids"][:1]).to(DEVICE), return_aux=True)[1].item()
+        tokens = 2 * MIXTRAL_MICRO[0] * MIXTRAL_MICRO[1]
+        step_s = steps[-1]["step_s"]
+        res[dispatch] = dict(
+            grad_check=dict(bf16=dict(bf16, tol=MIXTRAL_STEP_TOL,
+                                      within_bf16_step_tol=bf16["leaf"]["rel_err"] <= BF16_STEP_TOL["leaf_rel"]
+                                      and bf16["all_rel_err"] <= BF16_STEP_TOL["all_rel"]),
+                            bf16_vs_fp32_control=control, losses=losses,
+                            launches=check_launches, routing="pinned to the plain bf16 step's",
+                            own_routing=dict(bf16=bf16_free, flipped_choices=free.flips(recorded))),
+            steps=steps, aux_after=aux, step_s=step_s, tokens_per_s=tokens / step_s,
+            mfu=model.get_model_flops(2 * MIXTRAL_MICRO[0], MIXTRAL_MICRO[1]) / step_s / PEAK_FLOPS["bfloat16"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=step_launches,
+            sm90_launches=step_sm90)
+        want = {"fwd": 4 * MIXTRAL_TRAIN_LAYERS, "bwd_dq": 4 * MIXTRAL_TRAIN_LAYERS, "bwd_dkv": 4 * MIXTRAL_TRAIN_LAYERS}
+        gates.append((step_sm90 == step_launches == want,
+                      f"mixtral train {dispatch}: Trainer launches {step_launches}, Hopper {step_sm90}, want {want}"))
+        gates.append((all(math.isfinite(s["loss"]) for s in steps) and aux > 0,
+                      f"mixtral train {dispatch}: steps {steps}, aux {aux}"))
+        del trainer, model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    res.update(kernel_launches=launches, sm90_launches=sm90)
+    return res, gates
+
+
+def mixtral_flash_case(torch, fa, seed):
+    """The three flash kernels at the Trainer step's attention shape, q
+    [1, 4096, 32, 128] over k/v [1, 4096, 8, 128] (a group of 4), causal,
+    against their plain versions (``flash_check``)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    B, T = MIXTRAL_MICRO
+    N, K = MIXTRAL_8X7B["num_attention_heads"], MIXTRAL_8X7B["num_key_value_heads"]
+    H = MIXTRAL_8X7B["hidden_size"] // N
+    q, do = (torch.randn(B, T, N, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, T, K, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    case = flash_check(torch, fa, "mixtral", q, k, v, do, None, None, flush)
+    del q, k, v, do, flush
+    torch.cuda.empty_cache()
+    return case
+
+
+def phase_mixtral(torch, fa, pa, modeling, seed):
+    """Mixtral-8x7B at its published widths, depth cut (``PERF.md`` §4):
+    ``generate`` at 16 layers (``mixtral_generate``), one MoE layer at full
+    width (``mixtral_layer``), the flash kernels at the step's attention
+    shape (``mixtral_flash_case``) and the Trainer step at 2 layers under
+    each dispatch (``mixtral_train``)."""
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
+    from paddlenlp_tpu_torch.transformers import MixtralConfig, MixtralForCausalLM
+
+    t_phase = time.perf_counter()
+    res = dict(config="mistralai/Mixtral-8x7B-v0.1 widths, random bf16 weights from --seed")
+    gates = []
+
+    def part(name, fn, *args):  # one JSON line a part, with the memory it leaves allocated
+        out, more = fn(*args)
+        gates.extend(more)
+        emit(dict(phase=f"mixtral_{name}", **out, allocated_gb_after=torch.cuda.memory_allocated() / 1e9))
+        return out
+
+    res["generate"] = part("generate", mixtral_generate, torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed)
+    res["layer"] = part("layer", mixtral_layer, torch, MixtralConfig, seed)
+    res["flash_case"] = mixtral_flash_case(torch, fa, seed)
+    res["train"] = part("train", mixtral_train, torch, fa, modeling, causal_lm_loss, MixtralConfig,
+                        MixtralForCausalLM, Trainer, TrainingArguments, seed)
+    res["seconds"] = time.perf_counter() - t_phase
+    failed = [msg for ok, msg in gates if not ok]
+    emit(dict(phase="mixtral", config=res["config"], seconds=res["seconds"], budget_s=75, gates=len(gates),
+              failed=failed))
+    for ok, msg in gates:
+        check(ok, msg)
+    return res
+
+
 def disk_writes():
     """This process's bytes written (``/proc/self/io``): ``wchar`` passed to
     write calls (files, pipes and sockets: the checkpoints are nearly all of
@@ -5492,6 +5921,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     emit(dict(phase="serving_done", allocated_gb=torch.cuda.memory_allocated() / 1e9))
 
+    # ---- the MoE family: Mixtral-8x7B's widths, generate at 16 layers and a Trainer step at 2
+    mixtral = phase_mixtral(torch, fa, pa, modeling, args.seed)
+
     # ---- training: run_pretrain, then run_finetune and its predictor, at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
     grad = phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, args.seed)
@@ -5571,6 +6003,7 @@ def main(argv=None) -> int:
     # T = 4095 case count among the checked cases
     flash.append(finetune["flash_case"])
     flash.append(align["dpo"]["flash_case"])
+    flash.append(mixtral["flash_case"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
@@ -5580,7 +6013,7 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["route"] == route]
-        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"])
+        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"])
         sm90 = sum(r["sm90_launches"][what] for r in runs)
         launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
@@ -5598,13 +6031,14 @@ def main(argv=None) -> int:
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
         checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
-                           launched_by="train, train_resume, train_recompute, finetune, vera, dpo" + (
+                           launched_by="train, train_resume, train_recompute, finetune, vera, dpo, mixtral" + (
                                ", spec (draft)" if what == "fwd" else ""),
                            train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
                            recompute_launches=recompute["sm90_launches"][what],
                            finetune_launches=finetune["sm90_launches"][what],
                            vera_launches=align["vera"]["sm90_launches"][what],
                            dpo_launches=align["dpo"]["sm90_launches"][what],
+                           mixtral_launches=mixtral["train"]["sm90_launches"][what],
                            check_launches=check_launches,
                            worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))

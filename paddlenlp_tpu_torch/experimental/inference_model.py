@@ -132,10 +132,14 @@ def gather_lora(lora, adapter_idx):
 
 class PagedInferenceModel:
     """Prefill / decode / mixed steps over (params, paged pool). Llama-family
-    only (llama/qwen2: config-driven biases + GQA + rope)."""
+    only (llama/qwen2/mistral: config-driven biases + GQA + rope; as the JAX
+    engine, it takes no sliding window and no MoE block)."""
 
     def __init__(self, model, block_size: int = 16, num_blocks: int = 512, max_blocks_per_seq: int = 64,
                  dtype=torch.bfloat16, decode_steps: int = 8, eos_ids=(), use_paged_kernel=None):
+        if getattr(model, "returns_aux_loss", False):
+            raise NotImplementedError(f"PagedInferenceModel serves dense llama/qwen2/mistral models, as the JAX "
+                                      f"engine; {type(model).__name__} decodes with model.generate")
         self.model = model
         self.config = model.config
         self.device = model.device

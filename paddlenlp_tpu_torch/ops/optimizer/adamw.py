@@ -66,20 +66,27 @@ class AdamW:
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
              g_norm: Optional[torch.Tensor] = None):
+        clip = None
         if self.max_grad_norm and self.max_grad_norm > 0:
             g_norm = global_norm(grads.values()) if g_norm is None else g_norm
             keep = g_norm < self.max_grad_norm
-            grads = {k: torch.where(keep, g, g / g_norm * self.max_grad_norm) for k, g in grads.items()}
+
+            def clip(g):
+                return torch.where(keep, g, g / g_norm * self.max_grad_norm)
+
         lr = float(self.schedule(self.count))
         self.count += 1
         bc1 = 1.0 - self.b1**self.count
         bc2 = 1.0 - self.b2**self.count
+        # one leaf's temporaries at a time (its clipped gradient, the update):
+        # the arithmetic of optax's chain, in its order
         for k, p in params.items():
-            g = grads[k].float()
+            g = (grads[k] if clip is None else clip(grads[k])).float()
             mu, nu = self.mu[k], self.nu[k]
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).add_(g.square(), alpha=1.0 - self.b2)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            del g
+            update = (mu / bc1).div_(torch.sqrt(nu / bc2).add_(self.eps))
             if self.weight_decay > 0 and self.decays(k):
                 update = update + self.weight_decay * p
             p.add_(update.to(p.dtype), alpha=-lr * self.lr_scale(k))

@@ -138,15 +138,23 @@ class Trainer:
     def compute_loss(self, inputs: Dict[str, torch.Tensor], params: Optional[dict] = None) -> torch.Tensor:
         """Override point. ``labels`` follow the HF convention (unshifted; the
         causal shift happens here, as in the JAX trainer). ``params``
-        (default: the model's) is the tree the forward reads."""
+        (default: the model's) is the tree the forward reads. An MoE model's
+        load-balancing loss (pre-weighted by its coefficient) adds to the
+        loss, as in the JAX trainer (``trainer.py:277-279``)."""
         inputs = dict(inputs)
         labels = inputs.pop("labels", None)
         if labels is None:
             raise ValueError("training requires `labels` in inputs (or override compute_loss)")
-        logits = self.model.forward(**inputs, params=params)
+        aux = None
+        if getattr(self.model, "returns_aux_loss", False):
+            logits, aux = self.model.forward(**inputs, params=params, return_aux=True)
+        else:
+            logits = self.model.forward(**inputs, params=params)
         if self.criterion is not None:
-            return self.criterion(logits, labels)
-        return causal_lm_loss(logits, labels, shift=True)
+            loss = self.criterion(logits, labels)
+        else:
+            loss = causal_lm_loss(logits, labels, shift=True)
+        return loss if aux is None else loss + aux
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}

@@ -1,4 +1,5 @@
-"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2), the Auto
+"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2, Mistral, and the
+MoE families Mixtral and Qwen2-MoE), the Auto
 classes, ``PretrainedModel`` and the tokenizer."""
 
 from .auto import (  # noqa: F401
@@ -14,6 +15,9 @@ from .auto import (  # noqa: F401
 from .cache_utils import KVCache, init_cache  # noqa: F401
 from .configuration_utils import LlmMetaConfig, PretrainedConfig  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaForSequenceClassification  # noqa: F401
+from .mistral import MistralConfig, MistralForCausalLM, MistralForSequenceClassification, MistralModel  # noqa: F401
+from .mixtral import MixtralConfig, MixtralForCausalLM  # noqa: F401
 from .model_utils import PretrainedModel  # noqa: F401
 from .qwen2 import Qwen2Config, Qwen2ForCausalLM, Qwen2ForSequenceClassification  # noqa: F401
+from .qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM  # noqa: F401
 from .tokenizer_utils import BatchEncoding, PretrainedTokenizer  # noqa: F401

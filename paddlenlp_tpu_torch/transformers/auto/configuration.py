@@ -1,7 +1,8 @@
 """AutoConfig (reference: paddlenlp/transformers/auto/configuration.py).
 
 Port of ``paddlenlp_tpu/transformers/auto/configuration.py:14-104``.
-``CONFIG_MAPPING`` holds the families the port has (``llama``, ``qwen2``).
+``CONFIG_MAPPING`` holds the families the port has (``llama``, ``qwen2``,
+``mistral``, ``mixtral``, ``qwen2_moe``).
 ``JAX_MODEL_TYPES`` is the JAX registry's ``model_type`` list, in its order:
 a ``config.json`` of one of the other types raises ``NotImplementedError``
 naming ROADMAP Queue 1 item 14e, and a type that neither registry knows
@@ -38,9 +39,12 @@ def _populate():
     if CONFIG_MAPPING:
         return
     from ..llama.configuration import LlamaConfig
+    from ..mistral.configuration import MistralConfig
+    from ..mixtral.configuration import MixtralConfig
     from ..qwen2.configuration import Qwen2Config
+    from ..qwen2_moe.configuration import Qwen2MoeConfig
 
-    for cfg in (LlamaConfig, Qwen2Config):
+    for cfg in (LlamaConfig, Qwen2Config, MistralConfig, MixtralConfig, Qwen2MoeConfig):
         register_config(cfg.model_type, cfg)
 
 

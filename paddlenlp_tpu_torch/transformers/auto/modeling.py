@@ -3,7 +3,10 @@
 Port of ``paddlenlp_tpu/transformers/auto/modeling.py:25-295``. The port
 registers the tasks its families have: ``causal_lm`` and
 ``sequence_classification`` for ``llama`` and ``qwen2``
-(``AutoModelForCausalLM``, ``AutoModelForSequenceClassification``). ``JAX_MODEL_TASKS`` is the JAX
+(``AutoModelForCausalLM``, ``AutoModelForSequenceClassification``), the
+tasks the JAX registry gives ``mistral`` (``base``, the backbone behind
+``AutoModel``, and ``causal_lm``) and ``causal_lm`` for ``mixtral`` and
+``qwen2_moe``. ``JAX_MODEL_TASKS`` is the JAX
 registry's tasks by ``model_type``: a family or task it has and the port does
 not (the backbone-only ``base`` models behind ``AutoModel``, the classifiers,
 every other family) raises ``NotImplementedError`` naming ROADMAP Queue 1
@@ -73,12 +76,19 @@ def _populate_models():
         return
     _populate()
     from ..llama import modeling as llama
+    from ..mistral import modeling as mistral
+    from ..mixtral import modeling as mixtral
     from ..qwen2 import modeling as qwen2
+    from ..qwen2_moe import modeling as qwen2_moe
 
     register_model("llama", "causal_lm", llama.LlamaForCausalLM)
     register_model("qwen2", "causal_lm", qwen2.Qwen2ForCausalLM)
     register_model("llama", "sequence_classification", llama.LlamaForSequenceClassification)
     register_model("qwen2", "sequence_classification", qwen2.Qwen2ForSequenceClassification)
+    register_model("mistral", "base", mistral.MistralModel)
+    register_model("mistral", "causal_lm", mistral.MistralForCausalLM)
+    register_model("mixtral", "causal_lm", mixtral.MixtralForCausalLM)
+    register_model("qwen2_moe", "causal_lm", qwen2_moe.Qwen2MoeForCausalLM)
 
 
 class _AutoBase:

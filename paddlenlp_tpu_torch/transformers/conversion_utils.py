@@ -45,15 +45,28 @@ class StateDictNameMapping:
 
 @dataclasses.dataclass
 class StackedLayerMapping:
-    """One stacked target param ``[L, ...]`` <- L per-layer checkpoint keys."""
+    """One stacked target param ``[d0, d1, ..., ...]`` <- ``prod(d_i)``
+    checkpoint keys (``paddlenlp_tpu/transformers/conversion_utils.py:57-87``).
+    ``dims`` holds one entry per stacked leading axis, ``(n_layers,)`` or
+    ``(n_layers, n_experts)`` for stacked MoE experts, and the template one
+    ``{}`` a dim; the keys run over ``itertools.product`` of the dims. The
+    bare ``n_layers`` form is ``dims=(n_layers,)``."""
 
     source_template: str  # e.g. "model.layers.{}.self_attn.q_proj.weight"
     target_name: str  # e.g. "model/layers/self_attn/q_proj/kernel"
-    n_layers: int
+    n_layers: int = 0
     action: Optional[str] = None  # applied per slice
+    dims: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.dims is None:
+            self.dims = (self.n_layers,)
+
+    def _indices(self):
+        return itertools.product(*(range(d) for d in self.dims))
 
     def source_names(self) -> List[str]:
-        return [self.source_template.format(i) for i in range(self.n_layers)]
+        return [self.source_template.format(*idx) for idx in self._indices()]
 
     def apply_stack(self, get_source: Callable[[str], Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
         slices = []
@@ -62,12 +75,15 @@ class StackedLayerMapping:
             if arr is None:
                 return None
             slices.append(arr.T if self.action == "transpose" else arr)
-        return torch.stack(slices, dim=0)
+        stacked = torch.stack(slices, dim=0)
+        return stacked.reshape(tuple(self.dims) + stacked.shape[1:])
 
     def reverse_unstack(self, t: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Our stacked ``[L, ...]`` tensor -> one checkpoint tensor per layer."""
-        return {name: (t[i].T if self.action == "transpose" else t[i]).contiguous()
-                for i, name in enumerate(self.source_names())}
+        """Our stacked ``[d0, d1, ..., ...]`` tensor -> one checkpoint tensor
+        per index, in ``itertools.product`` order."""
+        flat = t.reshape((-1,) + tuple(t.shape[len(self.dims):]))
+        return {name: (flat[j].T if self.action == "transpose" else flat[j]).contiguous()
+                for j, name in enumerate(self.source_names())}
 
 
 def flatten_params(tree, sep: str = "/") -> Dict[str, object]:

@@ -1,4 +1,4 @@
-"""LLaMA-family causal LM (LLaMA, Qwen2) in PyTorch.
+"""LLaMA-family causal LM (LLaMA, Qwen2, Mistral) in PyTorch.
 
 Port of ``paddlenlp_tpu/transformers/llama/modeling.py:583``
 (``LlamaForCausalLM``). The model holds its parameters as a nested dict of
@@ -19,6 +19,11 @@ model (``experimental/inference_model.py``) reads it directly, and
   ``compute_dtype``, attention through the flash kernels
   (``ops/flash_attention.py``), with the eight remat policies of the JAX
   ``_remat_policy`` (:336) as ``torch.utils.checkpoint`` segments.
+- every forward runs a layer's MLP through one hook (:meth:`LlamaForCausalLM.mlp`,
+  its leaves :meth:`~LlamaForCausalLM.mlp_param_shapes` under
+  :attr:`~LlamaForCausalLM.mlp_name`): the SwiGLU here, the MoE block of
+  ``moe_layers.py`` in ``mixtral`` and ``qwen2_moe``, whose load-balancing
+  loss :meth:`LlamaForCausalLM.forward` hands back with ``return_aux``.
 - loading, saving and the constructors are ``model_utils.PretrainedModel``'s
   (``from_pretrained``/``save_pretrained`` in the HF layout, ``from_config``,
   ``init_random``, ``from_jax_params``), and ``generate`` is
@@ -96,15 +101,13 @@ class LlamaForCausalLM(PretrainedModel):
     _keys_to_ignore_on_load_missing = [r"lm_head"]
 
     # ------------------------------------------------------------------ layout
-    @staticmethod
-    def param_shapes(config) -> Dict[str, Tuple[int, ...]]:
+    @classmethod
+    def param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
         """Flat ``path -> shape`` of the scanned parameter tree."""
-        L, D, I, V = (config.num_hidden_layers, config.hidden_size, config.intermediate_size,
-                      config.vocab_size)
+        L, D, V = config.num_hidden_layers, config.hidden_size, config.vocab_size
         N, K, H = config.num_attention_heads, config.num_key_value_heads, config.head_dim
         qkv_bias = bool(getattr(config, "attention_bias", False))
         out_bias = bool(getattr(config, "attention_out_bias", qkv_bias))
-        mlp_bias = bool(getattr(config, "mlp_bias", False))
         shapes: Dict[str, Tuple[int, ...]] = {"model/embed_tokens/embedding": (V, D)}
         lay = "model/layers/"
 
@@ -119,13 +122,55 @@ class LlamaForCausalLM(PretrainedModel):
         dense("self_attn/v_proj", D, K * H, qkv_bias)
         dense("self_attn/o_proj", N * H, D, out_bias)
         shapes[lay + "post_attention_layernorm/scale"] = (L, D)
-        dense("mlp/gate_proj", D, I, mlp_bias)
-        dense("mlp/up_proj", D, I, mlp_bias)
-        dense("mlp/down_proj", I, D, mlp_bias)
+        for path, shape in cls.mlp_param_shapes(config).items():
+            shapes[f"{lay}{cls.mlp_name}/{path}"] = (L,) + shape
         shapes["model/norm/scale"] = (D,)
         if not config.tie_word_embeddings:
             shapes["lm_head/kernel"] = (D, V)
         return shapes
+
+    # ------------------------------------------------------------------ the MLP hook
+    #: the MLP's subtree in each layer (JAX ``LlamaDecoderLayer.mlp_name``); a
+    #: family overrides it with :meth:`mlp_param_shapes`, :meth:`mlp` and
+    #: :attr:`mlp_act`, as JAX ``mlp_cls``/``mlp_name`` (``modeling.py:294-301``)
+    mlp_name = "mlp"
+    #: whether :meth:`forward` can hand back a load-balancing loss (MoE)
+    returns_aux_loss = False
+
+    @classmethod
+    def mlp_param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
+        """One layer's MLP leaves, ``path under mlp_name -> shape``: the
+        SwiGLU ``gate_proj``/``up_proj``/``down_proj`` (+ biases)."""
+        D, I = config.hidden_size, config.intermediate_size
+        shapes: Dict[str, Tuple[int, ...]] = {}
+        for name, d_in, d_out in (("gate_proj", D, I), ("up_proj", D, I), ("down_proj", I, D)):
+            shapes[name + "/kernel"] = (d_in, d_out)
+            if getattr(config, "mlp_bias", False):
+                shapes[name + "/bias"] = (d_out,)
+        return shapes
+
+    def mlp_act(self, x, proj, leaf):
+        """``silu(gate(x)) * up(x)``: what ``save_attn_mlp`` keeps (the JAX
+        tag ``mlp_act``). A family whose MLP has no such tag sets this to None."""
+        return F.silu(proj("gate_proj", x)) * proj("up_proj", x)
+
+    def mlp(self, x, proj, leaf, act=None):
+        """One layer's MLP over the post-attention-norm ``x``: ``(out, aux)``,
+        aux the layer's load-balancing loss (None for a dense MLP).
+        ``proj(name, x)`` runs the projection ``name`` under :attr:`mlp_name`,
+        ``leaf(path)`` reads a leaf there; ``act``, when given, is
+        :meth:`mlp_act` of x computed already. Both forwards (the plain and
+        cached ``__call__`` and every recompute granularity of
+        :meth:`forward`) run the MLP through here."""
+        if act is None:
+            act = self.mlp_act(x, proj, leaf)
+        return proj("down_proj", act), None
+
+    @classmethod
+    def _stays_fp32(cls, path: str) -> bool:
+        """Layer leaves the training forward does not cast to the compute
+        dtype: the norms' scales."""
+        return path.endswith("/scale")
 
     @classmethod
     def _check_config(cls, config):
@@ -207,6 +252,9 @@ class LlamaForCausalLM(PretrainedModel):
                                         getattr(cfg, "sliding_window", None))
         else:
             causal = pos[None, :] <= pos[:, None]  # [T(q), T(kv)]
+            window = getattr(cfg, "sliding_window", None)
+            if window is not None:
+                causal = causal & (pos[None, :] > pos[:, None] - window)
 
         def mm(p, name, x, where):
             if observer is not None:
@@ -234,8 +282,10 @@ class LlamaForCausalLM(PretrainedModel):
                 o = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.float()).to(dtype)
             h = h + mm(attn, "o_proj", o.reshape(B, T, N * H), at)
             x = rms_norm(h, lp["post_attention_layernorm"]["scale"], eps)
-            mlp, ml = lp["mlp"], f"model/layers_{i}/mlp"
-            h = h + mm(mlp, "down_proj", F.silu(mm(mlp, "gate_proj", x, ml)) * mm(mlp, "up_proj", x, ml), ml)
+            mlp, ml = lp[self.mlp_name], f"model/layers_{i}/{self.mlp_name}"
+            out, _ = self.mlp(x, lambda name, x: mm(mlp, name, x, ml),
+                              lambda path: functools.reduce(lambda t, k: t[k], path.split("/"), mlp))
+            h = h + out
         h = rms_norm(h, m["norm"]["scale"], eps)
         if "lm_head" in params:
             if observer is not None:
@@ -249,9 +299,13 @@ class LlamaForCausalLM(PretrainedModel):
 
     # ------------------------------------------------------------------ training forward
     def forward(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
-                segment_ids=None, attention_mask=None, prefix_kv=None) -> torch.Tensor:
+                segment_ids=None, attention_mask=None, prefix_kv=None, return_aux: bool = False):
         """Differentiable causal forward over ``input_ids`` [B, T]: logits
-        [B, T, V] in ``compute_dtype`` (the trunk is :meth:`hidden_states`). Kernels and biases are cast to the
+        [B, T, V] in ``compute_dtype`` (the trunk is :meth:`hidden_states`),
+        or with ``return_aux`` ``(logits, aux)``, aux the layers' summed
+        load-balancing losses over ``num_hidden_layers`` (a 0-dim fp32
+        tensor; None for a dense MLP), which the JAX model carries through its
+        layers (``modeling.py:328-330``, ``:466``). Kernels and biases are cast to the
         compute dtype, norms stay fp32, and the tied head is ``h @ embed.T``
         (the JAX ``dtype=compute, param_dtype=float32`` model). With
         ``config.recompute``, ``recompute_granularity`` ``"full"`` recomputes
@@ -263,7 +317,8 @@ class LlamaForCausalLM(PretrainedModel):
         - ``core_attn``: everything but the attention output;
         - ``save_core_attn``: the attention output only;
         - ``save_qkv_attn``: q/k/v and the attention output;
-        - ``save_attn_mlp``: q/k/v, the attention output and ``mlp_act``;
+        - ``save_attn_mlp``: q/k/v, the attention output and ``mlp_act``
+          (as ``save_qkv_attn`` for an MLP without that tag);
         - ``save_dots``: the outputs of the matrix products (``aten.mm``);
         - ``offload_attn``: q/k/v and the attention output in host memory
           (the output also stays on the device as the next segment's input).
@@ -273,11 +328,13 @@ class LlamaForCausalLM(PretrainedModel):
         A padding ``attention_mask`` [B, T] goes to the attention dispatcher,
         as in the JAX ``LlamaAttention`` (:261-274): such a call runs its
         XLA-path counterpart rather than the flash kernels."""
-        h, table = self._trunk(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)
+        h, table, aux = self._trunk(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)
         params = self.params if params is None else params
         if "lm_head" in params:
-            return h @ params["lm_head"]["kernel"].to(table.dtype)
-        return h @ table.T
+            logits = h @ params["lm_head"]["kernel"].to(table.dtype)
+        else:
+            logits = h @ table.T
+        return (logits, aux) if return_aux else logits
 
     def hidden_states(self, input_ids: torch.Tensor, params: Optional[dict] = None, position_ids=None,
                       segment_ids=None, attention_mask=None, prefix_kv=None) -> torch.Tensor:
@@ -296,7 +353,8 @@ class LlamaForCausalLM(PretrainedModel):
         return self._trunk(input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv)[0]
 
     def _trunk(self, input_ids, params, position_ids, segment_ids, attention_mask, prefix_kv):
-        """(final-norm hidden states, the embedding table in the compute dtype)."""
+        """(final-norm hidden states, the embedding table in the compute
+        dtype, the load-balancing loss or None)."""
         cfg = self.config
         params = self.params if params is None else params
         if getattr(cfg, "attention_dropout", 0.0):
@@ -333,13 +391,17 @@ class LlamaForCausalLM(PretrainedModel):
 
         # one cast of each stacked leaf, then per-layer views: the backward
         # stacks the layers' grads once instead of scattering into [L, ...]
-        per_layer = {path: (leaf if path.endswith("/scale") else leaf.to(dtype)).unbind(0)
+        per_layer = {path: (leaf if self._stays_fp32(path) else leaf.to(dtype)).unbind(0)
                      for path, leaf in flatten_params(m["layers"]).items()}
+        ml = self.mlp_name + "/"
 
         def dense(lp, name, x):
             y = x @ lp[name + "/kernel"]
             bias = lp.get(name + "/bias")
             return y if bias is None else y + bias
+
+        def mlp_io(lp):  # the MLP hook's (proj, leaf) over this layer's leaves
+            return (lambda name, x: dense(lp, ml + name, x)), (lambda path: lp[ml + path])
 
         def qkv(x, lp):
             q = dense(lp, "self_attn/q_proj", x).reshape(B, T, N, H)
@@ -363,56 +425,60 @@ class LlamaForCausalLM(PretrainedModel):
         def o_proj(o, lp):
             return dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
 
-        def mlp_act(h, lp):
-            x = rms_norm(h, lp["post_attention_layernorm/scale"], eps)
-            return F.silu(dense(lp, "mlp/gate_proj", x)) * dense(lp, "mlp/up_proj", x)
+        def mlp(h, lp):  # (h + MLP(norm(h)), aux)
+            out, aux = self.mlp(rms_norm(h, lp["post_attention_layernorm/scale"], eps), *mlp_io(lp))
+            return h + out, aux
 
         def attn_out_act(h, o, lp):
             h = h + o_proj(o, lp)
-            return h, mlp_act(h, lp)
+            return h, self.mlp_act(rms_norm(h, lp["post_attention_layernorm/scale"], eps), *mlp_io(lp))
 
         def attn_out_mlp(h, o, lp):
-            h, act = attn_out_act(h, o, lp)
-            return h + dense(lp, "mlp/down_proj", act)
+            return mlp(h + o_proj(o, lp), lp)
 
         def layer(h, lp):
             return attn_out_mlp(h, attn_core(*attn_in(h, lp), lp), lp)
 
         ckpt = functools.partial(checkpoint, use_reentrant=False)
+        aux_sum = None
         for i in range(cfg.num_hidden_layers):
             lp = {path: ts[i] for path, ts in per_layer.items()}
             if prefix is not None:
                 lp["prefix_kv"] = prefix[i]
             if not recompute:
-                h = layer(h, lp)
+                h, aux = layer(h, lp)
             elif granularity == "full":
-                h = ckpt(layer, h, lp)
+                h, aux = ckpt(layer, h, lp)
             elif granularity == "full_attn":
                 x = rms_norm(h, lp["input_layernorm/scale"], eps)
-                h = h + ckpt(lambda x, lp: o_proj(attn_core(*qkv(x, lp), lp), lp), x, lp)
-                h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
+                h, aux = mlp(h + ckpt(lambda x, lp: o_proj(attn_core(*qkv(x, lp), lp), lp), x, lp), lp)
             elif granularity == "core_attn":
                 q, k, v = attn_in(h, lp)
-                h = h + ckpt(lambda q, k, v, lp: o_proj(attn_core(q, k, v, lp), lp), q, k, v, lp)
-                h = h + dense(lp, "mlp/down_proj", mlp_act(h, lp))
+                h, aux = mlp(h + ckpt(lambda q, k, v, lp: o_proj(attn_core(q, k, v, lp), lp), q, k, v, lp), lp)
             elif granularity == "save_core_attn":
                 o = ckpt(lambda h, lp: attn_core(*attn_in(h, lp), lp), h, lp)
-                h = ckpt(attn_out_mlp, h, o, lp)
-            elif granularity == "save_attn_mlp":
+                h, aux = ckpt(attn_out_mlp, h, o, lp)
+            elif granularity == "save_attn_mlp" and self.mlp_act is not None:
                 q, k, v = ckpt(attn_in, h, lp)
                 h, act = ckpt(attn_out_act, h, attn_core(q, k, v, lp), lp)
-                h = h + dense(lp, "mlp/down_proj", act)
+                out, aux = self.mlp(None, *mlp_io(lp), act=act)
+                h = h + out
             elif granularity == "save_dots":
-                h = ckpt(layer, h, lp, context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
-            else:  # save_qkv_attn, offload_attn
+                h, aux = ckpt(layer, h, lp, context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                                         _save_dots))
+            else:  # save_qkv_attn, offload_attn; save_attn_mlp over an MLP without the mlp_act tag
                 q, k, v = ckpt(attn_in, h, lp)
                 if granularity == "offload_attn":
                     with _offload_to_host():
                         o = attn_core(q, k, v, lp)
                 else:
                     o = attn_core(q, k, v, lp)
-                h = ckpt(attn_out_mlp, h, o, lp)
-        return rms_norm(h, m["norm"]["scale"], eps), table
+                h, aux = ckpt(attn_out_mlp, h, o, lp)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        if aux_sum is not None:
+            aux_sum = aux_sum / cfg.num_hidden_layers
+        return rms_norm(h, m["norm"]["scale"], eps), table, aux_sum
 
     # ------------------------------------------------------------------ accounting
     def get_model_flops(self, batch_size: int, seq_length: int) -> float:
@@ -434,9 +500,9 @@ class LlamaForSequenceClassification(LlamaForCausalLM):
 
     _keys_to_ignore_on_load_missing = [r"score"]
 
-    @staticmethod
-    def param_shapes(config) -> Dict[str, Tuple[int, ...]]:
-        shapes = {k: v for k, v in LlamaForCausalLM.param_shapes(config).items() if not k.startswith("lm_head/")}
+    @classmethod
+    def param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
+        shapes = {k: v for k, v in super().param_shapes(config).items() if not k.startswith("lm_head/")}
         shapes["score/kernel"] = (config.hidden_size, int(config.num_labels))
         return shapes
 

@@ -247,9 +247,11 @@ class PretrainedModel(GenerationMixin):
         if self.generation_config is not None:
             self.generation_config.save_pretrained(save_directory)
         tensors: Dict[str, torch.Tensor] = {}
+        mappings = {m.target_name: m for m in self._get_name_mappings(self.config,
+                                                                      {k: tuple(v.shape) for k, v in flat.items()})}
         with torch.no_grad():
-            for mapping in self._get_name_mappings(self.config, {k: tuple(v.shape) for k, v in flat.items()}):
-                leaf = flat[mapping.target_name].detach().cpu()
+            for path, leaf in flat.items():  # the tree's order, whatever order the family lists its mappings in
+                mapping, leaf = mappings[path], leaf.detach().cpu()
                 if isinstance(mapping, StackedLayerMapping):
                     tensors.update(mapping.reverse_unstack(leaf))
                 else:

@@ -1,8 +1,10 @@
 """The port's Auto classes and ``PretrainedModel`` against the JAX package.
 
 - ``AutoConfig`` on the golden HF configs gives the JAX ``to_dict()``; the
-  JAX registry's other families raise naming ROADMAP Queue 1 item 14e, and
-  an unknown ``model_type`` raises the JAX ``ValueError`` word for word.
+  families ported since (``mixtral_tiny``, mistral and qwen2_moe configs)
+  load as the JAX package loads them; the JAX registry's other families
+  raise naming ROADMAP Queue 1 item 14e, and an unknown ``model_type``
+  raises the JAX ``ValueError`` word for word.
 - ``AutoModelForCausalLM.from_pretrained`` on the golden checkpoints: logits
   within atol 1e-4 of ``golden_logits.npz`` and of the JAX model's (fp32 on
   both sides: op order only).
@@ -75,14 +77,49 @@ def test_auto_config_matches_jax(name):
     assert got.to_json_string() == want.to_json_string()
 
 
-@pytest.mark.parametrize("name", ["mixtral_tiny", "albert_tiny", "roberta_tiny"])
-def test_other_families_raise_naming_14e(name):
+#: config.json of families the JAX package has and the port does not, beside the goldens
+UNPORTED = {"gemma": dict(model_type="gemma", **TINY)}
+
+
+@pytest.mark.parametrize("name", ["gemma", "albert_tiny", "roberta_tiny"])
+def test_other_families_raise_naming_14e(name, tmp_path):
     fixture = os.path.join(GOLDEN, name)
+    if name in UNPORTED:
+        (tmp_path / "config.json").write_text(json.dumps(UNPORTED[name]))
+        fixture = str(tmp_path)
     JAutoConfig.from_pretrained(fixture)  # the JAX package has them
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14e"):
         AutoConfig.from_pretrained(fixture)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14e"):
         AutoModelForCausalLM.from_pretrained(fixture, device="cpu")
+
+
+#: the families ported after the golden Auto tests: a golden checkpoint or a config.json
+PORTED = {"mixtral_tiny": None,
+          "mistral": dict(model_type="mistral", sliding_window=5, **TINY),
+          "qwen2_moe": dict(model_type="qwen2_moe", num_experts=4, moe_intermediate_size=24,
+                            shared_expert_intermediate_size=40, **TINY)}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_families_match_jax(name, tmp_path):
+    """Each loads through the Auto classes into the family's class, with the
+    JAX config's ``to_dict()`` and the JAX model's logits (fp32, atol 1e-4)."""
+    if PORTED[name] is None:
+        fixture = os.path.join(GOLDEN, name)
+    else:
+        (tmp_path / "config.json").write_text(json.dumps(PORTED[name]))
+        jm = JAuto.from_config(JAutoConfig.from_pretrained(str(tmp_path)), seed=0)
+        jm.save_pretrained(str(tmp_path))
+        fixture = str(tmp_path)
+    got, want = AutoConfig.from_pretrained(fixture), JAutoConfig.from_pretrained(fixture)
+    assert type(got).__name__ == type(want).__name__ and got.to_dict() == want.to_dict()
+    model = AutoModelForCausalLM.from_pretrained(fixture, device="cpu")
+    jm = JAuto.from_pretrained(fixture, dtype="float32", param_dtype="float32")
+    assert type(model).__name__ == type(jm).__name__ and model.num_parameters() == jm.num_parameters()
+    ids = np.arange(3, 15, dtype=np.int32)[None] % got.vocab_size
+    want_logits = np.asarray(jm(input_ids=jax.numpy.asarray(ids)).logits)
+    np.testing.assert_allclose(model(torch.from_numpy(ids).long()).numpy(), want_logits, atol=ATOL, rtol=0)
 
 
 def test_unknown_model_type_and_tasks(tmp_path):
@@ -96,6 +133,9 @@ def test_unknown_model_type_and_tasks(tmp_path):
     (tmp_path / "config.json").write_text(json.dumps({"architectures": ["Qwen2ForCausalLM"], "hidden_size": 32}))
     assert type(AutoConfig.from_pretrained(str(tmp_path))).__name__ == "Qwen2Config"
     (tmp_path / "config.json").write_text(json.dumps({"architectures": ["MistralForCausalLM"]}))
+    got, want = AutoConfig.from_pretrained(str(tmp_path)), JAutoConfig.from_pretrained(str(tmp_path))
+    assert type(got).__name__ == type(want).__name__ == "MistralConfig" and got.to_dict() == want.to_dict()
+    (tmp_path / "config.json").write_text(json.dumps({"architectures": ["GemmaForCausalLM"]}))
     with pytest.raises(NotImplementedError, match="item 14e"):
         AutoConfig.from_pretrained(str(tmp_path))
     cfg = LlamaConfig(**TINY)

@@ -1287,3 +1287,91 @@ def test_dpo_step_through_kernels_equals_plain(dev):
     assert launches == {"fwd": 4, "bwd_dq": 2, "bwd_dkv": 2}
     with torch.no_grad():
         assert abs(trainer.compute_loss(batch).item() - float(np.log(2))) <= 1e-6
+
+
+class _MoECfg:
+    def __init__(self, **kw):
+        self.__dict__.update(dict(num_local_experts=8, num_experts_per_tok=2, hidden_size=512,
+                                  moe_intermediate_size=1024, router_aux_loss_coef=0.02, norm_topk_prob=True,
+                                  moe_capacity_factor=4.0), **kw)  # capacity E / K: no drops
+
+
+def _moe_inputs(dev, cfg, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, D, F = cfg.num_local_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    x = torch.randn(2, 512, D, generator=g, device=dev).to(dtype)
+    leaves = {"gate/kernel": torch.randn(D, E, generator=g, device=dev) * 0.05,
+              "w1": (torch.randn(E, D, F, generator=g, device=dev) * 0.05).to(dtype),
+              "w3": (torch.randn(E, D, F, generator=g, device=dev) * 0.05).to(dtype),
+              "w2": (torch.randn(E, F, D, generator=g, device=dev) * 0.05).to(dtype)}
+    return x, leaves
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_layer_on_the_card_matches_the_plain_loop(dev, dispatch):
+    """fp32 on the card: each dispatch against the per-expert loop
+    (``moe_mlp_loop``) within 1e-4 of the output's largest element, the aux
+    loss within rel 1e-5."""
+    from paddlenlp_tpu_torch.transformers.moe_layers import moe_mlp, moe_mlp_loop
+
+    cfg = _MoECfg(moe_dispatch=dispatch)
+    x, leaves = _moe_inputs(dev, cfg, torch.float32)
+    out, aux = moe_mlp(cfg, x, None, leaves.__getitem__)
+    want, want_aux = moe_mlp_loop(cfg, x, leaves["gate/kernel"], leaves["w1"], leaves["w3"], leaves["w2"])
+    assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert abs(aux.item() - want_aux.item()) <= 1e-5 * abs(want_aux.item())
+
+
+def test_moe_sparse_matches_dense_on_the_card(dev):
+    """bf16, at a capacity that drops nothing: the sparse dispatch within one
+    bf16 rounding (2**-7) of the dense on the norm. The two round their
+    weighted expert rows in different orders, and where a token's two rows
+    cancel one rounding of a summand exceeds the sum: no elementwise gate."""
+    from paddlenlp_tpu_torch.transformers.moe_layers import moe_mlp
+
+    x, leaves = _moe_inputs(dev, _MoECfg(), torch.bfloat16)
+    dense, aux_d = moe_mlp(_MoECfg(moe_dispatch="dense"), x, None, leaves.__getitem__)
+    sparse, aux_s = moe_mlp(_MoECfg(moe_dispatch="sparse"), x, None, leaves.__getitem__)
+    w = dense.float()
+    assert ((sparse.float() - w).norm() / w.norm()).item() <= 2**-7
+    assert torch.equal(aux_d, aux_s)  # one routing
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_two_launches_give_the_same_bits(dev, dispatch):
+    """bf16 forward and backward twice (a capacity that drops half the
+    assignments for sparse): the output, aux and every gradient bit for bit."""
+    from paddlenlp_tpu_torch.transformers.moe_layers import moe_mlp
+
+    cfg = _MoECfg(moe_dispatch=dispatch, moe_capacity_factor=0.5)
+    x, leaves = _moe_inputs(dev, cfg, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xs = x.clone().requires_grad_(True)
+        ls = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        out, aux = moe_mlp(cfg, xs, None, ls.__getitem__)
+        (out.float().square().mean() + aux).backward()
+        runs.append([out, aux, xs.grad] + [ls[k].grad for k in sorted(ls)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_mixtral_step_through_kernels_equals_plain(dev):
+    """A Mixtral ``Trainer.compute_loss`` (LM + aux) and its gradient at fp32,
+    2 layers, 8 query heads over 2 (Mixtral's group of 4), H 128, 8 experts,
+    T = 512, through the flash kernels against the plain attention."""
+    from paddlenlp_tpu_torch.transformers import MixtralConfig, MixtralForCausalLM
+
+    cfg = MixtralConfig(vocab_size=4096, hidden_size=1024, intermediate_size=1536, num_hidden_layers=2,
+                        num_attention_heads=8, num_key_value_heads=2)
+    model = MixtralForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+    trainer = Trainer(model=model, args=TrainingArguments(output_dir="unused", save_strategy="no"))
+    g = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (2, 512), generator=g, device=dev)
+    leaves = trainer.params
+    for t in leaves.values():
+        t.requires_grad_(True)
+    launches = _kernels_vs_plain(lambda: trainer.compute_loss({"input_ids": ids, "labels": ids}), leaves)
+    assert launches == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+    with torch.no_grad():
+        _, aux = model.forward(ids, return_aux=True)
+    assert aux.item() > 0
