@@ -217,17 +217,20 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 17. flash_kernel -- the flash-attention forward, dq and dk/dv kernels against
               their plain versions, elementwise, at the training path's shape
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
-              in fp32, with segments and a window, and at T = 4095; bf16 takes
-              all three through the Hopper tensor-core kernels
-              (``flash_attention_sm90.cu``), fp32 through the SIMT kernels
-              (``flash_attention.cu``), and each case checks its route; the
-              bf16 dq gives bitwise equal results over two launches; times
-              against the bound, the plain versions and
+              with segments and a window, and at T = 4095, each in bf16 and in
+              fp32; bf16 takes all three through the Hopper tensor-core
+              kernels (``flash_attention_sm90.cu``), fp32 the forward through
+              the SIMT kernel (``flash_attention.cu``) and dq and dk/dv
+              through the 3xTF32 tensor-core kernels
+              (``flash_attention_sm90_f32.cu``), and each case checks its
+              routes; dq and dk/dv give bitwise equal results over two
+              launches; times against the bound, the plain versions and
               ``scaled_dot_product_attention``;
 18. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
-              plain versions, in fp32 (the SIMT kernels) and at bf16 compute
-              (the Hopper kernels), with the bf16-vs-fp32 control;
+              plain versions, in fp32 (the SIMT forward, the 3xTF32 dq and
+              dk/dv) and at bf16 compute (the Hopper kernels), with the
+              bf16-vs-fp32 control;
 19. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
               to one card and 4 steps (each cut printed under ``reduced``),
@@ -329,8 +332,9 @@ phase's saved model and tokenizer, each freeing its models:
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object (nine rows: the paged kernel on its bf16, quantized-pool and fp32
-entries, the flash forward, dq and dk/dv, each on the Hopper and on the SIMT
-route) and ``{"ok": true, "device": {...}}``.
+entries; the flash forward, dq and dk/dv on the bf16 Hopper route; the fp32
+forward on the SIMT route, dq and dk/dv on the fp32 Hopper route) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3628,7 +3632,8 @@ RECIPE = "llm/config/qwen2/pretrain_argument.json"
 # first is the training path's launch shape: q [2, T, 12, 128] over k/v
 # [2, T, 2, 128] (Qwen2-1.5B attention, micro-batch 2 x 4096), causal
 FLASH_CASES = [("main", "bfloat16", 4096, False, None), ("fp32", "float32", 2048, False, None),
-               ("segments+window", "bfloat16", 2048, True, 512), ("tail", "bfloat16", 4095, False, None)]
+               ("segments+window", "bfloat16", 2048, True, 512), ("tail", "bfloat16", 4095, False, None),
+               ("fp32 segments+window", "float32", 2048, True, 512), ("fp32 tail", "float32", 4095, False, None)]
 
 
 def flash_case(torch, dtype, T, segments, seed):
@@ -3664,12 +3669,14 @@ def flash_worst(torch, got, want, dtype):
     return out
 
 
-def flash_bound(torch, fa, q, k, seg, window, what):
+def flash_bound(torch, fa, q, k, seg, window, what, rate=None):
     """Least time of one launch: the bytes it must move (each input read once,
     each output written once) over HBM bandwidth, or its matmul flops on the
-    visible (row, col) pairs of this input at the card's peak for q's type --
-    the larger. Forward: q.k and p.v; dq: q.k, dO.v and ds.k; dk/dv: q.k,
-    dO.v, p^T.dO and ds^T.q (2 flops a multiply-add)."""
+    visible (row, col) pairs of this input at the card's peak for q's type
+    (``rate`` "tf32": at the TF32 tensor-core peak with each product taken
+    three times, the fp32 dq and dk/dv kernels' 3xTF32) -- the larger.
+    Forward: q.k and p.v; dq: q.k, dO.v and ds.k; dk/dv: q.k, dO.v, p^T.dO
+    and ds^T.q (2 flops a multiply-add)."""
     B, T, N, H = q.shape
     K = k.shape[2]
     pairs = fa._visible(T, T, True, window, seg, q.device).sum().item() * (B if seg is None else 1)
@@ -3682,8 +3689,8 @@ def flash_bound(torch, fa, q, k, seg, window, what):
     }[what]
     if seg is not None:
         nbytes += seg.numel() * 4
-    flops = matmuls * 2 * N * H * pairs
-    peak = PEAK_FLOPS[str(q.dtype).removeprefix("torch.")]
+    flops = matmuls * 2 * N * H * pairs * (3 if rate == "tf32" else 1)
+    peak = PEAK_FLOPS[rate or str(q.dtype).removeprefix("torch.")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -3697,24 +3704,28 @@ def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
 
     dtype = str(q.dtype).removeprefix("torch.")
     opts = dict(segment_ids=seg, causal=True, window=window)
-    sm90_before = dict(fa.LAUNCHES_SM90)
+    # bf16: all three on the Hopper route; fp32: the forward on the SIMT
+    # kernel, dq and dk/dv on the 3xTF32 tensor-core kernels
+    routes = {w: fa.kernel_route(q.dtype, w) for w in ("fwd", "bwd_dq", "bwd_dkv")}
+    counters = {"sm90": fa.LAUNCHES_SM90, "sm90_f32": fa.LAUNCHES_SM90_F32}
+    before = {r: dict(c) for r, c in counters.items()}
     out, lse = fa.flash_attention_fwd(q, k, v, **opts)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
     delta = fa._delta(ref_out, do)  # both backward versions read the same saved tensors
     dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
-    # bf16: all three on the Hopper route; fp32: the SIMT kernels
-    route = "sm90" if dtype == "bfloat16" else "simt"
-    sm90 = {w: fa.LAUNCHES_SM90[w] - sm90_before[w] for w in sm90_before}
-    dq_again = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts)
+    moved = {r: {w: c[w] - before[r][w] for w in c} for r, c in counters.items()}
+    again = (fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts))
     ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
     torch.cuda.synchronize()
-    want_sm90 = int(route == "sm90")
-    check(sm90 == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
-          f"flash {name}: {route} case took the Hopper route {sm90} times")
-    # each block owns its rows of dq: no atomics, the same bits twice
-    check(route == "simt" or torch.equal(dq, dq_again), f"flash {name}: two dq launches differ")
-    del dq_again
+    for r in counters:
+        want = {w: int(routes[w] == r) for w in routes}
+        check(moved[r] == want, f"flash {name}: routes {routes}, but the {r} route took {moved[r]} launches")
+    # no atomics: each block owns its rows of dq; dk/dv sum in a fixed order
+    check(torch.equal(dq, again[0]), f"flash {name}: two dq launches differ")
+    check(torch.equal(dk, again[1]) and torch.equal(dv, again[2]), f"flash {name}: two dk/dv launches differ")
+    del again
     errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
                        dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
     del out, lse, dq, dk, dv, ref
@@ -3730,7 +3741,10 @@ def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
     plain_fwd = time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, **opts), 2, flush)
     plain_bwd = time_cuda(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts),
                           2, flush)
-    bounds = {what: flash_bound(torch, fa, q, k, seg, window, what) for what in ms}
+    bounds = {what: flash_bound(torch, fa, q, k, seg, window, what, "tf32" if routes[what] == "sm90_f32" else None)
+              for what in ms}
+    fp32_rate = {what: flash_bound(torch, fa, q, k, seg, window, what)[0] for what in ms
+                 if routes[what] == "sm90_f32"}
     library = dict(fwd=None, bwd=None)
     if seg is None and window is None:  # the yardstick: one library call, never on the path
         qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
@@ -3743,11 +3757,11 @@ def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
         library["bwd"] = time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                                       retain_graph=True), 20, flush)
         del qh, kh, vh, doh, lib_out
-    case = dict(case=name, dtype=dtype, route=route, q=list(q.shape), kv=list(k.shape), segments=seg is not None,
+    case = dict(case=name, dtype=dtype, routes=routes, q=list(q.shape), kv=list(k.shape), segments=seg is not None,
                 window=window, errors=errs, worst_err_over_tol=max(e["worst"] for e in errs.values()), ms=ms,
                 plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
                 bound_ms={w: b[0] for w, b in bounds.items()}, bound_by={w: b[1] for w, b in bounds.items()},
-                library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
+                bound_fp32_rate_ms=fp32_rate, library_fwd_ms=library["fwd"], library_bwd_ms=library["bwd"])
     emit(dict(phase="flash_kernel", **case))
     return case
 
@@ -3815,9 +3829,10 @@ MIXTRAL_STEP_TOL = dict(loss_rel=1e-4, leaf_rel=2.0e-2, all_rel=1.9e-2)
 def _grad_step(torch, fa, modeling, cfg, model_cls, causal_lm_loss, ids, seed, dtype, plain):
     """One forward and backward of a fresh ``model_cls`` (fp32 master weights,
     compute in ``dtype``) with the attention through the kernels or, if
-    ``plain``, the plain versions: (loss, {leaf: grad}, launches, Hopper-route
-    launches). An MoE model's loss is the LM loss plus its load-balancing
-    loss, as ``Trainer.compute_loss`` has it."""
+    ``plain``, the plain versions: (loss, {leaf: grad}, launches, bf16
+    Hopper-route launches, fp32 Hopper-route launches). An MoE model's loss
+    is the LM loss plus its load-balancing loss, as ``Trainer.compute_loss``
+    has it."""
     from paddlenlp_tpu_torch.transformers.conversion_utils import flatten_params
 
     model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
@@ -3825,7 +3840,7 @@ def _grad_step(torch, fa, modeling, cfg, model_cls, causal_lm_loss, ids, seed, d
     leaves = flatten_params(model.params)
     for t in leaves.values():
         t.requires_grad_(True)
-    before, sm90_before = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    before, sm90_before, f32_before = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
     kernel_attention = modeling.dot_product_attention
     if plain:
         modeling.dot_product_attention = _PlainFlash(torch, fa)
@@ -3840,7 +3855,8 @@ def _grad_step(torch, fa, modeling, cfg, model_cls, causal_lm_loss, ids, seed, d
         modeling.dot_product_attention = kernel_attention
     torch.cuda.synchronize()
     return (loss.item(), {k: t.grad for k, t in leaves.items()}, {n: fa.LAUNCHES[n] - before[n] for n in before},
-            {n: fa.LAUNCHES_SM90[n] - sm90_before[n] for n in sm90_before})
+            {n: fa.LAUNCHES_SM90[n] - sm90_before[n] for n in sm90_before},
+            {n: fa.LAUNCHES_SM90_F32[n] - f32_before[n] for n in f32_before})
 
 
 def _step_errors(got, want):
@@ -3864,8 +3880,9 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     """Qwen2-1.5B widths, 2 layers, micro-batch 2 x 1024, save_qkv_attn
     recompute: the loss and every gradient leaf through the kernels against the
     same step with the attention through the plain versions, in fp32 (the SIMT
-    kernels, to summation order) and at bf16 compute (the training path's
-    route, to ``BF16_STEP_TOL``, which the bf16-vs-fp32 control must exceed)."""
+    forward and the 3xTF32 dq and dk/dv, to summation order) and at bf16
+    compute (the training path's route, to ``BF16_STEP_TOL``, which the
+    bf16-vs-fp32 control must exceed)."""
     cfg = Qwen2Config(**{**QWEN2_1_5B, "num_hidden_layers": 2, "recompute": True,
                          "recompute_granularity": "save_qkv_attn"})
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -3880,7 +3897,8 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     bf16 = _step_errors(runs["bfloat16", False], runs["bfloat16", True])
     control = _step_errors(runs["bfloat16", True], runs["float32", True])
     launches = {dtype: dict(kernels=runs[dtype, False][2], kernels_sm90=runs[dtype, False][3],
-                            plain=runs[dtype, True][2]) for dtype in ("float32", "bfloat16")}
+                            kernels_sm90_f32=runs[dtype, False][4], plain=runs[dtype, True][2])
+                for dtype in ("float32", "bfloat16")}
     res = dict(phase="train_grad", config="Qwen/Qwen2-1.5B widths, 2 layers", tokens=list(ids.shape), seed=seed,
                loss={f"{dtype}_{'plain' if plain else 'kernels'}": r[0] for (dtype, plain), r in runs.items()},
                grad_leaves=len(runs["float32", True][1]),
@@ -3889,13 +3907,16 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     emit(res)
     del runs
     torch.cuda.empty_cache()
-    one_each = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
-    for dtype, want_sm90 in (("float32", 0), ("bfloat16", 2)):
+    one_each, none = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}, {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    # fp32: the forward on the SIMT kernel, dq and dk/dv on the fp32 Hopper route
+    for dtype, want_sm90, want_f32 in (("float32", none, {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}),
+                                       ("bfloat16", one_each, none)):
         n = launches[dtype]
         check(n["kernels"] == one_each, f"train_grad {dtype}: kernel launches {n['kernels']}")
-        check(n["kernels_sm90"] == {"fwd": want_sm90, "bwd_dq": want_sm90, "bwd_dkv": want_sm90},
-              f"train_grad {dtype}: Hopper-route launches {n['kernels_sm90']}")
-        check(n["plain"] == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, f"train_grad {dtype}: the plain run launched")
+        check(n["kernels_sm90"] == want_sm90, f"train_grad {dtype}: bf16 Hopper-route launches {n['kernels_sm90']}")
+        check(n["kernels_sm90_f32"] == want_f32,
+              f"train_grad {dtype}: fp32 Hopper-route launches {n['kernels_sm90_f32']}")
+        check(n["plain"] == none, f"train_grad {dtype}: the plain run launched")
     check(fp32["loss_rel_err"] <= 1e-5, f"train_grad fp32: loss rel err {fp32['loss_rel_err']} > 1e-5")
     check(fp32["leaf_max"]["rel_err"] <= 1e-4, f"train_grad fp32: {fp32['leaf_max']} > 1e-4")
     check(bf16["loss_rel_err"] <= BF16_STEP_TOL["loss_rel"],
@@ -4072,7 +4093,7 @@ HOPPER_FLASH = ("flash_fwd_kernel_sm90", "flash_bwd_dq_kernel_sm90", "flash_bwd_
 
 
 def reset_counts(fa):
-    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90):
+    for counts in (fa.LAUNCHES, fa.LAUNCHES_SM90, fa.LAUNCHES_SM90_F32):
         for name in counts:
             counts[name] = 0
 
@@ -5994,35 +6015,38 @@ def main(argv=None) -> int:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]
             info.update(launched_by="kv_quant", fp8_decode_ms=fp8["ms"], fp8_decode_library_ms=fp8["library_ms"])
         checks.append(info)
-    # flash rows: the Hopper kernels (bf16, the main path: times at its shape)
-    # and the SIMT kernels (fp32: times from the fp32 case). Launches are the
-    # train, train_resume, train_recompute, finetune, vera and dpo runs' on
-    # each route, and for the forward the spec phase's draft forwards too: the
-    # main path never takes the SIMT kernels, which the fp32 train_grad step
-    # checks. The finetune phase's packed-row case and the dpo phase's
-    # T = 4095 case count among the checked cases
+    # flash rows: the bf16 Hopper kernels (the main path: times at its shape),
+    # the fp32 forward's SIMT kernel and the fp32 dq and dk/dv's 3xTF32
+    # kernels (times from the fp32 case; their bound at a third of the TF32
+    # rate, the fp32 rate's beside it). Launches are the train,
+    # train_resume, train_recompute, finetune, vera, dpo and mixtral runs' on
+    # each route, and for the forward the spec phase's draft forwards too: no
+    # main-path phase computes in fp32, which the fp32 train_grad step checks
+    # (check_launches). The finetune phase's packed-row case, the dpo phase's
+    # T = 4095 case and the mixtral phase's case count among the checked cases
     flash.append(finetune["flash_case"])
     flash.append(align["dpo"]["flash_case"])
     flash.append(mixtral["flash_case"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
+    sources = {"sm90": "flash_attention_sm90.cu", "simt": "flash_attention.cu",
+               "sm90_f32": "flash_attention_sm90_f32.cu"}
     rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
-            ("bwd_dq", "sm90", 187, "flash_attention_bwd_dq_sm90"), ("bwd_dq", "simt", 187, "flash_attention_bwd_dq"),
+            ("bwd_dq", "sm90", 187, "flash_attention_bwd_dq_sm90"),
+            ("bwd_dq", "sm90_f32", 187, "flash_attention_bwd_dq_sm90_f32"),
             ("bwd_dkv", "sm90", 227, "flash_attention_bwd_dkv_sm90"),
-            ("bwd_dkv", "simt", 227, "flash_attention_bwd_dkv")]
+            ("bwd_dkv", "sm90_f32", 227, "flash_attention_bwd_dkv_sm90_f32")]
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
-        checked = [c for c in flash if c["route"] == route]
+        checked = [c for c in flash if c["routes"][what] == route]
         runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"])
         sm90 = sum(r["sm90_launches"][what] for r in runs)
         launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
             draft90 = spec["launches"]["flash_fwd_sm90"]
             launches += draft90 if route == "sm90" else spec["launches"]["flash_fwd"] - draft90
-        check_launches = None if route == "sm90" else grad["launches"]["float32"]["kernels"][what]
         kernels.append(dict(
-            name=name, route="cuda",
-            source="paddlenlp_tpu_torch/csrc/flash_attention" + ("_sm90.cu" if route == "sm90" else ".cu"),
+            name=name, route="cuda", source="paddlenlp_tpu_torch/csrc/" + sources[route],
             replaces=f"paddlenlp_tpu/ops/pallas/flash_attention.py:{line}", launches=launches,
             max_abs_err=max(c["errors"][o]["max_abs_err"] for c in checked for o in outputs[what]),
             ms=timed["ms"][what],
@@ -6030,17 +6054,27 @@ def main(argv=None) -> int:
             plain_ms=timed["plain_fwd_ms"] if what == "fwd" else timed["plain_bwd_ms"],
             bound_ms=timed["bound_ms"][what], bound_by=timed["bound_by"][what],
             library_ms=timed["library_fwd_ms"] if what == "fwd" else timed["library_bwd_ms"]))
-        checks.append(dict(check="pass", cases=len(checked), timed_case=timed["case"],
-                           launched_by="train, train_resume, train_recompute, finetune, vera, dpo, mixtral" + (
-                               ", spec (draft)" if what == "fwd" else ""),
-                           train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
-                           recompute_launches=recompute["sm90_launches"][what],
-                           finetune_launches=finetune["sm90_launches"][what],
-                           vera_launches=align["vera"]["sm90_launches"][what],
-                           dpo_launches=align["dpo"]["sm90_launches"][what],
-                           mixtral_launches=mixtral["train"]["sm90_launches"][what],
-                           check_launches=check_launches,
-                           worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what])))
+        info = dict(check="pass", cases=len(checked), timed_case=timed["case"],
+                    worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what]))
+        if route == "sm90":
+            info.update(launched_by="train, train_resume, train_recompute, finetune, vera, dpo, mixtral" + (
+                            ", spec (draft)" if what == "fwd" else ""),
+                        train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
+                        recompute_launches=recompute["sm90_launches"][what],
+                        finetune_launches=finetune["sm90_launches"][what],
+                        vera_launches=align["vera"]["sm90_launches"][what],
+                        dpo_launches=align["dpo"]["sm90_launches"][what],
+                        mixtral_launches=mixtral["train"]["sm90_launches"][what])
+        else:
+            fp32_step = grad["launches"]["float32"]
+            info.update(launched_by="train_grad (its fp32 step)", check_launches=fp32_step["kernels"][what],
+                        check_launches_on_route=(fp32_step["kernels_sm90_f32"][what] if route == "sm90_f32"
+                                                 else fp32_step["kernels"][what] - fp32_step["kernels_sm90"][what]),
+                        times={c["case"]: c["ms"][what] for c in checked if "ms" in c})
+            if route == "sm90_f32":
+                info.update(bound_fp32_rate_ms=timed["bound_fp32_rate_ms"][what],
+                            bwd_dq_plus_dkv_ms=timed["ms"]["bwd_dq"] + timed["ms"]["bwd_dkv"])
+        checks.append(info)
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
     writes = disk_writes()
     emit(dict(phase="disk", **(writes or {}), limit_bytes=45 * 2**30, seconds=time.perf_counter() - T_START))

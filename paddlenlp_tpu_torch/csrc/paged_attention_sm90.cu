@@ -66,6 +66,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -75,7 +77,6 @@ constexpr int KV_TILE = 64;  // kv positions of a tile
 constexpr int STAGES = 3;
 constexpr int THREADS = 128;
 constexpr int MAX_BS = 64;
-constexpr int MAX_DEVICES = 64;
 constexpr int MERGE_ROWS = 4;  // output rows of a merge block, one a warp
 
 struct Shape {
@@ -85,25 +86,6 @@ struct Shape {
 };
 
 // ------------------------------------------------------------------ PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; valid == false writes zeros and reads nothing
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// 4 bytes global -> shared, asynchronous, the same zero fill
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // this thread's shared-memory writes, made visible to wgmma's (async proxy) reads
 __device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
@@ -702,14 +684,6 @@ __device__ __forceinline__ void split3_tf32(float x, uint32_t& hi, uint32_t& mid
   lo = __float_as_uint(r - __uint_as_float(mid));
 }
 
-// d[16 x 8] += a[16 x 8] b[8 x 8], TF32 operands, fp32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // S += Q K^T at fp32 accuracy from a's (hi, lo) and b's values (b0, b1):
 // a_lo b_hi + a_hi b_lo + a_hi b_hi, the small products first; an exact b
 // (B_EXACT) has no lo part
@@ -1240,8 +1214,6 @@ cudaError_t dispatch_f32(int kv_dtype, const void* q, const void* pool_k, const 
                                           part_ml, B, sh, s);
   }
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The checks both entries make; cudaSuccess when the launch may go ahead.
 cudaError_t check_args(const void* q, const void* pool_k, const void* pool_v, void* out, void* part_o, void* part_ml,

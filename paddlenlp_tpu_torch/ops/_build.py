@@ -3,7 +3,8 @@
 Each source in ``paddlenlp_tpu_torch/csrc/`` is compiled on first use into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes) under ``paddlenlp_tpu_torch/_build/``, named by a hash of
-the source and the flags: a changed source rebuilds, an unchanged one loads
+the source, the local headers it includes (``#include "..."``, transitively)
+and the flags: a changed source or header rebuilds, an unchanged one loads
 the cached library. Nothing here runs at import time.
 """
 
@@ -12,11 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["SOURCES", "build", "library_path", "load"]
 
@@ -26,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: the kernel sources the port builds (stem -> file under csrc/)
 SOURCES = {"paged_attention_sm90": "paged_attention_sm90.cu", "flash_attention": "flash_attention.cu",
-           "flash_attention_sm90": "flash_attention_sm90.cu"}
+           "flash_attention_sm90": "flash_attention_sm90.cu", "flash_attention_sm90_f32": "flash_attention_sm90_f32.cu"}
 
 #: Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels;
 #: -Xptxas -v records registers, shared memory and spills in the build log;
@@ -47,9 +49,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def _files(stem: str) -> List[Path]:
+    """``stem``'s source and the local headers it includes, transitively,
+    each once, in the order they are first included."""
+    out, todo = [], [CSRC / SOURCES[stem]]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        included = re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)
+        todo += [path.parent / name for name in included]
+    return out
+
+
 def library_path(stem: str) -> Path:
-    """Where ``stem``'s library lives for the current source and flags."""
-    h = hashlib.sha256((CSRC / SOURCES[stem]).read_bytes())
+    """Where ``stem``'s library lives for the current source, its headers and
+    the flags."""
+    h = hashlib.sha256()
+    for path in _files(stem):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 

@@ -11,12 +11,15 @@ The kernels are in ``paddlenlp_tpu_torch/csrc/``:
 - :func:`flash_attention_bwd_dkv` -> (dk, dv), summed per KV head over its
   query group (``_bwd_dkv_kernel`` :227).
 
-Two routes, chosen by dtype alone. bf16 operands, the training path's, take
-all three through the Hopper tensor-core kernels of
-``flash_attention_sm90.cu`` (TMA tile ring, ``wgmma``); fp32 operands run
-the SIMT kernels of ``flash_attention.cu``. The fp32 route is kept on
-purpose: its fp32 products are what the fp32 gates (1e-4) hold to, which
-bf16 operands cannot meet.
+Three routes, chosen by dtype and by the kernel (:func:`kernel_route`).
+bf16 operands, the training path's, take all three through the Hopper
+tensor-core kernels of ``flash_attention_sm90.cu`` (``"sm90"``: TMA tile
+ring, ``wgmma``). fp32 operands, those of a model computing in fp32 and of
+the fp32 checks (1e-4 gates, which bf16 operands cannot meet), take the
+forward on the CUDA cores of ``flash_attention.cu`` (``"simt"``) and dq and
+dk/dv through ``flash_attention_sm90_f32.cu`` (``"sm90_f32"``: 3xTF32
+``mma.sync`` products at fp32 accuracy; dk/dv's walks split over blocks by
+:func:`dkv_split`, their partial sums merged in order by a second kernel).
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
 head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
@@ -24,8 +27,8 @@ int32. :func:`flash_attention_fwd_ref` and :func:`flash_attention_bwd_ref`
 compute the same functions in fp32, step by step; each wrapper takes them only
 for tensors on the CPU. For CUDA tensors it checks the operands and launches
 its kernel, or raises: there is no fallback. ``LAUNCHES`` counts each
-kernel's launches on either route and ``LAUNCHES_SM90`` those of the
-Hopper route alone.
+kernel's launches on every route, ``LAUNCHES_SM90`` those of the bf16
+Hopper route and ``LAUNCHES_SM90_F32`` those of the fp32 one.
 
 :func:`dot_product_attention` is the dispatcher. It sends to the flash
 kernels exactly the calls the JAX dispatcher sends to Pallas
@@ -47,9 +50,10 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_SM90", "NEG_INF", "dense_attention_mask", "dot_product_attention",
-           "dot_product_attention_dense", "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_ref", "flash_attention_fwd", "flash_attention_fwd_ref", "plain_softmax"]
+__all__ = ["LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_F32", "NEG_INF", "dense_attention_mask", "dkv_split",
+           "dkv_walk", "dot_product_attention", "dot_product_attention_dense", "flash_attention",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd",
+           "flash_attention_fwd_ref", "kernel_route", "plain_softmax"]
 
 NEG_INF = -1e30
 
@@ -57,9 +61,16 @@ NEG_INF = -1e30
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: the launches of those that took the Hopper bf16 route (flash_attention_sm90.cu)
 LAUNCHES_SM90 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
-#: guards both dicts: threads of one process may launch at the same time, and
-#: ``+=`` on a dict entry can lose a bump
+#: the launches of those that took the Hopper fp32 route (flash_attention_sm90_f32.cu:
+#: dq and dk/dv; the fp32 forward stays on the CUDA cores)
+LAUNCHES_SM90_F32 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+#: guards the three dicts: threads of one process may launch at the same time,
+#: and ``+=`` on a dict entry can lose a bump
 _COUNT_LOCK = threading.Lock()
+
+#: route -> (library stem, suffix of the C entries)
+_ROUTES = {"sm90": ("flash_attention_sm90", "_sm90"), "simt": ("flash_attention", ""),
+           "sm90_f32": ("flash_attention_sm90_f32", "_sm90_f32")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -208,13 +219,57 @@ def _geometry(q, k, causal, window):
     return [B, T, S, N, K, H, int(bool(causal)), -1 if window is None else int(window), _DTYPES[q.dtype]]
 
 
-def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
-    """Launch ``what`` on its route: the Hopper kernel for bf16 operands,
-    the SIMT kernel for fp32. A refused launch raises; nothing runs in its
-    place."""
-    sm90 = q.dtype == torch.bfloat16
-    stem, symbol = ("flash_attention_sm90", symbol + "_sm90") if sm90 else ("flash_attention", symbol)
-    ints = _geometry(q, k, causal, window)
+def kernel_route(dtype, what) -> str:
+    """The route a launch of ``what`` (``"fwd"``, ``"bwd_dq"`` or
+    ``"bwd_dkv"``) takes for operands of ``dtype``: ``"sm90"`` for bf16,
+    ``"simt"`` for the fp32 forward, ``"sm90_f32"`` for fp32 dq and dk/dv."""
+    if dtype == torch.bfloat16:
+        return "sm90"
+    return "simt" if what == "fwd" else "sm90_f32"
+
+
+# the dk/dv walk's split (flash_attention_sm90_f32.cu): kv tiles of 64 rows,
+# 16-row query steps; a part takes at least _MIN_CHUNK steps, and the launch
+# aims at _WAVES waves of two blocks an SM
+_F32_RES, _F32_STEP, _MIN_CHUNK, _WAVES = 64, 16, 32, 3
+
+
+def dkv_walk(T, S, causal, window, tile) -> Tuple[int, int]:
+    """(lo, count): the 16-row query tiles lo .. lo + count - 1 that each query
+    head walks for the fp32 dk/dv kernel's 64-row kv tile ``tile``, those
+    that can see it (``dkv_walk`` of ``flash_attention_sm90_f32.cu``)."""
+    n_qs = -(-T // _F32_STEP)
+    kv0 = tile * _F32_RES
+    lo, hi = 0, n_qs
+    if causal:
+        lo = kv0 // _F32_STEP
+        if window is not None:
+            last = min(kv0 + _F32_RES, S) - 1 + min(window, T + S) - 1
+            hi = 0 if last < 0 else min(n_qs, last // _F32_STEP + 1)
+    return lo, max(hi - lo, 0)
+
+
+def dkv_split(B, T, S, N, K, causal, window, sms) -> Tuple[int, int]:
+    """How the fp32 dk/dv kernel splits its walks over a card of ``sms``
+    streaming multiprocessors: (chunk, slots). Each 64-row kv tile walks
+    ``N // K`` query heads times its visible 16-row query tiles; the walk is
+    cut into parts of ``chunk`` steps so that the launch fills about three
+    waves of two blocks an SM (the causal mask leaves the first tile's walk
+    the longest), and every part of a tile cut in more than one takes a
+    workspace slot of [B, K, 2, 64, H] fp32 partial sums."""
+    totals = [(N // K) * dkv_walk(T, S, causal, window, t)[1] for t in range(-(-S // _F32_RES))]
+    chunk = max(_MIN_CHUNK, -(-B * K * sum(totals) // (_WAVES * 2 * sms)))
+    parts = [max(1, -(-tot // chunk)) for tot in totals]
+    return chunk, sum(p for p in parts if p > 1)
+
+
+def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what, extra=()):
+    """Launch ``what`` on its route (:func:`kernel_route`); ``extra`` ints
+    follow the geometry. A refused launch raises; nothing runs in its place."""
+    route = kernel_route(q.dtype, what)
+    stem, suffix = _ROUTES[route]
+    symbol += suffix
+    ints = _geometry(q, k, causal, window) + list(extra)
     H = q.shape[-1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -224,8 +279,10 @@ def _launch(symbol, n_ptr, ptrs, q, k, causal, window, scale, what):
         raise RuntimeError(f"{what} kernel launch failed ({symbol}): CUDA error {rc}")
     with _COUNT_LOCK:
         LAUNCHES[what] += 1
-        if sm90:
+        if route == "sm90":
             LAUNCHES_SM90[what] += 1
+        elif route == "sm90_f32":
+            LAUNCHES_SM90_F32[what] += 1
 
 
 def _device(name, q):
@@ -286,9 +343,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, segment_ids=None, scale=Non
     _check_saved("flash_attention_bwd_dkv", q, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("pdnlp_flash_bwd_dkv", 9,
-            [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(segment_ids), _ptr(dk), _ptr(dv)],
-            q, k, causal, window, scale, "bwd_dkv")
+    ptrs = [_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(segment_ids), _ptr(dk), _ptr(dv)]
+    if kernel_route(q.dtype, "bwd_dkv") != "sm90_f32":
+        _launch("pdnlp_flash_bwd_dkv", 9, ptrs, q, k, causal, window, scale, "bwd_dkv")
+        return dk, dv
+    B, T, N, H = q.shape
+    S, K = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, slots = dkv_split(B, T, S, N, K, causal, window, sms)
+    ws = torch.empty(slots * B * K * 2 * _F32_RES * H, dtype=torch.float32, device=q.device) if slots else None
+    _launch("pdnlp_flash_bwd_dkv", 10, ptrs + [_ptr(ws)], q, k, causal, window, scale, "bwd_dkv", (chunk, slots))
     return dk, dv
 
 

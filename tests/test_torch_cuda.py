@@ -456,9 +456,10 @@ def _close(got, want, dtype):
 ])
 def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
     """bf16 runs the forward, dq and dk/dv through the Hopper kernels
-    (``LAUNCHES_SM90``), fp32 through the SIMT kernels."""
+    (``LAUNCHES_SM90``); fp32 runs the forward through the SIMT kernel and dq
+    and dk/dv through the 3xTF32 Hopper kernels (``LAUNCHES_SM90_F32``)."""
     q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
-    sm90 = dict(fa.LAUNCHES_SM90)
+    sm90, f32 = dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
     out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
     ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -472,21 +473,100 @@ def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segme
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == w.shape, name
         _close(got, w, dtype)
-    moved = 1 if dtype == torch.bfloat16 else 0
-    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dq": moved, "bwd_dkv": moved}
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == _route_moves(dtype, "sm90")
+    assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == _route_moves(dtype, "sm90_f32")
+
+
+def _route_moves(dtype, route):
+    """One launch of each kernel: how far the ``route`` counter moves."""
+    return {w: int(fa.kernel_route(dtype, w) == route) for w in ("fwd", "bwd_dq", "bwd_dkv")}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_flash_autograd_counts_launches(dev, dtype):
-    """``LAUNCHES`` counts each kernel once on either route; ``LAUNCHES_SM90``
-    moves by one forward, one dq and one dk/dv for bf16 and stays for fp32."""
+    """``LAUNCHES`` counts each kernel once on every route; ``LAUNCHES_SM90``
+    moves by one forward, one dq and one dk/dv for bf16 and stays for fp32;
+    ``LAUNCHES_SM90_F32`` moves by one dq and one dk/dv for fp32 and stays
+    for bf16 (the fp32 forward is the SIMT kernel's)."""
     q, k, v, do, _ = _flash_case(dev, dtype, 1, 100, 4, 2, 128, False)
     q.requires_grad_(True)
-    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
     fa.flash_attention(q, k.requires_grad_(True), v.requires_grad_(True)).backward(do)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
-    moved = 1 if dtype == torch.bfloat16 else 0
-    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": moved, "bwd_dq": moved, "bwd_dkv": moved}
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == _route_moves(dtype, "sm90")
+    assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == _route_moves(dtype, "sm90_f32")
+    assert _route_moves(torch.float32, "simt") == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
+
+
+# (T, N, K, H, causal, window, segments): GQA 12/2 and 4/4, H 128 and 64,
+# causal and full, a window, segments, T 100, 2048 and 4095, and a window of
+# 0 (no row sees a key: every gradient must come out exactly zero)
+F32_CASES = [(100, 12, 2, 128, True, None, False), (100, 4, 4, 64, False, None, False),
+             (2048, 12, 2, 128, True, None, False), (2048, 4, 4, 64, True, 256, True),
+             (2048, 12, 2, 128, False, None, True), (4095, 12, 2, 128, True, None, False),
+             (4095, 4, 4, 64, True, 1000, False), (1000, 12, 2, 128, True, 0, False)]
+
+
+@pytest.mark.parametrize("T,N,K,H,causal,window,segments", F32_CASES)
+def test_flash_f32_backward_matches_plain_and_repeats(dev, T, N, K, H, causal, window, segments):
+    """The fp32 dq and dk/dv (3xTF32 ``mma.sync``) against the plain
+    backward under ``chip_smoke.py``'s fp32 gate (each element within 1e-4 of
+    its tensor's largest, ``flash_worst``; printed), finite, and the same
+    bits from a second launch (no atomics; dk/dv's split walks merged in
+    order)."""
+    import chip_smoke
+
+    q, k, v, do, seg = _flash_case(dev, torch.float32, 2, T, N, K, H, segments)
+    opts = dict(segment_ids=seg, causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    delta = fa._delta(out, do)
+    f32 = dict(fa.LAUNCHES_SM90_F32)
+    got = dict(dq=fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts))
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts)
+    again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts))
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, **opts)))
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+    worst = chip_smoke.flash_worst(torch, got, want, "float32")
+    print(json.dumps(dict(T=T, N=N, K=K, H=H, causal=causal, window=window, segments=segments,
+                          worst={n: e["worst"] for n, e in worst.items()})))
+    for name, e in worst.items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
+    for name, a in zip(("dq", "dk", "dv"), again):
+        assert torch.equal(got[name], a), name
+    if window == 0:
+        for name, g in got.items():
+            assert torch.count_nonzero(g) == 0, name
+
+
+@pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
+def test_flash_f32_failed_launch_raises(dev, monkeypatch, fault):
+    """A refused launch on the fp32 Hopper route raises RuntimeError naming
+    the entry: no counter moves, and neither another kernel nor the plain
+    version runs in its place."""
+    q, k, v, do, _ = _flash_case(dev, torch.float32, 1, 128, 4, 2, 128, False)
+    if fault == "entry returns an error":
+        real = fa._kernel_fn
+        monkeypatch.setattr(fa, "_kernel_fn", lambda stem, symbol, n_ptr, n_int: (
+            (lambda *args: 700) if stem == "flash_attention_sm90_f32" else real(stem, symbol, n_ptr, n_int)))
+    else:  # a contiguous view 4 bytes into its buffer: the kernels' 16-byte copies refuse it
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        buf[1:].view(q.shape).copy_(q)
+        q = buf[1:].view(q.shape)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran in place of the kernel")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_ref", plain)
+    lse = torch.zeros(1, 4, 128, device=dev)
+    before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
+    with pytest.raises(RuntimeError, match="pdnlp_flash_bwd_dq_sm90_f32"):
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, lse)
+    with pytest.raises(RuntimeError, match="pdnlp_flash_bwd_dkv_sm90_f32"):
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before and fa.LAUNCHES_SM90 == sm90 and fa.LAUNCHES_SM90_F32 == f32
 
 
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
@@ -571,8 +651,9 @@ def test_train_step_through_kernels_equals_plain(dev):
     """At fp32, the loss and every gradient leaf of a Trainer micro-step
     through the kernels equal those through the plain versions (the CPU
     path): loss rel 1e-5, each leaf within 1e-4 of its largest element. A
-    full step then launches each kernel once per layer and micro-batch, on
-    the SIMT route in fp32 and on the Hopper route in bf16."""
+    full step then launches each kernel once per layer and micro-batch: in
+    fp32 the forward on the SIMT route and dq and dk/dv on the fp32 Hopper
+    route, in bf16 all three on the Hopper route."""
     cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, head_dim=64, tie_word_embeddings=True,
                       recompute=True, recompute_granularity="save_qkv_attn")
@@ -593,10 +674,11 @@ def test_train_step_through_kernels_equals_plain(dev):
         results[str(device)] = (loss.item(), {k: t.grad.cpu() for k, t in trainer.params.items()})
         if device != "cpu":
             trainer.create_optimizer_and_scheduler(1)
-            before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+            before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
             trainer.training_step(batch)
             assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
-            assert fa.LAUNCHES_SM90 == sm90  # fp32: the SIMT kernels
+            assert fa.LAUNCHES_SM90 == sm90  # fp32: the SIMT forward, the 3xTF32 dq and dk/dv
+            assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == {"fwd": 0, "bwd_dq": 4, "bwd_dkv": 4}
             # bf16 compute (run_pretrain's `dtype`): all three take the Hopper route
             model.compute_dtype = torch.bfloat16
             before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
@@ -1241,7 +1323,7 @@ def _kernels_vs_plain(step, leaves):
 
 def test_lora_step_through_kernels_equals_plain(dev):
     """A LoRA forward and backward at fp32 over Qwen2-1.5B's widths (2
-    layers), rows without a padding mask (the flash kernels, SIMT route),
+    layers), rows without a padding mask (the flash kernels' fp32 routes),
     against the plain attention: the loss and the adapters' gradients."""
     from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
     from paddlenlp_tpu_torch.peft import LoRAConfig, LoRAModel

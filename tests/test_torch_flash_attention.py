@@ -28,6 +28,7 @@ import torch
 from paddlenlp_tpu.ops.pallas.flash_attention import _flash_fwd
 from paddlenlp_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from paddlenlp_tpu_torch.ops import flash_attention as fa
+from torch_tf32 import mm_tf32, tf32_trunc
 
 FWD_ATOL = 2e-5
 GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
@@ -269,6 +270,110 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
         print(f"bf16 parts {parts}:", {name: round(e["worst"], 3) for name, e in worst[parts].items()})
     for name, e in worst[2].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
+
+
+def _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms):
+    """The fp32 backward of ``flash_attention_sm90_f32.cu`` step by step in
+    torch: every operand of the five products split as the kernels split it
+    (:func:`torch_tf32.mm_tf32`, hi rounded to TF32, lo read as TF32 by
+    truncation) or one TF32 pass (``passes=1``); p = exp2(s scale log2 e -
+    lse log2 e), dS = p (dP - delta) scale. dq sums over 16-row kv steps in
+    order, a fresh product a step; dk/dv walk each 64-row kv tile's (query
+    head, 16-row query tile) pairs in order (``dkv_walk``), cut into parts of
+    ``dkv_split``'s chunk on a card of ``sms`` multiprocessors, each part's
+    sum taken step by step and the parts added in order. (What the tensor
+    core does inside one ``mma`` is not emulated.)"""
+    B, T, N, H = q.shape
+    S, K = k.shape[1], k.shape[2]
+    g = N // K
+    scale, log2e = H**-0.5, 1.4426950408889634
+
+    def mm(a, b):
+        return mm_tf32(a, b, passes, lo=tf32_trunc)
+
+    qf, dof = (x.reshape(B, T, K, g, H).permute(0, 2, 3, 1, 4) for x in (q, do))  # [B, K, g, T, H]
+    kf, vf = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, S, H]
+    valid = fa._visible(T, S, causal, window, seg, q.device)[:, None, None]
+    s = mm(qf, kf.transpose(-1, -2))
+    p = torch.where(valid, torch.exp2(s * (scale * log2e) - lse.reshape(B, K, g, T, 1) * log2e),
+                    torch.zeros_like(s))
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta.reshape(B, K, g, T, 1)) * scale
+    dq = torch.zeros(B, K, g, T, H)
+    for c0 in range(0, S, 16):
+        dq = dq + mm(ds[..., c0:c0 + 16], kf[..., c0:c0 + 16, :])
+    chunk, _slots = fa.dkv_split(B, T, S, N, K, causal, window, sms)
+    dk, dv = torch.zeros(B, K, S, H), torch.zeros(B, K, S, H)
+    for tile in range(-(-S // 64)):
+        cols = slice(64 * tile, 64 * tile + 64)
+        lo, count = fa.dkv_walk(T, S, causal, window, tile)
+        steps = [(gi, lo + i) for gi in range(g) for i in range(count)]
+        for p0 in range(0, len(steps), chunk):
+            part_k, part_v = torch.zeros_like(dk[:, :, cols]), torch.zeros_like(dv[:, :, cols])
+            for gi, qt in steps[p0:p0 + chunk]:
+                rows = slice(16 * qt, 16 * qt + 16)
+                part_v = part_v + mm(p[:, :, gi, rows, cols].transpose(-1, -2), dof[:, :, gi, rows])
+                part_k = part_k + mm(ds[:, :, gi, rows, cols].transpose(-1, -2), qf[:, :, gi, rows])
+            dk[:, :, cols] = dk[:, :, cols] + part_k
+            dv[:, :, cols] = dv[:, :, cols] + part_v
+    return dict(dq=dq.permute(0, 3, 1, 2, 4).reshape(B, T, N, H), dk=dk.transpose(1, 2), dv=dv.transpose(1, 2))
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread: the emulation's hundreds of small
+    products ran ~20x slower on the pool under the suite's parallel workers
+    (restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("causal,window,segments", [(True, None, False), (True, 120, True), (False, None, True)],
+                         ids=["causal", "window+segments", "full+segments"])
+def test_f32_tensor_core_products_fit_the_chip_gate(causal, window, segments, one_thread):
+    """The fp32 dq and dk/dv kernels' arithmetic (3xTF32 products in the
+    kernels' tile order, dk/dv's walks cut into parts as on a 2-multiprocessor
+    card, so that T 200's tiles split) against the plain backward under
+    ``chip_smoke.py``'s fp32 gate (1e-4 of each tensor's largest element,
+    ``flash_worst``) at group 3, head_dim 64, T 200 (no multiple of 64): in
+    with the headroom printed, while one TF32 pass misses it."""
+    import chip_smoke
+
+    q, k, v, do, seg = (_t(x) for x in _inputs(1, 200, 6, 2, 64, segments, seed=8))
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
+    delta = fa._delta(out, do)
+    want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, seg, causal=causal,
+                                                                     window=window)))
+    assert fa.dkv_split(1, 200, 200, 6, 2, causal, window, 2)[1] > 0  # some tile's walk is cut in parts
+    worst = {}
+    for passes in (3, 1):
+        got = _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms=2)
+        worst[passes] = chip_smoke.flash_worst(torch, got, want, "float32")
+        print(f"fp32 backward, {passes} TF32 pass(es):", {n: round(e["worst"], 4) for n, e in worst[passes].items()})
+    for name, e in worst[3].items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
+    assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]
+
+
+def test_dkv_split_fills_the_card_and_sizes_the_workspace():
+    """``dkv_split`` at the fp32 check's shape (q [2, 2048, 12, 128] over k/v
+    [2, 2048, 2, 128], causal) on 132 multiprocessors: the walks' parts make
+    about three waves of two blocks an SM (the 128 kv tiles alone make half
+    of one), the causal mask's longest walk (tile 0: 6 heads x 128 query
+    tiles) the most cut, and the workspace slots count the parts of the tiles
+    cut in more than one."""
+    B, T, N, K = 2, 2048, 12, 2
+    chunk, slots = fa.dkv_split(B, T, T, N, K, True, None, 132)
+    walks = [fa.dkv_walk(T, T, True, None, t) for t in range(T // 64)]
+    assert walks[0] == (0, 128) and walks[-1] == (124, 4)
+    parts = [max(1, -(-(N // K) * n // chunk)) for _, n in walks]
+    assert 2 * 132 * 2 <= B * K * sum(parts) <= 2 * 132 * 4, (chunk, parts)
+    assert parts[0] == max(parts) > 1 and slots == sum(p for p in parts if p > 1)
+    # a window bounds the walk: a window of 1 walks the diagonal's 4 query tiles
+    assert fa.dkv_walk(T, T, True, 512, 0) == (0, 36) and fa.dkv_walk(T, T, True, 1, 5) == (20, 4)
+    # full attention walks every query tile, also past S
+    assert fa.dkv_walk(100, 300, False, None, 4) == (0, 7)
 
 
 # ----------------------------------------------------------------------------- the XLA path

@@ -80,16 +80,19 @@ def test_paged_refused_launch_counts_nothing(monkeypatch):
     assert pa.LAUNCHES == pa.LAUNCHES_SM90 == 0
 
 
+# ids: the forward's route (bf16: all three on sm90; fp32: the forward on the
+# SIMT kernel, dq and dk/dv on sm90_f32)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["sm90", "simt"])
 def test_flash_counts_sum_exactly_across_threads(monkeypatch, tight_switching, dtype):
     symbols = []
     monkeypatch.setattr(fa, "_kernel_fn", lambda stem, symbol, n_ptr, n_int: (
-        lambda *args: symbols.append(symbol) or 0))
+        lambda *args: symbols.append((stem, symbol)) or 0))
     # the launch path's only CUDA calls: select the device, read its stream
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(fa, "LAUNCHES", {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
     monkeypatch.setattr(fa, "LAUNCHES_SM90", {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
+    monkeypatch.setattr(fa, "LAUNCHES_SM90_F32", {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
     q = torch.zeros(1, 4, 2, 8, dtype=dtype)
     k = torch.zeros(1, 4, 1, 8, dtype=dtype)
     whats = ["fwd", "bwd_dq", "bwd_dkv"]
@@ -106,5 +109,13 @@ def test_flash_counts_sum_exactly_across_threads(monkeypatch, tight_switching, d
     assert len(symbols) == n
     assert sum(fa.LAUNCHES.values()) == n
     assert all(v in (n // 3, n // 3 + 1) for v in fa.LAUNCHES.values()), fa.LAUNCHES
-    expect = fa.LAUNCHES if dtype == torch.bfloat16 else {w: 0 for w in whats}
-    assert fa.LAUNCHES_SM90 == expect
+    none = {w: 0 for w in whats}
+    if dtype == torch.bfloat16:
+        assert fa.LAUNCHES_SM90 == fa.LAUNCHES and fa.LAUNCHES_SM90_F32 == none
+        assert {s for _, s in symbols} == {f"pdnlp_flash_{w}_sm90" for w in whats}
+    else:
+        assert fa.LAUNCHES_SM90 == none
+        assert fa.LAUNCHES_SM90_F32 == {"fwd": 0, "bwd_dq": fa.LAUNCHES["bwd_dq"], "bwd_dkv": fa.LAUNCHES["bwd_dkv"]}
+        assert set(symbols) == {("flash_attention", "pdnlp_flash_fwd"),
+                                ("flash_attention_sm90_f32", "pdnlp_flash_bwd_dq_sm90_f32"),
+                                ("flash_attention_sm90_f32", "pdnlp_flash_bwd_dkv_sm90_f32")}

@@ -18,6 +18,7 @@ from paddlenlp_tpu.experimental.paged_cache import quantize_kv as jax_quantize_k
 from paddlenlp_tpu.ops.pallas.paged_attention import paged_decode_attention as jax_decode
 from paddlenlp_tpu.ops.pallas.paged_attention import ragged_paged_attention as jax_ragged
 from paddlenlp_tpu_torch.ops import paged_attention as pa
+from torch_tf32 import mm_tf32
 
 ATOL = 2e-5
 
@@ -277,30 +278,12 @@ def test_kernel_route(q_dtype, kv_dtype, route):
 
 
 # ----------------------------------------------------------------- the fp32 route's arithmetic
-def _tf32(x):
-    """``cvt.rna.tf32.f32``: x rounded to TF32's 10 mantissa bits, to nearest
-    with ties away from zero (finite x)."""
-    b = x.float().contiguous().view(torch.int32)
-    return ((b + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_tf32(a, b, passes):
-    """a @ b as the fp32 route's ``mma.sync`` products make it: each operand
-    split into hi = tf32(x) and lo = tf32(x - hi), then a_lo b_hi + a_hi b_lo
-    + a_hi b_hi in fp32 (``passes=3``), or a_hi b_hi alone (``passes=1``,
-    one TF32 pass)."""
-    ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return ah @ bh
-    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
-
-
 def _sm90_f32_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, passes=3, k_scale=None, v_scale=None):
     """The fp32 route of ``paged_attention_sm90.cu`` step by step in torch, in
     fp32: per (sequence, kv head), tiles of 128 folded rows; each kv
     partition walks its 64-position tiles up to the tile's highest live
     position with S = Q K^T and O += P V from TF32 operands
-    (:func:`_mm_tf32`); a tile with 16 or fewer live rows runs its first 16
+    (:func:`torch_tf32.mm_tf32`); a tile with 16 or fewer live rows runs its first 16
     rows on eight warps of 8 columns each, every warp with its own online
     softmax (exp2 of scores times scale * log2(e)), combined in warp order
     (a warp that saw nothing of a row adds nothing); otherwise one softmax a
@@ -348,7 +331,7 @@ def _sm90_f32_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, pas
                         break
                     m, l, o = torch.full((n, cw), neg), torch.zeros(n, cw), torch.zeros(n, cw, H)
                     for c0 in range(p * part_len, min((p + 1) * part_len, hi + 1), 64):
-                        s = _mm_tf32(rows, k[c0:c0 + 64].T, passes) * ks[c0:c0 + 64]
+                        s = mm_tf32(rows, k[c0:c0 + 64].T, passes) * ks[c0:c0 + 64]
                         s = torch.where(torch.arange(c0, c0 + 64)[None, :] <= lrow[:, None], s, torch.full_like(s, neg))
                         s = s.reshape(n, cw, nc)
                         mn = torch.maximum(m, s.amax(-1))
@@ -357,7 +340,7 @@ def _sm90_f32_emulation(q, pk, pv, tables, q_start, q_lens, parts, part_len, pas
                         pr = torch.exp2(s * sl2 - mu[..., None])
                         l = l * a + pr.sum(-1)
                         pv_ = (pr * vs[c0:c0 + 64].reshape(cw, nc)).transpose(0, 1)  # [cw, n, nc]
-                        o = o * a[..., None] + _mm_tf32(pv_, v[c0:c0 + 64].reshape(cw, nc, H), passes).transpose(0, 1)
+                        o = o * a[..., None] + mm_tf32(pv_, v[c0:c0 + 64].reshape(cw, nc, H), passes).transpose(0, 1)
                         m = mn
                     mu = m.amax(-1)  # the block's combine of its warps, in warp order
                     w = torch.where(m == neg, torch.zeros_like(m), torch.exp2(m * sl2 - (mu * sl2)[:, None]))

@@ -28,6 +28,7 @@ batch over this suite's 8 virtual CPU devices, so the port gets
 """
 
 import filecmp
+import functools
 import json
 import os
 import re
@@ -117,9 +118,19 @@ def _steps(logs):
     return [h for h in logs if "grad_norm" in h]
 
 
+@functools.lru_cache(maxsize=None)
+def _base_weights(scan):
+    """The JAX model's random weights, drawn once a module (as host arrays):
+    a JAX init compiles anew for every model it builds."""
+    return jax.device_get(JLlama.from_config(JLlamaConfig(use_scan_layers=scan, **MODEL_KW), seed=0).params)
+
+
 def _base_model(scan=True):
-    jm = JLlama.from_config(JLlamaConfig(use_scan_layers=scan, **MODEL_KW), seed=0)
-    flat = _stack(jflatten(jax.device_get(jm.params)))
+    """A fresh JAX model (its own device copy of the module's weights) and the
+    port model over the same weights."""
+    weights = _base_weights(scan)
+    jm = JLlama(JLlamaConfig(use_scan_layers=scan, **MODEL_KW), params=jax.tree_util.tree_map(jnp.array, weights))
+    flat = _stack(jflatten(weights))
     pm = LlamaForCausalLM.from_jax_params(LlamaConfig(**MODEL_KW), unflatten_params(flat), device="cpu")
     return jm, pm
 

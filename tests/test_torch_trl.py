@@ -24,6 +24,7 @@ All fp32, on tiny LLaMA models built by the JAX package and carried across:
 The entry points' ``main`` are in ``tests/test_torch_alignment_main.py``.
 """
 
+import functools
 import math
 
 import jax
@@ -81,18 +82,31 @@ def _close_leaves(got, want):
                                    err_msg=k)
 
 
+@functools.lru_cache(maxsize=None)
+def _init_weights(jcls, jcfg_cls, seed, **cfg):
+    """``jcls.from_config``'s random weights, drawn once a module (as host
+    arrays): a JAX init compiles anew for every model it builds."""
+    return jax.device_get(jcls.from_config(jcfg_cls(**MODEL_KW, **cfg), seed=seed).params)
+
+
+def _jax_model(jcls, jcfg_cls, seed, **cfg):
+    """A fresh ``jcls.from_config(jcfg_cls(...), seed=seed)``: its own model
+    object over its own device copy of the module's weights for that seed."""
+    weights = _init_weights(jcls, jcfg_cls, seed, **cfg)
+    return jcls(jcfg_cls(**MODEL_KW, **cfg), params=jax.tree_util.tree_map(jnp.array, weights)), weights
+
+
 def _causal(seed=0):
-    jm = JLlama.from_config(JLlamaConfig(**MODEL_KW), seed=seed)
-    pm = LlamaForCausalLM.from_jax_params(LlamaConfig(**MODEL_KW), jax.device_get(jm.params), device="cpu")
+    jm, weights = _jax_model(JLlama, JLlamaConfig, seed)
+    pm = LlamaForCausalLM.from_jax_params(LlamaConfig(**MODEL_KW), weights, device="cpu")
     return jm, pm
 
 
 def _classifier(seed=1, num_labels=1, qwen=False):
     jcls, pcls = (JQwen2Cls, Qwen2ForSequenceClassification) if qwen else (JLlamaCls, LlamaForSequenceClassification)
-    jcfg = (JQwen2Config if qwen else JLlamaConfig)(num_labels=num_labels, **MODEL_KW)
-    jm = jcls.from_config(jcfg, seed=seed)
+    jm, weights = _jax_model(jcls, JQwen2Config if qwen else JLlamaConfig, seed, num_labels=num_labels)
     pcfg = (Qwen2Config if qwen else LlamaConfig)(num_labels=num_labels, **MODEL_KW)
-    return jm, pcls.from_jax_params(pcfg, jax.device_get(jm.params), device="cpu")
+    return jm, pcls.from_jax_params(pcfg, weights, device="cpu")
 
 
 # ----------------------------------------------------------------------------- DPO criterion
