@@ -219,17 +219,16 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
               (q [2, 4096, 12, 128] bf16 over k/v [2, 4096, 2, 128], causal),
               with segments and a window, and at T = 4095, each in bf16 and in
               fp32; bf16 takes all three through the Hopper tensor-core
-              kernels (``flash_attention_sm90.cu``), fp32 the forward through
-              the SIMT kernel (``flash_attention.cu``) and dq and dk/dv
-              through the 3xTF32 tensor-core kernels
-              (``flash_attention_sm90_f32.cu``), and each case checks its
-              routes; dq and dk/dv give bitwise equal results over two
-              launches; times against the bound, the plain versions and
-              ``scaled_dot_product_attention``;
+              kernels (``flash_attention_sm90.cu``, route ``sm90``), fp32 all
+              three through the 3xTF32 tensor-core kernels
+              (``flash_attention_sm90_f32.cu``, route ``sm90_f32``), and each
+              case checks its routes; the forward, dq and dk/dv give bitwise
+              equal results over two launches; times against the bound, the
+              plain versions and ``scaled_dot_product_attention``;
 18. train_grad -- Qwen2-1.5B widths, 2 layers: the loss and every gradient
               leaf through the kernels against the attention through the
-              plain versions, in fp32 (the SIMT forward, the 3xTF32 dq and
-              dk/dv) and at bf16 compute (the Hopper kernels), with the
+              plain versions, in fp32 (the 3xTF32 forward, dq and dk/dv) and
+              at bf16 compute (the Hopper bf16 kernels), with the
               bf16-vs-fp32 control;
 19. train  -- ``paddlenlp_tpu_torch.llm.run_pretrain.main`` on the repo's
               Qwen2 recipe (``llm/config/qwen2/pretrain_argument.json``) cut
@@ -332,8 +331,8 @@ phase's saved model and tokenizer, each freeing its models:
 
 The last three lines are the ``nvidia-smi`` name/power line, the kernels JSON
 object (nine rows: the paged kernel on its bf16, quantized-pool and fp32
-entries; the flash forward, dq and dk/dv on the bf16 Hopper route; the fp32
-forward on the SIMT route, dq and dk/dv on the fp32 Hopper route) and
+entries; the flash forward, dq and dk/dv on the bf16 Hopper route and on
+the fp32 Hopper route) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -476,7 +475,8 @@ def kernel_bound(args, rate=None):
     batch's causal masks need at the card's peak for q's type -- the larger.
     ``rate`` "tf32": the fp32 entry's instructions, the TF32 tensor-core peak
     with each product taken as many times as ``f32_route_products`` says;
-    "float32": the fp32 peak outside the tensor cores, the SIMT yardstick."""
+    "float32": the fp32 peak outside the tensor cores, the rate of fp32
+    arithmetic on the CUDA cores, given beside the TF32 one."""
     q = args["q"]
     B, T, N, H = q.shape
     _nb, K, bs, _ = args["pool_k"].shape
@@ -3704,8 +3704,8 @@ def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
 
     dtype = str(q.dtype).removeprefix("torch.")
     opts = dict(segment_ids=seg, causal=True, window=window)
-    # bf16: all three on the Hopper route; fp32: the forward on the SIMT
-    # kernel, dq and dk/dv on the 3xTF32 tensor-core kernels
+    # bf16: all three on the bf16 Hopper route; fp32: all three on the 3xTF32
+    # tensor-core kernels
     routes = {w: fa.kernel_route(q.dtype, w) for w in ("fwd", "bwd_dq", "bwd_dkv")}
     counters = {"sm90": fa.LAUNCHES_SM90, "sm90_f32": fa.LAUNCHES_SM90_F32}
     before = {r: dict(c) for r, c in counters.items()}
@@ -3716,15 +3716,18 @@ def flash_check(torch, fa, name, q, k, v, do, seg, window, flush):
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts)
     moved = {r: {w: c[w] - before[r][w] for w in c} for r, c in counters.items()}
     again = (fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, **opts),
-             *fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts))
+             *fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, **opts),
+             *fa.flash_attention_fwd(q, k, v, **opts))
     ref = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, **opts)
     torch.cuda.synchronize()
     for r in counters:
         want = {w: int(routes[w] == r) for w in routes}
         check(moved[r] == want, f"flash {name}: routes {routes}, but the {r} route took {moved[r]} launches")
-    # no atomics: each block owns its rows of dq; dk/dv sum in a fixed order
+    # no atomics: each block owns its rows of out, lse and dq; dk/dv sum in a fixed order
     check(torch.equal(dq, again[0]), f"flash {name}: two dq launches differ")
     check(torch.equal(dk, again[1]) and torch.equal(dv, again[2]), f"flash {name}: two dk/dv launches differ")
+    check(torch.equal(out, again[3]) and torch.equal(lse, again[4]),
+          f"flash {name}: two forward launches differ in out or lse")
     del again
     errs = flash_worst(torch, dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv),
                        dict(out=ref_out, lse=ref_lse, dq=ref[0], dk=ref[1], dv=ref[2]), dtype)
@@ -3879,8 +3882,8 @@ def _step_errors(got, want):
 def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_lm_loss, seed):
     """Qwen2-1.5B widths, 2 layers, micro-batch 2 x 1024, save_qkv_attn
     recompute: the loss and every gradient leaf through the kernels against the
-    same step with the attention through the plain versions, in fp32 (the SIMT
-    forward and the 3xTF32 dq and dk/dv, to summation order) and at bf16
+    same step with the attention through the plain versions, in fp32 (the
+    3xTF32 forward, dq and dk/dv, to summation order) and at bf16
     compute (the training path's route, to ``BF16_STEP_TOL``, which the
     bf16-vs-fp32 control must exceed)."""
     cfg = Qwen2Config(**{**QWEN2_1_5B, "num_hidden_layers": 2, "recompute": True,
@@ -3908,9 +3911,8 @@ def phase_train_grad(torch, fa, modeling, Qwen2Config, Qwen2ForCausalLM, causal_
     del runs
     torch.cuda.empty_cache()
     one_each, none = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}, {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
-    # fp32: the forward on the SIMT kernel, dq and dk/dv on the fp32 Hopper route
-    for dtype, want_sm90, want_f32 in (("float32", none, {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}),
-                                       ("bfloat16", one_each, none)):
+    # fp32: all three on the fp32 Hopper route; bf16: all three on the bf16 one
+    for dtype, want_sm90, want_f32 in (("float32", none, one_each), ("bfloat16", one_each, none)):
         n = launches[dtype]
         check(n["kernels"] == one_each, f"train_grad {dtype}: kernel launches {n['kernels']}")
         check(n["kernels_sm90"] == want_sm90, f"train_grad {dtype}: bf16 Hopper-route launches {n['kernels_sm90']}")
@@ -6015,11 +6017,11 @@ def main(argv=None) -> int:
             fp8 = by_batch[("decode", "bfloat16", "fp8")]
             info.update(launched_by="kv_quant", fp8_decode_ms=fp8["ms"], fp8_decode_library_ms=fp8["library_ms"])
         checks.append(info)
-    # flash rows: the bf16 Hopper kernels (the main path: times at its shape),
-    # the fp32 forward's SIMT kernel and the fp32 dq and dk/dv's 3xTF32
-    # kernels (times from the fp32 case; their bound at a third of the TF32
-    # rate, the fp32 rate's beside it). Launches are the train,
-    # train_resume, train_recompute, finetune, vera, dpo and mixtral runs' on
+    # flash rows: the bf16 Hopper kernels (the main path: times at its shape)
+    # and the fp32 forward, dq and dk/dv's 3xTF32 kernels (times from the fp32
+    # case; their bound at a third of the TF32 rate, the fp32 rate's beside
+    # it). Launches are the train, train_resume, train_recompute, finetune,
+    # vera, dpo and mixtral runs' on
     # each route, and for the forward the spec phase's draft forwards too: no
     # main-path phase computes in fp32, which the fp32 train_grad step checks
     # (check_launches). The finetune phase's packed-row case, the dpo phase's
@@ -6029,9 +6031,8 @@ def main(argv=None) -> int:
     flash.append(mixtral["flash_case"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
-    sources = {"sm90": "flash_attention_sm90.cu", "simt": "flash_attention.cu",
-               "sm90_f32": "flash_attention_sm90_f32.cu"}
-    rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "simt", 81, "flash_attention_fwd"),
+    sources = {"sm90": "flash_attention_sm90.cu", "sm90_f32": "flash_attention_sm90_f32.cu"}
+    rows = [("fwd", "sm90", 81, "flash_attention_fwd_sm90"), ("fwd", "sm90_f32", 81, "flash_attention_fwd_sm90_f32"),
             ("bwd_dq", "sm90", 187, "flash_attention_bwd_dq_sm90"),
             ("bwd_dq", "sm90_f32", 187, "flash_attention_bwd_dq_sm90_f32"),
             ("bwd_dkv", "sm90", 227, "flash_attention_bwd_dkv_sm90"),
@@ -6068,12 +6069,11 @@ def main(argv=None) -> int:
         else:
             fp32_step = grad["launches"]["float32"]
             info.update(launched_by="train_grad (its fp32 step)", check_launches=fp32_step["kernels"][what],
-                        check_launches_on_route=(fp32_step["kernels_sm90_f32"][what] if route == "sm90_f32"
-                                                 else fp32_step["kernels"][what] - fp32_step["kernels_sm90"][what]),
-                        times={c["case"]: c["ms"][what] for c in checked if "ms" in c})
-            if route == "sm90_f32":
-                info.update(bound_fp32_rate_ms=timed["bound_fp32_rate_ms"][what],
-                            bwd_dq_plus_dkv_ms=timed["ms"]["bwd_dq"] + timed["ms"]["bwd_dkv"])
+                        check_launches_on_route=fp32_step["kernels_sm90_f32"][what],
+                        times={c["case"]: c["ms"][what] for c in checked if "ms" in c},
+                        bound_fp32_rate_ms=timed["bound_fp32_rate_ms"][what])
+            if what != "fwd":
+                info.update(bwd_dq_plus_dkv_ms=timed["ms"]["bwd_dq"] + timed["ms"]["bwd_dkv"])
         checks.append(info)
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
     writes = disk_writes()

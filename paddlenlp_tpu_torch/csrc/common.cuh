@@ -1,6 +1,5 @@
 // Helpers that the port's kernel sources share (included by
-// paged_attention_sm90.cu, flash_attention.cu and
-// flash_attention_sm90_f32.cu): the cp.async copies, the TF32 mma.sync
+// paged_attention_sm90.cu and flash_attention_sm90_f32.cu): the cp.async copies, the TF32 mma.sync
 // product, shared-memory addresses, the dynamic shared-memory opt-in and an
 // alignment check. ops/_build.py hashes a source with the local headers it
 // includes, so a change here rebuilds every source that includes it.

@@ -5,9 +5,9 @@
 // paddlenlp_tpu/ops/pallas/flash_attention.py: `_fa_kernel` (:81, launched at
 // :157 by `_flash_fwd` :131), `_bwd_dq_kernel` (:187, launched at :293 by
 // `_flash_bwd` :272) and `_bwd_dkv_kernel` (:227, launched at :317). Same
-// function as the SIMT kernels of flash_attention.cu,
-// which stay the route for fp32 operands: the fp32 gates (1e-4 elementwise,
-// loss rel 1e-5, gradient leaves 1e-4) cannot hold with bf16 operands in the
+// function as the 3xTF32 kernels of flash_attention_sm90_f32.cu, which are
+// the route for fp32 operands: the fp32 gates (1e-4 elementwise, loss rel
+// 1e-5, gradient leaves 1e-4) cannot hold with bf16 operands in the
 // products, so the fp32 path is the precise check and this file is the main
 // path. Causal or full attention, an optional window (causal only), packed
 // segment ids, GQA (query head n reads kv head n / (N / K)); NEG_INF = -1e30
@@ -1073,7 +1073,8 @@ bool bad_geometry(int B, int T, int S, int N, int K, int H, int dtype) {
 // Each entry launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported dtype, head_dim or geometry, a
 // pointer that is not 16-byte aligned, or a tensor map libcuda refuses).
-// The arguments are those of flash_attention.cu's entries; dtype must be 1
+// The arguments are those of flash_attention_sm90_f32.cu's entries (dq and
+// dk/dv without its workspace and split); dtype must be 1
 // (bf16); window < 0: none; seg may be null.
 extern "C" int pdnlp_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* seg, void* out,
                                     void* lse, int B, int T, int S, int N, int K, int H, int causal, int window,

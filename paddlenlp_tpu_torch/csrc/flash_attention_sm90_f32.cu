@@ -1,69 +1,92 @@
-// Flash attention backward for fp32 operands on Hopper tensor cores (sm_90a),
-// CUDA C++ with plain C entries: dq, and dk/dv with the merge of its partial
-// sums.
+// Flash attention for fp32 operands on Hopper tensor cores (sm_90a), CUDA C++
+// with plain C entries: the forward, dq, and dk/dv with the merge of its
+// partial sums.
 //
-// Replaces, for fp32 operands, the Pallas TPU kernels `_bwd_dq_kernel`
-// (paddlenlp_tpu/ops/pallas/flash_attention.py:187, launched at :293 by
+// Routes (ops/flash_attention.py `kernel_route`): bf16 operands, the training
+// path's, take the three kernels of flash_attention_sm90.cu (wgmma); fp32
+// operands take this file's three. fp32 operands are a model computing in
+// fp32 and the fp32 checks (1e-4 elementwise, loss rel 1e-5, gradient leaves
+// 1e-4), which bf16 operands cannot meet.
+//
+// Replaces, for fp32 operands, the Pallas TPU kernels `_fa_kernel`
+// (paddlenlp_tpu/ops/pallas/flash_attention.py:81, launched at :157 by
+// `_flash_fwd` :131), `_bwd_dq_kernel` (:187, launched at :293 by
 // `_flash_bwd` :272) and `_bwd_dkv_kernel` (:227, launched at :317). Same
 // function as theirs and as flash_attention_sm90.cu's bf16 kernels: causal or
 // full attention, an optional window (causal only), packed segment ids, GQA
-// (query head n reads kv head n / (N / K)); p = exp(s scale - lse) with
-// invisible entries forced to 0, ds = p (dP - delta) scale; dq = ds K, and
-// dk = ds^T Q, dv = p^T dO summed over each kv head's whole query group.
-// Rows past T or S are zero-filled on load (their lse and delta too), so no
-// padding row reaches a sum, and are never stored.
+// (query head n reads kv head n / (N / K)); NEG_INF = -1e30 masking with
+// invisible entries forced to p = 0. The forward's softmax is online; it
+// stores out = acc / max(l, 1e-37) and lse = m + log(max(l, 1e-37)) as a
+// natural log (NEG_INF + log(1e-37) on a row that sees no key, whose out is
+// 0), which the backward reads. The backward: p = exp(s scale - lse),
+// ds = p (dP - delta) scale; dq = ds K, and dk = ds^T Q, dv = p^T dO summed
+// over each kv head's whole query group. Rows past T or S are zero-filled on
+// load (their lse and delta too), so no padding row reaches a sum, and are
+// never stored.
 //
-// Layouts: q, dO, dq [B, T, N, H]; k, v, dk, dv [B, S, K, H] (fp32, 16-byte
-// aligned); lse, delta [B, N, T] fp32; seg [B, T] int32 (or null); H 64 or 128.
-// The fp32 forward stays on the CUDA cores (flash_attention.cu); gate against
-// the plain versions: |kernel - plain| <= 1e-4 of the tensor's largest element.
+// Layouts: q, out, dO, dq [B, T, N, H]; k, v, dk, dv [B, S, K, H] (fp32,
+// 16-byte aligned); lse, delta [B, N, T] fp32; seg [B, T] int32 (or null);
+// H 64 or 128. Gate against the plain versions: |kernel - plain| <= 1e-4 of
+// the tensor's largest element.
 //
 // What bounds it on an H100: operations. At q [2, 2048, 12, 128] over k/v
-// [2, 2048, 2, 128], causal, dq's three products need 0.234 ms and dk/dv's
-// four 0.313 ms at a third of the 495 TFLOP/s TF32 rate (three TF32 products
-// a product), 0.577 and 0.770 ms at the 67 TFLOP/s of fp32 CUDA cores. Design:
+// [2, 2048, 2, 128], causal, the forward's two products need 0.156 ms, dq's
+// three 0.234 ms and dk/dv's four 0.313 ms at a third of the 495 TFLOP/s TF32
+// rate (three TF32 products a product), 0.385, 0.577 and 0.770 ms at the 67
+// TFLOP/s of fp32 CUDA cores. Design:
 // - Products on the tensor cores at fp32 accuracy, 3xTF32: each operand x is
 //   split in registers into hi = x rounded to TF32 (to nearest, two integer
 //   instructions) and lo = x - hi, whose low 13 bits the tensor core ignores
 //   (a truncation, |error| < 2^-21 |x|); a product is a_lo b_hi + a_hi b_lo +
 //   a_hi b_hi into fp32 accumulators with mma.sync.m16n8k8.row.col.f32.tf32.
 //   tf32.f32 (a_lo b_lo, ~2^-22 of it, dropped). One TF32 pass (~2^-11 a
-//   product) misses the 1e-4 gate (tests/test_torch_flash_attention.py
-//   emulates both). mma.sync, not wgmma: wgmma reads B from shared memory,
-//   so a split operand would need hi and lo copies there (a 64 x 128 fp32
-//   tile is already 32 KB); mma.sync takes its fragments from registers.
-// - One shape for both kernels. A block keeps 64 rows of two tensors in
-//   shared memory (dq: Q and dO of its query rows; dk/dv: K and V of its kv
-//   rows), one warp to 16 of them, and streams 16-row tiles of the other two
-//   (dq: K and V; dk/dv: Q and dO, with their lse, delta and segment ids)
-//   through a 2-stage `cp.async` ring of 16-byte copies, zero-filled past T
-//   or S. Each warp computes its 16 x 16 scores with its resident rows as the
-//   mma's M: S = Q K^T and dP = dO V^T in dq, S^T = K Q^T and dP^T = V dO^T
-//   in dk/dv, so P and dS (dq) or P^T and dS^T (dk/dv) come out in the
-//   accumulator layout and serve as the A fragments of dq += dS K, or of
-//   dv += P^T dO and dk += dS^T Q, as they are: the k index of those
-//   products is a sum index, and lanes may take any permutation of it as
-//   long as A and B agree (lane (g, t) holds columns 2t, 2t + 1 of each 8,
-//   and reads rows 2t, 2t + 1 of the streamed tile as B). No shuffles and no
-//   transpose through shared memory. A step's accumulating product sums into
-//   a fresh fragment that an fp32 add then adds to the running sum: the
-//   tensor core's own accumulation is less exact than an fp32 add and its
-//   errors do not average out, so with every mma into the running dk/dv
-//   sums the error grew faster than the walk, to 0.48 of the gate at T 4095
-//   (0.055 with the fresh fragments).
+//   product) misses the 1e-4 gate, in the forward as in the backward
+//   (tests/test_torch_flash_attention.py emulates both). mma.sync, not wgmma:
+//   wgmma reads B from shared memory, so a split operand would need hi and lo
+//   copies there (a 64 x 128 fp32 tile is already 32 KB); mma.sync takes its
+//   fragments from registers.
+// - One shape for all three kernels. A block keeps 64 rows of one or two
+//   tensors in shared memory (the forward: Q of its query rows; dq: Q and dO;
+//   dk/dv: K and V of its kv rows), one warp to 16 of them, and streams
+//   16-row tiles of the others (the forward and dq: K and V; dk/dv: Q and dO,
+//   with their lse, delta and segment ids) through a 2-stage `cp.async` ring
+//   of 16-byte copies, zero-filled past T or S. Each warp computes its 16 x 16
+//   scores with its resident rows as the mma's M: S = Q K^T in the forward,
+//   S = Q K^T and dP = dO V^T in dq, S^T = K Q^T and dP^T = V dO^T in dk/dv,
+//   so P (the forward), dS (dq) or P^T and dS^T (dk/dv) come out in the
+//   accumulator layout and serve as the A fragments of O += P V, of
+//   dq += dS K, or of dv += P^T dO and dk += dS^T Q, as they are: the k index
+//   of those products is a sum index, and lanes may take any permutation of
+//   it as long as A and B agree (lane (g, t) holds columns 2t, 2t + 1 of each
+//   8, and reads rows 2t, 2t + 1 of the streamed tile as B). No shuffles and
+//   no transpose through shared memory, but for the forward's row max and sum
+//   over the four lanes of a row. A step's accumulating product sums into a
+//   fresh fragment that an fp32 add then adds to the running sum: the tensor
+//   core's own accumulation is less exact than an fp32 add and its errors do
+//   not average out, so with every mma into the running dk/dv sums the error
+//   grew faster than the walk, to 0.48 of the gate at T 4095 (0.055 with the
+//   fresh fragments).
 // - Tiles are fp32 rows with 16-byte chunks XOR-swizzled by row (`swz`) so
 //   that both ways a warp reads a tile hit 32 distinct banks: float4 rows
 //   (the score products' A and B) and single columns (the B of the
 //   accumulating products, rows 2t and 2t + 1 of column 8i + g). The reads
 //   fold the swizzle into a few offsets a lane.
-// - 128 threads and 96 KB of shared memory a block, at most 255 registers a
-//   thread (dk/dv's dK and dV sums take 128 of them at H 128), no spill: two
-//   blocks an SM. Tiles that no row can see are never loaded (the
+// - 128 threads a block, at most 255 registers a thread (dk/dv's dK and dV
+//   sums take 128 of them at H 128, the forward's O 64), no spill, and two
+//   blocks an SM (96 KB of shared memory a block for the backward, 64 KB for
+//   the forward). Tiles that no row can see are never loaded (the
 //   `_block_runs` skip, :71, at 16-row steps), and a warp skips the steps
 //   none of its rows can see.
+// - The forward: one block per (64 query rows, head, batch), the last query
+//   tile first (under the causal mask it walks the most kv tiles). Its online
+//   softmax runs in the accumulator layout, in exp2 with scale log2(e) folded
+//   into the scores: lane (g, t) holds rows g and g + 8, their running max m
+//   (the same in the four lanes of a row, two `__shfl_xor_sync` a step) and
+//   a partial sum l of its own columns, rescaled with the row and summed over
+//   the four lanes once at the end. Each step rescales O by exp2(m_old -
+//   m_new), then O += P V.
 // - dq: one block per (64 query rows, head, batch), the last query tile
-//   first (under the causal mask it walks the most kv tiles); it owns its
-//   rows of dq, so no atomics.
+//   first; it owns its rows of dq, so no atomics.
 // - dk/dv: one block per 64-row kv tile walks the (query head, 16-row query
 //   tile) pairs of the kv head's group in order. The walk of a tile is cut
 //   into parts of `chunk` steps (chosen by the caller so that the launch
@@ -84,11 +107,14 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG_INF = -1e30f;
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int RES = 16 * WARPS;  // resident rows of a block, 16 a warp
 constexpr int STEP = 16;         // rows of a streamed tile
 constexpr int STAGES = 2;
+constexpr int FWD_COLS = 16;     // kv columns of one forward step (one online-softmax update), 16 or 32
 
 struct Geometry {
   int B, T, S, N, K, causal, window;  // window < 0: none (causal only)
@@ -272,20 +298,162 @@ struct Smem {
   static constexpr size_t bytes = (2 * RES_F + STAGES * STAGE) * sizeof(float);
 };
 
-// ------------------------------------------------------------------ dq
-// K and V rows r0 .. r0 + 15 of kv head kh (zeros past S) and their segment ids
-template <int H>
-__device__ __forceinline__ void dq_load(float* st, const float* k_b, const float* v_b, const int* seg_b,
+// The forward's: one resident tile (Q), and a stage of COLS rows of K, then
+// of V, then their segment ids
+template <int H, int COLS>
+struct FwdSmem {
+  static constexpr int STAGE = 2 * COLS * H + COLS;
+  static constexpr size_t bytes = (RES * H + STAGES * STAGE) * sizeof(float);
+};
+
+// K and V rows r0 .. r0 + ROWS - 1 of kv head kh (zeros past S) into a stage:
+// K's rows, V's at st + ROWS H, their segment ids at st + 2 ROWS H (the
+// forward and dq). Row 16 u + r of a tile has row r's swizzle: each 16 rows
+// are a tile as `scores` and `accumulate` read it.
+template <int H, int ROWS>
+__device__ __forceinline__ void kv_load(float* st, const float* k_b, const float* v_b, const int* seg_b,
                                         const Geometry& g, int r0) {
-  using L = Smem<H>;
   const size_t stride = static_cast<size_t>(g.K) * H;
-  load_rows<H>(st, k_b, r0, g.S, stride, STEP);
-  load_rows<H>(st + L::STEP_F, v_b, r0, g.S, stride, STEP);
-  if (seg_b != nullptr && threadIdx.x < STEP) {
+  load_rows<H>(st, k_b, r0, g.S, stride, ROWS);
+  load_rows<H>(st + ROWS * H, v_b, r0, g.S, stride, ROWS);
+  if (seg_b != nullptr && threadIdx.x < ROWS) {
     const int row = r0 + threadIdx.x;
-    cp_async_4(smem_u32(st + 2 * L::STEP_F + threadIdx.x), row < g.S ? seg_b + row : seg_b, row < g.S);
+    cp_async_4(smem_u32(st + 2 * ROWS * H + threadIdx.x), row < g.S ? seg_b + row : seg_b, row < g.S);
   }
 }
+
+// ------------------------------------------------------------------ forward
+// out, lse of 64 query rows of one head: S = Q K^T over COLS kv columns a
+// step (COLS / 16 tiles of 16), masked, the online softmax in the
+// accumulator layout, O = O alpha + P V
+template <int H, int COLS>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const int* __restrict__ seg, float* __restrict__ out, float* __restrict__ lse, Geometry g) {
+  using L = FwdSmem<H, COLS>;
+  constexpr int U = COLS / STEP;  // 16-column tiles of a step
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* ring = q_s + RES * H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
+  // the last query tile first: under the causal mask it walks the most kv tiles
+  const int q0 = (cdiv(g.T, RES) - 1 - static_cast<int>(blockIdx.x)) * RES;
+  const int n = blockIdx.y, b = blockIdx.z, kh = n / (g.N / g.K);
+
+  const size_t q_off = (static_cast<size_t>(b) * g.T * g.N + n) * H, q_stride = static_cast<size_t>(g.N) * H;
+  load_rows<H>(q_s, q + q_off, q0, g.T, q_stride, RES);  // committed with the first stage
+
+  // this lane's rows 16 warp + gr + 8 h and their segment ids
+  int row[2], sq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = q0 + 16 * warp + gr + 8 * h;
+    sq[h] = seg != nullptr && row[h] < g.T ? seg[static_cast<size_t>(b) * g.T + row[h]] : 0;
+  }
+  // the kv steps any row of the block sees
+  const int q_last = min(q0 + RES, g.T) - 1;
+  int s_lo = 0, s_hi = cdiv(g.S, COLS);
+  if (g.causal) {
+    s_hi = min(s_hi, q_last / COLS + 1);
+    if (g.window >= 0) s_lo = max(0, q0 - g.window + 1) / COLS;
+  }
+  const int n_steps = max(s_hi - s_lo, 0);
+  const int w0 = q0 + 16 * warp, w1 = min(w0 + 15, g.T - 1);  // the warp's first and last live row
+
+  const size_t kv_off = (static_cast<size_t>(b) * g.S * g.K + kh) * H;
+  const int* seg_b = seg != nullptr ? seg + static_cast<size_t>(b) * g.T : nullptr;
+  float acc[H / 8][4];
+#pragma unroll
+  for (int i = 0; i < H / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  // rows g, g + 8: the running max (log2 units, the same in the row's four
+  // lanes) and this lane's part of the running sum
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = g.scale * LOG2E;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) kv_load<H, COLS>(ring + s * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + s) * COLS);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_steps; ++it) {
+    __syncthreads();  // every reader of step it - 1 is done: its stage takes step it + STAGES - 1
+    {
+      const int nx = it + STAGES - 1;
+      if (nx < n_steps)
+        kv_load<H, COLS>(ring + (nx % STAGES) * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + nx) * COLS);
+      cp_async_commit();
+    }
+    cp_async_wait<STAGES - 1>();  // this thread's copies of step it (and of Q) have landed
+    __syncthreads();              // everyone's have
+    const int c0 = (s_lo + it) * COLS;
+    // warp-uniform: none of the warp's rows sees a column of this step
+    if (w0 >= g.T || (g.causal && c0 > w1) || (g.window >= 0 && c0 + COLS - 1 <= w0 - g.window)) continue;
+    const float* st = ring + (it % STAGES) * L::STAGE;
+    const int* sk = reinterpret_cast<const int*>(st + 2 * COLS * H);
+    float s[U][2][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) scores<H, H / 16>(s[u], q_s, st + u * STEP * H, 16 * warp);  // S = Q K^T
+    // scores in log2 units, invisible ones at NEG_INF (bit 8 u + 4 j + e of vis)
+    uint32_t vis = 0;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, c = 16 * u + 8 * j + 2 * t + e % 2;
+          const bool ok = visible(g, row[h], c0 + c) && (seg == nullptr || sq[h] == sk[c]);
+          vis |= static_cast<uint32_t>(ok) << (8 * u + 4 * j + e);
+          s[u][j][e] = ok ? s[u][j][e] * sl2 : NEG_INF;
+          mx[h] = fmaxf(mx[h], s[u][j][e]);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - m_new);  // 1 while the row has seen nothing (NEG_INF - NEG_INF)
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (vis >> (8 * u + 4 * j + e)) & 1u ? exp2f(s[u][j][e] - m[e / 2]) : 0.f;
+          s[u][j][e] = p;
+          l[e / 2] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < H / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) accumulate<H>(acc, s[u], st + COLS * H + u * STEP * H);  // O += P V
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (row[h] >= g.T) continue;
+    const float d = fmaxf(l[h], 1e-37f);
+    float* o = out + (static_cast<size_t>(b) * g.T + row[h]) * g.N * H + static_cast<size_t>(n) * H;
+#pragma unroll
+    for (int i = 0; i < H / 8; ++i)
+      *reinterpret_cast<float2*>(o + 8 * i + 2 * t) = make_float2(acc[i][2 * h] / d, acc[i][2 * h + 1] / d);
+    // a row that saw a key has l >= 1 (its max's own term); one that saw none keeps NEG_INF
+    if (t == 0)
+      lse[(static_cast<size_t>(b) * g.N + n) * g.T + row[h]] = (l[h] > 0.f ? m[h] * LN2 : NEG_INF) + logf(d);
+  }
+}
+
+// ------------------------------------------------------------------ dq
 
 template <int H>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -338,7 +506,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_steps) dq_load<H>(ring + s * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + s) * STEP);
+    if (s < n_steps) kv_load<H, STEP>(ring + s * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + s) * STEP);
     cp_async_commit();
   }
   for (int it = 0; it < n_steps; ++it) {
@@ -346,7 +514,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     {
       const int nx = it + STAGES - 1;
       if (nx < n_steps)
-        dq_load<H>(ring + (nx % STAGES) * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + nx) * STEP);
+        kv_load<H, STEP>(ring + (nx % STAGES) * L::STAGE, k + kv_off, v + kv_off, seg_b, g, (s_lo + nx) * STEP);
       cp_async_commit();
     }
     cp_async_wait<STAGES - 1>();  // this thread's copies of step it (and of Q, dO) have landed
@@ -570,6 +738,20 @@ __global__ void __launch_bounds__(THREADS)
 
 // ------------------------------------------------------------------ launch
 template <int H>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
+                       const Geometry& g, cudaStream_t s) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  using L = FwdSmem<H, FWD_COLS>;
+  auto kernel = flash_fwd_kernel_f32<H, FWD_COLS>;
+  cudaError_t err = opt_in(kernel, L::bytes, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(cdiv(g.T, RES), g.N, g.B), THREADS, L::bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(seg), static_cast<float*>(out), static_cast<float*>(lse), g);
+  return cudaGetLastError();
+}
+
+template <int H>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, const void* seg, void* dq, const Geometry& g, cudaStream_t s) {
   static std::atomic<bool> done[MAX_DEVICES];
@@ -605,24 +787,39 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// The checks of both entries and the geometry they launch; a window past
-// T + S is clamped to it (it hides nothing then)
-cudaError_t check_args(const void* q, const void* k, const void* v, const void* dout, int B, int T, int S, int N,
+// The checks of the three entries and the geometry they launch; `o` is dO
+// for the backward, out for the forward. A window past T + S is clamped to it
+// (it hides nothing then)
+cudaError_t check_args(const void* q, const void* k, const void* v, const void* o, int B, int T, int S, int N,
                        int K, int H, int causal, int window, int dtype, float scale, Geometry* g) {
   if (B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128) || dtype != 0 || B > 65535 ||
       N > 65535 || (window >= 0 && !causal))
     return cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout)) return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) return cudaErrorInvalidValue;
   *g = Geometry{B, T, S, N, K, causal ? 1 : 0, window < 0 ? -1 : imin(window, T + S), scale};
   return cudaSuccess;
 }
 
 }  // namespace
 
+// out [B, T, N, H] fp32 (16-byte aligned, as q, k and v), lse [B, N, T]
+// fp32. dtype must be 0 (fp32); window < 0: none (causal only); seg may be
+// null. Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported dtype, head_dim or geometry, or
+// a misaligned pointer).
+extern "C" int pdnlp_flash_fwd_sm90_f32(const void* q, const void* k, const void* v, const void* seg, void* out,
+                                        void* lse, int B, int T, int S, int N, int K, int H, int causal, int window,
+                                        int dtype, float scale, void* stream) {
+  Geometry g;
+  const cudaError_t bad = check_args(q, k, v, out, B, T, S, N, K, H, causal, window, dtype, scale, &g);
+  if (bad != cudaSuccess) return bad;
+  if (B == 0 || T == 0 || N == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return H == 64 ? launch_fwd<64>(q, k, v, seg, out, lse, g, s) : launch_fwd<128>(q, k, v, seg, out, lse, g, s);
+}
+
 // dq [B, T, N, H] fp32 (16-byte aligned, as q, k, v and dO). dtype must be 0
-// (fp32); window < 0: none (causal only); seg may be null. Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for an
-// unsupported dtype, head_dim or geometry, or a misaligned pointer).
+// (fp32); the rest as the forward's entry.
 extern "C" int pdnlp_flash_bwd_dq_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
                                            const void* lse, const void* delta, const void* seg, void* dq, int B,
                                            int T, int S, int N, int K, int H, int causal, int window, int dtype,

@@ -27,8 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: the kernel sources the port builds (stem -> file under csrc/)
-SOURCES = {"paged_attention_sm90": "paged_attention_sm90.cu", "flash_attention": "flash_attention.cu",
-           "flash_attention_sm90": "flash_attention_sm90.cu", "flash_attention_sm90_f32": "flash_attention_sm90_f32.cu"}
+SOURCES = {"paged_attention_sm90": "paged_attention_sm90.cu", "flash_attention_sm90": "flash_attention_sm90.cu",
+           "flash_attention_sm90_f32": "flash_attention_sm90_f32.cu"}
 
 #: Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels;
 #: -Xptxas -v records registers, shared memory and spills in the build log;

@@ -11,14 +11,13 @@ The kernels are in ``paddlenlp_tpu_torch/csrc/``:
 - :func:`flash_attention_bwd_dkv` -> (dk, dv), summed per KV head over its
   query group (``_bwd_dkv_kernel`` :227).
 
-Three routes, chosen by dtype and by the kernel (:func:`kernel_route`).
-bf16 operands, the training path's, take all three through the Hopper
-tensor-core kernels of ``flash_attention_sm90.cu`` (``"sm90"``: TMA tile
-ring, ``wgmma``). fp32 operands, those of a model computing in fp32 and of
-the fp32 checks (1e-4 gates, which bf16 operands cannot meet), take the
-forward on the CUDA cores of ``flash_attention.cu`` (``"simt"``) and dq and
-dk/dv through ``flash_attention_sm90_f32.cu`` (``"sm90_f32"``: 3xTF32
-``mma.sync`` products at fp32 accuracy; dk/dv's walks split over blocks by
+Two routes, chosen by dtype (:func:`kernel_route`). bf16 operands, the
+training path's, take all three through the Hopper tensor-core kernels of
+``flash_attention_sm90.cu`` (``"sm90"``: TMA tile ring, ``wgmma``). fp32
+operands, those of a model computing in fp32 and of the fp32 checks (1e-4
+gates, which bf16 operands cannot meet), take all three through
+``flash_attention_sm90_f32.cu`` (``"sm90_f32"``: 3xTF32 ``mma.sync``
+products at fp32 accuracy; dk/dv's walks split over blocks by
 :func:`dkv_split`, their partial sums merged in order by a second kernel).
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
@@ -61,16 +60,14 @@ NEG_INF = -1e30
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: the launches of those that took the Hopper bf16 route (flash_attention_sm90.cu)
 LAUNCHES_SM90 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
-#: the launches of those that took the Hopper fp32 route (flash_attention_sm90_f32.cu:
-#: dq and dk/dv; the fp32 forward stays on the CUDA cores)
+#: the launches of those that took the Hopper fp32 route (flash_attention_sm90_f32.cu)
 LAUNCHES_SM90_F32 = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: guards the three dicts: threads of one process may launch at the same time,
 #: and ``+=`` on a dict entry can lose a bump
 _COUNT_LOCK = threading.Lock()
 
 #: route -> (library stem, suffix of the C entries)
-_ROUTES = {"sm90": ("flash_attention_sm90", "_sm90"), "simt": ("flash_attention", ""),
-           "sm90_f32": ("flash_attention_sm90_f32", "_sm90_f32")}
+_ROUTES = {"sm90": ("flash_attention_sm90", "_sm90"), "sm90_f32": ("flash_attention_sm90_f32", "_sm90_f32")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -222,10 +219,8 @@ def _geometry(q, k, causal, window):
 def kernel_route(dtype, what) -> str:
     """The route a launch of ``what`` (``"fwd"``, ``"bwd_dq"`` or
     ``"bwd_dkv"``) takes for operands of ``dtype``: ``"sm90"`` for bf16,
-    ``"simt"`` for the fp32 forward, ``"sm90_f32"`` for fp32 dq and dk/dv."""
-    if dtype == torch.bfloat16:
-        return "sm90"
-    return "simt" if what == "fwd" else "sm90_f32"
+    ``"sm90_f32"`` for fp32 (the same for all three kernels)."""
+    return "sm90" if dtype == torch.bfloat16 else "sm90_f32"
 
 
 # the dk/dv walk's split (flash_attention_sm90_f32.cu): kv tiles of 64 rows,

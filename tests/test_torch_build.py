@@ -32,6 +32,5 @@ def test_the_sources_hash_the_shared_header():
     helpers) hash it; the bf16 flash source includes no local header."""
     files = {stem: [p.name for p in _build._files(stem)] for stem in _build.SOURCES}
     assert files == {"paged_attention_sm90": ["paged_attention_sm90.cu", "common.cuh"],
-                     "flash_attention": ["flash_attention.cu", "common.cuh"],
                      "flash_attention_sm90": ["flash_attention_sm90.cu"],
                      "flash_attention_sm90_f32": ["flash_attention_sm90_f32.cu", "common.cuh"]}

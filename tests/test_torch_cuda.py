@@ -456,8 +456,8 @@ def _close(got, want, dtype):
 ])
 def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segments):
     """bf16 runs the forward, dq and dk/dv through the Hopper kernels
-    (``LAUNCHES_SM90``); fp32 runs the forward through the SIMT kernel and dq
-    and dk/dv through the 3xTF32 Hopper kernels (``LAUNCHES_SM90_F32``)."""
+    (``LAUNCHES_SM90``); fp32 runs all three through the 3xTF32 Hopper
+    kernels (``LAUNCHES_SM90_F32``)."""
     q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
     sm90, f32 = dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
     out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
@@ -486,8 +486,7 @@ def _route_moves(dtype, route):
 def test_flash_autograd_counts_launches(dev, dtype):
     """``LAUNCHES`` counts each kernel once on every route; ``LAUNCHES_SM90``
     moves by one forward, one dq and one dk/dv for bf16 and stays for fp32;
-    ``LAUNCHES_SM90_F32`` moves by one dq and one dk/dv for fp32 and stays
-    for bf16 (the fp32 forward is the SIMT kernel's)."""
+    ``LAUNCHES_SM90_F32`` moves by one of each for fp32 and stays for bf16."""
     q, k, v, do, _ = _flash_case(dev, dtype, 1, 100, 4, 2, 128, False)
     q.requires_grad_(True)
     before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
@@ -495,7 +494,7 @@ def test_flash_autograd_counts_launches(dev, dtype):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
     assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == _route_moves(dtype, "sm90")
     assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == _route_moves(dtype, "sm90_f32")
-    assert _route_moves(torch.float32, "simt") == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
+    assert _route_moves(torch.float32, "sm90_f32") == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
 
 
 # (T, N, K, H, causal, window, segments): GQA 12/2 and 4/4, H 128 and 64,
@@ -540,11 +539,40 @@ def test_flash_f32_backward_matches_plain_and_repeats(dev, T, N, K, H, causal, w
             assert torch.count_nonzero(g) == 0, name
 
 
+@pytest.mark.parametrize("T,N,K,H,causal,window,segments", F32_CASES)
+def test_flash_f32_forward_matches_plain_and_repeats(dev, T, N, K, H, causal, window, segments):
+    """The fp32 forward (3xTF32 ``mma.sync``, online softmax) against the
+    plain forward under ``chip_smoke.py``'s fp32 gate (each element of out
+    and lse within 1e-4 of its tensor's largest, ``flash_worst``; printed),
+    finite, the same bits from a second launch, one ``LAUNCHES_SM90_F32``
+    forward a launch, and at a window of 0 (no row sees a key) out exactly 0
+    with the plain version's lse."""
+    import chip_smoke
+
+    q, k, v, _do, seg = _flash_case(dev, torch.float32, 2, T, N, K, H, segments)
+    opts = dict(segment_ids=seg, causal=causal, window=window)
+    f32 = dict(fa.LAUNCHES_SM90_F32)
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **opts)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == {"fwd": 2, "bwd_dq": 0, "bwd_dkv": 0}
+    worst = chip_smoke.flash_worst(torch, dict(out=out, lse=lse), dict(out=ref_out, lse=ref_lse), "float32")
+    print(json.dumps(dict(T=T, N=N, K=K, H=H, causal=causal, window=window, segments=segments,
+                          worst={n: e["worst"] for n, e in worst.items()})))
+    for name, e in worst.items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if window == 0:
+        assert torch.count_nonzero(out) == 0
+        assert torch.equal(lse, ref_lse)
+
+
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
 def test_flash_f32_failed_launch_raises(dev, monkeypatch, fault):
-    """A refused launch on the fp32 Hopper route raises RuntimeError naming
-    the entry: no counter moves, and neither another kernel nor the plain
-    version runs in its place."""
+    """A refused launch on the fp32 Hopper route (the forward, dq or dk/dv)
+    raises RuntimeError naming the entry: no counter moves, and neither
+    another kernel nor the plain version runs in its place."""
     q, k, v, do, _ = _flash_case(dev, torch.float32, 1, 128, 4, 2, 128, False)
     if fault == "entry returns an error":
         real = fa._kernel_fn
@@ -558,9 +586,12 @@ def test_flash_f32_failed_launch_raises(dev, monkeypatch, fault):
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran in place of the kernel")
 
+    monkeypatch.setattr(fa, "flash_attention_fwd_ref", plain)
     monkeypatch.setattr(fa, "flash_attention_bwd_ref", plain)
     lse = torch.zeros(1, 4, 128, device=dev)
     before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
+    with pytest.raises(RuntimeError, match="pdnlp_flash_fwd_sm90_f32"):
+        fa.flash_attention_fwd(q, k, v)
     with pytest.raises(RuntimeError, match="pdnlp_flash_bwd_dq_sm90_f32"):
         fa.flash_attention_bwd_dq(q, k, v, do, lse, lse)
     with pytest.raises(RuntimeError, match="pdnlp_flash_bwd_dkv_sm90_f32"):
@@ -572,8 +603,8 @@ def test_flash_f32_failed_launch_raises(dev, monkeypatch, fault):
 @pytest.mark.parametrize("fault", ["entry returns an error", "pointer not 16-byte aligned"])
 def test_flash_sm90_failed_launch_raises(dev, monkeypatch, fault):
     """A refused launch on the Hopper route raises RuntimeError: neither
-    counter moves, and neither the SIMT kernel nor the plain version runs in
-    its place."""
+    counter moves, and neither another route's kernel nor the plain version
+    runs in its place."""
     q, k, v, do, _ = _flash_case(dev, torch.bfloat16, 1, 128, 4, 2, 128, False)
     if fault == "entry returns an error":
         real = fa._kernel_fn
@@ -652,8 +683,8 @@ def test_train_step_through_kernels_equals_plain(dev):
     through the kernels equal those through the plain versions (the CPU
     path): loss rel 1e-5, each leaf within 1e-4 of its largest element. A
     full step then launches each kernel once per layer and micro-batch: in
-    fp32 the forward on the SIMT route and dq and dk/dv on the fp32 Hopper
-    route, in bf16 all three on the Hopper route."""
+    fp32 all three on the fp32 Hopper route, in bf16 all three on the bf16
+    Hopper route."""
     cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=384, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, head_dim=64, tie_word_embeddings=True,
                       recompute=True, recompute_granularity="save_qkv_attn")
@@ -677,8 +708,8 @@ def test_train_step_through_kernels_equals_plain(dev):
             before, sm90, f32 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
             trainer.training_step(batch)
             assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
-            assert fa.LAUNCHES_SM90 == sm90  # fp32: the SIMT forward, the 3xTF32 dq and dk/dv
-            assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == {"fwd": 0, "bwd_dq": 4, "bwd_dkv": 4}
+            assert fa.LAUNCHES_SM90 == sm90  # fp32: all three on the 3xTF32 kernels
+            assert {n: fa.LAUNCHES_SM90_F32[n] - f32[n] for n in f32} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
             # bf16 compute (run_pretrain's `dtype`): all three take the Hopper route
             model.compute_dtype = torch.bfloat16
             before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
@@ -747,7 +778,8 @@ def test_speculative_engine_kernel_path_matches_plain_path(dev):
 
 def test_draft_forward_takes_the_hopper_flash_route(dev):
     """A bf16 draft model at head_dim 64 proposes through the Hopper flash
-    forward: one launch per layer and draft step, none on the SIMT route."""
+    forward: one launch per layer and draft step, every one on the bf16
+    Hopper route."""
     cfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=2,
                       num_attention_heads=7, num_key_value_heads=1, head_dim=64, eos_token_id=None)
     dcfg = Qwen2Config(vocab_size=128, hidden_size=448, intermediate_size=256, num_hidden_layers=1,

@@ -318,6 +318,44 @@ def _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms
     return dict(dq=dq.permute(0, 3, 1, 2, 4).reshape(B, T, N, H), dk=dk.transpose(1, 2), dv=dv.transpose(1, 2))
 
 
+def _f32_fwd_emulation(q, k, v, seg, causal, window, passes):
+    """The fp32 forward of ``flash_attention_sm90_f32.cu`` step by step in
+    torch: S = Q K^T and each step's P V with their operands split as the
+    kernel splits them (:func:`torch_tf32.mm_tf32`, hi rounded to TF32, lo
+    read as TF32 by truncation) or one TF32 pass (``passes=1``); the scores
+    in log2 units (s scale log2 e), invisible ones at NEG_INF; 16-column kv
+    steps in order, each taking the new row max m, rescaling l and O by
+    exp2(m_old - m), and adding p = exp2(s - m) and a fresh product P V to
+    them. out = O / max(l, 1e-37), lse = m ln 2 + log(max(l, 1e-37)), with
+    NEG_INF for m on a row that sees no key. (The kernel's per-lane partial
+    sums of l, and what the tensor core does inside one ``mma``, are not
+    emulated.)"""
+    B, T, N, H = q.shape
+    S, K = k.shape[1], k.shape[2]
+    g = N // K
+    scale, log2e = H**-0.5, 1.4426950408889634
+
+    def mm(a, b):
+        return mm_tf32(a, b, passes, lo=tf32_trunc)
+
+    qf = q.reshape(B, T, K, g, H).permute(0, 2, 3, 1, 4)  # [B, K, g, T, H]
+    kf, vf = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, S, H]
+    valid = fa._visible(T, S, causal, window, seg, q.device)[:, None, None]
+    s = torch.where(valid, mm(qf, kf.transpose(-1, -2)) * (scale * log2e), torch.tensor(fa.NEG_INF))
+    m = torch.full((B, K, g, T, 1), fa.NEG_INF)
+    l, o = torch.zeros(B, K, g, T, 1), torch.zeros(B, K, g, T, H)
+    for c0 in range(0, S, 16):
+        m_new = torch.maximum(m, s[..., c0:c0 + 16].amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(valid[..., c0:c0 + 16], torch.exp2(s[..., c0:c0 + 16] - m_new), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm(p, vf[..., c0:c0 + 16, :])
+        m = m_new
+    d = l.clamp_min(1e-37)
+    lse = torch.where(l > 0, m * np.log(2.0), torch.tensor(fa.NEG_INF)) + torch.log(d)
+    return dict(out=(o / d).permute(0, 3, 1, 2, 4).reshape(B, T, N, H), lse=lse.reshape(B, N, T))
+
+
 @pytest.fixture
 def one_thread():
     """torch on one intra-op thread: the emulation's hundreds of small
@@ -351,6 +389,29 @@ def test_f32_tensor_core_products_fit_the_chip_gate(causal, window, segments, on
         got = _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms=2)
         worst[passes] = chip_smoke.flash_worst(torch, got, want, "float32")
         print(f"fp32 backward, {passes} TF32 pass(es):", {n: round(e["worst"], 4) for n, e in worst[passes].items()})
+    for name, e in worst[3].items():
+        assert e["finite"] and e["worst"] <= 1.0, (name, e)
+    assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]
+
+
+@pytest.mark.parametrize("causal,window,segments", [(True, None, False), (True, 120, True), (False, None, True)],
+                         ids=["causal", "window+segments", "full+segments"])
+def test_f32_forward_tensor_core_products_fit_the_chip_gate(causal, window, segments, one_thread):
+    """The fp32 forward kernel's arithmetic (3xTF32 products, the online
+    softmax over 16-column kv steps in order, ``_f32_fwd_emulation``) against
+    the plain forward under ``chip_smoke.py``'s fp32 gate (1e-4 of each
+    tensor's largest element, ``flash_worst``) on the backward test's cases
+    (group 3, head_dim 64, T 200): out and lse in with the headroom printed,
+    while one TF32 pass misses it."""
+    import chip_smoke
+
+    q, k, v, _do, seg = (_t(x) for x in _inputs(1, 200, 6, 2, 64, segments, seed=8))
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
+    worst = {}
+    for passes in (3, 1):
+        got = _f32_fwd_emulation(q, k, v, seg, causal, window, passes)
+        worst[passes] = chip_smoke.flash_worst(torch, got, dict(out=out, lse=lse), "float32")
+        print(f"fp32 forward, {passes} TF32 pass(es):", {n: round(e["worst"], 4) for n, e in worst[passes].items()})
     for name, e in worst[3].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
     assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]

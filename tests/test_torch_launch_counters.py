@@ -80,9 +80,8 @@ def test_paged_refused_launch_counts_nothing(monkeypatch):
     assert pa.LAUNCHES == pa.LAUNCHES_SM90 == 0
 
 
-# ids: the forward's route (bf16: all three on sm90; fp32: the forward on the
-# SIMT kernel, dq and dk/dv on sm90_f32)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["sm90", "simt"])
+# ids: the route of all three kernels (bf16: sm90; fp32: sm90_f32)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["sm90", "sm90_f32"])
 def test_flash_counts_sum_exactly_across_threads(monkeypatch, tight_switching, dtype):
     symbols = []
     monkeypatch.setattr(fa, "_kernel_fn", lambda stem, symbol, n_ptr, n_int: (
@@ -115,7 +114,7 @@ def test_flash_counts_sum_exactly_across_threads(monkeypatch, tight_switching, d
         assert {s for _, s in symbols} == {f"pdnlp_flash_{w}_sm90" for w in whats}
     else:
         assert fa.LAUNCHES_SM90 == none
-        assert fa.LAUNCHES_SM90_F32 == {"fwd": 0, "bwd_dq": fa.LAUNCHES["bwd_dq"], "bwd_dkv": fa.LAUNCHES["bwd_dkv"]}
-        assert set(symbols) == {("flash_attention", "pdnlp_flash_fwd"),
+        assert fa.LAUNCHES_SM90_F32 == fa.LAUNCHES
+        assert set(symbols) == {("flash_attention_sm90_f32", "pdnlp_flash_fwd_sm90_f32"),
                                 ("flash_attention_sm90_f32", "pdnlp_flash_bwd_dq_sm90_f32"),
                                 ("flash_attention_sm90_f32", "pdnlp_flash_bwd_dkv_sm90_f32")}

@@ -1,4 +1,4 @@
-"""Check and time the fp32 flash backward (dq, dk/dv) of one or more checkouts on one CUDA card, in turns.
+"""Check and time the fp32 flash kernels (forward, dq, dk/dv) of one or more checkouts on one CUDA card, in turns.
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
@@ -6,19 +6,22 @@ From the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
 Each root (default: this checkout) runs in a subprocess of its own, which
 imports that root's ``paddlenlp_tpu_torch``, builds its kernels (the build
-log's register, shared-memory and spill lines of the fp32 backward's source
-are printed) and holds its fp32 ``flash_attention_bwd_dq`` and
-``flash_attention_bwd_dkv`` against its plain backward on a set of small
-cases (H 64 and 128, GQA, causal and full, a window, segments, T not a
-multiple of 64, a fully masked window) and on the fp32 cases of this
-checkout's ``chip_smoke.FLASH_CASES``: each gradient's worst element over
-``chip_smoke.flash_worst``'s fp32 bound (1e-4 of the tensor's largest, <= 1
-passes) and whether two launches give the same bits. Unless ``--no-time``,
-it then times dq and dk/dv at the ``FLASH_CASES`` fp32 cases (CUDA events
-over 10 calls, the L2 flushed before each: ``chip_smoke.time_cuda``) beside
-their bounds (``chip_smoke.flash_bound`` at a third of the TF32 rate and at
-the fp32 rate), the plain backward and, without segments or a window, the
-library's fp32 backward (``scaled_dot_product_attention``'s, one kept graph). The roots run
+log's register, shared-memory and spill lines of its fp32 source are
+printed, the forward's among them) and holds its fp32
+``flash_attention_fwd`` against its plain forward and its
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against its plain
+backward on a set of small cases (H 64 and 128, GQA, causal and full, a
+window, segments, T not a multiple of 64, a fully masked window) and on the
+fp32 cases of this checkout's ``chip_smoke.FLASH_CASES``: each output's
+worst element over ``chip_smoke.flash_worst``'s fp32 bound (1e-4 of the
+tensor's largest, <= 1 passes) and whether two launches give the same bits.
+Unless ``--no-time``, it then times the forward, dq and dk/dv at the
+``FLASH_CASES`` fp32 cases (CUDA events over 10 calls, the L2 flushed before
+each: ``chip_smoke.time_cuda``) beside their bounds
+(``chip_smoke.flash_bound`` at a third of the TF32 rate and at the fp32
+rate), the plain forward and backward and, without segments or a window,
+the library's fp32 forward and backward (``scaled_dot_product_attention``'s
+forward under ``no_grad``, its backward through one kept graph). The roots run
 in turns, ``--rounds`` times over (A, B, B, A for two roots and two rounds),
 each printing one JSON line; the card's name and power limit come first.
 Compare two commits by giving the parent's ``git archive`` as the first root
@@ -66,9 +69,12 @@ def _inputs(torch, B, T, N, K, H, segments, seed):
 
 
 def check_case(torch, cs, fa, q, k, v, do, seg, causal, window):
-    """dq, dk, dv against the plain backward: worst over the fp32 bound, and
+    """out and lse against the plain forward, dq, dk, dv against the plain
+    backward (from the plain forward's lse): worst over the fp32 bound, and
     the bits of a second launch."""
     opts = dict(segment_ids=seg, causal=causal, window=window)
+    got_out, got_lse = fa.flash_attention_fwd(q, k, v, **opts)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, **opts)
     out, lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
     delta = fa._delta(out, do)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts)
@@ -77,10 +83,13 @@ def check_case(torch, cs, fa, q, k, v, do, seg, causal, window):
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts)
     ref = fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, **opts)
     torch.cuda.synchronize()
-    worst = cs.flash_worst(torch, dict(dq=dq, dk=dk, dv=dv), dict(dq=ref[0], dk=ref[1], dv=ref[2]), "float32")
+    worst = cs.flash_worst(torch, dict(out=got_out, lse=got_lse, dq=dq, dk=dk, dv=dv),
+                           dict(out=out, lse=lse, dq=ref[0], dk=ref[1], dv=ref[2]), "float32")
     return dict(worst={n: e["worst"] for n, e in worst.items()}, finite=all(e["finite"] for e in worst.values()),
                 max_abs_err={n: e["max_abs_err"] for n, e in worst.items()},
-                repeat_bits=bool(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2))), lse, delta
+                out_zero_rows=int((got_out == 0).all(dim=-1).sum().item()),
+                repeat_bits=bool(torch.equal(got_out, out2) and torch.equal(got_lse, lse2) and torch.equal(dq, dq2)
+                                 and torch.equal(dk, dk2) and torch.equal(dv, dv2))), lse, delta
 
 
 def run_one(root, seed, timed):
@@ -99,7 +108,7 @@ def run_one(root, seed, timed):
     for stem in _build.SOURCES:
         b = _build.build(stem)
         builds[stem] = dict(seconds=b["seconds"])
-        if "f32" in stem or stem == "flash_attention":  # the fp32 backward's source (the SIMT one before it)
+        if stem == "flash_attention_sm90_f32":  # the fp32 kernels' source
             builds[stem]["ptxas"] = [ln.strip() for ln in (b["log"] or "").splitlines()
                                      if re.search(r"registers|spill|Compiling entry", ln)]
     checks = []
@@ -119,6 +128,9 @@ def run_one(root, seed, timed):
             continue
         opts = dict(segment_ids=seg, causal=True, window=window)
         row = dict(case=name, q=list(q.shape), kv=list(k.shape),
+                   fwd_ms=cs.time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v, **opts), 10, flush),
+                   plain_fwd_ms=cs.time_cuda(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, **opts), 2, flush),
+                   library_fwd_ms=None,
                    bwd_dq_ms=cs.time_cuda(torch, lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts),
                                           10, flush),
                    bwd_dkv_ms=cs.time_cuda(torch, lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -129,12 +141,16 @@ def run_one(root, seed, timed):
         if seg is None and window is None:
             qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
             doh = do.transpose(1, 2).contiguous()
+            with torch.no_grad():
+                row["library_fwd_ms"] = cs.time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True), 10, flush)
             lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
             row["library_bwd_ms"] = cs.time_cuda(torch, lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                                                                     retain_graph=True), 10, flush)
             del qh, kh, vh, doh, lib_out
         for key, rate in (("bound_tf32_ms", "tf32"), ("bound_fp32_ms", None)):  # 3xTF32, and fp32 CUDA cores
-            row[key] = {w: cs.flash_bound(torch, fa, q, k, seg, window, w, rate)[0] for w in ("bwd_dq", "bwd_dkv")}
+            row[key] = {w: cs.flash_bound(torch, fa, q, k, seg, window, w, rate)[0]
+                        for w in ("fwd", "bwd_dq", "bwd_dkv")}
         times.append(row)
         del q, k, v, do, seg, lse, delta
         torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-"""Build variants of the fp32 flash backward's CUDA source and time them on one CUDA card, in turns.
+"""Build variants of the fp32 flash kernels' CUDA source and time them on one CUDA card, in turns.
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
@@ -9,12 +9,13 @@ with the text edits listed in ``VARIANTS`` below (``base``: none), built
 with the package's ``nvcc`` flags into ``paddlenlp_tpu_torch/_build/variants/``
 (all builds at once). The ptxas register and spill lines of each are printed.
 Every variant then runs through the package's own wrappers
-(``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, their C entries
-taken from the variant's library) on ``chip_smoke.FLASH_CASES``'s fp32
-case: its gradients against the plain backward under the fp32 gate
-(``chip_smoke.flash_worst``, <= 1 passes), the bits of a second launch, and
-dq and dk/dv's mean ms over 10 calls with the L2 flushed before each
-(``chip_smoke.time_cuda``). The variants take turns, ``--rounds`` times over
+(``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv``, their C entries taken from the variant's
+library) on ``chip_smoke.FLASH_CASES``'s fp32 case: out and lse against the
+plain forward and the gradients against the plain backward under the fp32
+gate (``chip_smoke.flash_worst``, <= 1 passes), the bits of a second
+launch, and the forward's, dq's and dk/dv's mean ms over 10 calls with the
+L2 flushed before each (``chip_smoke.time_cuda``). The variants take turns, ``--rounds`` times over
 (odd rounds in reverse). One JSON line a variant and round; the card's name
 and power limit first. With ``--split``, the package's own dk/dv is then
 timed at T 2048 and 4095 for each (waves, least chunk) of ``SPLITS`` in
@@ -34,6 +35,69 @@ from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+
+_COLS32 = ("constexpr int FWD_COLS = 16;", "constexpr int FWD_COLS = 32;")
+_LAZY = ("""#pragma unroll
+    for (int i = 0; i < H / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];""",
+         """    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < H / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
+    }""")
+
+# the forward's S = Q K^T in eight accumulator chains of 12 mma (``scores``: four of 24)
+_CHAINS8 = [("""// acc (16 x H) += P X at fp32 accuracy""", """template <int H>
+__device__ __forceinline__ void scores8(float (&d)[2][4], const float* a, const float* b, int a_row0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float e[4][2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[c][j][i] = 0.f;
+  const int sw = swz(g), c4 = ((t ^ sw) & 3) * 4, b1 = sw >> 2;
+  const int off[2] = {16 * b1 + c4, 16 * (1 ^ b1) + c4};
+  const float* ar = a + (a_row0 + g) * H;
+  const float* br = b + g * H;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    const int o = 16 * (kk & ~1) + off[kk & 1], c = 2 * (kk & 1);
+    const float4 xa = *reinterpret_cast<const float4*>(ar + o);
+    const float4 xb = *reinterpret_cast<const float4*>(ar + 8 * H + o);
+    uint32_t ah[2][4], al[2][4];
+    split(xa.x, ah[0][0], al[0][0]);
+    split(xb.x, ah[0][1], al[0][1]);
+    split(xa.y, ah[0][2], al[0][2]);
+    split(xb.y, ah[0][3], al[0][3]);
+    split(xa.z, ah[1][0], al[1][0]);
+    split(xb.z, ah[1][1], al[1][1]);
+    split(xa.w, ah[1][2], al[1][2]);
+    split(xb.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 y = *reinterpret_cast<const float4*>(br + 8 * j * H + o);
+      uint32_t bh[4], bl[4];
+      split(y.x, bh[0], bl[0]);
+      split(y.y, bh[1], bl[1]);
+      split(y.z, bh[2], bl[2]);
+      split(y.w, bh[3], bl[3]);
+      mma3(e[c][j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma3(e[c + 1][j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[j][i] = (e[0][j][i] + e[1][j][i]) + (e[2][j][i] + e[3][j][i]);
+}
+
+// acc (16 x H) += P X at fp32 accuracy"""),
+            ("""    for (int u = 0; u < U; ++u) scores<H, H / 16>(s[u], q_s, st + u * STEP * H, 16 * warp);  // S = Q K^T""",
+             """    for (int u = 0; u < U; ++u) scores8<H>(s[u], q_s, st + u * STEP * H, 16 * warp);  // S = Q K^T""")]
 
 # name -> [(text in the source, its replacement), ...]
 VARIANTS = {
@@ -64,6 +128,13 @@ __device__ __forceinline__ int at(int r, int d) { return r * H + (((d >> 2) ^ sw
              """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));""")],
     # a third stage in the ring (115 KB a block: two still fit an SM)
     "stages3": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+    # the forward: 32 kv columns a step (one max, one rescale of O for two 16-column products)
+    "fwd_cols32": [_COLS32],
+    # the forward: O rescaled only when some row of the warp has a new max
+    "fwd_lazy": [_LAZY],
+    "fwd_cols32_lazy": [_COLS32, _LAZY],
+    "fwd_chains8": _CHAINS8,
+    "fwd_chains8_lazy": _CHAINS8 + [_LAZY],
 }
 
 # (waves, least chunk) of ``dkv_split`` that --split times
@@ -137,6 +208,7 @@ def main(argv=None) -> int:
     out, lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
     delta = fa._delta(out, do)
     want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, **opts)))
+    want["out"], want["lse"] = out, lse
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     for turn in range(args.rounds):
         for name in names if turn % 2 == 0 else names[::-1]:
@@ -144,14 +216,16 @@ def main(argv=None) -> int:
             try:
                 got = dict(dq=fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts))
                 got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts)
-                dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts)
-                dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts)
+                got["out"], got["lse"] = fa.flash_attention_fwd(q, k, v, **opts)
+                again = dict(dq=fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **opts))
+                again["dk"], again["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **opts)
+                again["out"], again["lse"] = fa.flash_attention_fwd(q, k, v, **opts)
                 torch.cuda.synchronize()
                 worst = cs.flash_worst(torch, got, want, "float32")
                 row = dict(turn=turn, variant=name, case=case[0],
                            worst={n: e["worst"] for n, e in worst.items()},
-                           repeat_bits=bool(torch.equal(got["dq"], dq2) and torch.equal(got["dk"], dk2)
-                                            and torch.equal(got["dv"], dv2)),
+                           repeat_bits=all(torch.equal(got[n], again[n]) for n in got),
+                           fwd_ms=cs.time_cuda(torch, lambda: fa.flash_attention_fwd(q, k, v, **opts), 10, flush),
                            bwd_dq_ms=cs.time_cuda(torch, lambda: fa.flash_attention_bwd_dq(
                                q, k, v, do, lse, delta, **opts), 10, flush),
                            bwd_dkv_ms=cs.time_cuda(torch, lambda: fa.flash_attention_bwd_dkv(
