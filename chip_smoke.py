@@ -211,6 +211,21 @@ The MoE family, at Mixtral-8x7B's published widths (random bf16 weights from
               outside it), then two ``Trainer`` steps of 2 accumulated
               [1, 4096] micro-batches: step time, tokens/s, MFU, peak memory,
               every flash launch on the Hopper route;
+16b. deepseek -- DeepSeek-V2-Lite at its published widths (MLA at head_dim
+              192, 64 routed experts top 6 and 2 shared, layer 0 dense):
+              ``generate`` at all 27 layers, greedy over [4, 1024] + 32,
+              checked as mixtral's (routing pinned; ids against the uncached
+              argmax, the cached prefill's logits); one MoE layer over 4096
+              tokens in fp32 against the per-expert loop with the shared
+              experts (1e-4 of the largest element, aux rel 1e-5), bf16 twice
+              bit for bit, timed; the three bf16 flash kernels at head_dim 192
+              (q/k/v [1, 4096, 16, 192] causal, and T 4095 with segments)
+              against their plain versions, timed beside their bounds and
+              SDPA; at 3 layers (layer 0 dense, 1-2 MoE) one [1, 4096] step
+              through the kernels against the plain attention
+              (``DEEPSEEK_STEP_TOL``, routing pinned, the bf16-vs-fp32 control
+              outside it; the Hopper launches {fwd, dq, dk/dv: 3 each}), then
+              two ``Trainer`` steps of 2 accumulated [1, 4096] micro-batches;
 
 Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 
@@ -248,8 +263,9 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 20. train_profile -- ``torch.profiler`` over one more training step;
 21. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
-              Qwen2-1.5B widths and 10 layers (``RESUME_LAYERS``: the run keeps
-              its disk writes under 45 GiB): a straight run
+              Qwen2-1.5B widths and 6 layers (``RESUME_LAYERS``: the run keeps
+              its disk writes under 45 GiB and its time under 1,200 s): a
+              straight run
               saves committed checkpoint-2 and -4 (each validated with its
               hashes; save, hash and step times); a second run resumes
               checkpoint-2 into a fresh directory from other weights and saves
@@ -3792,22 +3808,23 @@ class _PlainFlash:
     def __init__(self, torch, fa):
         class Fn(torch.autograd.Function):
             @staticmethod
-            def forward(ctx, q, k, v):
-                out, lse = fa.flash_attention_fwd_ref(q, k, v)
+            def forward(ctx, q, k, v, scale):
+                out, lse = fa.flash_attention_fwd_ref(q, k, v, scale=scale)
                 ctx.save_for_backward(q, k, v, out, lse)
+                ctx.scale = scale
                 return out
 
             @staticmethod
             def backward(ctx, do):
                 q, k, v, out, lse = ctx.saved_tensors
                 do = do.contiguous()
-                return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do))
+                return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do), scale=ctx.scale) + (None,)
 
         self.fn = Fn
 
-    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None):
+    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None, scale=None):
         assert attention_mask is None and segment_ids is None and window is None
-        return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
+        return self.fn.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale)
 
 
 # bf16 compute, model level: the loss and every gradient leaf through the
@@ -4219,11 +4236,14 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
 # The smoke run budgets at most 45 GiB of writes to local disk (deleted files
 # count). Three checkpoints and two final saves of Qwen2-1.5B
 # with fp32 AdamW state write 67.9 GB (12 bytes a parameter a checkpoint, 4
-# a final save), so the resume pair runs at this depth: 44 bytes a parameter
-# over 701,353,472 parameters, 30.9 GB, beside the train run's and the SFT
-# run's final saves of 6.2 GB each: 43.3 GB (40.3 GiB) in all. At 12 layers
-# (35.0 GB) the SFT save would bring the run to 47.4 GB.
-RESUME_LAYERS = 10
+# a final save), so the resume pair runs at a cut depth: at 10 layers 44
+# bytes a parameter over 701,353,472 parameters, 30.9 GB, beside the train
+# run's and the SFT run's final saves of 6.2 GB each, came to 43.3 GB (40.3
+# GiB); at 12 layers (35.0 GB) the SFT save would bring the run to 47.4 GB.
+# Since the deepseek phase it runs at 6 layers (514 M parameters, ~22.6 GB),
+# for the run's time: 1,137-1,425 s at 10 layers on different hosts against
+# its 1,200 s limit (PERF.md §4).
+RESUME_LAYERS = 6
 
 
 def phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalLM, workdir, seed, base):
@@ -5461,10 +5481,10 @@ MIXTRAL_TRAIN_LAYERS = 2  # 3.17B parameters: fp32 masters, gradients and two Ad
 MIXTRAL_MICRO = (1, 4096)  # the Trainer step's micro-batch; 2 accumulated
 
 
-def mixtral_generate(torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed):
-    """``generate`` at 16 of Mixtral-8x7B's 32 layers, dense dispatch, random
-    bf16 weights: greedy over [4, 1024] + 32, no kernel launched (the dense
-    path's attention is the XLA-path counterpart). Its routing is recorded
+def moe_generate(torch, fa, pa, cfg, model_cls, seed, gen, name):
+    """``generate`` of an MoE model (``cfg``, random bf16 weights): greedy
+    over ``gen`` = (rows, prompt tokens, new tokens), no kernel launched (the
+    dense path's attention is the XLA-path counterpart). Its routing is recorded
     (``PinnedRouting``) and replayed in the checks, which run the dense path
     uncached over the stream it fed (an all-ones mask: generate's attention
     arithmetic) in bf16 and in fp32: top-k is discontinuous, and a rounding
@@ -5479,13 +5499,12 @@ def mixtral_generate(torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed):
     from paddlenlp_tpu_torch.transformers import moe_layers
     from paddlenlp_tpu_torch.transformers.cache_utils import init_cache
 
-    cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_GEN_LAYERS})
     t0 = time.perf_counter()
-    model = MixtralForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.bfloat16)
+    model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    B, T, new = MIXTRAL_GEN
-    L, K = cfg.num_hidden_layers, cfg.num_experts_per_tok
+    B, T, new = gen
+    L, K = routed_layers(cfg), cfg.num_experts_per_tok  # L: the layers that route
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     ids = torch.randint(3, cfg.vocab_size, (B, T), generator=g, device=DEVICE)
     pa.LAUNCHES = pa.LAUNCHES_SM90 = 0
@@ -5494,8 +5513,8 @@ def mixtral_generate(torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed):
     with routed:
         out, _, timing = timed_generate(torch, model, ids.cpu().numpy(), max_new_tokens=new)
     launches = dict(paged=pa.LAUNCHES, flash=sum(fa.LAUNCHES.values()))
-    gates = [(launches == dict(paged=0, flash=0), f"mixtral generate: kernels launched {launches}"),
-             (len(routed.choices) == L * new, f"mixtral generate: {len(routed.choices)} routings, want the prefill's "
+    gates = [(launches == dict(paged=0, flash=0), f"{name} generate: kernels launched {launches}"),
+             (len(routed.choices) == L * new, f"{name} generate: {len(routed.choices)} routings, want the prefill's "
                                               f"and {new - 1} decode steps' {L * new}")]
     # generate's routing laid over the tokens it fed: the prompt, then the first new - 1 generated tokens
     fed = PinnedRouting(moe_layers)
@@ -5532,26 +5551,36 @@ def mixtral_generate(torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed):
             row["divergence"] = dict(position=j, tokens=[got[j], want[j]], logits=[la, lb], margin=margin, gate=gate,
                                      within_gate=margin <= gate, bf16_distance=dist, depth_gate=2 * dist,
                                      within_depth_gate=margin <= 2 * dist)
-            gates.append((margin <= 2 * dist, f"mixtral generate: row {r} parts from the uncached argmax outside "
+            gates.append((margin <= 2 * dist, f"{name} generate: row {r} parts from the uncached argmax outside "
                                               f"twice the bf16 distance: {row['divergence']}"))
         plain_d, cached_d = bf16_distance(torch, l32[r, 0], lbf[r, 0]), bf16_distance(torch, l32[r, 0], cached[r])
         row.update(plain_bf16_distance=plain_d, cached_bf16_distance=cached_d,
                    same_top1=bool(cached[r].argmax() == l32[r, 0].argmax()))
-        gates.append((cached_d <= 2 * plain_d, f"mixtral generate: row {r}'s cached bf16 logits sit {cached_d} from "
+        gates.append((cached_d <= 2 * plain_d, f"{name} generate: row {r}'s cached bf16 logits sit {cached_d} from "
                                                f"fp32, past twice the uncached bf16 distance {plain_d}"))
         rows[r] = row
     flipped = own.flips(fed)
     del model, cached, l32, lbf, lown, out, stream, routed, fed, own, prefill
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(layers=MIXTRAL_GEN_LAYERS, params=cfg_params(MixtralForCausalLM, cfg), init_s=init_s,
-                batch=[B, T], new_tokens=new, dispatch="dense", launches=launches, rows=rows,
-                equal_rows=sum(v["equal"] for v in rows.values()), own_routing_flipped_choices=flipped,
+    return dict(layers=cfg.num_hidden_layers, routed_layers=L, params=cfg_params(model_cls, cfg), init_s=init_s,
+                batch=[B, T], new_tokens=new, dispatch=getattr(cfg, "moe_dispatch", "dense"), launches=launches,
+                rows=rows, equal_rows=sum(v["equal"] for v in rows.values()), own_routing_flipped_choices=flipped,
                 **timing), gates
 
 
 def cfg_params(model_cls, cfg):
     return int(sum(math.prod(s) for s in model_cls.param_shapes(cfg).values()))
+
+
+def routed_layers(cfg):
+    """How many layers of ``cfg`` route tokens (each makes one top-k
+    choice a forward): every layer of a Mixtral, DeepSeek-V2's MoE layers."""
+    if getattr(cfg, "model_type", "") == "deepseek_v2":
+        from paddlenlp_tpu_torch.transformers.deepseek_v2.modeling import moe_at
+
+        return sum(moe_at(cfg, i) for i in range(cfg.num_hidden_layers))
+    return cfg.num_hidden_layers
 
 
 def moe_bf16_distance(got, want):
@@ -5639,7 +5668,8 @@ def mixtral_layer(torch, MixtralConfig, seed):
 
 
 class PinnedRouting:
-    """Every MoE layer's top-k choice (``moe_layers.route``), recorded in
+    """Every MoE layer's top-k choice (``moe_layers.route``: Mixtral's and
+    DeepSeek-V2's routers), recorded in
     the order a forward makes them, or replayed from a recording: the
     replaying forward keeps its own router probabilities and takes the
     recorded experts, so a step that differs from another by rounding
@@ -5652,8 +5682,8 @@ class PinnedRouting:
     def __enter__(self):
         route = self.orig = self.moe_layers.route
 
-        def pinned(router_logits, top_k, norm_topk_prob):
-            probs, topk_probs, idx = route(router_logits, top_k, norm_topk_prob)
+        def pinned(router_logits, top_k, norm_topk_prob, groups=None):
+            probs, topk_probs, idx = route(router_logits, top_k, norm_topk_prob, groups=groups)
             if self.replay is not None:
                 idx = self.replay.choices[len(self.choices)]
                 topk_probs = probs.gather(1, idx)
@@ -5674,12 +5704,13 @@ class PinnedRouting:
         return sum((a != b).any(-1).sum().item() for a, b in pairs) / sum(len(a) for a, _ in pairs)
 
 
-def mixtral_train(torch, fa, modeling, causal_lm_loss, MixtralConfig, MixtralForCausalLM, Trainer,
-                  TrainingArguments, seed):
-    """At 2 of Mixtral-8x7B's 32 layers, bf16 compute over fp32 masters, under
-    each dispatch: (a) the loss (LM + aux) and every gradient leaf of one
-    [1, 4096] forward and backward through the flash kernels against the
-    same step with the plain attention, to ``MIXTRAL_STEP_TOL`` (the
+def moe_train(torch, fa, modeling, causal_lm_loss, configs, model_cls, Trainer, TrainingArguments, seed, micro, tol,
+              name):
+    """An MoE model at a cut depth, bf16 compute over fp32 masters, for each
+    of ``configs`` (name -> config: Mixtral's two dispatches, DeepSeek-V2's
+    one): (a) the loss (LM + aux) and every gradient leaf of one
+    ``micro`` forward and backward through the flash kernels against the
+    same step with the plain attention, to ``tol`` (the
     ``BF16_STEP_TOL`` verdict printed beside it), with the
     bf16-vs-fp32 control outside it (``_grad_step``, as ``train_grad``),
     the routing of the kernel and fp32 steps pinned to the plain step's
@@ -5687,25 +5718,25 @@ def mixtral_train(torch, fa, modeling, causal_lm_loss, MixtralConfig, MixtralFor
     change of a router's input flips near-tied tokens to other experts,
     which moves whole rows of their gradients; the kernel step with its own
     routing is printed beside it, with the share of choices that flipped;
-    (b) two ``Trainer`` steps of 2 accumulated [1, 4096] micro-batches, the
+    (b) two ``Trainer`` steps of 2 accumulated ``micro`` micro-batches, the
     flash launches of the steps counted (all on the Hopper route), the
     second step's time, tokens/s, MFU (``get_model_flops``: every expert's
     parameters, the work of the dense dispatch) and the peak memory."""
     from paddlenlp_tpu_torch.transformers import moe_layers
 
     res, gates, launches, sm90 = {}, [], {}, {}
+    vocab = next(iter(configs.values())).vocab_size
     g = torch.Generator(device=DEVICE).manual_seed(seed + 2)
-    ids = torch.randint(0, MIXTRAL_8X7B["vocab_size"], MIXTRAL_MICRO, generator=g, device=DEVICE)
-    batch = {"input_ids": torch.randint(0, MIXTRAL_8X7B["vocab_size"], (2 * MIXTRAL_MICRO[0], MIXTRAL_MICRO[1]),
-                                        generator=g, device=DEVICE).cpu().numpy()}
+    ids = torch.randint(0, vocab, micro, generator=g, device=DEVICE)
+    batch = {"input_ids": torch.randint(0, vocab, (2 * micro[0], micro[1]), generator=g, device=DEVICE).cpu().numpy()}
     batch["labels"] = batch["input_ids"]
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_mixtral_")
-    for dispatch in ("dense", "sparse"):
-        cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_TRAIN_LAYERS, "moe_dispatch": dispatch})
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    for dispatch, cfg in configs.items():
+        layers = cfg.num_hidden_layers
+
         def step(dtype, plain, routing):
             with routing:
-                out = _grad_step(torch, fa, modeling, cfg, MixtralForCausalLM, causal_lm_loss, ids, seed, dtype,
-                                 plain)
+                out = _grad_step(torch, fa, modeling, cfg, model_cls, causal_lm_loss, ids, seed, dtype, plain)
             gc.collect()  # a finished step's model sits in a reference cycle: free it before the next one
             torch.cuda.empty_cache()
             return out
@@ -5726,21 +5757,22 @@ def mixtral_train(torch, fa, modeling, causal_lm_loss, MixtralConfig, MixtralFor
         control = _step_errors(ref, f32)
         losses["fp32_plain"] = f32[0]
         del ref, f32
-        gates.append((bf16["loss_rel_err"] <= MIXTRAL_STEP_TOL["loss_rel"],
-                      f"mixtral train {dispatch}: kernels vs plain loss rel err {bf16['loss_rel_err']}"))
+        gates.append((bf16["loss_rel_err"] <= tol["loss_rel"],
+                      f"{name} train {dispatch}: kernels vs plain loss rel err {bf16['loss_rel_err']}"))
         for key, got, ctl in (("leaf_rel", bf16["leaf"]["rel_err"], control["leaf"]["rel_err"]),
                               ("all_rel", bf16["all_rel_err"], control["all_rel_err"])):
-            tol = MIXTRAL_STEP_TOL[key]
-            gates.append((got <= tol, f"mixtral train {dispatch}: kernels vs plain {key} {got} > {tol}"))
-            gates.append((ctl > tol, f"mixtral train {dispatch}: the bf16-vs-fp32 control's {key} {ctl} is inside "
-                                     f"{tol}: the bound would not tell the kernels from bf16 rounding"))
-        gates.append((check_launches["kernels_sm90"] == {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2},
-                      f"mixtral train {dispatch}: the checked step's Hopper launches {check_launches}"))
+            gates.append((got <= tol[key], f"{name} train {dispatch}: kernels vs plain {key} {got} > {tol[key]}"))
+            gates.append((ctl > tol[key], f"{name} train {dispatch}: the bf16-vs-fp32 control's {key} {ctl} is "
+                                          f"inside {tol[key]}: the bound would not tell the kernels from bf16 "
+                                          f"rounding"))
+        want = {"fwd": layers, "bwd_dq": layers, "bwd_dkv": layers}
+        gates.append((check_launches["kernels_sm90"] == want,
+                      f"{name} train {dispatch}: the checked step's Hopper launches {check_launches}, want {want}"))
 
         # the Trainer: two optimizer steps of 2 accumulated micro-batches
-        model = MixtralForCausalLM.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+        model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
         model.compute_dtype = torch.bfloat16
-        args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=MIXTRAL_MICRO[0],
+        args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=micro[0],
                                  gradient_accumulation_steps=2, learning_rate=1e-5, warmup_steps=1, max_steps=2,
                                  save_strategy="no", seed=seed)
         trainer = Trainer(model=model, args=args)
@@ -5761,24 +5793,24 @@ def mixtral_train(torch, fa, modeling, causal_lm_loss, MixtralConfig, MixtralFor
             sm90[n] = sm90.get(n, 0) + step_sm90[n]
         with torch.no_grad():
             aux = model.forward(torch.from_numpy(batch["input_ids"][:1]).to(DEVICE), return_aux=True)[1].item()
-        tokens = 2 * MIXTRAL_MICRO[0] * MIXTRAL_MICRO[1]
+        tokens = 2 * micro[0] * micro[1]
         step_s = steps[-1]["step_s"]
         res[dispatch] = dict(
-            grad_check=dict(bf16=dict(bf16, tol=MIXTRAL_STEP_TOL,
+            grad_check=dict(bf16=dict(bf16, tol=tol,
                                       within_bf16_step_tol=bf16["leaf"]["rel_err"] <= BF16_STEP_TOL["leaf_rel"]
                                       and bf16["all_rel_err"] <= BF16_STEP_TOL["all_rel"]),
                             bf16_vs_fp32_control=control, losses=losses,
                             launches=check_launches, routing="pinned to the plain bf16 step's",
                             own_routing=dict(bf16=bf16_free, flipped_choices=free.flips(recorded))),
             steps=steps, aux_after=aux, step_s=step_s, tokens_per_s=tokens / step_s,
-            mfu=model.get_model_flops(2 * MIXTRAL_MICRO[0], MIXTRAL_MICRO[1]) / step_s / PEAK_FLOPS["bfloat16"],
+            mfu=model.get_model_flops(2 * micro[0], micro[1]) / step_s / PEAK_FLOPS["bfloat16"],
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=step_launches,
             sm90_launches=step_sm90)
-        want = {"fwd": 4 * MIXTRAL_TRAIN_LAYERS, "bwd_dq": 4 * MIXTRAL_TRAIN_LAYERS, "bwd_dkv": 4 * MIXTRAL_TRAIN_LAYERS}
+        want = {"fwd": 4 * layers, "bwd_dq": 4 * layers, "bwd_dkv": 4 * layers}
         gates.append((step_sm90 == step_launches == want,
-                      f"mixtral train {dispatch}: Trainer launches {step_launches}, Hopper {step_sm90}, want {want}"))
+                      f"{name} train {dispatch}: Trainer launches {step_launches}, Hopper {step_sm90}, want {want}"))
         gates.append((all(math.isfinite(s["loss"]) for s in steps) and aux > 0,
-                      f"mixtral train {dispatch}: steps {steps}, aux {aux}"))
+                      f"{name} train {dispatch}: steps {steps}, aux {aux}"))
         del trainer, model, out
         gc.collect()
         torch.cuda.empty_cache()
@@ -5824,14 +5856,157 @@ def phase_mixtral(torch, fa, pa, modeling, seed):
         emit(dict(phase=f"mixtral_{name}", **out, allocated_gb_after=torch.cuda.memory_allocated() / 1e9))
         return out
 
-    res["generate"] = part("generate", mixtral_generate, torch, fa, pa, MixtralConfig, MixtralForCausalLM, seed)
+    gen_cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_GEN_LAYERS})
+    res["generate"] = part("generate", moe_generate, torch, fa, pa, gen_cfg, MixtralForCausalLM, seed, MIXTRAL_GEN,
+                           "mixtral")
     res["layer"] = part("layer", mixtral_layer, torch, MixtralConfig, seed)
     res["flash_case"] = mixtral_flash_case(torch, fa, seed)
-    res["train"] = part("train", mixtral_train, torch, fa, modeling, causal_lm_loss, MixtralConfig,
-                        MixtralForCausalLM, Trainer, TrainingArguments, seed)
+    train_cfgs = {d: MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": MIXTRAL_TRAIN_LAYERS, "moe_dispatch": d})
+                  for d in ("dense", "sparse")}
+    res["train"] = part("train", moe_train, torch, fa, modeling, causal_lm_loss, train_cfgs, MixtralForCausalLM,
+                        Trainer, TrainingArguments, seed, MIXTRAL_MICRO, MIXTRAL_STEP_TOL, "mixtral")
     res["seconds"] = time.perf_counter() - t_phase
     failed = [msg for ok, msg in gates if not ok]
     emit(dict(phase="mixtral", config=res["config"], seconds=res["seconds"], budget_s=75, gates=len(gates),
+              failed=failed))
+    for ok, msg in gates:
+        check(ok, msg)
+    return res
+
+
+# ----------------------------------------------------------------------------- MLA and the grouped MoE: DeepSeek-V2
+# deepseek-ai/DeepSeek-V2-Lite config.json (https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json)
+DEEPSEEK_V2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944, moe_intermediate_size=1408, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64, n_shared_experts=2, num_experts_per_tok=6,
+    first_k_dense_replace=1, moe_layer_freq=1, topk_method="greedy", n_group=1, topk_group=1, norm_topk_prob=False,
+    routed_scaling_factor=1.0, scoring_func="softmax", aux_loss_alpha=0.001, seq_aux=True, hidden_act="silu",
+    max_position_embeddings=163840, initializer_range=0.02, rms_norm_eps=1e-6, rope_theta=10000.0,
+    rope_scaling=dict(type="yarn", factor=40, original_max_position_embeddings=4096, beta_fast=32, beta_slow=1,
+                      mscale=0.707, mscale_all_dim=0.707),
+    attention_bias=False, tie_word_embeddings=False, bos_token_id=100000, eos_token_id=100001,
+)
+DEEPSEEK_GEN = (4, 1024, 32)  # generate at all 27 layers (15.7B parameters, 31.4 GB in bf16): rows, prompt, new
+DEEPSEEK_TRAIN_LAYERS = 3  # layer 0 dense, 1-2 MoE: 1.67B parameters, ~27 GB of fp32 masters, grads and moments
+DEEPSEEK_MICRO = (1, 4096)  # the Trainer step's micro-batch; 2 accumulated
+# The bounds of the deepseek step's check (3 layers, [1, 4096], routing
+# pinned to the plain step's), placed as MIXTRAL_STEP_TOL between the
+# kernels' readings (leaf 0.0123-0.0127, all 0.0093-0.0094) and the
+# bf16-vs-fp32 control's (leaf 0.0252-0.0257, all 0.0154-0.0156) over seeds
+# 0-3 on an H100 (``tools/chip_smoke_deepseek.py --calibrate``; PERF.md).
+# Both losses move <= 2e-5: the loss bound only catches gross errors.
+DEEPSEEK_STEP_TOL = dict(loss_rel=1e-4, leaf_rel=1.9e-2, all_rel=1.2e-2)
+
+
+def deepseek_layer(torch, DeepseekV2Config, seed):
+    """One MoE layer at DeepSeek-V2-Lite's widths (2048 -> 64 x 1408, top 6,
+    2 shared experts) over 4096 tokens: fp32 ``deepseek_moe`` against the
+    per-expert loop with the shared experts and ``routed_scaling_factor``
+    (``deepseek_moe_loop``) within 1e-4 of the largest element, the aux loss
+    within rel 1e-5; bf16 twice bit for bit; the block and the loop timed."""
+    from paddlenlp_tpu_torch.transformers.deepseek_v2.modeling import deepseek_moe, deepseek_moe_loop
+
+    cfg = DeepseekV2Config(**DEEPSEEK_V2_LITE)
+    E, K, D, F = cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.hidden_size, cfg.moe_intermediate_size
+    Fs = F * cfg.n_shared_experts
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    std = cfg.initializer_range
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE) * std
+
+    x32 = torch.randn(1, DEEPSEEK_MICRO[1], D, generator=g, device=DEVICE)
+    leaves32 = {"gate/kernel": randn(D, E), "gate_proj": randn(E, D, F), "up_proj": randn(E, D, F),
+                "down_proj": randn(E, F, D), "shared_experts/gate_proj/kernel": randn(D, Fs),
+                "shared_experts/up_proj/kernel": randn(D, Fs), "shared_experts/down_proj/kernel": randn(Fs, D)}
+
+    def block(x, leaves):
+        return deepseek_moe(cfg, x, lambda name, h: h @ leaves[name + "/kernel"].to(h.dtype), leaves.__getitem__)
+
+    res = dict(tokens=DEEPSEEK_MICRO[1], experts=E, top_k=K, shared=cfg.n_shared_experts, hidden=D, intermediate=F)
+    gates = []
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    with torch.no_grad():
+        loop, loop_aux = deepseek_moe_loop(cfg, x32, leaves32)
+        out, aux = block(x32, leaves32)
+        err = (out - loop).abs().max().item() / loop.abs().max().item()
+        aux_rel = abs(aux.item() - loop_aux.item()) / abs(loop_aux.item())
+        res["fp32"] = dict(rel_err=err, aux=aux.item(), loop_aux=loop_aux.item(), aux_rel_err=aux_rel,
+                           ms=time_cuda(torch, lambda: block(x32, leaves32), 2, flush),
+                           loop_ms=time_cuda(torch, lambda: deepseek_moe_loop(cfg, x32, leaves32), 2, flush))
+        gates.append((err <= 1e-4, f"deepseek layer fp32: {err} of the loop's largest element > 1e-4"))
+        gates.append((aux_rel <= 1e-5, f"deepseek layer fp32: aux rel err {aux_rel} > 1e-5"))
+        del out, loop
+        x = x32.to(torch.bfloat16)
+        leaves = {k: v if k == "gate/kernel" else v.to(torch.bfloat16) for k, v in leaves32.items()}
+        del x32, leaves32
+        torch.cuda.empty_cache()
+        outs = [block(x, leaves)[0] for _ in range(2)]
+        res["bf16"] = dict(same_bits=bool(torch.equal(*outs)), ms=time_cuda(torch, lambda: block(x, leaves), 5, flush))
+        gates.append((res["bf16"]["same_bits"], "deepseek layer bf16: two launches differ"))
+        del outs, x, leaves, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, gates
+
+
+def deepseek_flash_case(torch, fa, seed):
+    """The three bf16 flash kernels at head_dim 192, the Trainer step's
+    attention shape: q/k/v [1, 4096, 16, 192] (MLA: qk_nope 128 + qk_rope
+    64, v padded up to them), causal, and at T 4095 with three packed
+    segments, against their plain versions (``flash_check``)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    N = DEEPSEEK_V2_LITE["num_attention_heads"]
+    H = DEEPSEEK_V2_LITE["qk_nope_head_dim"] + DEEPSEEK_V2_LITE["qk_rope_head_dim"]
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
+    cases = []
+    for name, T, segments in (("deepseek", DEEPSEEK_MICRO[1], False), ("deepseek tail segments", 4095, True)):
+        q, k, v, do = (torch.randn(1, T, N, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(4))
+        seg = None
+        if segments:  # three packed documents, boundaries off the 64-row tiles
+            seg = torch.zeros(1, T, dtype=torch.int32, device=DEVICE)
+            seg[:, T // 3 + 5:] = 1
+            seg[:, (2 * T) // 3 + 11:] = 2
+        cases.append(flash_check(torch, fa, name, q, k, v, do, seg, None, flush))
+        del q, k, v, do, seg
+    del flush
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_deepseek(torch, fa, pa, modeling, seed):
+    """DeepSeek-V2-Lite at its published widths (``PERF.md`` §4):
+    ``generate`` at all 27 layers (``moe_generate``), one MoE layer at full
+    width (``deepseek_layer``), the bf16 flash kernels at head_dim 192
+    (``deepseek_flash_case``) and the Trainer step at 3 layers
+    (``moe_train``)."""
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
+    from paddlenlp_tpu_torch.transformers import DeepseekV2Config, DeepseekV2ForCausalLM
+
+    t_phase = time.perf_counter()
+    res = dict(config="deepseek-ai/DeepSeek-V2-Lite widths, random bf16 weights from --seed")
+    gates = []
+
+    def part(name, fn, *args):  # one JSON line a part, with the memory it leaves allocated
+        out, more = fn(*args)
+        gates.extend(more)
+        emit(dict(phase=f"deepseek_{name}", **out, allocated_gb_after=torch.cuda.memory_allocated() / 1e9))
+        return out
+
+    cfg = DeepseekV2Config(**DEEPSEEK_V2_LITE)
+    res["generate"] = part("generate", moe_generate, torch, fa, pa, cfg, DeepseekV2ForCausalLM, seed, DEEPSEEK_GEN,
+                           "deepseek")
+    res["layer"] = part("layer", deepseek_layer, torch, DeepseekV2Config, seed)
+    res["flash_cases"] = deepseek_flash_case(torch, fa, seed)
+    train_cfg = DeepseekV2Config(**{**DEEPSEEK_V2_LITE, "num_hidden_layers": DEEPSEEK_TRAIN_LAYERS})
+    res["train"] = part("train", moe_train, torch, fa, modeling, causal_lm_loss, {"dense": train_cfg},
+                        DeepseekV2ForCausalLM, Trainer, TrainingArguments, seed, DEEPSEEK_MICRO, DEEPSEEK_STEP_TOL,
+                        "deepseek")
+    res["seconds"] = time.perf_counter() - t_phase
+    failed = [msg for ok, msg in gates if not ok]
+    emit(dict(phase="deepseek", config=res["config"], seconds=res["seconds"], budget_s=30, gates=len(gates),
               failed=failed))
     for ok, msg in gates:
         check(ok, msg)
@@ -5946,6 +6121,8 @@ def main(argv=None) -> int:
 
     # ---- the MoE family: Mixtral-8x7B's widths, generate at 16 layers and a Trainer step at 2
     mixtral = phase_mixtral(torch, fa, pa, modeling, args.seed)
+    # ---- MLA and the grouped MoE: DeepSeek-V2-Lite, generate at all 27 layers and a Trainer step at 3
+    deepseek = phase_deepseek(torch, fa, pa, modeling, args.seed)
 
     # ---- training: run_pretrain, then run_finetune and its predictor, at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
@@ -6029,6 +6206,7 @@ def main(argv=None) -> int:
     flash.append(finetune["flash_case"])
     flash.append(align["dpo"]["flash_case"])
     flash.append(mixtral["flash_case"])
+    flash.extend(deepseek["flash_cases"])
     by_case = {c["case"]: c for c in flash}
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
     sources = {"sm90": "flash_attention_sm90.cu", "sm90_f32": "flash_attention_sm90_f32.cu"}
@@ -6040,7 +6218,7 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["routes"][what] == route]
-        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"])
+        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"], deepseek["train"])
         sm90 = sum(r["sm90_launches"][what] for r in runs)
         launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
         if what == "fwd":
@@ -6058,14 +6236,23 @@ def main(argv=None) -> int:
         info = dict(check="pass", cases=len(checked), timed_case=timed["case"],
                     worst_err_over_tol=max(c["errors"][o]["worst"] for c in checked for o in outputs[what]))
         if route == "sm90":
-            info.update(launched_by="train, train_resume, train_recompute, finetune, vera, dpo, mixtral" + (
-                            ", spec (draft)" if what == "fwd" else ""),
+            h192 = by_case["deepseek"]
+            info.update(launched_by="train, train_resume, train_recompute, finetune, vera, dpo, mixtral, deepseek"
+                                    + (", spec (draft)" if what == "fwd" else ""),
                         train_launches=train["sm90_launches"][what], resume_launches=resume["sm90_launches"][what],
                         recompute_launches=recompute["sm90_launches"][what],
                         finetune_launches=finetune["sm90_launches"][what],
                         vera_launches=align["vera"]["sm90_launches"][what],
                         dpo_launches=align["dpo"]["sm90_launches"][what],
-                        mixtral_launches=mixtral["train"]["sm90_launches"][what])
+                        mixtral_launches=mixtral["train"]["sm90_launches"][what],
+                        deepseek_launches=deepseek["train"]["sm90_launches"][what],
+                        # head_dim 192 (the <192> tile plan), at DeepSeek-V2-Lite's step shape
+                        h192=dict(case=h192["case"], q=h192["q"], ms=h192["ms"][what],
+                                  plain_ms=h192["plain_fwd_ms"] if what == "fwd" else h192["plain_bwd_ms"],
+                                  bound_ms=h192["bound_ms"][what], bound_by=h192["bound_by"][what],
+                                  library_ms=h192["library_fwd_ms"] if what == "fwd" else h192["library_bwd_ms"],
+                                  max_abs_err=max(c["errors"][o]["max_abs_err"] for c in deepseek["flash_cases"]
+                                                  for o in outputs[what])))
         else:
             fp32_step = grad["launches"]["float32"]
             info.update(launched_by="train_grad (its fp32 step)", check_launches=fp32_step["kernels"][what],

@@ -19,11 +19,14 @@
 // head's whole query group inside one block, with no atomics.
 //
 // Layouts: q, out, dO, dq [B, T, N, H] bf16; k, v, dk, dv [B, S, K, H] bf16; lse,
-// delta [B, N, T] fp32; seg [B, T] int32 (or null); H 64 or 128.
+// delta [B, N, T] fp32; seg [B, T] int32 (or null); H 64, 128 or 192 (192:
+// DeepSeek-V2's MLA, q and k at qk_nope 128 + qk_rope 64, v padded up to them).
 //
 // What bounds it on an H100: operations. At the training path's shape (q
 // [2, 4096, 12, 128] over k/v [2, 4096, 2, 128], causal) the forward needs
-// 0.104 ms, dq 0.156 ms and dk/dv 0.209 ms at the 989 TFLOP/s bf16 peak.
+// 0.104 ms, dq 0.156 ms and dk/dv 0.209 ms at the 989 TFLOP/s bf16 peak; at
+// DeepSeek-V2-Lite's (q/k/v [1, 4096, 16, 192]) B N H is the same 3072, and
+// so are the bounds.
 // Design:
 // - bf16 tiles arrive by TMA (a 4-D tensor map over [B, T, heads, H], so rows
 //   past T inside one batch are zero-filled by the hardware) into a ring of
@@ -68,6 +71,22 @@
 //   dq += dS K; one bf16 store a row at the end: no atomics, deterministic.
 // - Rows at or past T never reach a sum: their loads are zero, their lse and
 //   delta 0, and they are never stored.
+// - H 192 (`<192>`: three 64-column panels a row, `wgmma` m64n192k16 for the
+//   products over H). The H 128 tile plans would not fit the 227 KB of shared
+//   memory a block may take (forward 240 KB, dq 288, dk/dv 240) nor, in
+//   dk/dv, the 240 registers a thread (dK and dV sums of 96 each beside S^T's
+//   and dP^T's 32). So: the forward takes 64-row kv tiles in 3 stages (192
+//   KB; O 96 + S 32 registers); dq a 2-stage ring (192 KB); dk/dv a 3-stage
+//   ring (192 KB) with the outputs split between the warpgroups instead of
+//   the items (`DkvSmem::SPLIT`): on every item warpgroup 0 computes S^T and
+//   P^T and sums dV = P^T dO, and hands its fp32 P^T through shared memory
+//   (16 KB, two named barriers) to warpgroup 1, which computes dP^T, dS^T
+//   and sums dK = dS^T Q; each stores its own sums. Each warpgroup holds one
+//   96-register sum, and no `<192>` instantiation spills. A first version
+//   had warpgroup 1 compute S^T again instead of the hand-off (5 product sets
+//   for 4, three of them on warpgroup 1): 1.04-1.05 ms against the hand-off's
+//   0.71-0.77 at q/k/v [1, 4096, 16, 192], in turns in one call
+//   (tools/flash_sm90_compare.py). The H 64 and 128 plans are unchanged.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -259,6 +278,33 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // (x0, x1) = hi + lo, each a bf16 pair: hi the rounding, lo the rounding of the rest
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
@@ -274,19 +320,24 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 
 // ------------------------------------------------------------------ forward
 constexpr int FWD_BQ = 128;  // query rows of a block: two consumer warpgroups of 64
-constexpr int FWD_BKV = 128;  // kv rows of a tile
-constexpr int FWD_STAGES = 2;
 constexpr int FWD_THREADS = 384;  // warpgroups 0-1 consume, warp 8 of warpgroup 2 produces
+constexpr int SMEM_LIMIT = 227 * 1024;  // dynamic shared memory a block may opt in to
 
+// The tile plan by head dim. H 64 and 128: 128-row kv tiles, 2 stages. H 192:
+// the same would take Q 48 KB + 2 x (K 48 + V 48) = 240 KB, over the limit, so
+// 64-row kv tiles in 3 stages (192 KB); S is then 32 registers beside O's 96.
 template <int H>
 struct FwdSmem {
-  static constexpr int TILE_Q = FWD_BQ * H * 2, TILE_KV = FWD_BKV * H * 2;  // bytes, multiples of 1024
+  static constexpr int BKV = H == 192 ? 64 : 128;  // kv rows of a tile
+  static constexpr int STAGES = H == 192 ? 3 : 2;
+  static constexpr int TILE_Q = FWD_BQ * H * 2, TILE_KV = BKV * H * 2;  // bytes, multiples of 1024
   static constexpr size_t q = 0;
   static constexpr size_t k = q + TILE_Q;
-  static constexpr size_t v = k + FWD_STAGES * TILE_KV;
-  static constexpr size_t seg = v + FWD_STAGES * TILE_KV;  // kv segment ids of each stage
-  static constexpr size_t bar = seg + FWD_STAGES * FWD_BKV * 4;  // q_full, full[STAGES], empty[STAGES]
-  static constexpr size_t bytes = bar + (1 + 2 * FWD_STAGES) * 8 + 1024;  // + alignment slack
+  static constexpr size_t v = k + STAGES * TILE_KV;
+  static constexpr size_t seg = v + STAGES * TILE_KV;  // kv segment ids of each stage
+  static constexpr size_t bar = seg + STAGES * BKV * 4;  // q_full, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = bar + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+  static_assert(bytes <= SMEM_LIMIT, "the forward's tiles fit in shared memory");
 };
 
 template <int H>
@@ -295,6 +346,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                           const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Geometry g) {
   using L = FwdSmem<H>;
+  constexpr int FWD_BKV = L::BKV, FWD_STAGES = L::STAGES;
   constexpr int PANELS = H / PANEL;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -384,7 +436,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       const uint8_t* k_t = k_s + stage * L::TILE_KV;
       const uint8_t* v_t = v_s + stage * L::TILE_KV;
 
-      float s[FWD_BKV / 2];  // S = Q K^T, 64 x 128: rows r / r + 8, columns 8 j + cq + {0, 1}
+      float s[FWD_BKV / 2];  // S = Q K^T, 64 x FWD_BKV: rows r / r + 8, columns 8 j + cq + {0, 1}
       const int u = 2 * (jt - j_lo) + wg;  // turns alternate over the 2 (j_hi - j_lo) steps
       if (u > 0) turn_wait(wg);
       wgmma_fence();
@@ -503,26 +555,47 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 // ------------------------------------------------------------------ backward: dk, dv
 constexpr int DKV_BKV = 64;  // kv rows of a block, shared by both consumer warpgroups
 constexpr int DKV_BQ = 64;  // query rows of a streamed tile
-constexpr int DKV_STAGES = 4;  // even: warpgroup w consumes the stages of parity w
 constexpr int DKV_THREADS = 384;  // warpgroups 0-1 consume, warp 8 of warpgroup 2 produces
 
+// H 64 and 128: the warpgroups take alternate items, each summing its own dK
+// and dV (H registers a thread), in a 4-stage ring (even: warpgroup w
+// consumes the stages of parity w). H 192: dK and dV would take 192 registers
+// a thread beside S^T's and dP^T's 64, past the 240 there are, and the H 128
+// ring, 48 + 4 x 48 = 240 KB, is over the shared-memory limit. So the
+// warpgroups split the outputs instead (SPLIT): both take every item;
+// warpgroup 0 computes S^T and P^T, sums dV = P^T dO and hands P^T to
+// warpgroup 1 (`pt`), which computes dP^T and dS^T and sums dK = dS^T Q,
+// each over 96 registers, in a 3-stage ring (192 KB + 16 KB of P^T); each
+// stores its own sums.
 template <int H>
 struct DkvSmem {
+  static constexpr bool SPLIT = H == 192;
+  static constexpr int STAGES = SPLIT ? 3 : 4;
   static constexpr int TILE = 64 * H * 2;  // bytes of a 64-row tile, a multiple of 1024
   static constexpr int ROWV = DKV_BQ * 12;  // lse * log2(e), delta, segment id of a query tile's rows
   static constexpr size_t k = 0;
   static constexpr size_t v = k + TILE;
   static constexpr size_t q = v + TILE;  // the stages' Q tiles, then their dO tiles; at the end,
-  static constexpr size_t dout = q + DKV_STAGES * TILE;  // warpgroup 1's fp32 dk and dv for warpgroup 0
-  static constexpr size_t rowv = dout + DKV_STAGES * TILE;
-  static constexpr size_t segk = rowv + DKV_STAGES * ROWV;
-  static constexpr size_t bar = segk + DKV_BKV * 4;  // kv_full, full[STAGES], empty[STAGES]
-  static constexpr size_t bytes = bar + (1 + 2 * DKV_STAGES) * 8 + 1024;
-  static_assert(2 * DKV_STAGES * TILE >= 2 * DKV_BKV * H * 4, "the exchange of fp32 dk, dv fits the stages");
+  static constexpr size_t dout = q + STAGES * TILE;  // warpgroup 1's fp32 dk and dv for warpgroup 0
+  static constexpr size_t rowv = dout + STAGES * TILE;
+  static constexpr size_t segk = rowv + STAGES * ROWV;
+  static constexpr size_t pt = segk + DKV_BKV * 4;  // SPLIT: an item's fp32 P^T, warpgroup 0 to 1
+  static constexpr size_t bar = pt + (SPLIT ? DKV_BKV * DKV_BQ * 4 : 0);  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = bar + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SPLIT || STAGES % 2 == 0, "alternate items: each warpgroup owns the stages of one parity");
+  static_assert(SPLIT || 2 * STAGES * TILE >= 2 * DKV_BKV * H * 4, "the exchange of fp32 dk, dv fits the stages");
+  static_assert(bytes <= SMEM_LIMIT, "dk/dv's tiles fit in shared memory");
 };
 
 // named barrier 3 over the two consumer warpgroups
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+// SPLIT dk/dv: named barrier 4, an item's P^T written by warpgroup 0 (pass)
+// for warpgroup 1 (wait); 5, read by warpgroup 1 (pass), so warpgroup 0 may
+// write the next (wait)
+__device__ __forceinline__ void pt_ready_pass() { asm volatile("bar.arrive 4, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void pt_ready_wait() { asm volatile("bar.sync 4, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void pt_consumed_pass() { asm volatile("bar.arrive 5, 256;\n" ::: "memory"); }
+__device__ __forceinline__ void pt_consumed_wait() { asm volatile("bar.sync 5, 256;\n" ::: "memory"); }
 
 template <int H>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
@@ -532,7 +605,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
                               const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
                               __nv_bfloat16* __restrict__ dv, Geometry g) {
   using L = DkvSmem<H>;
-  constexpr int PANELS = H / PANEL;
+  constexpr int PANELS = H / PANEL, DKV_STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint8_t* k_s = smem + L::k;
@@ -563,7 +636,7 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
     mbar_init(kv_full, 32);
     for (int s = 0; s < DKV_STAGES; ++s) {
       mbar_init(&full[s], 32);
-      mbar_init(&empty[s], 128);  // the warpgroup that consumes the stage
+      mbar_init(&empty[s], L::SPLIT ? 256 : 128);  // the warpgroups that consume the stage
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -609,6 +682,116 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
         }
       } else {
         mbar_arrive(&full[stage]);
+      }
+    }
+  } else if constexpr (L::SPLIT) {  // ---- consumer warpgroup wg: kv rows k0 + r, k0 + r + 8, every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4, tid = threadIdx.x % 128;
+    const int r = 16 * (warp % 4) + lane / 4;
+    const int c0 = k0 + r, c1 = c0 + 8;
+    const int cq = 2 * (lane % 4);
+    const float sl2 = g.scale * LOG2E;
+    float acc[H / 2];  // warpgroup 0: dV, warpgroup 1: dK
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+    // P^T of the current item, from warpgroup 0 to warpgroup 1: element i of
+    // thread tid at [i][tid] (the same fragment layout in both warpgroups)
+    float* pt = reinterpret_cast<float*>(smem + L::pt);
+    mbar_wait(kv_full, 0);
+    const int sk0 = segk_s[r], sk1 = segk_s[r + 8];
+    const uint64_t k_base = desc(k_s, 16), v_base = desc(v_s, 16), q_base = desc(q_s, 16), do_base = desc(do_s, 16);
+    constexpr uint64_t MN_MAJOR = static_cast<uint64_t>(DKV_BQ * 128 / 16 - 1) << 16;
+
+    for (int u = 0; u < items; ++u) {
+      const int stage = u % DKV_STAGES, q0 = (i_lo + u / group) * DKV_BQ;
+      mbar_wait(&full[stage], (u / DKV_STAGES) & 1);
+      const float* lse2 = reinterpret_cast<const float*>(rowv_s + stage * L::ROWV);
+      const float* dl = lse2 + DKV_BQ;
+      const int* sq = reinterpret_cast<const int*>(dl + DKV_BQ);
+      const uint64_t q_d = opaque(q_base) + stage * (L::TILE >> 4), do_d = opaque(do_base) + stage * (L::TILE >> 4);
+      // warpgroup 0: S^T = K Q^T, then P^T; warpgroup 1: dP^T = V dO^T, then
+      // dS^T = P^T (dP^T - delta) scale with warpgroup 0's P^T
+      const uint64_t a_d = wg == 0 ? opaque(k_base) : opaque(v_base), b_d = wg == 0 ? q_d : do_d;
+      float st[DKV_BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const int off = ((kk / 4) * 64 * 128 + (kk % 4) * 32) >> 4;
+        wgmma_ss<DKV_BQ>(st, a_d + off, b_d + off, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      if (wg == 0) {
+        const bool all_vis = seg == nullptr && all_visible(g, q0, q0 + DKV_BQ - 1, k0, k0 + DKV_BKV - 1);
+#pragma unroll
+        for (int j = 0; j < DKV_BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + cq + e, tq = q0 + col;
+            const float l2 = lse2[col];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              float p = exp2f(st[i] * sl2 - l2);
+              if (!all_vis) {
+                const bool vis = visible(g, tq, h ? c1 : c0) && (seg == nullptr || sq[col] == (h ? sk1 : sk0));
+                if (!vis) p = 0.f;
+              }
+              st[i] = p;
+            }
+          }
+        if (u > 0) pt_consumed_wait();  // warpgroup 1 has read the previous item's P^T
+#pragma unroll
+        for (int i = 0; i < DKV_BQ / 2; ++i) pt[i * 128 + tid] = st[i];
+        pt_ready_pass();
+      } else {
+        pt_ready_wait();
+#pragma unroll
+        for (int j = 0; j < DKV_BQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dlt = dl[8 * j + cq + e];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              st[i] = pt[i * 128 + tid] * (st[i] - dlt) * g.scale;
+            }
+          }
+        if (u + 1 < items) pt_consumed_pass();
+      }
+      // acc += A B: A = P^T or dS^T in two bf16 parts (high, residual), B = dO
+      // or Q [query, H] MN-major, 16 query rows = 2048 bytes
+      uint32_t a_hi[DKV_BQ / 16][4], a_lo[DKV_BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1], a_hi[kk][i], a_lo[kk][i]);
+      const uint64_t m_d = (wg == 0 ? do_d : q_d) + MN_MAJOR;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DKV_BQ / 16; ++kk) {
+        wgmma_rs<H>(acc, a_hi[kk], m_d + kk * (2048 >> 4));
+        wgmma_rs<H>(acc, a_lo[kk], m_d + kk * (2048 >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[stage]);
+    }
+
+    // each warpgroup stores its own sums: dV from warpgroup 0, dK from 1
+    __nv_bfloat16* dst = wg == 0 ? dv : dk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = h ? c1 : c0;
+      if (c < g.S) {
+        const size_t off = (static_cast<size_t>(b) * g.S + c) * g.K * H + static_cast<size_t>(kh) * H + cq;
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + off + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   } else {  // ---- consumer warpgroup wg: kv rows k0 + r and k0 + r + 8, items u = wg mod 2
@@ -755,19 +938,22 @@ __global__ void __launch_bounds__(DKV_THREADS, 1)
 // ------------------------------------------------------------------ backward: dq
 constexpr int DQ_BQ = 128;  // query rows of a block: two consumer warpgroups of 64
 constexpr int DQ_BKV = 64;  // kv rows of a tile: S, dP and dS of 64 columns fit beside the dq sums
-constexpr int DQ_STAGES = 4;
 constexpr int DQ_THREADS = 384;  // warpgroups 0-1 consume, warp 8 of warpgroup 2 produces
 
+// H 64 and 128: a 4-stage ring. H 192: Q 48 + dO 48 + 4 x (K 24 + V 24) =
+// 288 KB is over the limit; 2 stages take 192 KB.
 template <int H>
 struct DqSmem {
+  static constexpr int STAGES = H == 192 ? 2 : 4;
   static constexpr int TILE_Q = DQ_BQ * H * 2, TILE_KV = DQ_BKV * H * 2;  // bytes, multiples of 1024
   static constexpr size_t q = 0;
   static constexpr size_t dout = q + TILE_Q;
   static constexpr size_t k = dout + TILE_Q;
-  static constexpr size_t v = k + DQ_STAGES * TILE_KV;
-  static constexpr size_t seg = v + DQ_STAGES * TILE_KV;  // kv segment ids of each stage
-  static constexpr size_t bar = seg + DQ_STAGES * DQ_BKV * 4;  // q_full, full[STAGES], empty[STAGES]
-  static constexpr size_t bytes = bar + (1 + 2 * DQ_STAGES) * 8 + 1024;  // + alignment slack
+  static constexpr size_t v = k + STAGES * TILE_KV;
+  static constexpr size_t seg = v + STAGES * TILE_KV;  // kv segment ids of each stage
+  static constexpr size_t bar = seg + STAGES * DQ_BKV * 4;  // q_full, full[STAGES], empty[STAGES]
+  static constexpr size_t bytes = bar + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+  static_assert(bytes <= SMEM_LIMIT, "dq's tiles fit in shared memory");
 };
 
 template <int H>
@@ -777,6 +963,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, Geometry g) {
   using L = DqSmem<H>;
+  constexpr int DQ_STAGES = L::STAGES;
   constexpr int PANELS = H / PANEL;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -1017,8 +1204,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = opt_in(kernel, FwdSmem<H>::bytes, done);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, g.T, g.N, H, FWD_BQ) || !make_map(&tk, k, B, g.S, g.K, H, FWD_BKV) ||
-      !make_map(&tv, v, B, g.S, g.K, H, FWD_BKV))
+  if (!make_map(&tq, q, B, g.T, g.N, H, FWD_BQ) || !make_map(&tk, k, B, g.S, g.K, H, FwdSmem<H>::BKV) ||
+      !make_map(&tv, v, B, g.S, g.K, H, FwdSmem<H>::BKV))
     return cudaErrorInvalidValue;
   dim3 grid(g.N, B, (g.T + FWD_BQ - 1) / FWD_BQ);
   kernel<<<grid, FWD_THREADS, FwdSmem<H>::bytes, s>>>(tq, tk, tv, static_cast<const int*>(seg),
@@ -1064,7 +1251,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }
 
 bool bad_geometry(int B, int T, int S, int N, int K, int H, int dtype) {
-  return B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128) || dtype != 1 || B > 65535 ||
+  return B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128 && H != 192) || dtype != 1 ||
+         B > 65535 ||
          N > 65535 || T > 65535 * FWD_BQ || S > 65535 * DKV_BKV;
 }
 
@@ -1083,7 +1271,9 @@ extern "C" int pdnlp_flash_fwd_sm90(const void* q, const void* k, const void* v,
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_fwd<64>(q, k, v, seg, out, lse, B, g, s) : launch_fwd<128>(q, k, v, seg, out, lse, B, g, s);
+  if (H == 64) return launch_fwd<64>(q, k, v, seg, out, lse, B, g, s);
+  if (H == 128) return launch_fwd<128>(q, k, v, seg, out, lse, B, g, s);
+  return launch_fwd<192>(q, k, v, seg, out, lse, B, g, s);
 }
 
 extern "C" int pdnlp_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
@@ -1094,8 +1284,9 @@ extern "C" int pdnlp_flash_bwd_dq_sm90(const void* q, const void* k, const void*
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, B, g, s)
-                 : launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
+  if (H == 64) return launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
+  if (H == 128) return launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
+  return launch_dq<192>(q, k, v, dout, lse, delta, seg, dq, B, g, s);
 }
 
 extern "C" int pdnlp_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
@@ -1106,6 +1297,7 @@ extern "C" int pdnlp_flash_bwd_dkv_sm90(const void* q, const void* k, const void
   if (B == 0 || S == 0 || K == 0) return cudaSuccess;
   const Geometry g{T, S, N, K, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s)
-                 : launch_dkv<128>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
+  if (H == 64) return launch_dkv<64>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
+  if (H == 128) return launch_dkv<128>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
+  return launch_dkv<192>(q, k, v, dout, lse, delta, seg, dk, dv, B, g, s);
 }

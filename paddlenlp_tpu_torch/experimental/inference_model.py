@@ -133,13 +133,16 @@ def gather_lora(lora, adapter_idx):
 class PagedInferenceModel:
     """Prefill / decode / mixed steps over (params, paged pool). Llama-family
     only (llama/qwen2/mistral: config-driven biases + GQA + rope; as the JAX
-    engine, it takes no sliding window and no MoE block)."""
+    engine, it takes no sliding window, no MoE block and only the scanned
+    layer tree)."""
 
     def __init__(self, model, block_size: int = 16, num_blocks: int = 512, max_blocks_per_seq: int = 64,
                  dtype=torch.bfloat16, decode_steps: int = 8, eos_ids=(), use_paged_kernel=None):
         if getattr(model, "returns_aux_loss", False):
             raise NotImplementedError(f"PagedInferenceModel serves dense llama/qwen2/mistral models, as the JAX "
                                       f"engine; {type(model).__name__} decodes with model.generate")
+        if "layers" not in model.params.get("model", {}):  # the JAX engine's check (inference_model.py:98-99)
+            raise ValueError("PagedInferenceModel requires the scanned-layer param layout (use_scan_layers)")
         self.model = model
         self.config = model.config
         self.device = model.device

@@ -19,6 +19,10 @@ gates, which bf16 operands cannot meet), take all three through
 ``flash_attention_sm90_f32.cu`` (``"sm90_f32"``: 3xTF32 ``mma.sync``
 products at fp32 accuracy; dk/dv's walks split over blocks by
 :func:`dkv_split`, their partial sums merged in order by a second kernel).
+Head dims (:data:`HEAD_DIMS`): the bf16 route takes 64, 128 and 192
+(DeepSeek-V2's MLA runs q and k at 128 + 64 and pads v up to them); the
+fp32 route takes 64 and 128, and refuses 192 with ``NotImplementedError``
+(``_LATER["head_dim"]``), since the JAX package computes it.
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
 head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
@@ -49,8 +53,8 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_F32", "NEG_INF", "dense_attention_mask", "dkv_split",
-           "dkv_walk", "dot_product_attention", "dot_product_attention_dense", "flash_attention",
+__all__ = ["HEAD_DIMS", "LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_SM90_F32", "NEG_INF", "dense_attention_mask",
+           "dkv_split", "dkv_walk", "dot_product_attention", "dot_product_attention_dense", "flash_attention",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_bwd_ref", "flash_attention_fwd",
            "flash_attention_fwd_ref", "kernel_route", "plain_softmax"]
 
@@ -71,6 +75,9 @@ _ROUTES = {"sm90": ("flash_attention_sm90", "_sm90"), "sm90_f32": ("flash_attent
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the head dims each route's kernels are built for
+HEAD_DIMS = {"sm90": (64, 128, 192), "sm90_f32": (64, 128)}
+
 # where the options outside this port's slice are planned (ROADMAP.md)
 _LATER = {
     "bias": "additive attention bias (ROADMAP Queue 1 item 14e, with T5's relative positions)",
@@ -78,6 +85,8 @@ _LATER = {
     "dropout_rate": "attention dropout (ROADMAP Queue 1 item 15, training left)",
     "positions": "permuted positions for context parallel (ROADMAP Queue 1 item 15, training left)",
     "causal": "non-causal attention in the dispatcher (ROADMAP Queue 1 item 14e, the encoder families)",
+    "head_dim": "the fp32 flash route (sm90_f32) at head_dim 192 (ROADMAP Queue 2 item 1); "
+                "bf16 operands take the sm90 route at 192",
 }
 
 
@@ -189,8 +198,11 @@ def _check_cuda_operands(name, tensors, q, k, segment_ids):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or tensors["v"].dtype != q.dtype:
         raise TypeError(f"{name}: q, k and v must share one dtype of {list(_DTYPES)}, "
                         f"got {q.dtype}, {k.dtype}, {tensors['v'].dtype}")
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"{name}: head_dim must be 64 or 128, got {q.shape[-1]}")
+    H, route = q.shape[-1], kernel_route(q.dtype, "fwd")
+    if H not in HEAD_DIMS[route]:
+        if H in HEAD_DIMS["sm90"]:
+            raise NotImplementedError(f"{name}: {_LATER['head_dim']} is not part of the port yet")
+        raise ValueError(f"{name}: head_dim must be one of {HEAD_DIMS[route]} on the {route} route, got {H}")
     if segment_ids is not None:
         if segment_ids.dtype != torch.int32:
             raise TypeError(f"{name}: segment_ids must be int32, got {segment_ids.dtype}")
@@ -458,8 +470,10 @@ def dot_product_attention(query, key, value, *, attention_mask=None, segment_ids
     absolute position of query row 0 over a KV cache (the dispatcher of
     ``paddlenlp_tpu/ops/flash_attention.py:72``). Calls the JAX dispatcher
     would send to Pallas (no mask, no offset, ``T == S``) run the flash
-    kernels; the rest run :func:`dot_product_attention_dense`. The options
-    outside the port's slice raise ``NotImplementedError``."""
+    kernels (on the card: bf16 at head_dim 64, 128 or 192, fp32 at 64 or
+    128, :data:`HEAD_DIMS`); the rest run :func:`dot_product_attention_dense`.
+    The options outside the port's slice, and fp32 at head_dim 192 on the
+    card, raise ``NotImplementedError``."""
     asked = {"bias": bias is not None, "use_alibi": use_alibi, "dropout_rate": dropout_rate != 0.0,
              "positions": positions is not None, "causal": not causal}
     for opt, on in asked.items():

@@ -1,5 +1,5 @@
-"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2, Mistral, and the
-MoE families Mixtral and Qwen2-MoE), the Auto
+"""LLaMA-family model zoo of the PyTorch port (LLaMA, Qwen2, Mistral, the
+MoE families Mixtral and Qwen2-MoE, and DeepSeek-V2), the Auto
 classes, ``PretrainedModel`` and the tokenizer."""
 
 from .auto import (  # noqa: F401
@@ -14,6 +14,7 @@ from .auto import (  # noqa: F401
 )
 from .cache_utils import KVCache, init_cache  # noqa: F401
 from .configuration_utils import LlmMetaConfig, PretrainedConfig  # noqa: F401
+from .deepseek_v2 import DeepseekV2Config, DeepseekV2ForCausalLM, DeepseekV2Model  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaForSequenceClassification  # noqa: F401
 from .mistral import MistralConfig, MistralForCausalLM, MistralForSequenceClassification, MistralModel  # noqa: F401
 from .mixtral import MixtralConfig, MixtralForCausalLM  # noqa: F401

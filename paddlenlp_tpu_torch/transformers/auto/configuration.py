@@ -2,7 +2,7 @@
 
 Port of ``paddlenlp_tpu/transformers/auto/configuration.py:14-104``.
 ``CONFIG_MAPPING`` holds the families the port has (``llama``, ``qwen2``,
-``mistral``, ``mixtral``, ``qwen2_moe``).
+``mistral``, ``mixtral``, ``qwen2_moe``, ``deepseek_v2``).
 ``JAX_MODEL_TYPES`` is the JAX registry's ``model_type`` list, in its order:
 a ``config.json`` of one of the other types raises ``NotImplementedError``
 naming ROADMAP Queue 1 item 14e, and a type that neither registry knows
@@ -38,13 +38,14 @@ def register_config(model_type: str, config_class: Type[PretrainedConfig]):
 def _populate():
     if CONFIG_MAPPING:
         return
+    from ..deepseek_v2.configuration import DeepseekV2Config
     from ..llama.configuration import LlamaConfig
     from ..mistral.configuration import MistralConfig
     from ..mixtral.configuration import MixtralConfig
     from ..qwen2.configuration import Qwen2Config
     from ..qwen2_moe.configuration import Qwen2MoeConfig
 
-    for cfg in (LlamaConfig, Qwen2Config, MistralConfig, MixtralConfig, Qwen2MoeConfig):
+    for cfg in (LlamaConfig, Qwen2Config, MistralConfig, MixtralConfig, Qwen2MoeConfig, DeepseekV2Config):
         register_config(cfg.model_type, cfg)
 
 

@@ -4,9 +4,9 @@ Port of ``paddlenlp_tpu/transformers/auto/modeling.py:25-295``. The port
 registers the tasks its families have: ``causal_lm`` and
 ``sequence_classification`` for ``llama`` and ``qwen2``
 (``AutoModelForCausalLM``, ``AutoModelForSequenceClassification``), the
-tasks the JAX registry gives ``mistral`` (``base``, the backbone behind
-``AutoModel``, and ``causal_lm``) and ``causal_lm`` for ``mixtral`` and
-``qwen2_moe``. ``JAX_MODEL_TASKS`` is the JAX
+tasks the JAX registry gives ``mistral`` and ``deepseek_v2`` (``base``, the
+backbone behind ``AutoModel``, and ``causal_lm``) and ``causal_lm`` for
+``mixtral`` and ``qwen2_moe``. ``JAX_MODEL_TASKS`` is the JAX
 registry's tasks by ``model_type``: a family or task it has and the port does
 not (the backbone-only ``base`` models behind ``AutoModel``, the classifiers,
 every other family) raises ``NotImplementedError`` naming ROADMAP Queue 1
@@ -75,6 +75,7 @@ def _populate_models():
     if _MODEL_MAPPING:
         return
     _populate()
+    from ..deepseek_v2 import modeling as deepseek_v2
     from ..llama import modeling as llama
     from ..mistral import modeling as mistral
     from ..mixtral import modeling as mixtral
@@ -89,6 +90,8 @@ def _populate_models():
     register_model("mistral", "causal_lm", mistral.MistralForCausalLM)
     register_model("mixtral", "causal_lm", mixtral.MixtralForCausalLM)
     register_model("qwen2_moe", "causal_lm", qwen2_moe.Qwen2MoeForCausalLM)
+    register_model("deepseek_v2", "base", deepseek_v2.DeepseekV2Model)
+    register_model("deepseek_v2", "causal_lm", deepseek_v2.DeepseekV2ForCausalLM)
 
 
 class _AutoBase:

@@ -2,11 +2,17 @@
 
 Port of ``paddlenlp_tpu/transformers/llama/modeling.py:583``
 (``LlamaForCausalLM``). The model holds its parameters as a nested dict of
-tensors in the JAX package's **scanned** layout: decoder layers are stacked on
-a leading ``[L]`` axis under ``model/layers``, and projection kernels are
-``[in, out]``. Both packages therefore hold the same tree, the paged inference
-model (``experimental/inference_model.py``) reads it directly, and
-:meth:`LlamaForCausalLM.from_jax_params` is a plain conversion.
+tensors in one of the JAX package's two layouts, chosen by
+``config.use_scan_layers`` as in the JAX ``LlamaModule`` (``:427-460``): the
+**scanned** one (the default) stacks the decoder layers on a leading ``[L]``
+axis under ``model/layers``; the **unrolled** one keeps layer ``i`` under
+``model/layers_{i}``, and its layers may differ (DeepSeek-V2's dense first
+layers). Projection kernels are ``[in, out]``. Both packages therefore hold
+the same tree, :meth:`LlamaForCausalLM.from_jax_params` is a plain
+conversion, and every forward reads a layer through one helper
+(:func:`layer_tree`, :meth:`LlamaForCausalLM._layer_leaves`). The paged
+inference model (``experimental/inference_model.py``) reads the scanned tree
+only, as the JAX engine does.
 
 - ``model(input_ids)`` is a plain dense causal forward with no gradient: the
   reference the paged path is held against. With a padding
@@ -21,9 +27,17 @@ model (``experimental/inference_model.py``) reads it directly, and
   ``_remat_policy`` (:336) as ``torch.utils.checkpoint`` segments.
 - every forward runs a layer's MLP through one hook (:meth:`LlamaForCausalLM.mlp`,
   its leaves :meth:`~LlamaForCausalLM.mlp_param_shapes` under
-  :attr:`~LlamaForCausalLM.mlp_name`): the SwiGLU here, the MoE block of
-  ``moe_layers.py`` in ``mixtral`` and ``qwen2_moe``, whose load-balancing
-  loss :meth:`LlamaForCausalLM.forward` hands back with ``return_aux``.
+  :attr:`~LlamaForCausalLM.mlp_name`, both given the layer's index): the
+  SwiGLU here, the MoE block of ``moe_layers.py`` in ``mixtral`` and
+  ``qwen2_moe``, whose load-balancing loss :meth:`LlamaForCausalLM.forward`
+  hands back with ``return_aux``, DeepSeek-V2's per-layer choice of the two;
+- and its attention's projections through another (the JAX ``attn_cls``,
+  ``:296``): :meth:`~LlamaForCausalLM.attn_param_shapes` under ``self_attn``,
+  :meth:`~LlamaForCausalLM.attn_rope` (the rope tables),
+  :meth:`~LlamaForCausalLM.attn_qkv` (post-rope q, k, v from the normed
+  input), :meth:`~LlamaForCausalLM.attn_scale` (the softmax scale) and
+  :meth:`~LlamaForCausalLM.attn_output` (what ``o_proj`` reads of the
+  attention output): q/k/v/o with rope here, DeepSeek-V2's MLA there.
 - loading, saving and the constructors are ``model_utils.PretrainedModel``'s
   (``from_pretrained``/``save_pretrained`` in the HF layout, ``from_config``,
   ``init_random``, ``from_jax_params``), and ``generate`` is
@@ -46,7 +60,7 @@ from ..conversion_utils import flatten_params
 from ..model_utils import PretrainedModel
 from .configuration import LlamaConfig
 
-__all__ = ["LlamaForCausalLM", "LlamaForSequenceClassification", "layer_params", "rms_norm"]
+__all__ = ["LlamaForCausalLM", "LlamaForSequenceClassification", "layer_params", "layer_tree", "rms_norm"]
 
 #: recompute granularities of the training forward (the JAX ``_remat_policy``
 #: :336): what each keeps for the backward is in :meth:`LlamaForCausalLM.forward`
@@ -92,10 +106,27 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+def scanned(model_tree: dict) -> bool:
+    """Whether a ``model`` subtree holds the scanned layout (``layers``,
+    stacked on ``[L]``) rather than the unrolled one (``layers_{i}``)."""
+    return "layers" in model_tree
+
+
+def layer_tree(model_tree: dict, i: int) -> dict:
+    """Layer ``i``'s parameter subtree of a ``model`` subtree in either
+    layout: views into the stacked ``layers``, or ``layers_{i}`` itself."""
+    return layer_params(model_tree["layers"], i) if scanned(model_tree) else model_tree[f"layers_{i}"]
+
+
+def _get(tree: dict, path: str):
+    """The node at a ``/``-separated path under ``tree``."""
+    return functools.reduce(lambda t, k: t[k], path.split("/"), tree)
+
+
 class LlamaForCausalLM(PretrainedModel):
     """Parameters + a dense forward. ``params`` is the nested dict
-    ``{"model": {"embed_tokens", "layers", "norm"}, "lm_head"}`` of the JAX
-    package's scanned layout."""
+    ``{"model": {"embed_tokens", "layers" (or "layers_0", ...), "norm"},
+    "lm_head"}`` of the JAX package's scanned (or unrolled) layout."""
 
     config_class = LlamaConfig
     _keys_to_ignore_on_load_missing = [r"lm_head"]
@@ -103,31 +134,78 @@ class LlamaForCausalLM(PretrainedModel):
     # ------------------------------------------------------------------ layout
     @classmethod
     def param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
-        """Flat ``path -> shape`` of the scanned parameter tree."""
+        """Flat ``path -> shape`` of the parameter tree: the scanned layout
+        (``model/layers/...`` on ``[L]``) under ``config.use_scan_layers``,
+        else the unrolled one (``model/layers_{i}/...``)."""
         L, D, V = config.num_hidden_layers, config.hidden_size, config.vocab_size
-        N, K, H = config.num_attention_heads, config.num_key_value_heads, config.head_dim
-        qkv_bias = bool(getattr(config, "attention_bias", False))
-        out_bias = bool(getattr(config, "attention_out_bias", qkv_bias))
         shapes: Dict[str, Tuple[int, ...]] = {"model/embed_tokens/embedding": (V, D)}
-        lay = "model/layers/"
-
-        def dense(name, d_in, d_out, bias):
-            shapes[lay + name + "/kernel"] = (L, d_in, d_out)
-            if bias:
-                shapes[lay + name + "/bias"] = (L, d_out)
-
-        shapes[lay + "input_layernorm/scale"] = (L, D)
-        dense("self_attn/q_proj", D, N * H, qkv_bias)
-        dense("self_attn/k_proj", D, K * H, qkv_bias)
-        dense("self_attn/v_proj", D, K * H, qkv_bias)
-        dense("self_attn/o_proj", N * H, D, out_bias)
-        shapes[lay + "post_attention_layernorm/scale"] = (L, D)
-        for path, shape in cls.mlp_param_shapes(config).items():
-            shapes[f"{lay}{cls.mlp_name}/{path}"] = (L,) + shape
+        if getattr(config, "use_scan_layers", True):
+            shapes.update({f"model/layers/{path}": (L,) + shape
+                           for path, shape in cls.layer_param_shapes(config, 0).items()})
+        else:
+            for i in range(L):
+                shapes.update({f"model/layers_{i}/{path}": shape
+                               for path, shape in cls.layer_param_shapes(config, i).items()})
         shapes["model/norm/scale"] = (D,)
         if not config.tie_word_embeddings:
             shapes["lm_head/kernel"] = (D, V)
         return shapes
+
+    @classmethod
+    def layer_param_shapes(cls, config, layer: int) -> Dict[str, Tuple[int, ...]]:
+        """One decoder layer's leaves, ``path -> shape``. ``layer`` is its
+        index in the unrolled tree, 0 in the scanned one (the JAX decoder
+        layer parses no index from ``layers``: every scanned layer is the
+        first's kind)."""
+        D = config.hidden_size
+        shapes: Dict[str, Tuple[int, ...]] = {"input_layernorm/scale": (D,)}
+        shapes.update({f"self_attn/{path}": shape for path, shape in cls.attn_param_shapes(config).items()})
+        shapes["post_attention_layernorm/scale"] = (D,)
+        shapes.update({f"{cls.mlp_name}/{path}": shape for path, shape in cls.mlp_param_shapes(config, layer).items()})
+        return shapes
+
+    # ------------------------------------------------------------------ the attention hook
+    @classmethod
+    def attn_param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
+        """One layer's attention leaves under ``self_attn``: q/k/v/o (+ biases)."""
+        D, N, K, H = config.hidden_size, config.num_attention_heads, config.num_key_value_heads, config.head_dim
+        qkv_bias = bool(getattr(config, "attention_bias", False))
+        out_bias = bool(getattr(config, "attention_out_bias", qkv_bias))
+        shapes: Dict[str, Tuple[int, ...]] = {}
+        for name, d_in, d_out, bias in (("q_proj", D, N * H, qkv_bias), ("k_proj", D, K * H, qkv_bias),
+                                        ("v_proj", D, K * H, qkv_bias), ("o_proj", N * H, D, out_bias)):
+            shapes[name + "/kernel"] = (d_in, d_out)
+            if bias:
+                shapes[name + "/bias"] = (d_out,)
+        return shapes
+
+    def attn_rope(self, position_ids: torch.Tensor, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The rope tables (cos, sin) [B, T, head_dim] in fp32 at ``position_ids``."""
+        cfg = self.config
+        inv_freq = torch.from_numpy(rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device)
+        return rope_tables(position_ids.to(device), inv_freq)
+
+    def attn_qkv(self, x, proj, leaf, cos, sin):
+        """(q [B, T, N, H], k [B, T, K, H], v [B, T, K, H]) for attention from
+        the input-normed ``x`` [B, T, D], rope applied; ``proj(name, x)`` runs
+        the projection ``name`` under ``self_attn``, ``leaf(path)`` reads a
+        leaf there. Every forward computes q/k/v through here."""
+        cfg = self.config
+        B, T = x.shape[0], x.shape[1]
+        N, K, H = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        q = proj("q_proj", x).reshape(B, T, N, H)
+        k = proj("k_proj", x).reshape(B, T, K, H)
+        v = proj("v_proj", x).reshape(B, T, K, H)
+        return apply_rotary_pos_emb(q, k, cos, sin) + (v,)
+
+    def attn_scale(self) -> float:
+        """The softmax scale: ``head_dim ** -0.5``."""
+        return self.config.head_dim**-0.5
+
+    def attn_output(self, o: torch.Tensor) -> torch.Tensor:
+        """What ``o_proj`` reads of the attention output o [B, T, N, H]:
+        [B, T, N * H]."""
+        return o.reshape(o.shape[0], o.shape[1], -1)
 
     # ------------------------------------------------------------------ the MLP hook
     #: the MLP's subtree in each layer (JAX ``LlamaDecoderLayer.mlp_name``); a
@@ -138,9 +216,10 @@ class LlamaForCausalLM(PretrainedModel):
     returns_aux_loss = False
 
     @classmethod
-    def mlp_param_shapes(cls, config) -> Dict[str, Tuple[int, ...]]:
+    def mlp_param_shapes(cls, config, layer: int = 0) -> Dict[str, Tuple[int, ...]]:
         """One layer's MLP leaves, ``path under mlp_name -> shape``: the
-        SwiGLU ``gate_proj``/``up_proj``/``down_proj`` (+ biases)."""
+        SwiGLU ``gate_proj``/``up_proj``/``down_proj`` (+ biases). ``layer``:
+        as in :meth:`layer_param_shapes`."""
         D, I = config.hidden_size, config.intermediate_size
         shapes: Dict[str, Tuple[int, ...]] = {}
         for name, d_in, d_out in (("gate_proj", D, I), ("up_proj", D, I), ("down_proj", I, D)):
@@ -154,14 +233,19 @@ class LlamaForCausalLM(PretrainedModel):
         tag ``mlp_act``). A family whose MLP has no such tag sets this to None."""
         return F.silu(proj("gate_proj", x)) * proj("up_proj", x)
 
-    def mlp(self, x, proj, leaf, act=None):
+    def has_mlp_act(self, layer: int) -> bool:
+        """Whether layer ``layer``'s MLP carries the ``mlp_act`` tag."""
+        return self.mlp_act is not None
+
+    def mlp(self, x, proj, leaf, act=None, layer: int = 0):
         """One layer's MLP over the post-attention-norm ``x``: ``(out, aux)``,
         aux the layer's load-balancing loss (None for a dense MLP).
-        ``proj(name, x)`` runs the projection ``name`` under :attr:`mlp_name`,
-        ``leaf(path)`` reads a leaf there; ``act``, when given, is
-        :meth:`mlp_act` of x computed already. Both forwards (the plain and
-        cached ``__call__`` and every recompute granularity of
-        :meth:`forward`) run the MLP through here."""
+        ``proj(name, x)`` runs the projection ``name`` (a path) under
+        :attr:`mlp_name`, ``leaf(path)`` reads a leaf there; ``act``, when
+        given, is :meth:`mlp_act` of x computed already; ``layer`` as in
+        :meth:`layer_param_shapes`. Both forwards (the plain and cached
+        ``__call__`` and every recompute granularity of :meth:`forward`) run
+        the MLP through here."""
         if act is None:
             act = self.mlp_act(x, proj, leaf)
         return proj("down_proj", act), None
@@ -231,20 +315,20 @@ class LlamaForCausalLM(PretrainedModel):
         params = self.params if params is None else params
         dtype = dtype or params["model"]["embed_tokens"]["embedding"].dtype
         m = params["model"]
-        layers = m["layers"]
         B, T = input_ids.shape
-        N, K, H = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        N = cfg.num_attention_heads
         eps = cfg.rms_norm_eps
+        scale = self.attn_scale()
         embed = m["embed_tokens"]["embedding"]
         h = embed[input_ids].to(dtype)
         if getattr(cfg, "scale_embeddings", False):
             h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype)
-        inv_freq = torch.from_numpy(rope_frequencies(H, cfg.rope_theta, cfg.rope_scaling)).to(h.device)
         offset = cache.offset if cache is not None else 0
         pos = torch.arange(T, device=h.device)
         if position_ids is None:
             position_ids = (pos + offset)[None, :].expand(B, T)
-        cos, sin = rope_tables(position_ids.to(h.device), inv_freq)
+        cos, sin = self.attn_rope(position_ids, h.device)
+        unrolled = not scanned(m)
         dense = cache is not None or attention_mask is not None
         if dense:
             S = cache.keys.shape[2] if cache is not None else T
@@ -259,32 +343,32 @@ class LlamaForCausalLM(PretrainedModel):
         def mm(p, name, x, where):
             if observer is not None:
                 observer(f"{where}/{name}/kernel", x)
-            return linear(p[name], x, dtype, quantization_config)
+            return linear(_get(p, name), x, dtype, quantization_config)
+
+        def io(p, where):  # a hook's (proj, leaf) over the subtree p at the unrolled path `where`
+            return (lambda name, x: mm(p, name, x, where)), (lambda path: _get(p, path))
 
         for i in range(cfg.num_hidden_layers):
-            lp = layer_params(layers, i)
+            lp = layer_tree(m, i)
             x = rms_norm(h, lp["input_layernorm"]["scale"], eps)
             attn, at = lp["self_attn"], f"model/layers_{i}/self_attn"
-            q = mm(attn, "q_proj", x, at).reshape(B, T, N, H)
-            k = mm(attn, "k_proj", x, at).reshape(B, T, K, H)
-            v = mm(attn, "v_proj", x, at).reshape(B, T, K, H)
-            q, k = apply_rotary_pos_emb(q, k, cos, sin)
+            q, k, v = self.attn_qkv(x, *io(attn, at), cos, sin)
             if dense:
                 if cache is not None:
                     k, v = update_layer_kv(*cache.layer(i), k, v, offset)
-                o = dot_product_attention_dense(q, k, v, mask)
+                o = dot_product_attention_dense(q, k, v, mask, scale)
             else:
-                if K != N:
-                    k = k.repeat_interleave(N // K, dim=2)
-                    v = v.repeat_interleave(N // K, dim=2)
-                s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * (H**-0.5)
+                group = N // k.shape[2]
+                if group != 1:
+                    k = k.repeat_interleave(group, dim=2)
+                    v = v.repeat_interleave(group, dim=2)
+                s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
                 s = torch.where(causal, s, torch.full_like(s, -1e30))
                 o = torch.einsum("bnts,bsnh->btnh", torch.softmax(s, dim=-1), v.float()).to(dtype)
-            h = h + mm(attn, "o_proj", o.reshape(B, T, N * H), at)
+            h = h + mm(attn, "o_proj", self.attn_output(o), at)
             x = rms_norm(h, lp["post_attention_layernorm"]["scale"], eps)
-            mlp, ml = lp[self.mlp_name], f"model/layers_{i}/{self.mlp_name}"
-            out, _ = self.mlp(x, lambda name, x: mm(mlp, name, x, ml),
-                              lambda path: functools.reduce(lambda t, k: t[k], path.split("/"), mlp))
+            ml = f"model/layers_{i}/{self.mlp_name}"
+            out, _ = self.mlp(x, *io(lp[self.mlp_name], ml), layer=i if unrolled else 0)
             h = h + out
         h = rms_norm(h, m["norm"]["scale"], eps)
         if "lm_head" in params:
@@ -368,16 +452,16 @@ class LlamaForCausalLM(PretrainedModel):
         embed = m["embed_tokens"]["embedding"]
         dtype = self.compute_dtype or embed.dtype
         B, T = input_ids.shape
-        N, K, H = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        K, H = cfg.num_key_value_heads, cfg.head_dim
         eps = cfg.rms_norm_eps
+        scale = self.attn_scale()
         table = embed.to(dtype)
         h = F.embedding(input_ids.long(), table)
         if getattr(cfg, "scale_embeddings", False):
             h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype)
-        inv_freq = torch.from_numpy(rope_frequencies(H, cfg.rope_theta, cfg.rope_scaling)).to(h.device)
         if position_ids is None:
             position_ids = torch.arange(T, device=h.device)[None, :].expand(B, T)
-        cos, sin = rope_tables(position_ids.to(h.device), inv_freq)
+        cos, sin = self.attn_rope(position_ids, h.device)
         window = getattr(cfg, "sliding_window", None)
         prefix = None
         if prefix_kv is not None:
@@ -389,25 +473,23 @@ class LlamaForCausalLM(PretrainedModel):
                 attention_mask = torch.cat([torch.ones(B, P, dtype=attention_mask.dtype, device=attention_mask.device),
                                             attention_mask], dim=1)
 
-        # one cast of each stacked leaf, then per-layer views: the backward
-        # stacks the layers' grads once instead of scattering into [L, ...]
-        per_layer = {path: (leaf if self._stays_fp32(path) else leaf.to(dtype)).unbind(0)
-                     for path, leaf in flatten_params(m["layers"]).items()}
+        layers = self._layer_leaves(m, dtype)
         ml = self.mlp_name + "/"
+        unrolled = not scanned(m)
 
         def dense(lp, name, x):
             y = x @ lp[name + "/kernel"]
             bias = lp.get(name + "/bias")
             return y if bias is None else y + bias
 
-        def mlp_io(lp):  # the MLP hook's (proj, leaf) over this layer's leaves
-            return (lambda name, x: dense(lp, ml + name, x)), (lambda path: lp[ml + path])
+        def hook_io(lp, sub):  # a hook's (proj, leaf) over this layer's leaves under `sub`
+            return (lambda name, x: dense(lp, sub + name, x)), (lambda path: lp[sub + path])
+
+        def mlp_io(lp):
+            return hook_io(lp, ml)
 
         def qkv(x, lp):
-            q = dense(lp, "self_attn/q_proj", x).reshape(B, T, N, H)
-            k = dense(lp, "self_attn/k_proj", x).reshape(B, T, K, H)
-            v = dense(lp, "self_attn/v_proj", x).reshape(B, T, K, H)
-            return apply_rotary_pos_emb(q, k, cos, sin) + (v,)
+            return self.attn_qkv(x, *hook_io(lp, "self_attn/"), cos, sin)
 
         def attn_in(h, lp):
             return qkv(rms_norm(h, lp["input_layernorm/scale"], eps), lp)
@@ -416,17 +498,19 @@ class LlamaForCausalLM(PretrainedModel):
             pkv = lp.get("prefix_kv")
             if pkv is None:
                 return dot_product_attention(q, k, v, attention_mask=attention_mask, segment_ids=segment_ids,
-                                             window=window)
+                                             scale=scale, window=window)
             P = pkv.shape[1]
             k = torch.cat([pkv[0][None].expand(B, P, K, H), k.to(pkv.dtype)], dim=1)
             v = torch.cat([pkv[1][None].expand(B, P, K, H), v.to(pkv.dtype)], dim=1)
-            return dot_product_attention(q, k, v, attention_mask=attention_mask, q_offset=P, window=window)
+            return dot_product_attention(q, k, v, attention_mask=attention_mask, q_offset=P, scale=scale,
+                                         window=window)
 
         def o_proj(o, lp):
-            return dense(lp, "self_attn/o_proj", o.reshape(B, T, N * H))
+            return dense(lp, "self_attn/o_proj", self.attn_output(o))
 
         def mlp(h, lp):  # (h + MLP(norm(h)), aux)
-            out, aux = self.mlp(rms_norm(h, lp["post_attention_layernorm/scale"], eps), *mlp_io(lp))
+            out, aux = self.mlp(rms_norm(h, lp["post_attention_layernorm/scale"], eps), *mlp_io(lp),
+                                layer=lp["layer"])
             return h + out, aux
 
         def attn_out_act(h, o, lp):
@@ -442,7 +526,7 @@ class LlamaForCausalLM(PretrainedModel):
         ckpt = functools.partial(checkpoint, use_reentrant=False)
         aux_sum = None
         for i in range(cfg.num_hidden_layers):
-            lp = {path: ts[i] for path, ts in per_layer.items()}
+            lp = dict(layers[i], layer=i if unrolled else 0)
             if prefix is not None:
                 lp["prefix_kv"] = prefix[i]
             if not recompute:
@@ -458,10 +542,10 @@ class LlamaForCausalLM(PretrainedModel):
             elif granularity == "save_core_attn":
                 o = ckpt(lambda h, lp: attn_core(*attn_in(h, lp), lp), h, lp)
                 h, aux = ckpt(attn_out_mlp, h, o, lp)
-            elif granularity == "save_attn_mlp" and self.mlp_act is not None:
+            elif granularity == "save_attn_mlp" and self.has_mlp_act(lp["layer"]):
                 q, k, v = ckpt(attn_in, h, lp)
                 h, act = ckpt(attn_out_act, h, attn_core(q, k, v, lp), lp)
-                out, aux = self.mlp(None, *mlp_io(lp), act=act)
+                out, aux = self.mlp(None, *mlp_io(lp), act=act, layer=lp["layer"])
                 h = h + out
             elif granularity == "save_dots":
                 h, aux = ckpt(layer, h, lp, context_fn=functools.partial(create_selective_checkpoint_contexts,
@@ -479,6 +563,22 @@ class LlamaForCausalLM(PretrainedModel):
         if aux_sum is not None:
             aux_sum = aux_sum / cfg.num_hidden_layers
         return rms_norm(h, m["norm"]["scale"], eps), table, aux_sum
+
+    def _layer_leaves(self, m: dict, dtype: torch.dtype):
+        """Each layer's flat leaves ``{path: tensor}`` of the ``model``
+        subtree ``m`` in either layout, in the compute ``dtype`` but for
+        :meth:`_stays_fp32` leaves. A scanned leaf is cast once and viewed
+        per layer, so the backward stacks the layers' grads once instead of
+        scattering into ``[L, ...]``."""
+        L = self.config.num_hidden_layers
+
+        def cast(path, leaf):
+            return leaf if self._stays_fp32(path) else leaf.to(dtype)
+
+        if scanned(m):
+            per = {path: cast(path, leaf).unbind(0) for path, leaf in flatten_params(m["layers"]).items()}
+            return [{path: ts[i] for path, ts in per.items()} for i in range(L)]
+        return [{path: cast(path, leaf) for path, leaf in flatten_params(m[f"layers_{i}"]).items()} for i in range(L)]
 
     # ------------------------------------------------------------------ accounting
     def get_model_flops(self, batch_size: int, seq_length: int) -> float:

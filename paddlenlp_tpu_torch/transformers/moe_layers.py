@@ -29,7 +29,7 @@ There is no kernel here: the JAX package computes the block as plain XLA
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,14 +46,27 @@ def load_balancing_loss(router_probs: torch.Tensor, expert_mask: torch.Tensor, n
     return num_experts * torch.sum(tokens_per_expert * prob_per_expert)
 
 
-def route(router_logits: torch.Tensor, top_k: int, norm_topk_prob: bool):
+def route(router_logits: torch.Tensor, top_k: int, norm_topk_prob: bool, groups: Optional[Tuple[int, int]] = None):
     """``(probs [N, E], topk_probs [N, K], topk_idx [N, K])`` from fp32
     router logits: softmax, then the K largest probabilities in descending
     order, equal ones by the lower expert index (a stable sort: the order of
-    ``jax.lax.top_k``, which ``torch.topk`` does not promise)."""
+    ``jax.lax.top_k``, which ``torch.topk`` does not promise). ``groups`` =
+    ``(n_group, topk_group)``: DeepSeek-V2's ``group_limited_greedy``
+    (``paddlenlp_tpu/transformers/deepseek_v2/modeling.py:223-229``): the
+    experts fall in ``n_group`` equal groups, each group scores its largest
+    probability, and the K come from the ``topk_group`` best groups only
+    (the others' probabilities taken as 0)."""
     probs = torch.softmax(router_logits, dim=-1)
-    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k]
-    topk_probs = probs.gather(1, order)
+    scores = probs
+    if groups is not None:
+        n_group, topk_group = groups
+        N, E = probs.shape
+        best = probs.reshape(N, n_group, E // n_group).amax(dim=-1)
+        kept = torch.sort(best, dim=-1, descending=True, stable=True).indices[:, :topk_group]
+        mask = torch.zeros(N, n_group, dtype=torch.bool, device=probs.device).scatter(1, kept, True)
+        scores = torch.where(mask.repeat_interleave(E // n_group, dim=1), probs, torch.zeros_like(probs))
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :top_k]
+    topk_probs = scores.gather(1, order)
     if norm_topk_prob:
         topk_probs = topk_probs / topk_probs.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, topk_probs, order
@@ -135,7 +148,7 @@ class MoEMixin:
     router_name = "gate"
 
     @classmethod
-    def mlp_param_shapes(cls, config):
+    def mlp_param_shapes(cls, config, layer: int = 0):
         E, D, F = config.num_local_experts, config.hidden_size, config.moe_intermediate_size
         g, u, d = cls.expert_names
         shapes = {f"{cls.router_name}/kernel": (D, E), g: (E, D, F), u: (E, D, F), d: (E, F, D)}
@@ -145,7 +158,7 @@ class MoEMixin:
                            "shared_expert_down_proj/kernel": (Fs, D), "shared_expert_gate/kernel": (D, 1)})
         return shapes
 
-    def mlp(self, x, proj, leaf, act=None):
+    def mlp(self, x, proj, leaf, act=None, layer: int = 0):
         return moe_mlp(self.config, x, proj, leaf, self.expert_names, self.router_name)
 
     @classmethod

@@ -98,7 +98,13 @@ def test_other_families_raise_naming_14e(name, tmp_path):
 PORTED = {"mixtral_tiny": None,
           "mistral": dict(model_type="mistral", sliding_window=5, **TINY),
           "qwen2_moe": dict(model_type="qwen2_moe", num_experts=4, moe_intermediate_size=24,
-                            shared_expert_intermediate_size=40, **TINY)}
+                            shared_expert_intermediate_size=40, **TINY),
+          # MLA, a dense first layer, then the grouped MoE: the unrolled tree
+          "deepseek_v2": dict(model_type="deepseek_v2", moe_intermediate_size=24, q_lora_rank=None, kv_lora_rank=16,
+                              qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=16, n_routed_experts=4,
+                              n_shared_experts=1, num_experts_per_tok=2, topk_method="group_limited_greedy",
+                              n_group=2, topk_group=1, first_k_dense_replace=1,
+                              **{k: v for k, v in TINY.items() if k != "num_key_value_heads"})}
 
 
 @pytest.mark.parametrize("name", list(PORTED))
@@ -120,6 +126,22 @@ def test_ported_families_match_jax(name, tmp_path):
     ids = np.arange(3, 15, dtype=np.int32)[None] % got.vocab_size
     want_logits = np.asarray(jm(input_ids=jax.numpy.asarray(ids)).logits)
     np.testing.assert_allclose(model(torch.from_numpy(ids).long()).numpy(), want_logits, atol=ATOL, rtol=0)
+
+
+def test_deepseek_v2_resolves_and_the_paged_engine_refuses_it(tmp_path):
+    """``AutoConfig``, ``AutoModel`` (the backbone) and ``AutoModelForCausalLM``
+    resolve ``deepseek_v2``; the paged engine refuses the model, as it
+    refuses MoE (the JAX engine serves llama/qwen2/mistral only)."""
+    from paddlenlp_tpu_torch.experimental import InferenceEngine
+
+    (tmp_path / "config.json").write_text(json.dumps(PORTED["deepseek_v2"]))
+    cfg = AutoConfig.from_pretrained(str(tmp_path))
+    assert type(cfg).__name__ == "DeepseekV2Config" and cfg.use_scan_layers is False and cfg.head_dim == 16
+    assert type(AutoModel.from_config(cfg, device="cpu")).__name__ == "DeepseekV2Model"
+    model = AutoModelForCausalLM.from_config(cfg, device="cpu")
+    assert type(model).__name__ == "DeepseekV2ForCausalLM" and "layers_0" in model.params["model"]
+    with pytest.raises(NotImplementedError, match="generate"):
+        InferenceEngine(model, max_batch_size=2, block_size=4, num_blocks=16, max_blocks_per_seq=8)
 
 
 def test_unknown_model_type_and_tasks(tmp_path):

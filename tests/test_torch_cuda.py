@@ -458,6 +458,35 @@ def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segme
     """bf16 runs the forward, dq and dk/dv through the Hopper kernels
     (``LAUNCHES_SM90``); fp32 runs all three through the 3xTF32 Hopper
     kernels (``LAUNCHES_SM90_F32``)."""
+    _flash_matches_plain(dev, dtype, T, N, K, H, causal, window, segments)
+
+
+@pytest.mark.parametrize("T,N,K,H,causal,window,segments", [
+    (333, 2, 2, 192, True, 100, True),     # group 1, window + segments: DeepSeek-V2's MLA head dim
+    (4095, 16, 16, 192, True, None, False),  # DeepSeek-V2-Lite's 16 heads, T not a multiple of the tile
+    (200, 6, 1, 192, False, None, False),  # group 6, full attention
+])
+def test_flash_kernels_match_plain_at_head_dim_192(dev, T, N, K, H, causal, window, segments):
+    """bf16 at head_dim 192 (q and k at qk_nope 128 + qk_rope 64, v padded
+    up to them) runs the three Hopper kernels' ``<192>`` tile plans."""
+    _flash_matches_plain(dev, torch.bfloat16, T, N, K, H, causal, window, segments)
+
+
+def test_flash_f32_route_refuses_head_dim_192(dev):
+    """The fp32 route has no head_dim 192 build: each wrapper raises
+    ``NotImplementedError`` naming its ROADMAP item, and nothing launches or
+    runs in its place."""
+    q, k, v, do, _ = _flash_case(dev, torch.float32, 1, 64, 2, 2, 192, False)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    before = dict(fa.LAUNCHES)
+    for call in (lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
+            call()
+    assert fa.LAUNCHES == before
+
+
+def _flash_matches_plain(dev, dtype, T, N, K, H, causal, window, segments):
     q, k, v, do, seg = _flash_case(dev, dtype, 2, T, N, K, H, segments)
     sm90, f32 = dict(fa.LAUNCHES_SM90), dict(fa.LAUNCHES_SM90_F32)
     out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal, window=window)
@@ -721,6 +750,48 @@ def test_train_step_through_kernels_equals_plain(dev):
     for name in g_cpu:
         scale = g_cpu[name].abs().max().item()
         assert (g_gpu[name] - g_cpu[name]).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_deepseek_bf16_step_takes_the_sm90_route_at_head_dim_192(dev):
+    """A tiny DeepSeek-V2 (MLA at head_dim 128 + 64, v padded to 192; layer 0
+    dense, layer 1 MoE) under bf16 compute: a Trainer step of 2 micro-batches
+    launches each flash kernel once a layer and micro-batch, all on the bf16
+    Hopper route at head_dim 192, with a finite loss and gradients; the
+    micro-step's loss through the kernels sits within bf16 rounding (rel 1e-3)
+    of the same step through the plain versions on the card."""
+    from paddlenlp_tpu_torch.transformers import DeepseekV2Config, DeepseekV2ForCausalLM
+    from paddlenlp_tpu_torch.transformers.llama import modeling
+
+    cfg = DeepseekV2Config(vocab_size=256, hidden_size=256, intermediate_size=384, moe_intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=4, kv_lora_rank=64, q_lora_rank=None,
+                           qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=4,
+                           n_shared_experts=1, num_experts_per_tok=2, first_k_dense_replace=1)
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 256, (4, 96)).astype(np.int32)}
+    batch["labels"] = batch["input_ids"].copy()
+    args = TrainingArguments(output_dir="unused", per_device_train_batch_size=2, gradient_accumulation_steps=2,
+                             learning_rate=1e-3, max_steps=1, save_strategy="no")
+    model = DeepseekV2ForCausalLM.init_random(cfg, seed=0, device=dev, dtype=torch.float32)
+    model.compute_dtype = torch.bfloat16
+    trainer = Trainer(model=model, args=args)
+    losses = {}
+    for plain in (False, True):
+        kernel_attention = modeling.dot_product_attention
+        if plain:
+            modeling.dot_product_attention = _PlainAttention()
+        try:
+            with torch.no_grad():
+                losses[plain] = trainer.compute_loss(trainer._to_device(batch)).item()
+        finally:
+            modeling.dot_product_attention = kernel_attention
+    assert abs(losses[False] - losses[True]) <= 1e-3 * abs(losses[True]), losses
+    trainer.create_optimizer_and_scheduler(1)
+    before, sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
+    out = trainer.training_step(batch)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+    assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+    assert np.isfinite(out["loss"].item()) and np.isfinite(out["grad_norm"].item()) and out["grad_norm"].item() > 0
 
 
 def _to(tree, device):
@@ -1301,20 +1372,21 @@ class _PlainAttention:
 
     class _Fn(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v):
-            out, lse = fa.flash_attention_fwd_ref(q, k, v)
+        def forward(ctx, q, k, v, scale):
+            out, lse = fa.flash_attention_fwd_ref(q, k, v, scale=scale)
             ctx.save_for_backward(q, k, v, out, lse)
+            ctx.scale = scale
             return out
 
         @staticmethod
         def backward(ctx, do):
             q, k, v, out, lse = ctx.saved_tensors
             do = do.contiguous()
-            return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do))
+            return fa.flash_attention_bwd_ref(q, k, v, do, lse, fa._delta(out, do), scale=ctx.scale) + (None,)
 
-    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None):
+    def __call__(self, q, k, v, attention_mask=None, segment_ids=None, window=None, scale=None):
         assert attention_mask is None and segment_ids is None and window is None
-        return self._Fn.apply(q.contiguous(), k.contiguous(), v.contiguous())
+        return self._Fn.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale)
 
 
 #: Qwen2-1.5B's widths, cut to 2 layers

@@ -35,7 +35,7 @@ GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3
 
 # (B, T, N, K, H, causal, window, segments): causal and full; GQA groups 1, 2, 3;
 # T = 200 (partial edge blocks) and 384 with 128-blocks (several blocks); segments;
-# a window; head_dim 64
+# a window; head_dim 64, and 192 (DeepSeek-V2's MLA: qk_nope 128 + qk_rope 64)
 CASES = [
     (1, 200, 2, 2, 64, True, None, False),
     (1, 200, 4, 2, 64, False, None, False),
@@ -43,8 +43,10 @@ CASES = [
     (2, 128, 3, 1, 64, True, None, True),
     (1, 384, 4, 4, 32, True, 100, False),
     (1, 200, 4, 2, 64, True, 64, True),
+    (1, 200, 2, 2, 192, True, None, True),
 ]
-IDS = ["causal-g1-T200", "full-g2-T200", "causal-g3-T384", "segments-g3", "window-T384", "window-segments-T200"]
+IDS = ["causal-g1-T200", "full-g2-T200", "causal-g3-T384", "segments-g3", "window-T384", "window-segments-T200",
+       "segments-g1-H192"]
 
 
 def _inputs(B, T, N, K, H, segments, seed=0):
@@ -240,20 +242,25 @@ def _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts, block_kv
     return dict(out=out, lse=lse_k, dq=dq, dk=dk, dv=dv)
 
 
-@pytest.mark.parametrize("segments,window", [(False, None), (True, 100)], ids=["causal", "segments+window"])
-def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
+@pytest.mark.parametrize("segments,window,heads", [(False, None, (12, 2, 128)), (True, 100, (12, 2, 128)),
+                                                   (False, None, (16, 16, 192))],
+                         ids=["causal", "segments+window", "lite-h192"])
+def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window, heads):
     """The Hopper kernels' bf16 operands stay inside the card's elementwise
     gate against the fp32 plain versions: ``2**-7 |ref| + 1e-3 max|ref|`` per
     element, the ``flash_worst`` rule of ``chip_smoke.py``, at the training
-    path's heads (group 6, head_dim 128), T 256. The kernels give P, P^T and
-    dS^T as two bf16 parts each (high and residual): one rounding exceeds the
-    gate on dk and dv and leaves out close to it (printed beside). dq takes
-    dS as two parts too, and is held to the same gate."""
+    path's heads (group 6, head_dim 128) and at DeepSeek-V2-Lite's (16 heads,
+    group 1, head_dim 192, whose forward walks 64-column kv tiles), T 256.
+    The kernels give P, P^T and dS^T as two bf16 parts each (high and
+    residual): one rounding exceeds the gate on dk and dv and leaves out
+    close to it (printed beside). dq takes dS as two parts too, and is held
+    to the same gate."""
     import chip_smoke
 
+    N, K, H = heads
     rng = np.random.default_rng(7)
-    q, do = (torch.from_numpy(rng.standard_normal((1, 256, 12, 128), dtype=np.float32)).bfloat16() for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((1, 256, 2, 128), dtype=np.float32)).bfloat16() for _ in range(2))
+    q, do = (torch.from_numpy(rng.standard_normal((1, 256, N, H), dtype=np.float32)).bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 256, K, H), dtype=np.float32)).bfloat16() for _ in range(2))
     seg = None
     if segments:
         seg = torch.zeros(1, 256, dtype=torch.int32)
@@ -265,7 +272,7 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window):
     want = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
     worst = {}
     for parts in (2, 1):
-        got = _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts)
+        got = _bf16_kernel_emulation(q, k, v, do, lse, delta, seg, window, parts, block_kv=64 if H == 192 else 128)
         worst[parts] = chip_smoke.flash_worst(torch, got, want, "bfloat16")
         print(f"bf16 parts {parts}:", {name: round(e["worst"], 3) for name, e in worst[parts].items()})
     for name, e in worst[2].items():
@@ -415,6 +422,23 @@ def test_f32_forward_tensor_core_products_fit_the_chip_gate(causal, window, segm
     for name, e in worst[3].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
     assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]
+
+
+def test_fp32_cuda_route_refuses_head_dim_192():
+    """The operand check of the CUDA wrappers alone (no card needed): bf16
+    takes head_dim 64, 128 and 192; fp32 refuses 192 with
+    ``NotImplementedError`` naming its ROADMAP item, and any other head dim
+    with ``ValueError``."""
+    for dtype, H in ((torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.float32, 64),
+                     (torch.float32, 128)):
+        q, k = torch.zeros(1, 8, 2, H, dtype=dtype), torch.zeros(1, 8, 2, H, dtype=dtype)
+        fa._check_cuda_operands("flash_attention_fwd", {"q": q, "k": k, "v": k}, q, k, None)
+    q = torch.zeros(1, 8, 2, 192)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
+        fa._check_cuda_operands("flash_attention_bwd_dq", {"q": q, "k": q, "v": q}, q, q, None)
+    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_cuda_operands("flash_attention_fwd", {"q": q, "k": q, "v": q}, q, q, None)
 
 
 def test_dkv_split_fills_the_card_and_sizes_the_workspace():
