@@ -188,7 +188,10 @@ Serving, the paged engine at Qwen2-7B width and depth:
               Hopper route;
 
 The MoE family, at Mixtral-8x7B's published widths (random bf16 weights from
-``--seed``; the Qwen2-7B serving model freed first):
+``--seed``). These phases launch only the flash kernels, so they run first,
+right after the build line of the two flash sources and while
+``paged_attention_sm90.cu``, the longest build, finishes (a ``moe_done`` line
+with the memory they leave allocated); the serving phases follow:
 
 16. mixtral -- ``MixtralForCausalLM.generate`` at 16 of the 32 layers (the
               dense dispatch), greedy over [4, 1024] + 32: prefill ms, TPOT,
@@ -218,14 +221,20 @@ The MoE family, at Mixtral-8x7B's published widths (random bf16 weights from
               argmax, the cached prefill's logits); one MoE layer over 4096
               tokens in fp32 against the per-expert loop with the shared
               experts (1e-4 of the largest element, aux rel 1e-5), bf16 twice
-              bit for bit, timed; the three bf16 flash kernels at head_dim 192
-              (q/k/v [1, 4096, 16, 192] causal, and T 4095 with segments)
-              against their plain versions, timed beside their bounds and
-              SDPA; at 3 layers (layer 0 dense, 1-2 MoE) one [1, 4096] step
-              through the kernels against the plain attention
+              bit for bit, timed; the three flash kernels at head_dim 192
+              (q/k/v [1, 4096, 16, 192] causal, and T 4095 with segments),
+              bf16 and fp32 (the 3xTF32 kernels, the head dim split over warp
+              pairs), against their plain versions, timed beside their
+              bounds and SDPA; at 3 layers (layer 0 dense, 1-2 MoE) one
+              [1, 4096] step through the kernels against the plain attention
               (``DEEPSEEK_STEP_TOL``, routing pinned, the bf16-vs-fp32 control
-              outside it; the Hopper launches {fwd, dq, dk/dv: 3 each}), then
-              two ``Trainer`` steps of 2 accumulated [1, 4096] micro-batches;
+              outside it; the Hopper launches {fwd, dq, dk/dv: 3 each}), and
+              the same step in fp32 through the kernels against the plain
+              fp32 step (loss rel 1e-5, each leaf within 1e-4 of its largest;
+              3 launches each on the fp32 route), then two ``Trainer`` steps
+              of 2 accumulated [1, 4096] micro-batches at bf16 compute and
+              two at the Trainer's default fp32 compute (``bf16=False``, its
+              flash launches all on the fp32 route);
 
 Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 
@@ -263,7 +272,7 @@ Training, ``run_pretrain`` and ``run_finetune`` at Qwen2-1.5B width and depth:
 20. train_profile -- ``torch.profiler`` over one more training step;
 21. train_resume -- the recipe's checkpointing (``save_steps`` cut to 2,
               ``save_total_limit`` 2) through ``run_pretrain.main`` at
-              Qwen2-1.5B widths and 6 layers (``RESUME_LAYERS``: the run keeps
+              Qwen2-1.5B widths and 4 layers (``RESUME_LAYERS``: the run keeps
               its disk writes under 45 GiB and its time under 1,200 s): a
               straight run
               saves committed checkpoint-2 and -4 (each validated with its
@@ -339,9 +348,10 @@ phase's saved model and tokenizer, each freeing its models:
               phase's served adapter; the kv_quant phase for the quantized
               entry; the ppo phase's fp32 rollouts for the fp32 entry) and the
               training runs (train, train_resume, train_recompute, finetune,
-              vera, dpo, the mixtral phase's Trainer steps, and the spec
-              phase's draft forwards), each on its own
-              route, and its check;
+              vera, dpo, the mixtral and deepseek phases' Trainer steps, and
+              the spec phase's draft forwards; the fp32 route's, the deepseek
+              phase's fp32 Trainer steps), each on its own route, and its
+              check;
 33. disk   -- the bytes this process wrote (``/proc/self/io``), checked
               against the 45 GiB a run may write, and the run's seconds.
 
@@ -529,28 +539,72 @@ def launch_counts(pa):
     return tuple(getattr(pa, name) for name in LAUNCH_COUNTERS)
 
 
-def device_events(prof):
-    """A profile's kernels and copies, summed by name: host ops and
-    annotation ranges carry the device time of what they launched as well."""
+#: names the profiler's own aggregation leaves out (``_filter_name`` of
+#: ``torch.autograd.profiler_util``): memory records and its own range calls
+PROFILER_SKIP = ("[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                 "profiler::_record_function_enter_new", "profiler::_record_function_exit", "aten::is_leaf",
+                 "aten::output_nr", "aten::_version")
+
+
+def profile_sums(torch, prof, ranges=()):
+    """A finished ``torch.profiler`` run summed from its raw Kineto events:
+    ``(kernels, inside)``. ``kernels``: the device's kernels and copies
+    (annotation ranges left out) by name, ``{name: [device ms, count]}``,
+    the ``self_device_time_total`` and ``count`` of ``prof.key_averages()``;
+    ``inside``: for each host op or ``record_function`` range named in
+    ``ranges``, the device ms of the kernels launched inside it (each kernel
+    belongs to the innermost host op that launched it: the event's
+    ``linked_correlation_id``) and its count, key_averages'
+    ``device_time_total``. key_averages builds a Python object for every event
+    first: ~10 s for one decode call at Qwen2-7B with host ops recorded."""
+    import bisect
+
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() not in PROFILER_SKIP and not getattr(e, "is_hidden_event", lambda: False)()]
+    kernels, launched, names = {}, {}, {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms = (e.end_ns() - e.start_ns()) / 1e6
+            raw = e.name()
+            name = names.get(raw) or names.setdefault(raw, torch._C._demangle(raw))
+            row = kernels.setdefault(name, [0.0, 0])
+            row[0] += ms
+            row[1] += 1
+            launched[e.linked_correlation_id()] = launched.get(e.linked_correlation_id(), 0.0) + ms
+    inside = {name: [0.0, 0] for name in ranges}
+    if ranges:
+        # the host ops by thread in start order, with the running sum of the device ms each launched
+        ops = {}
+        host = [e for e in events if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0
+                and not e.is_async() and e.start_thread_id() == e.end_thread_id()]
+        for e in sorted(host, key=lambda e: e.start_ns()):
+            starts, sums = ops.setdefault(e.start_thread_id(), ([], [0.0]))
+            starts.append(e.start_ns())
+            sums.append(sums[-1] + launched.get(e.correlation_id(), 0.0))
+        for e in host:
+            if e.name() in inside:
+                starts, sums = ops[e.start_thread_id()]
+                lo, hi = bisect.bisect_left(starts, e.start_ns()), bisect.bisect_right(starts, e.end_ns())
+                inside[e.name()][0] += sums[hi] - sums[lo]
+                inside[e.name()][1] += 1
+    return kernels, inside
 
 
-def rollout_profile(prof, wall_s, calls):
+def rollout_profile(torch, prof, wall_s, calls):
     """A rollout round traced under ``torch.profiler`` (device activity only):
     its wall and device ms, the device's idle share, the paged-attention
     kernels' device ms (their merges included) and launches beside the
     wrapper's ``calls``, and each paged kernel's [ms, count]."""
-    events = device_events(prof)
-    attn = [e for e in events if "paged_attention" in e.key]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    paged_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    kernels, _ = profile_sums(torch, prof)
+    attn = {k: v for k, v in kernels.items() if "paged_attention" in k}
+    device_ms = sum(ms for ms, _n in kernels.values())
+    paged_ms = sum(ms for ms, _n in attn.values())
     return dict(wall_ms=wall_s * 1e3, device_ms=device_ms, device_idle_share=1 - device_ms / wall_s / 1e3,
                 paged_attention_ms=paged_ms, paged_attention_share_of_wall=paged_ms / wall_s / 1e3,
-                paged_attention_launches=sum(e.count for e in attn if "merge" not in e.key),
-                paged_kernel_calls=calls,
-                paged_kernels={e.key[:80]: [e.self_device_time_total / 1e3, e.count] for e in attn})
+                paged_attention_launches=sum(n for k, (_ms, n) in attn.items() if "merge" not in k),
+                paged_kernel_calls=calls, paged_kernels={k[:80]: v for k, v in attn.items()})
 
 
 def time_cuda(torch, fn, iters, flush):
@@ -726,7 +780,8 @@ def phase_engine(torch, np, model, pa, InferenceEngine, SamplingParams, seed, ch
                prefix_cache_hits=stats["prefix_cache"]["hits"],
                prefix_cached_tokens=stats["prefix_cache"]["cached_tokens"],
                ledger=eng.ledger.snapshot()["totals"], conservation=True,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               pool_bytes=eng.pool.kv.numel() * eng.pool.kv.element_size())
     emit(res)
     del eng
     torch.cuda.empty_cache()
@@ -738,7 +793,6 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, q
     sub-steps): ``torch.profiler`` over the engine step after admission,
     device time by kernel and the device's idle share of the step; over a
     bf16 pool, or an int8 / fp8 one (``quant``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prompts, _ = traffic(np, model.config.vocab_size, seed)
@@ -764,22 +818,19 @@ def phase_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed, q
     route = pa.LAUNCHES_SM90_QUANT if quant else pa.LAUNCHES_SM90
     check(route == pa.LAUNCHES > 0 and (quant or pa.LAUNCHES_SM90_QUANT == 0),
           f"profile: {route} of {pa.LAUNCHES} launches on the Hopper route ({quant or 'bf16'} pool)")
-    # kernels and copies only: host ops and annotation ranges carry the
-    # device time of the kernels they launched as well
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    kernels, _ = profile_sums(torch, prof)
+    device_ms = sum(ms for ms, _n in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     # both routes' kernels, and the Hopper route's merge of kv partitions
-    attn = [e for e in events if "paged_attention" in e.key]
-    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
-    attn_launches = sum(e.count for e in attn if "merge" not in e.key)
+    attn = {k: v for k, v in kernels.items() if "paged_attention" in k}
+    attn_ms = sum(ms for ms, _n in attn.values())
+    attn_launches = sum(n for k, (_ms, n) in attn.items() if "merge" not in k)
     res = dict(phase="profile", step="decode call, 8 rows x %d sub-steps" % eng.decode_steps, kv_cache_quant=quant,
                wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
                attention_kernel_ms=attn_ms, attention_launches=attn_launches, sm90_launches=pa.LAUNCHES_SM90,
                attention_launch_ms=attn_ms / max(attn_launches, 1),
                attention_launch_bound_ms=sum(kv_bytes) / len(kv_bytes) / HBM_BYTES_PER_S * 1e3,
-               context_tokens=fed,
-               top_device_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top])
+               context_tokens=fed, top_device_ms=[[k[:90], ms, n] for k, (ms, n) in top])
     emit(res)
     del eng
     torch.cuda.empty_cache()
@@ -1209,6 +1260,9 @@ def phase_serve(torch, np, model, pa, InferenceEngine, SamplingParams, serving, 
     emit(res)
     check(pa.LAUNCHES > 0 and pa.LAUNCHES_SM90 == pa.LAUNCHES,
           f"serve: {pa.LAUNCHES_SM90} of {pa.LAUNCHES} launches on the Hopper route")
+    # the references, for the router phase: each greedy prompt alone, 64 new
+    # tokens, equal to the server's JSON and SSE streams (the parity gate)
+    res["solo_streams"] = {i: list(want[i]) for i in greedy}
     del server, eng
     torch.cuda.empty_cache()
     return res
@@ -1386,8 +1440,14 @@ def phase_router(torch, np, model, pa, InferenceEngine, SamplingParams, serving,
               f"router: streams through the router differ from the replica alone: {parity}")
 
         # (b) burst: the engine phase's 8 requests from 8 clients at once (4
-        # SSE), each against the same request alone and directly on a replica
+        # SSE), each against the same request alone and directly on a replica;
+        # the serve phase's solo streams stand for those of its two prompts
+        # (the same engine settings, and its gate holds them equal to a
+        # server's)
+        solo.update(serve_res["solo_streams"])
         for i in range(len(prompts)):
+            if i in solo:
+                continue
             clear_caches()
             _, body = http_json(fleet.ports[i % 2], "POST", "/v1/completions", body_of(i))
             solo[i] = body["choices"][0]["token_ids"]
@@ -1832,7 +1892,6 @@ def spec_step_device_ms(torch, model, draft, InferenceEngine, SamplingParams, pr
     two steps of a draft-model engine past admission, each part's kernels
     read off its ``record_function`` range (``spec_propose``: the draft's
     forwards; ``spec_verify``: the verify forward)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     eng = InferenceEngine(model, **SERVE_ENGINE, draft_model=draft, spec_draft_len=SPEC_K)
@@ -1847,11 +1906,9 @@ def spec_step_device_ms(torch, model, draft, InferenceEngine, SamplingParams, pr
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     out = dict(steps=2, wall_ms_per_step=wall_ms)
-    for e in prof.key_averages():
-        if e.key in ("spec_propose", "spec_verify") and e.device_type == DeviceType.CPU:
-            out[e.key] = e.device_time_total / 1e3 / 2
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    out["all_kernels"] = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    kernels, inside = profile_sums(torch, prof, ("spec_propose", "spec_verify"))
+    out.update({k: ms / 2 for k, (ms, n) in inside.items() if n})
+    out["all_kernels"] = sum(ms for ms, _n in kernels.values()) / 2
     del eng
     return out
 
@@ -2192,7 +2249,7 @@ KV_QUANT_RUNS = [("int8", None), ("int8", 512), ("fp8", None)]
 
 
 def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
-                   bf16_profile, seed):
+                   bf16_profile, bf16_engine, bf16_streams, seed):
     """The engine over an int8 or fp8 pool at Qwen2-7B (``kv_cache_quant``,
     the reference's ``cachekv_int8``).
 
@@ -2214,9 +2271,10 @@ def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedI
     prefix; each bf16 path's pick is ``e`` from the fp32 logits at most, so
     the fp32 margin between the two picks is at most ``2 * max(e_kernel,
     e_plain)`` (the gate, from this run's (a)); the bf16 rounding gate
-    ``2**-7 * |logit| + 1e-3`` is printed beside it. The same engine over a
-    bf16 pool serves the same requests first, for the time and memory
-    beside the quantized runs' and the streams they are held to, printed:
+    ``2**-7 * |logit| + 1e-3`` is printed beside it. The engine phase's
+    monolithic run (``bf16_engine``, ``bf16_streams``) is the same engine
+    over a bf16 pool on the same requests: its time and memory stand beside
+    the quantized runs', and the streams they are held to, printed:
     quantization changes the function.
 
     (c) One profiled decode call over an int8 pool against the bf16 one."""
@@ -2271,7 +2329,7 @@ def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedI
         done, wall = serve_waves(torch, eng, prompts, sp, [[0], range(1, len(prompts))])
         launches = dict(paged=pa.LAUNCHES, sm90=pa.LAUNCHES_SM90, sm90_quant=pa.LAUNCHES_SM90_QUANT)
         stats = eng.stats()["prefix_cache"]
-        what = f"kv_quant {quant or 'bf16'} {'chunked' if chunk else 'monolithic'} {'kernel' if kernel else 'plain'}"
+        what = f"kv_quant {quant} {'chunked' if chunk else 'monolithic'} {'kernel' if kernel else 'plain'}"
         check(len(done) == len(prompts), f"{what}: {len(done)} of {len(prompts)} requests finished")
         for i, r in done.items():
             check(r.finish_reason in ("length", "stop"), f"{what}: request {i} ended {r.finish_reason}")
@@ -2280,10 +2338,8 @@ def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedI
         check(stats["hits"] > 0, f"{what}: no prefix-cache hit")
         check(eng.ledger.verify_conservation(), f"{what}: goodput ledger conservation broken")
         if kernel:
-            on_route = launches["sm90_quant"] if quant else launches["sm90"] - launches["sm90_quant"]
-            check(launches["paged"] > 0 and on_route == launches["sm90"] == launches["paged"],
-                  f"{what}: {launches} -- every paged launch must take the Hopper kernel's "
-                  f"{'quantized' if quant else 'bf16'} entry")
+            check(launches["paged"] > 0 and launches["sm90_quant"] == launches["sm90"] == launches["paged"],
+                  f"{what}: {launches} -- every paged launch must take the Hopper kernel's quantized entry")
         else:
             check(launches["paged"] == 0, f"{what}: the plain path launched {launches}")
         pool_bytes = sum(t.numel() * t.element_size() for t in (eng.pool.kv, eng.pool.scale) if t is not None)
@@ -2295,7 +2351,10 @@ def phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedI
         return {i: list(r.output_ids) for i, r in done.items()}, run
 
     # (b) the engine runs; the fp32 logits of a common prefix are shared by runs that reach it
-    bf16_streams, res["bf16_pool"] = serve(None, None)
+    res["bf16_pool"] = dict({k: bf16_engine[k] for k in ("requests", "output_tokens", "wall_s", "tokens_per_s",
+                                                          "ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50", "tpot_ms_p99",
+                                                          "peak_mem_gb", "pool_bytes")},
+                            run="the engine phase's monolithic run")
     fp32_rows = {}
     for quant, chunk in KV_QUANT_RUNS:
         streams, run = serve(quant, chunk)
@@ -2401,7 +2460,6 @@ def lora_profile(torch, np, model, pa, InferenceEngine, SamplingParams, reg, see
     requests (each on ``adapters[i]``): device ms, idle share, the paged
     kernel's ms, and the device ms of the ops only the LoRA delta runs
     (``aten::bmm``, ``aten::index_select``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prompts, _ = traffic(np, model.config.vocab_size, seed)
@@ -2415,19 +2473,15 @@ def lora_profile(torch, np, model, pa, InferenceEngine, SamplingParams, reg, see
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    avg = prof.key_averages()
-    kernels = [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    attn_ms = sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 1e3
-    ops = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
-    op_ms = {k: (ops[k].device_time_total / 1e3 if k in ops else 0.0, ops[k].count if k in ops else 0)
-             for k in ("aten::bmm", "aten::index_select")}
+    kernels, op_ms = profile_sums(torch, prof, ("aten::bmm", "aten::index_select"))
+    device_ms = sum(ms for ms, _n in kernels.values())
+    attn_ms = sum(ms for k, (ms, _n) in kernels.items() if "paged_attention" in k)
     del eng
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
                 attention_kernel_ms=attn_ms, bmm_ms=op_ms["aten::bmm"][0], bmm_calls=op_ms["aten::bmm"][1],
                 gather_ms=op_ms["aten::index_select"][0], gather_calls=op_ms["aten::index_select"][1],
-                kernel_launches=sum(e.count for e in kernels))
+                kernel_launches=sum(n for _ms, n in kernels.values()))
 
 
 def lora_rows_independent(torch, np, cfg, infer, init_paged_pool, lora_dev, slots, rng):
@@ -2861,7 +2915,6 @@ def wquant_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
     ms, idle share, and the device ms of the paged kernel, the dequant
     (``dequantize_leaf``), a8w8's activation quantization
     (``quantize_activations``) and the GEMMs (``aten::mm``, ``aten::_int_mm``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prompts, _ = traffic(np, model.config.vocab_size, seed)
@@ -2875,20 +2928,16 @@ def wquant_profile(torch, np, model, pa, InferenceEngine, SamplingParams, seed):
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    avg = prof.key_averages()
-    kernels = [e for e in avg if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ops = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
-    op = {k: (ops[k].device_time_total / 1e3 if k in ops else 0.0, ops[k].count if k in ops else 0)
-          for k in ("dequantize_leaf", "quantize_activations", "aten::mm", "aten::_int_mm")}
+    kernels, op = profile_sums(torch, prof, ("dequantize_leaf", "quantize_activations", "aten::mm", "aten::_int_mm"))
+    device_ms = sum(ms for ms, _n in kernels.values())
     del eng
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms,
-                attention_kernel_ms=sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 1e3,
+                attention_kernel_ms=sum(ms for k, (ms, _n) in kernels.items() if "paged_attention" in k),
                 dequant_ms=op["dequantize_leaf"][0], dequant_calls=op["dequantize_leaf"][1],
                 act_quant_ms=op["quantize_activations"][0], bf16_gemm_ms=op["aten::mm"][0],
                 bf16_gemm_calls=op["aten::mm"][1], int8_gemm_ms=op["aten::_int_mm"][0],
-                int8_gemm_calls=op["aten::_int_mm"][1], kernel_launches=sum(e.count for e in kernels))
+                int8_gemm_calls=op["aten::_int_mm"][1], kernel_launches=sum(n for _ms, n in kernels.values()))
 
 
 def wquant_http(eng, serving, SamplingParams, prompts, greedy):
@@ -4242,8 +4291,9 @@ def phase_train(torch, np, fa, run_pretrain, TrainerCallback, MMapIndexedDataset
 # GiB); at 12 layers (35.0 GB) the SFT save would bring the run to 47.4 GB.
 # Since the deepseek phase it runs at 6 layers (514 M parameters, ~22.6 GB),
 # for the run's time: 1,137-1,425 s at 10 layers on different hosts against
-# its 1,200 s limit (PERF.md §4).
-RESUME_LAYERS = 6
+# its 1,200 s limit, and at 4 (420 M, ~18.5 GB) since the deepseek phase's
+# fp32 step and Trainer steps (PERF.md §4).
+RESUME_LAYERS = 4
 
 
 def phase_train_resume(torch, fa, run_pretrain, TrainerCallback, Qwen2ForCausalLM, workdir, seed, base):
@@ -4725,7 +4775,6 @@ def phase_fused_ce(torch, seed):
 def phase_train_profile(torch, trainer):
     """One training step (2 micro-batches x 28 layers) under torch.profiler:
     the device's busy and idle share and its time by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batch = next(iter(trainer.get_train_dataloader()))
@@ -4735,29 +4784,28 @@ def phase_train_profile(torch, trainer):
         trainer.training_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels, _ = profile_sums(torch, prof)
+    device_ms = sum(ms for ms, _n in kernels.values())
     # the first group whose name a kernel's contains takes it: the Hopper ones first
     groups = {"flash_fwd_sm90": "flash_fwd_kernel_sm90", "flash_bwd_dq_sm90": "flash_bwd_dq_kernel_sm90",
               "flash_bwd_dkv_sm90": "flash_bwd_dkv_kernel_sm90", "flash_fwd": "flash_fwd_kernel",
               "flash_bwd_dq": "flash_bwd_dq_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
     by_group = {g: 0.0 for g in list(groups) + ["gemm", "other"]}
     launches = {g: 0 for g in groups}
-    for e in events:
-        ms = e.self_device_time_total / 1e3
-        group = next((g for g, key in groups.items() if key in e.key), None)
+    for name, (ms, count) in kernels.items():
+        group = next((g for g, key in groups.items() if key in name), None)
         if group is not None:
-            launches[group] += e.count
-        elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", e.key, re.I):
+            launches[group] += count
+        elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", name, re.I):
             group = "gemm"
         else:
             group = "other"
         by_group[group] += ms
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     res = dict(phase="train_profile", step="1 optimizer step: 2 micro-batches of 2 x 4096, 28 layers", wall_ms=wall_ms,
                device_ms=device_ms, device_idle_share=1 - device_ms / wall_ms, device_ms_by_group=by_group,
                flash_launches=launches,
-               top_device_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top])
+               top_device_ms=[[k[:90], ms, n] for k, (ms, n) in top])
     emit(res)
     return res
 
@@ -5291,7 +5339,7 @@ def phase_ppo(torch, np, pa, PagedInferenceModel, init_paged_pool, AutoModelForC
             wall = time.perf_counter() - t0
         rounds.append(dict(rollout_s=wall, rows=list(out["input_ids"].shape),
                            new_tokens=int((out["labels"] != -100).sum())))
-        profiled.update(round=2, **rollout_profile(prof, wall, pa.LAUNCHES - launched0))
+        profiled.update(round=2, **rollout_profile(torch, prof, wall, pa.LAUNCHES - launched0))
         return out
 
     def _score(*a):
@@ -5705,7 +5753,7 @@ class PinnedRouting:
 
 
 def moe_train(torch, fa, modeling, causal_lm_loss, configs, model_cls, Trainer, TrainingArguments, seed, micro, tol,
-              name):
+              name, fp32_kernels=False):
     """An MoE model at a cut depth, bf16 compute over fp32 masters, for each
     of ``configs`` (name -> config: Mixtral's two dispatches, DeepSeek-V2's
     one): (a) the loss (LM + aux) and every gradient leaf of one
@@ -5721,10 +5769,17 @@ def moe_train(torch, fa, modeling, causal_lm_loss, configs, model_cls, Trainer, 
     (b) two ``Trainer`` steps of 2 accumulated ``micro`` micro-batches, the
     flash launches of the steps counted (all on the Hopper route), the
     second step's time, tokens/s, MFU (``get_model_flops``: every expert's
-    parameters, the work of the dense dispatch) and the peak memory."""
+    parameters, the work of the dense dispatch) and the peak memory. With
+    ``fp32_kernels`` (DeepSeek-V2, whose head_dim 192 only it reaches in
+    fp32), also (a) the fp32 step through the kernels against the plain fp32
+    step, routing replayed, at ``train_grad``'s fp32 gates (loss rel 1e-5,
+    each leaf's worst element within 1e-4 of its largest), every launch on
+    the fp32 route, and (b) two ``Trainer`` steps at the Trainer's default,
+    ``bf16=False``: the model computes in fp32, every flash launch on the
+    fp32 route, MFU over the fp32 peak (its GEMMs run in fp32: TF32 off)."""
     from paddlenlp_tpu_torch.transformers import moe_layers
 
-    res, gates, launches, sm90 = {}, [], {}, {}
+    res, gates, launches, sm90, f32_route = {}, [], {}, {}, {}
     vocab = next(iter(configs.values())).vocab_size
     g = torch.Generator(device=DEVICE).manual_seed(seed + 2)
     ids = torch.randint(0, vocab, micro, generator=g, device=DEVICE)
@@ -5756,7 +5811,24 @@ def moe_train(torch, fa, modeling, causal_lm_loss, configs, model_cls, Trainer, 
         f32 = step("float32", True, PinnedRouting(moe_layers, replay=recorded))
         control = _step_errors(ref, f32)
         losses["fp32_plain"] = f32[0]
-        del ref, f32
+        del ref
+        fp32 = None
+        if fp32_kernels:  # the fp32 step through the kernels, against the plain fp32 step
+            kern = step("float32", False, PinnedRouting(moe_layers, replay=recorded))
+            fp32 = dict(_step_errors(kern, f32), loss_rel_tol=1e-5, leaf_max_rel_tol=1e-4,
+                        launches=dict(kernels=kern[2], kernels_sm90=kern[3], kernels_sm90_f32=kern[4]))
+            losses["fp32_kernels"] = kern[0]
+            del kern
+            gates.append((fp32["loss_rel_err"] <= 1e-5,
+                          f"{name} train {dispatch} fp32: kernels vs plain loss rel err {fp32['loss_rel_err']} > 1e-5"))
+            gates.append((fp32["leaf_max"]["rel_err"] <= 1e-4,
+                          f"{name} train {dispatch} fp32: kernels vs plain {fp32['leaf_max']} > 1e-4"))
+            each, none = {"fwd": layers, "bwd_dq": layers, "bwd_dkv": layers}, {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+            gates.append((fp32["launches"]["kernels_sm90_f32"] == fp32["launches"]["kernels"] == each
+                          and fp32["launches"]["kernels_sm90"] == none,
+                          f"{name} train {dispatch} fp32: the checked step's launches {fp32['launches']}, want "
+                          f"{each} on the fp32 route"))
+        del f32
         gates.append((bf16["loss_rel_err"] <= tol["loss_rel"],
                       f"{name} train {dispatch}: kernels vs plain loss rel err {bf16['loss_rel_err']}"))
         for key, got, ctl in (("leaf_rel", bf16["leaf"]["rel_err"], control["leaf"]["rel_err"]),
@@ -5769,53 +5841,74 @@ def moe_train(torch, fa, modeling, causal_lm_loss, configs, model_cls, Trainer, 
         gates.append((check_launches["kernels_sm90"] == want,
                       f"{name} train {dispatch}: the checked step's Hopper launches {check_launches}, want {want}"))
 
-        # the Trainer: two optimizer steps of 2 accumulated micro-batches
-        model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
-        model.compute_dtype = torch.bfloat16
-        args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=micro[0],
-                                 gradient_accumulation_steps=2, learning_rate=1e-5, warmup_steps=1, max_steps=2,
-                                 save_strategy="no", seed=seed)
-        trainer = Trainer(model=model, args=args)
-        trainer.create_optimizer_and_scheduler(2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(fa)
-        steps = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            out = trainer.training_step(batch)
+        def trainer_steps(compute):
+            """Two optimizer steps of 2 accumulated micro-batches, the model
+            computing in ``compute`` (bf16 over fp32 masters, or the Trainer's
+            default: fp32, ``bf16=False``): the steps, the launches of each
+            route, the model's aux loss after them."""
+            model = model_cls.init_random(cfg, seed=seed, device=DEVICE, dtype=torch.float32)
+            if compute == "bfloat16":
+                model.compute_dtype = torch.bfloat16
+            args = TrainingArguments(output_dir=workdir, per_device_train_batch_size=micro[0],
+                                     gradient_accumulation_steps=2, learning_rate=1e-5, warmup_steps=1, max_steps=2,
+                                     save_strategy="no", seed=seed)  # bf16 unset (False): the model computes in its compute_dtype
+            trainer = Trainer(model=model, args=args)
+            trainer.create_optimizer_and_scheduler(2)
             torch.cuda.synchronize()
-            steps.append(dict(step_s=time.perf_counter() - t0, loss=out["loss"].item(),
-                              grad_norm=out["grad_norm"].item()))
-        step_launches, step_sm90 = dict(fa.LAUNCHES), dict(fa.LAUNCHES_SM90)
-        for n in step_launches:
-            launches[n] = launches.get(n, 0) + step_launches[n]
-            sm90[n] = sm90.get(n, 0) + step_sm90[n]
-        with torch.no_grad():
-            aux = model.forward(torch.from_numpy(batch["input_ids"][:1]).to(DEVICE), return_aux=True)[1].item()
-        tokens = 2 * micro[0] * micro[1]
-        step_s = steps[-1]["step_s"]
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fa)
+            steps = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out = trainer.training_step(batch)
+                torch.cuda.synchronize()
+                steps.append(dict(step_s=time.perf_counter() - t0, loss=out["loss"].item(),
+                                  grad_norm=out["grad_norm"].item()))
+            counts = dict(kernels=dict(fa.LAUNCHES), sm90=dict(fa.LAUNCHES_SM90), sm90_f32=dict(fa.LAUNCHES_SM90_F32))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            with torch.no_grad():
+                aux = model.forward(torch.from_numpy(batch["input_ids"][:1]).to(DEVICE), return_aux=True)[1].item()
+            flops = model.get_model_flops(2 * micro[0], micro[1])
+            del trainer, model, out
+            gc.collect()
+            torch.cuda.empty_cache()
+            step_s = steps[-1]["step_s"]
+            # the peak of the GEMMs' type: bf16 tensor cores, or fp32 outside them (TF32 is off)
+            mfu_peak = "bfloat16" if compute == "bfloat16" else "float32"
+            return dict(steps=steps, aux_after=aux, step_s=step_s, tokens_per_s=2 * micro[0] * micro[1] / step_s,
+                        mfu=flops / step_s / PEAK_FLOPS[mfu_peak],
+                        mfu_peak=f"{mfu_peak} {PEAK_FLOPS[mfu_peak] / 1e12:g} TFLOP/s", peak_mem_gb=peak), counts
+
         res[dispatch] = dict(
             grad_check=dict(bf16=dict(bf16, tol=tol,
                                       within_bf16_step_tol=bf16["leaf"]["rel_err"] <= BF16_STEP_TOL["leaf_rel"]
                                       and bf16["all_rel_err"] <= BF16_STEP_TOL["all_rel"]),
                             bf16_vs_fp32_control=control, losses=losses,
                             launches=check_launches, routing="pinned to the plain bf16 step's",
-                            own_routing=dict(bf16=bf16_free, flipped_choices=free.flips(recorded))),
-            steps=steps, aux_after=aux, step_s=step_s, tokens_per_s=tokens / step_s,
-            mfu=model.get_model_flops(2 * micro[0], micro[1]) / step_s / PEAK_FLOPS["bfloat16"],
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=step_launches,
-            sm90_launches=step_sm90)
+                            own_routing=dict(bf16=bf16_free, flipped_choices=free.flips(recorded))))
+        if fp32_kernels:
+            res[dispatch]["grad_check"]["fp32"] = fp32
         want = {"fwd": 4 * layers, "bwd_dq": 4 * layers, "bwd_dkv": 4 * layers}
-        gates.append((step_sm90 == step_launches == want,
-                      f"{name} train {dispatch}: Trainer launches {step_launches}, Hopper {step_sm90}, want {want}"))
-        gates.append((all(math.isfinite(s["loss"]) for s in steps) and aux > 0,
-                      f"{name} train {dispatch}: steps {steps}, aux {aux}"))
-        del trainer, model, out
-        gc.collect()
-        torch.cuda.empty_cache()
+        # bf16 compute on the bf16 route; with fp32_kernels, the Trainer's default fp32 on the fp32 route
+        for compute, route in (("bfloat16", "sm90"), ("float32", "sm90_f32"))[:1 + fp32_kernels]:
+            trained, counts = trainer_steps(compute)
+            what = f"{name} train {dispatch}{' fp32' if compute == 'float32' else ''}"
+            for n in counts["kernels"]:
+                launches[n] = launches.get(n, 0) + counts["kernels"][n]
+                for total, key in ((sm90, "sm90"), (f32_route, "sm90_f32")):
+                    total[n] = total.get(n, 0) + counts[key][n]
+            run = dict(**trained, flash_launches=counts["kernels"], **{f"{route}_launches": counts[route]})
+            if compute == "bfloat16":
+                res[dispatch].update(run)
+            else:
+                res[dispatch]["fp32_trainer"] = run
+            gates.append((counts[route] == counts["kernels"] == want,
+                          f"{what}: Trainer launches {counts['kernels']}, {route} route {counts[route]}, "
+                          f"want {want}"))
+            gates.append((all(math.isfinite(s["loss"]) for s in trained["steps"]) and trained["aux_after"] > 0,
+                          f"{what}: steps {trained['steps']}, aux {trained['aux_after']}"))
     shutil.rmtree(workdir, ignore_errors=True)
-    res.update(kernel_launches=launches, sm90_launches=sm90)
+    res.update(kernel_launches=launches, sm90_launches=sm90, sm90_f32_launches=f32_route)
     return res, gates
 
 
@@ -5952,24 +6045,26 @@ def deepseek_layer(torch, DeepseekV2Config, seed):
 
 
 def deepseek_flash_case(torch, fa, seed):
-    """The three bf16 flash kernels at head_dim 192, the Trainer step's
-    attention shape: q/k/v [1, 4096, 16, 192] (MLA: qk_nope 128 + qk_rope
-    64, v padded up to them), causal, and at T 4095 with three packed
-    segments, against their plain versions (``flash_check``)."""
+    """The three flash kernels at head_dim 192, the Trainer step's attention
+    shape: q/k/v [1, 4096, 16, 192] (MLA: qk_nope 128 + qk_rope 64, v padded
+    up to them), causal, and at T 4095 with three packed segments, in bf16
+    (the Hopper route) and in fp32 (the 3xTF32 route, the Trainer's default
+    compute), against their plain versions (``flash_check``)."""
     g = torch.Generator(device=DEVICE).manual_seed(seed + 3)
     N = DEEPSEEK_V2_LITE["num_attention_heads"]
     H = DEEPSEEK_V2_LITE["qk_nope_head_dim"] + DEEPSEEK_V2_LITE["qk_rope_head_dim"]
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=DEVICE)
     cases = []
-    for name, T, segments in (("deepseek", DEEPSEEK_MICRO[1], False), ("deepseek tail segments", 4095, True)):
-        q, k, v, do = (torch.randn(1, T, N, H, generator=g, device=DEVICE).to(torch.bfloat16) for _ in range(4))
-        seg = None
-        if segments:  # three packed documents, boundaries off the 64-row tiles
-            seg = torch.zeros(1, T, dtype=torch.int32, device=DEVICE)
-            seg[:, T // 3 + 5:] = 1
-            seg[:, (2 * T) // 3 + 11:] = 2
-        cases.append(flash_check(torch, fa, name, q, k, v, do, seg, None, flush))
-        del q, k, v, do, seg
+    for dtype, prefix in ((torch.bfloat16, "deepseek"), (torch.float32, "deepseek fp32")):
+        for suffix, T, segments in (("", DEEPSEEK_MICRO[1], False), (" tail segments", 4095, True)):
+            q, k, v, do = (torch.randn(1, T, N, H, generator=g, device=DEVICE).to(dtype) for _ in range(4))
+            seg = None
+            if segments:  # three packed documents, boundaries off the 64-row tiles
+                seg = torch.zeros(1, T, dtype=torch.int32, device=DEVICE)
+                seg[:, T // 3 + 5:] = 1
+                seg[:, (2 * T) // 3 + 11:] = 2
+            cases.append(flash_check(torch, fa, prefix + suffix, q, k, v, do, seg, None, flush))
+            del q, k, v, do, seg
     del flush
     torch.cuda.empty_cache()
     return cases
@@ -5978,9 +6073,9 @@ def deepseek_flash_case(torch, fa, seed):
 def phase_deepseek(torch, fa, pa, modeling, seed):
     """DeepSeek-V2-Lite at its published widths (``PERF.md`` §4):
     ``generate`` at all 27 layers (``moe_generate``), one MoE layer at full
-    width (``deepseek_layer``), the bf16 flash kernels at head_dim 192
-    (``deepseek_flash_case``) and the Trainer step at 3 layers
-    (``moe_train``)."""
+    width (``deepseek_layer``), the bf16 and fp32 flash kernels at head_dim
+    192 (``deepseek_flash_case``) and the Trainer step at 3 layers, at bf16
+    compute and at the Trainer's default fp32 (``moe_train``)."""
     from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
     from paddlenlp_tpu_torch.trainer import Trainer, TrainingArguments
     from paddlenlp_tpu_torch.transformers import DeepseekV2Config, DeepseekV2ForCausalLM
@@ -6003,10 +6098,10 @@ def phase_deepseek(torch, fa, pa, modeling, seed):
     train_cfg = DeepseekV2Config(**{**DEEPSEEK_V2_LITE, "num_hidden_layers": DEEPSEEK_TRAIN_LAYERS})
     res["train"] = part("train", moe_train, torch, fa, modeling, causal_lm_loss, {"dense": train_cfg},
                         DeepseekV2ForCausalLM, Trainer, TrainingArguments, seed, DEEPSEEK_MICRO, DEEPSEEK_STEP_TOL,
-                        "deepseek")
+                        "deepseek", True)  # and the fp32 step and Trainer
     res["seconds"] = time.perf_counter() - t_phase
     failed = [msg for ok, msg in gates if not ok]
-    emit(dict(phase="deepseek", config=res["config"], seconds=res["seconds"], budget_s=30, gates=len(gates),
+    emit(dict(phase="deepseek", config=res["config"], seconds=res["seconds"], budget_s=40, gates=len(gates),
               failed=failed))
     for ok, msg in gates:
         check(ok, msg)
@@ -6065,25 +6160,40 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
 
+    # one nvcc per source, all started together, before the device and
+    # tokenizer lines. The MoE phases launch only the flash kernels: they run
+    # once those are built, while the paged library, the longest build, finishes
+    pool = ThreadPoolExecutor(len(_build.SOURCES))
+    builds = {stem: pool.submit(_build.build, stem) for stem in _build.SOURCES}
+
     smi = nvidia_smi()
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda))
     check_tokenizer_libs(tokenizer_libs())
 
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
-        builds = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
-    for stem, b in builds.items():
+    def built(stem):
+        b = builds[stem].result()
         log = b["log"]  # the ptxas report; None when a cached library has no saved log
         emit(dict(phase="build", source=_build.SOURCES[stem], seconds=b["seconds"], cached=b["cached"],
                   registers=None if log is None else sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)}),
                   spills=None if log is None else any(
                       "0 bytes spill stores, 0 bytes spill loads" not in ln
                       for ln in log.splitlines() if "spill stores" in ln)))
-    fresh = builds["flash_attention_sm90"]
+        return b
+
+    fresh = built("flash_attention_sm90")
     check(fresh["cached"] or fresh["seconds"] < 60, f"build: flash_attention_sm90.cu took {fresh['seconds']:.0f} s")
+    built("flash_attention_sm90_f32")
+
+    # ---- the MoE family: Mixtral-8x7B's widths, generate at 16 layers and a Trainer step at 2
+    mixtral = phase_mixtral(torch, fa, pa, modeling, args.seed)
+    # ---- MLA and the grouped MoE: DeepSeek-V2-Lite, generate at all 27 layers and a Trainer step at 3
+    deepseek = phase_deepseek(torch, fa, pa, modeling, args.seed)
+    emit(dict(phase="moe_done", allocated_gb=torch.cuda.memory_allocated() / 1e9))
 
     # ---- serving: the paged engine at Qwen2-7B width and depth
+    built("paged_attention_sm90")
+    pool.shutdown()
     cases = phase_kernel(torch, pa, quantize_kv, args.seed)
 
     cfg = Qwen2Config(**QWEN2_7B)
@@ -6105,7 +6215,7 @@ def main(argv=None) -> int:
                       mono_streams, args.seed)
     host = phase_host_tier(torch, np, model, pa, InferenceEngine, SamplingParams, serving, args.seed)
     kvq = phase_kv_quant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
-                         prof16, args.seed)
+                         prof16, mono, mono_streams, args.seed)
     lora = phase_lora(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
                       serving, LoRAModel, LoRAConfig, tenancy, args.seed)
     wquant = phase_wquant(torch, np, model, pa, InferenceEngine, SamplingParams, PagedInferenceModel, init_paged_pool,
@@ -6118,11 +6228,6 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit(dict(phase="serving_done", allocated_gb=torch.cuda.memory_allocated() / 1e9))
-
-    # ---- the MoE family: Mixtral-8x7B's widths, generate at 16 layers and a Trainer step at 2
-    mixtral = phase_mixtral(torch, fa, pa, modeling, args.seed)
-    # ---- MLA and the grouped MoE: DeepSeek-V2-Lite, generate at all 27 layers and a Trainer step at 3
-    deepseek = phase_deepseek(torch, fa, pa, modeling, args.seed)
 
     # ---- training: run_pretrain, then run_finetune and its predictor, at Qwen2-1.5B width and depth
     flash = phase_flash_kernel(torch, fa, args.seed)
@@ -6197,12 +6302,14 @@ def main(argv=None) -> int:
     # flash rows: the bf16 Hopper kernels (the main path: times at its shape)
     # and the fp32 forward, dq and dk/dv's 3xTF32 kernels (times from the fp32
     # case; their bound at a third of the TF32 rate, the fp32 rate's beside
-    # it). Launches are the train, train_resume, train_recompute, finetune,
-    # vera, dpo and mixtral runs' on
-    # each route, and for the forward the spec phase's draft forwards too: no
-    # main-path phase computes in fp32, which the fp32 train_grad step checks
-    # (check_launches). The finetune phase's packed-row case, the dpo phase's
-    # T = 4095 case and the mixtral phase's case count among the checked cases
+    # it; at head_dim 192 from the deepseek fp32 case). Launches are the
+    # train, train_resume, train_recompute, finetune, vera, dpo, mixtral and
+    # deepseek runs' on each route, and for the forward the spec phase's
+    # draft forwards too: the fp32 route's are the deepseek phase's fp32
+    # Trainer steps at head_dim 192 (the train_grad and deepseek fp32 steps
+    # check it: check_launches). The finetune phase's packed-row case, the
+    # dpo phase's T = 4095 case and the mixtral and deepseek phases' cases
+    # count among the checked cases
     flash.append(finetune["flash_case"])
     flash.append(align["dpo"]["flash_case"])
     flash.append(mixtral["flash_case"])
@@ -6218,12 +6325,14 @@ def main(argv=None) -> int:
     for what, route, line, name in rows:
         timed = by_case["main" if route == "sm90" else "fp32"]
         checked = [c for c in flash if c["routes"][what] == route]
-        runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"], deepseek["train"])
-        sm90 = sum(r["sm90_launches"][what] for r in runs)
-        launches = sm90 if route == "sm90" else sum(r["kernel_launches"][what] for r in runs) - sm90
-        if what == "fwd":
-            draft90 = spec["launches"]["flash_fwd_sm90"]
-            launches += draft90 if route == "sm90" else spec["launches"]["flash_fwd"] - draft90
+        if route == "sm90":
+            runs = (train, resume, recompute, finetune, align["vera"], align["dpo"], mixtral["train"],
+                    deepseek["train"])
+            launches = sum(r["sm90_launches"][what] for r in runs)
+            if what == "fwd":
+                launches += spec["launches"]["flash_fwd_sm90"]
+        else:
+            launches = deepseek["train"]["sm90_f32_launches"][what]
         kernels.append(dict(
             name=name, route="cuda", source="paddlenlp_tpu_torch/csrc/" + sources[route],
             replaces=f"paddlenlp_tpu/ops/pallas/flash_attention.py:{line}", launches=launches,
@@ -6252,17 +6361,31 @@ def main(argv=None) -> int:
                                   bound_ms=h192["bound_ms"][what], bound_by=h192["bound_by"][what],
                                   library_ms=h192["library_fwd_ms"] if what == "fwd" else h192["library_bwd_ms"],
                                   max_abs_err=max(c["errors"][o]["max_abs_err"] for c in deepseek["flash_cases"]
-                                                  for o in outputs[what])))
+                                                  if c["dtype"] == "bfloat16" for o in outputs[what])))
         else:
             fp32_step = grad["launches"]["float32"]
-            info.update(launched_by="train_grad (its fp32 step)", check_launches=fp32_step["kernels"][what],
-                        check_launches_on_route=fp32_step["kernels_sm90_f32"][what],
+            ds_step = deepseek["train"]["dense"]["grad_check"]["fp32"]["launches"]
+            h192 = by_case["deepseek fp32"]
+            info.update(launched_by="deepseek (its fp32 Trainer steps, head_dim 192)",
+                        deepseek_launches=deepseek["train"]["sm90_f32_launches"][what],
+                        check_launches=fp32_step["kernels"][what] + ds_step["kernels"][what],
+                        check_launches_on_route=fp32_step["kernels_sm90_f32"][what] + ds_step["kernels_sm90_f32"][what],
                         times={c["case"]: c["ms"][what] for c in checked if "ms" in c},
-                        bound_fp32_rate_ms=timed["bound_fp32_rate_ms"][what])
+                        bound_fp32_rate_ms=timed["bound_fp32_rate_ms"][what],
+                        # head_dim 192 (the <192> plan: the head dim split over warp pairs)
+                        h192=dict(case=h192["case"], q=h192["q"], ms=h192["ms"][what],
+                                  plain_ms=h192["plain_fwd_ms"] if what == "fwd" else h192["plain_bwd_ms"],
+                                  bound_ms=h192["bound_ms"][what], bound_by=h192["bound_by"][what],
+                                  bound_fp32_rate_ms=h192["bound_fp32_rate_ms"][what],
+                                  library_ms=h192["library_fwd_ms"] if what == "fwd" else h192["library_bwd_ms"],
+                                  max_abs_err=max(c["errors"][o]["max_abs_err"] for c in deepseek["flash_cases"]
+                                                  if c["dtype"] == "float32" for o in outputs[what])))
             if what != "fwd":
                 info.update(bwd_dq_plus_dkv_ms=timed["ms"]["bwd_dq"] + timed["ms"]["bwd_dkv"])
         checks.append(info)
     emit(dict(phase="kernels", kernels=[dict(k, **c) for k, c in zip(kernels, checks)]))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not idle, f"kernels: {idle} launched no time on the main path")
     writes = disk_writes()
     emit(dict(phase="disk", **(writes or {}), limit_bytes=45 * 2**30, seconds=time.perf_counter() - T_START))
     check(writes is None or max(writes.values()) <= 45 * 2**30, f"disk: {writes} past the 45 GiB a run may write")

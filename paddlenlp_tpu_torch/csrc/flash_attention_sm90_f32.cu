@@ -26,8 +26,9 @@
 //
 // Layouts: q, out, dO, dq [B, T, N, H]; k, v, dk, dv [B, S, K, H] (fp32,
 // 16-byte aligned); lse, delta [B, N, T] fp32; seg [B, T] int32 (or null);
-// H 64 or 128. Gate against the plain versions: |kernel - plain| <= 1e-4 of
-// the tensor's largest element.
+// H 64, 128 or 192 (DeepSeek-V2's MLA: q and k at 128 + 64, v padded up to
+// them). Gate against the plain versions: |kernel - plain| <= 1e-4 of the
+// tensor's largest element.
 //
 // What bounds it on an H100: operations. At q [2, 2048, 12, 128] over k/v
 // [2, 2048, 2, 128], causal, the forward's two products need 0.156 ms, dq's
@@ -96,6 +97,21 @@
 //   itself, one of several writes fp32 partial sums to a workspace that
 //   flash_bwd_dkv_merge_f32 adds in part order. No float atomics: two
 //   launches on one card give the same bits.
+// - H 192 (`Plan`): one warp's output sums at 16 rows x 192 columns would be
+//   96 floats a lane (192 for dk/dv's two), past what 255 registers hold
+//   beside the fragments. So the head dim is split over warp pairs: 8 warps a
+//   block, the two warps of a pair own the same 16 resident rows (the tile
+//   stays 64 rows) and each owns 96 of the output columns, whose sums
+//   (acc[12][4]) are fewer than H 128's. Each score product's inner sum over
+//   192 dims is split the same way: each warp of the pair sums its 96 dims
+//   (with the H 64/128 fragments and order), writes its partial 16 x 16 tile
+//   to shared memory (1 KB a warp a product), waits on a named barrier of the
+//   pair's 64 threads, and adds its partner's (a + b is b + a in fp32: both
+//   warps hold the same bits). Both then apply the mask and the softmax (or
+//   dS) to the whole tile, and each multiplies by its own 96 columns of V, K,
+//   Q or dO. No product is computed twice. One block an SM (the backward's
+//   tiles take ~160 KB of shared memory), the same 8 warps an SM as H 128's
+//   two blocks, at most 255 registers a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,12 +125,26 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int RES = 16 * WARPS;  // resident rows of a block, 16 a warp
+constexpr int THREADS = 128;     // the merge kernel's
+constexpr int RES = 64;          // resident rows of a block, 16 a warp (a warp pair at H 192)
 constexpr int STEP = 16;         // rows of a streamed tile
 constexpr int STAGES = 2;
 constexpr int FWD_COLS = 16;     // kv columns of one forward step (one online-softmax update), 16 or 32
+
+// The warps of head dim H's kernels: at H 64 and 128 a warp owns 16 resident
+// rows and all H columns (4 warps, two blocks an SM); at H 192 a pair of warps
+// owns 16 rows, each warp DW = 96 of the columns and of a score product's
+// inner dims (8 warps, one block an SM)
+template <int H>
+struct Plan {
+  static constexpr int PAIR = H > 128 ? 2 : 1;  // warps that share 16 resident rows
+  static constexpr int DW = H / PAIR;           // columns of a warp
+  static constexpr int WARPS = 4 * PAIR;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = PAIR == 1 ? 2 : 1;
+  // shared floats of one partial score tile a warp (16 x 16), per product slot
+  static constexpr int XCH = PAIR == 1 ? 0 : WARPS * 256;
+};
 
 struct Geometry {
   int B, T, S, N, K, causal, window;  // window < 0: none (causal only)
@@ -183,21 +213,22 @@ template <int H>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0, int limit,
                                           size_t stride, int rows) {
   const uint32_t base = smem_u32(dst);
-  for (int i = threadIdx.x; i < rows * (H / 4); i += THREADS) {
+  for (int i = threadIdx.x; i < rows * (H / 4); i += Plan<H>::THREADS) {
     const int r = i / (H / 4), c = i % (H / 4), row = row0 + r;
     const bool live = row < limit;
     cp_async_16(base + (r * H + ((c ^ swz(r)) << 2)) * 4, live ? src + row * stride + c * 4 : src, live);
   }
 }
 
-// d[j] (16 x 8, j < 2) = A B^T over H at fp32 accuracy: A the 16 rows a_row0 ..
-// of the resident tile a (a_row0 a multiple of 8), B the 16 rows of the
-// streamed tile b. Lane (g, t) gets rows g and g + 8, columns 8 j + 2 t and
+// d[j] (16 x 8, j < 2) = A B^T over D dims (H, or a warp's half at H 192,
+// with a and b offset to it; rows are H floats) at fp32 accuracy: A the 16
+// rows a_row0 .. of the resident tile a (a_row0 a multiple of 8), B the 16
+// rows of the streamed tile b. Lane (g, t) gets rows g and g + 8, columns 8 j + 2 t and
 // 8 j + 2 t + 1. k-steps 2 kk and 2 kk + 1 read dims 16 kk + 4 t + {0, 1} and
 // {2, 3}: one float4 a row; they sum into two accumulators (four independent
 // mma chains a warp, not two), added at the end. The kk loop is unrolled
 // UNROLL times.
-template <int H, int UNROLL>
+template <int H, int UNROLL, int D = H>
 __device__ __forceinline__ void scores(float (&d)[2][4], const float* a, const float* b, int a_row0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   float e[2][4];
@@ -211,7 +242,7 @@ __device__ __forceinline__ void scores(float (&d)[2][4], const float* a, const f
   const float* ar = a + (a_row0 + g) * H;
   const float* br = b + g * H;
 #pragma unroll UNROLL
-  for (int kk = 0; kk < H / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int o = 16 * (kk & ~1) + off[kk & 1];
     const float4 xa = *reinterpret_cast<const float4*>(ar + o);
     const float4 xb = *reinterpret_cast<const float4*>(ar + 8 * H + o);
@@ -242,15 +273,16 @@ __device__ __forceinline__ void scores(float (&d)[2][4], const float* a, const f
     for (int i = 0; i < 4; ++i) d[j][i] += e[j][i];
 }
 
-// acc (16 x H) += P X at fp32 accuracy: P (16 x 16) in the accumulator layout
+// acc (16 x D) += P X at fp32 accuracy (D = H, or a warp's half at H 192
+// with x offset to it): P (16 x 16) in the accumulator layout
 // of `scores` (lane (g, t): rows g, g + 8, columns 8 j + 2 t + {0, 1}), X the
 // 16 rows of the streamed tile x. k-step j sums over x's rows 8 j .. 8 j + 7,
 // lane (g, t) taking rows 8 j + 2 t and 8 j + 2 t + 1: its P columns as they
 // are, and x's column 8 i + g on those rows. The step's product sums into a
 // fresh fragment, added to acc by an fp32 add (the tensor core's own
 // accumulation then never sees the running sum: see the header).
-template <int H>
-__device__ __forceinline__ void accumulate(float (&acc)[H / 8][4], const float (&p)[2][4], const float* x) {
+template <int H, int D = H>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&p)[2][4], const float* x) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   // row 2 t + e, column 8 c + g sits at off[e][c]; column 8 i + g of row
   // 8 j + 2 t + e at 8 j H + 8 (i & ~3) + off[e][i & 3]
@@ -268,7 +300,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[H / 8][4], const float (
     split(p[j][3], ah[j][3], al[j][3]);
   }
 #pragma unroll
-  for (int i = 0; i < H / 8; ++i) {
+  for (int i = 0; i < D / 8; ++i) {
     float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -280,6 +312,30 @@ __device__ __forceinline__ void accumulate(float (&acc)[H / 8][4], const float (
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] += d[e];
   }
+}
+
+// H 192: the pair's sum of a score tile whose inner sum each warp of the
+// pair took half of. The warp writes its partial tile to its place in `xch`
+// (one product slot: a float4 a lane, twice, so a warp's writes and reads hit
+// 32 banks), waits for its partner on the pair's named barrier (1 + pair: 0
+// is __syncthreads'), and adds the partner's. The slot is written again only
+// after the next __syncthreads of the step loop.
+__device__ __forceinline__ void pair_sum(float (&d)[2][4], float* xch) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float4* mine = reinterpret_cast<float4*>(xch + warp * 256) + lane;
+  mine[0] = make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
+  mine[32] = make_float4(d[1][0], d[1][1], d[1][2], d[1][3]);
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + warp / 2) : "memory");
+  const float4* other = reinterpret_cast<const float4*>(xch + (warp ^ 1) * 256) + lane;
+  const float4 a = other[0], b = other[32];
+  d[0][0] += a.x;
+  d[0][1] += a.y;
+  d[0][2] += a.z;
+  d[0][3] += a.w;
+  d[1][0] += b.x;
+  d[1][1] += b.y;
+  d[1][2] += b.z;
+  d[1][3] += b.w;
 }
 
 __device__ __forceinline__ bool visible(const Geometry& g, int row, int col) {
@@ -295,15 +351,16 @@ struct Smem {
   static constexpr int STEP_F = STEP * H;  // floats of a streamed tile
   // a stage: two streamed tiles, then 16 values each of up to three row vectors
   static constexpr int STAGE = 2 * STEP_F + 3 * STEP;
-  static constexpr size_t bytes = (2 * RES_F + STAGES * STAGE) * sizeof(float);
+  // after the ring, at H 192: the pairs' exchange, one slot for each of a step's two score products
+  static constexpr size_t bytes = (2 * RES_F + STAGES * STAGE + 2 * Plan<H>::XCH) * sizeof(float);
 };
 
 // The forward's: one resident tile (Q), and a stage of COLS rows of K, then
-// of V, then their segment ids
+// of V, then their segment ids; at H 192 the exchange, a slot a 16-column tile
 template <int H, int COLS>
 struct FwdSmem {
   static constexpr int STAGE = 2 * COLS * H + COLS;
-  static constexpr size_t bytes = (RES * H + STAGES * STAGE) * sizeof(float);
+  static constexpr size_t bytes = (RES * H + STAGES * STAGE + COLS / STEP * Plan<H>::XCH) * sizeof(float);
 };
 
 // K and V rows r0 .. r0 + ROWS - 1 of kv head kh (zeros past S) into a stage:
@@ -325,17 +382,22 @@ __device__ __forceinline__ void kv_load(float* st, const float* k_b, const float
 // ------------------------------------------------------------------ forward
 // out, lse of 64 query rows of one head: S = Q K^T over COLS kv columns a
 // step (COLS / 16 tiles of 16), masked, the online softmax in the
-// accumulator layout, O = O alpha + P V
+// accumulator layout, O = O alpha + P V (at H 192 each warp of a pair its
+// 96 columns of O, after the pair's sum of S)
 template <int H, int COLS>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Plan<H>::THREADS, Plan<H>::MIN_BLOCKS)
     flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          const int* __restrict__ seg, float* __restrict__ out, float* __restrict__ lse, Geometry g) {
   using L = FwdSmem<H, COLS>;
+  using P = Plan<H>;
   constexpr int U = COLS / STEP;  // 16-column tiles of a step
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* ring = q_s + RES * H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
+  float* xch = ring + STAGES * L::STAGE;  // H 192: the pairs' exchange
+  // rows 16 rw .. of the block, columns DW hf .. of the head
+  const int warp = threadIdx.x / 32, rw = warp / P::PAIR, hf = warp % P::PAIR;
+  const int lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
   // the last query tile first: under the causal mask it walks the most kv tiles
   const int q0 = (cdiv(g.T, RES) - 1 - static_cast<int>(blockIdx.x)) * RES;
   const int n = blockIdx.y, b = blockIdx.z, kh = n / (g.N / g.K);
@@ -343,11 +405,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const size_t q_off = (static_cast<size_t>(b) * g.T * g.N + n) * H, q_stride = static_cast<size_t>(g.N) * H;
   load_rows<H>(q_s, q + q_off, q0, g.T, q_stride, RES);  // committed with the first stage
 
-  // this lane's rows 16 warp + gr + 8 h and their segment ids
+  // this lane's rows 16 rw + gr + 8 h and their segment ids
   int row[2], sq[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row[h] = q0 + 16 * warp + gr + 8 * h;
+    row[h] = q0 + 16 * rw + gr + 8 * h;
     sq[h] = seg != nullptr && row[h] < g.T ? seg[static_cast<size_t>(b) * g.T + row[h]] : 0;
   }
   // the kv steps any row of the block sees
@@ -358,13 +420,13 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (g.window >= 0) s_lo = max(0, q0 - g.window + 1) / COLS;
   }
   const int n_steps = max(s_hi - s_lo, 0);
-  const int w0 = q0 + 16 * warp, w1 = min(w0 + 15, g.T - 1);  // the warp's first and last live row
+  const int w0 = q0 + 16 * rw, w1 = min(w0 + 15, g.T - 1);  // the warp's first and last live row
 
   const size_t kv_off = (static_cast<size_t>(b) * g.S * g.K + kh) * H;
   const int* seg_b = seg != nullptr ? seg + static_cast<size_t>(b) * g.T : nullptr;
-  float acc[H / 8][4];
+  float acc[P::DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < H / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < P::DW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   // rows g, g + 8: the running max (log2 units, the same in the row's four
   // lanes) and this lane's part of the running sum
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -386,13 +448,16 @@ __global__ void __launch_bounds__(THREADS, 2)
     cp_async_wait<STAGES - 1>();  // this thread's copies of step it (and of Q) have landed
     __syncthreads();              // everyone's have
     const int c0 = (s_lo + it) * COLS;
-    // warp-uniform: none of the warp's rows sees a column of this step
+    // warp-uniform (pair-uniform): none of the warp's rows sees a column of this step
     if (w0 >= g.T || (g.causal && c0 > w1) || (g.window >= 0 && c0 + COLS - 1 <= w0 - g.window)) continue;
     const float* st = ring + (it % STAGES) * L::STAGE;
     const int* sk = reinterpret_cast<const int*>(st + 2 * COLS * H);
     float s[U][2][4];
 #pragma unroll
-    for (int u = 0; u < U; ++u) scores<H, H / 16>(s[u], q_s, st + u * STEP * H, 16 * warp);  // S = Q K^T
+    for (int u = 0; u < U; ++u) {  // S = Q K^T
+      scores<H, P::DW / 16, P::DW>(s[u], q_s + P::DW * hf, st + u * STEP * H + P::DW * hf, 16 * rw);
+      if (P::PAIR > 1) pair_sum(s[u], xch + u * P::XCH);
+    }
     // scores in log2 units, invisible ones at NEG_INF (bit 8 u + 4 j + e of vis)
     uint32_t vis = 0;
     float mx[2] = {NEG_INF, NEG_INF};
@@ -429,11 +494,11 @@ __global__ void __launch_bounds__(THREADS, 2)
           l[e / 2] += p;
         }
 #pragma unroll
-    for (int i = 0; i < H / 8; ++i)
+    for (int i = 0; i < P::DW / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
 #pragma unroll
-    for (int u = 0; u < U; ++u) accumulate<H>(acc, s[u], st + COLS * H + u * STEP * H);  // O += P V
+    for (int u = 0; u < U; ++u) accumulate<H, P::DW>(acc, s[u], st + COLS * H + u * STEP * H + P::DW * hf);  // O += P V
   }
   cp_async_wait<0>();
 
@@ -443,12 +508,12 @@ __global__ void __launch_bounds__(THREADS, 2)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (row[h] >= g.T) continue;
     const float d = fmaxf(l[h], 1e-37f);
-    float* o = out + (static_cast<size_t>(b) * g.T + row[h]) * g.N * H + static_cast<size_t>(n) * H;
+    float* o = out + (static_cast<size_t>(b) * g.T + row[h]) * g.N * H + static_cast<size_t>(n) * H + P::DW * hf;
 #pragma unroll
-    for (int i = 0; i < H / 8; ++i)
+    for (int i = 0; i < P::DW / 8; ++i)
       *reinterpret_cast<float2*>(o + 8 * i + 2 * t) = make_float2(acc[i][2 * h] / d, acc[i][2 * h + 1] / d);
     // a row that saw a key has l >= 1 (its max's own term); one that saw none keeps NEG_INF
-    if (t == 0)
+    if (t == 0 && hf == 0)
       lse[(static_cast<size_t>(b) * g.N + n) * g.T + row[h]] = (l[h] > 0.f ? m[h] * LN2 : NEG_INF) + logf(d);
   }
 }
@@ -456,17 +521,21 @@ __global__ void __launch_bounds__(THREADS, 2)
 // ------------------------------------------------------------------ dq
 
 template <int H>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Plan<H>::THREADS, Plan<H>::MIN_BLOCKS)
     flash_bwd_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             const float* __restrict__ dout, const float* __restrict__ lse,
                             const float* __restrict__ delta, const int* __restrict__ seg, float* __restrict__ dq,
                             Geometry g) {
   using L = Smem<H>;
+  using P = Plan<H>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* do_s = q_s + L::RES_F;
   float* ring = do_s + L::RES_F;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
+  float* xch = ring + STAGES * L::STAGE;  // H 192: the pairs' exchange
+  // rows 16 rw .. of the block, columns DW hf .. of the head
+  const int warp = threadIdx.x / 32, rw = warp / P::PAIR, hf = warp % P::PAIR;
+  const int lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
   // the last query tile first: under the causal mask it walks the most kv tiles
   const int q0 = (cdiv(g.T, RES) - 1 - static_cast<int>(blockIdx.x)) * RES;
   const int n = blockIdx.y, b = blockIdx.z, kh = n / (g.N / g.K);
@@ -475,12 +544,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   load_rows<H>(q_s, q + q_off, q0, g.T, q_stride, RES);
   load_rows<H>(do_s, dout + q_off, q0, g.T, q_stride, RES);  // committed with the first stage
 
-  // this lane's rows 16 warp + gr + 8 h: lse (times log2 e), delta, segment id
+  // this lane's rows 16 rw + gr + 8 h: lse (times log2 e), delta, segment id
   int row[2], sq[2];
   float lse2[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row[h] = q0 + 16 * warp + gr + 8 * h;
+    row[h] = q0 + 16 * rw + gr + 8 * h;
     const bool live = row[h] < g.T;
     const size_t i = (static_cast<size_t>(b) * g.N + n) * g.T + row[h];
     lse2[h] = live ? lse[i] * LOG2E : 0.f;
@@ -495,13 +564,13 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (g.window >= 0) s_lo = max(0, q0 - g.window + 1) / STEP;
   }
   const int n_steps = max(s_hi - s_lo, 0);
-  const int w0 = q0 + 16 * warp, w1 = min(w0 + 15, g.T - 1);  // the warp's first and last live row
+  const int w0 = q0 + 16 * rw, w1 = min(w0 + 15, g.T - 1);  // the warp's first and last live row
 
   const size_t kv_off = (static_cast<size_t>(b) * g.S * g.K + kh) * H;
   const int* seg_b = seg != nullptr ? seg + static_cast<size_t>(b) * g.T : nullptr;
-  float acc[H / 8][4];
+  float acc[P::DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < H / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < P::DW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   const float sl2 = g.scale * LOG2E;
 
 #pragma unroll
@@ -520,13 +589,17 @@ __global__ void __launch_bounds__(THREADS, 2)
     cp_async_wait<STAGES - 1>();  // this thread's copies of step it (and of Q, dO) have landed
     __syncthreads();              // everyone's have
     const int c0 = (s_lo + it) * STEP;
-    // warp-uniform: none of the warp's rows sees a column of this step
+    // warp-uniform (pair-uniform): none of the warp's rows sees a column of this step
     if (w0 >= g.T || (g.causal && c0 > w1) || (g.window >= 0 && c0 + STEP - 1 <= w0 - g.window)) continue;
     const float* st = ring + (it % STAGES) * L::STAGE;
     const int* sk = reinterpret_cast<const int*>(st + 2 * L::STEP_F);
     float s[2][4], dp[2][4];
-    scores<H, H / 16>(s, q_s, st, 16 * warp);                // S = Q K^T
-    scores<H, H / 16>(dp, do_s, st + L::STEP_F, 16 * warp);  // dP = dO V^T
+    scores<H, P::DW / 16, P::DW>(s, q_s + P::DW * hf, st + P::DW * hf, 16 * rw);                // S = Q K^T
+    scores<H, P::DW / 16, P::DW>(dp, do_s + P::DW * hf, st + L::STEP_F + P::DW * hf, 16 * rw);  // dP = dO V^T
+    if (P::PAIR > 1) {
+      pair_sum(s, xch);
+      pair_sum(dp, xch + P::XCH);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -536,16 +609,16 @@ __global__ void __launch_bounds__(THREADS, 2)
         const float p = vis ? exp2f(fmaf(s[j][e], sl2, -lse2[h])) : 0.f;
         s[j][e] = p * (dp[j][e] - dl[h]) * g.scale;  // dS
       }
-    accumulate<H>(acc, s, st);  // dq += dS K
+    accumulate<H, P::DW>(acc, s, st + P::DW * hf);  // dq += dS K
   }
   cp_async_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= g.T) continue;
-    float* o = dq + (static_cast<size_t>(b) * g.T + row[h]) * g.N * H + static_cast<size_t>(n) * H;
+    float* o = dq + (static_cast<size_t>(b) * g.T + row[h]) * g.N * H + static_cast<size_t>(n) * H + P::DW * hf;
 #pragma unroll
-    for (int i = 0; i < H / 8; ++i)
+    for (int i = 0; i < P::DW / 8; ++i)
       *reinterpret_cast<float2*>(o + 8 * i + 2 * t) = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
   }
 }
@@ -598,17 +671,21 @@ __device__ __forceinline__ void dkv_load(float* st, const float* __restrict__ q,
 }
 
 template <int H>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Plan<H>::THREADS, Plan<H>::MIN_BLOCKS)
     flash_bwd_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              const float* __restrict__ dout, const float* __restrict__ lse,
                              const float* __restrict__ delta, const int* __restrict__ seg, float* __restrict__ dk,
                              float* __restrict__ dv, float* __restrict__ ws, Geometry g, int chunk) {
   using L = Smem<H>;
+  using P = Plan<H>;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + L::RES_F;
   float* ring = v_s + L::RES_F;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
+  float* xch = ring + STAGES * L::STAGE;  // H 192: the pairs' exchange
+  // kv rows 16 rw .. of the tile, columns DW hf .. of the head
+  const int warp = threadIdx.x / 32, rw = warp / P::PAIR, hf = warp % P::PAIR;
+  const int lane = threadIdx.x % 32, gr = lane / 4, t = lane % 4;
   // kv tiles slowest: under the causal mask tile 0's parts, the fullest, start first
   const int tile = blockIdx.z, part = blockIdx.x, kh = blockIdx.y % g.K, b = blockIdx.y / g.K;
   const DkvWalk w = dkv_walk(g, tile, chunk);
@@ -620,17 +697,17 @@ __global__ void __launch_bounds__(THREADS, 2)
   load_rows<H>(k_s, k + kv_off, kv0, g.S, kv_stride, RES);
   load_rows<H>(v_s, v + kv_off, kv0, g.S, kv_stride, RES);  // committed with the first stage
 
-  // this lane's kv rows 16 warp + gr + 8 h and their segment ids
+  // this lane's kv rows 16 rw + gr + 8 h and their segment ids
   int col[2], sk[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    col[h] = kv0 + 16 * warp + gr + 8 * h;
+    col[h] = kv0 + 16 * rw + gr + 8 * h;
     sk[h] = seg != nullptr && col[h] < g.S ? seg[static_cast<size_t>(b) * g.T + col[h]] : 0;
   }
-  const int c_lo = kv0 + 16 * warp, c_hi = c_lo + 15;  // the warp's kv rows
-  float dk_acc[H / 8][4], dv_acc[H / 8][4];
+  const int c_lo = kv0 + 16 * rw, c_hi = c_lo + 15;  // the warp's kv rows
+  float dk_acc[P::DW / 8][4], dv_acc[P::DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < H / 8; ++i)
+  for (int i = 0; i < P::DW / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
   const float sl2 = g.scale * LOG2E;
@@ -651,7 +728,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     cp_async_wait<STAGES - 1>();
     __syncthreads();
     const int q0 = (w.lo + (s_begin + it) % w.per_head) * STEP;
-    // warp-uniform: none of the warp's kv rows is seen by a query row of this step
+    // warp-uniform (pair-uniform): none of the warp's kv rows is seen by a query row of this step
     if (c_lo >= g.S || (g.causal && q0 + STEP - 1 < c_lo) || (g.window >= 0 && q0 > c_hi + g.window - 1)) continue;
     const float* st = ring + (it % STAGES) * L::STAGE;
     const float* lse_s = st + 2 * L::STEP_F;
@@ -662,7 +739,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     // (the dims loop unrolled twice: fully, beside the dk and dv sums' 128
     // registers at H 128, it spilled and ran ~3% slower)
     float p[2][4];
-    scores<H, 2>(p, k_s, st, 16 * warp);  // S^T = K Q^T
+    scores<H, 2, P::DW>(p, k_s + P::DW * hf, st + P::DW * hf, 16 * rw);  // S^T = K Q^T
+    if (P::PAIR > 1) pair_sum(p, xch);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -671,14 +749,15 @@ __global__ void __launch_bounds__(THREADS, 2)
         const bool vis = visible(g, q0 + r, col[h]) && (seg == nullptr || sq_s[r] == sk[h]);
         p[j][e] = vis ? exp2f(fmaf(p[j][e], sl2, -lse_s[r] * LOG2E)) : 0.f;
       }
-    accumulate<H>(dv_acc, p, st + L::STEP_F);  // dv += P^T dO
+    accumulate<H, P::DW>(dv_acc, p, st + L::STEP_F + P::DW * hf);  // dv += P^T dO
     float ds[2][4];
-    scores<H, 2>(ds, v_s, st + L::STEP_F, 16 * warp);  // dP^T = V dO^T
+    scores<H, 2, P::DW>(ds, v_s + P::DW * hf, st + L::STEP_F + P::DW * hf, 16 * rw);  // dP^T = V dO^T
+    if (P::PAIR > 1) pair_sum(ds, xch + P::XCH);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl_s[8 * j + 2 * t + e % 2]) * g.scale;  // dS^T
-    accumulate<H>(dk_acc, ds, st);  // dk += dS^T Q
+    accumulate<H, P::DW>(dk_acc, ds, st + P::DW * hf);  // dk += dS^T Q
   }
   cp_async_wait<0>();
 
@@ -686,22 +765,22 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (col[h] >= g.S) continue;
-      const size_t off = (static_cast<size_t>(b) * g.S + col[h]) * g.K * H + static_cast<size_t>(kh) * H;
+      const size_t off = (static_cast<size_t>(b) * g.S + col[h]) * g.K * H + static_cast<size_t>(kh) * H + P::DW * hf;
 #pragma unroll
-      for (int i = 0; i < H / 8; ++i) {
+      for (int i = 0; i < P::DW / 8; ++i) {
         *reinterpret_cast<float2*>(dk + off + 8 * i + 2 * t) = make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
         *reinterpret_cast<float2*>(dv + off + 8 * i + 2 * t) = make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
       }
     }
     return;
   }
-  float* part_k = ws + ws_at<H>(g, slot_of(g, tile, chunk) + part, b, kh);
+  float* part_k = ws + ws_at<H>(g, slot_of(g, tile, chunk) + part, b, kh) + P::DW * hf;
   float* part_v = part_k + RES * H;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = 16 * warp + gr + 8 * h;
+    const int r = 16 * rw + gr + 8 * h;
 #pragma unroll
-    for (int i = 0; i < H / 8; ++i) {
+    for (int i = 0; i < P::DW / 8; ++i) {
       *reinterpret_cast<float2*>(part_k + r * H + 8 * i + 2 * t) = make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
       *reinterpret_cast<float2*>(part_v + r * H + 8 * i + 2 * t) = make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
     }
@@ -745,7 +824,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   auto kernel = flash_fwd_kernel_f32<H, FWD_COLS>;
   cudaError_t err = opt_in(kernel, L::bytes, done);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(cdiv(g.T, RES), g.N, g.B), THREADS, L::bytes, s>>>(
+  kernel<<<dim3(cdiv(g.T, RES), g.N, g.B), Plan<H>::THREADS, L::bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(seg), static_cast<float*>(out), static_cast<float*>(lse), g);
   return cudaGetLastError();
@@ -759,7 +838,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   cudaError_t err = opt_in(kernel, Smem<H>::bytes, done);
   if (err != cudaSuccess) return err;
   dim3 grid(cdiv(g.T, RES), g.N, g.B);
-  kernel<<<grid, THREADS, Smem<H>::bytes, s>>>(
+  kernel<<<grid, Plan<H>::THREADS, Smem<H>::bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(seg), static_cast<float*>(dq), g);
@@ -775,7 +854,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = opt_in(kernel, Smem<H>::bytes, done);
   if (err != cudaSuccess) return err;
   const int n_tiles = cdiv(g.S, RES);
-  kernel<<<dim3(max_parts, g.K * g.B, n_tiles), THREADS, Smem<H>::bytes, s>>>(
+  kernel<<<dim3(max_parts, g.K * g.B, n_tiles), Plan<H>::THREADS, Smem<H>::bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(seg), static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(ws), g,
@@ -792,7 +871,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 // (it hides nothing then)
 cudaError_t check_args(const void* q, const void* k, const void* v, const void* o, int B, int T, int S, int N,
                        int K, int H, int causal, int window, int dtype, float scale, Geometry* g) {
-  if (B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128) || dtype != 0 || B > 65535 ||
+  if (B < 0 || T < 0 || S < 0 || K < 1 || N % K != 0 || (H != 64 && H != 128 && H != 192) || dtype != 0 || B > 65535 ||
       N > 65535 || (window >= 0 && !causal))
     return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o)) return cudaErrorInvalidValue;
@@ -803,8 +882,8 @@ cudaError_t check_args(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // out [B, T, N, H] fp32 (16-byte aligned, as q, k and v), lse [B, N, T]
-// fp32. dtype must be 0 (fp32); window < 0: none (causal only); seg may be
-// null. Launches on `stream` and returns cudaGetLastError()
+// fp32; H 64, 128 or 192. dtype must be 0 (fp32); window < 0: none (causal
+// only); seg may be null. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported dtype, head_dim or geometry, or
 // a misaligned pointer).
 extern "C" int pdnlp_flash_fwd_sm90_f32(const void* q, const void* k, const void* v, const void* seg, void* out,
@@ -815,7 +894,9 @@ extern "C" int pdnlp_flash_fwd_sm90_f32(const void* q, const void* k, const void
   if (bad != cudaSuccess) return bad;
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_fwd<64>(q, k, v, seg, out, lse, g, s) : launch_fwd<128>(q, k, v, seg, out, lse, g, s);
+  return H == 64    ? launch_fwd<64>(q, k, v, seg, out, lse, g, s)
+         : H == 128 ? launch_fwd<128>(q, k, v, seg, out, lse, g, s)
+                    : launch_fwd<192>(q, k, v, seg, out, lse, g, s);
 }
 
 // dq [B, T, N, H] fp32 (16-byte aligned, as q, k, v and dO). dtype must be 0
@@ -830,8 +911,9 @@ extern "C" int pdnlp_flash_bwd_dq_sm90_f32(const void* q, const void* k, const v
   if (!aligned16(dq)) return cudaErrorInvalidValue;
   if (B == 0 || T == 0 || N == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, g, s)
-                 : launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, g, s);
+  return H == 64    ? launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, g, s)
+         : H == 128 ? launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, g, s)
+                    : launch_dq<192>(q, k, v, dout, lse, delta, seg, dq, g, s);
 }
 
 // dk, dv [B, S, K, H] fp32, each kv tile's walk cut into parts of `chunk`
@@ -857,6 +939,8 @@ extern "C" int pdnlp_flash_bwd_dkv_sm90_f32(const void* q, const void* k, const 
   }
   if (need != slots || (need > 0 && (ws == nullptr || !aligned16(ws)))) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, seg, dk, dv, ws, g, chunk, max_parts, need > 0, s)
-                 : launch_dkv<128>(q, k, v, dout, lse, delta, seg, dk, dv, ws, g, chunk, max_parts, need > 0, s);
+  const bool merge = need > 0;
+  return H == 64    ? launch_dkv<64>(q, k, v, dout, lse, delta, seg, dk, dv, ws, g, chunk, max_parts, merge, s)
+         : H == 128 ? launch_dkv<128>(q, k, v, dout, lse, delta, seg, dk, dv, ws, g, chunk, max_parts, merge, s)
+                    : launch_dkv<192>(q, k, v, dout, lse, delta, seg, dk, dv, ws, g, chunk, max_parts, merge, s);
 }

@@ -44,7 +44,7 @@ from ..ops.rope import apply_rotary_pos_emb, rope_frequencies, rope_tables
 from ..quantization.quantization_utils import linear
 from ..transformers.llama.modeling import layer_params, rms_norm
 from ..utils import prng
-from .paged_cache import PagedKVPool, gather_kv, write_kv_block
+from .paged_cache import PagedKVPool, gather_kv, kv_slots, write_kv_block
 
 __all__ = ["PagedInferenceModel", "gather_lora", "sample_tokens"]
 
@@ -218,11 +218,22 @@ class PagedInferenceModel:
         out = torch.einsum("bnts,bsnh->btnh", torch.softmax(logits, dim=-1), v.float())
         return out.to(q.dtype)
 
+    def _shared(self, pool: PagedKVPool, block_tables, q_positions, write_pos, q_lens, T):
+        """What every layer of one forward reads alike, computed once a
+        forward: the rope tables, the new tokens' places in the pool
+        (:func:`kv_slots`), and the kernel's int32 row starts and lengths."""
+        return dict(rope=rope_tables(q_positions, self.inv_freq),
+                    slots=kv_slots(block_tables, write_pos, T, pool.kv.shape[-2]),
+                    q_start=q_positions[:, 0].to(torch.int32).contiguous(), q_lens=q_lens.to(torch.int32))
+
     def _layer(self, h, i, pool: PagedKVPool, block_tables, q_positions, kv_len_mask, write_pos, q_lens,
-               per_position=False, lora_rows=None, per_row=False):
+               per_position=False, lora_rows=None, per_row=False, shared=None):
         """Decoder layer ``i``: writes this step's K/V into the pool's layer
         ``i`` in place and returns the new hidden states. ``lora_rows``: this
-        layer's entry of :func:`gather_lora`."""
+        layer's entry of :func:`gather_lora`; ``shared``: :meth:`_shared` of
+        the forward (computed here when None)."""
+        if shared is None:
+            shared = self._shared(pool, block_tables, q_positions, write_pos, q_lens, h.shape[1])
         lp = self._layers[i]
         B, T, _ = h.shape
         rows = lora_rows or {}
@@ -232,18 +243,16 @@ class PagedInferenceModel:
         q = mm(attn, "q_proj", x).reshape(B, T, self.n_heads, self.head_dim)
         k = mm(attn, "k_proj", x).reshape(B, T, self.n_kv, self.head_dim)
         v = mm(attn, "v_proj", x).reshape(B, T, self.n_kv, self.head_dim)
-        cos, sin = rope_tables(q_positions, self.inv_freq)
-        q, k = apply_rotary_pos_emb(q, k, cos, sin)
+        q, k = apply_rotary_pos_emb(q, k, *shared["rope"])
 
         pool_layer = pool.kv[i]
         scale_layer = None if pool.scale is None else pool.scale[i]
-        write_kv_block(pool_layer, k, v, block_tables, write_pos, scale_layer)
+        write_kv_block(pool_layer, k, v, block_tables, write_pos, scale_layer, slots=shared["slots"])
         if self.use_paged_kernel:
             # one launch covers the whole ragged batch: decode rows (q_lens=1),
             # prefill chunks (q_lens up to T) and inactive padding (q_lens=0)
             attn_out = ragged_paged_attention(
-                q, pool_layer[0], pool_layer[1], block_tables,
-                q_positions[:, 0].to(torch.int32).contiguous(), q_lens.to(torch.int32),
+                q, pool_layer[0], pool_layer[1], block_tables, shared["q_start"], shared["q_lens"],
                 k_scale=None if scale_layer is None else scale_layer[0],
                 v_scale=None if scale_layer is None else scale_layer[1],
             )
@@ -280,9 +289,10 @@ class PagedInferenceModel:
         h = embed[ids.long()].to(self.dtype)
         if getattr(self.config, "scale_embeddings", False):
             h = h * torch.tensor(self.config.hidden_size**0.5, dtype=h.dtype)
+        shared = self._shared(pool, block_tables, q_positions, write_pos, q_lens, T)
         for i in range(len(self._layers)):
             h = self._layer(h, i, pool, block_tables, q_positions, kv_len_mask, write_pos, q_lens, per_position,
-                            None if lora_rows is None else lora_rows[i], per_row)
+                            None if lora_rows is None else lora_rows[i], per_row, shared)
         h = rms_norm(h, m["norm"]["scale"], self.eps)
         last = h if last_pos is None else h[torch.arange(B, device=h.device), last_pos.long()]
         head = self.model.params["lm_head"]["kernel"] if "lm_head" in self.model.params else embed.T

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["PagedKVPool", "BlockManager", "init_paged_pool", "quantize_kv", "write_kv_block", "gather_kv",
+__all__ = ["PagedKVPool", "BlockManager", "init_paged_pool", "kv_slots", "quantize_kv", "write_kv_block", "gather_kv",
            "copy_blocks"]
 
 
@@ -87,25 +87,33 @@ def quantize_kv(x: torch.Tensor, qdtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(qdtype), scale
 
 
+def kv_slots(block_tables: torch.Tensor, start_pos: torch.Tensor, T: int,
+             block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where :func:`write_kv_block` puts T new tokens a row: (blocks, offs),
+    each [B*T]. Token t of row b lands at logical position p = start_pos[b]
+    + t -> (block_tables[b, p // bs], p % bs). A table index past the end
+    clamps to the last entry, as JAX's gather does; padded rows address the
+    zero sentinel block 0, which no live read depends on. The same for every
+    layer of one forward."""
+    M = block_tables.shape[1]
+    pos = start_pos.long()[:, None] + torch.arange(T, device=block_tables.device)[None, :]
+    blocks = torch.gather(block_tables.long(), 1, (pos // block_size).clamp(max=M - 1)).reshape(-1)
+    return blocks, (pos % block_size).reshape(-1)
+
+
 def write_kv_block(pool_layer: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    block_tables: torch.Tensor, start_pos: torch.Tensor,
-                   scale_layer: Optional[torch.Tensor] = None) -> None:
+                   scale_layer: Optional[torch.Tensor] = None,
+                   slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
     """Scatter new tokens' K/V into one layer of the pool, for the whole batch
     in one indexed write (the JAX package loops over sequences).
 
     pool_layer [2, num_blocks, K, bs, H] and scale_layer [2, num_blocks, K,
     bs, 1] are views into the pool, written in place; k/v [B, T, K, H];
-    block_tables [B, max_blocks]; start_pos [B]. Token t of row b lands at
-    logical position p = start_pos[b] + t -> (block_tables[b, p // bs],
-    p % bs). A table index past the end clamps to the last entry, as JAX's
-    gather does; padded rows address the zero sentinel block 0, which no
-    live read depends on."""
+    block_tables [B, max_blocks]; start_pos [B]; the tokens' places as
+    :func:`kv_slots` gives them (``slots``, computed here when None)."""
     B, T, K, H = k.shape
-    bs = pool_layer.shape[3]
-    M = block_tables.shape[1]
-    pos = start_pos.long()[:, None] + torch.arange(T, device=k.device)[None, :]
-    blocks = torch.gather(block_tables.long(), 1, (pos // bs).clamp(max=M - 1)).reshape(-1)
-    offs = (pos % bs).reshape(-1)
+    blocks, offs = kv_slots(block_tables, start_pos, T, pool_layer.shape[3]) if slots is None else slots
     k = k.reshape(B * T, K, H)
     v = v.reshape(B * T, K, H)
     if scale_layer is not None:

@@ -19,10 +19,10 @@ gates, which bf16 operands cannot meet), take all three through
 ``flash_attention_sm90_f32.cu`` (``"sm90_f32"``: 3xTF32 ``mma.sync``
 products at fp32 accuracy; dk/dv's walks split over blocks by
 :func:`dkv_split`, their partial sums merged in order by a second kernel).
-Head dims (:data:`HEAD_DIMS`): the bf16 route takes 64, 128 and 192
-(DeepSeek-V2's MLA runs q and k at 128 + 64 and pads v up to them); the
-fp32 route takes 64 and 128, and refuses 192 with ``NotImplementedError``
-(``_LATER["head_dim"]``), since the JAX package computes it.
+Head dims (:data:`HEAD_DIMS`): both routes take 64, 128 and 192
+(DeepSeek-V2's MLA runs q and k at 128 + 64 and pads v up to them; at 192
+the fp32 kernels split the head dim over warp pairs) and refuse any other
+with ``ValueError``.
 
 Layouts are the JAX package's: q [B, T, N, H], k/v [B, S, K, H] with query
 head n reading KV head n // (N // K), lse [B, N, T] fp32, segment_ids [B, T]
@@ -76,7 +76,7 @@ _ROUTES = {"sm90": ("flash_attention_sm90", "_sm90"), "sm90_f32": ("flash_attent
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the head dims each route's kernels are built for
-HEAD_DIMS = {"sm90": (64, 128, 192), "sm90_f32": (64, 128)}
+HEAD_DIMS = {"sm90": (64, 128, 192), "sm90_f32": (64, 128, 192)}
 
 # where the options outside this port's slice are planned (ROADMAP.md)
 _LATER = {
@@ -85,8 +85,6 @@ _LATER = {
     "dropout_rate": "attention dropout (ROADMAP Queue 1 item 15, training left)",
     "positions": "permuted positions for context parallel (ROADMAP Queue 1 item 15, training left)",
     "causal": "non-causal attention in the dispatcher (ROADMAP Queue 1 item 14e, the encoder families)",
-    "head_dim": "the fp32 flash route (sm90_f32) at head_dim 192 (ROADMAP Queue 2 item 1); "
-                "bf16 operands take the sm90 route at 192",
 }
 
 
@@ -200,8 +198,6 @@ def _check_cuda_operands(name, tensors, q, k, segment_ids):
                         f"got {q.dtype}, {k.dtype}, {tensors['v'].dtype}")
     H, route = q.shape[-1], kernel_route(q.dtype, "fwd")
     if H not in HEAD_DIMS[route]:
-        if H in HEAD_DIMS["sm90"]:
-            raise NotImplementedError(f"{name}: {_LATER['head_dim']} is not part of the port yet")
         raise ValueError(f"{name}: head_dim must be one of {HEAD_DIMS[route]} on the {route} route, got {H}")
     if segment_ids is not None:
         if segment_ids.dtype != torch.int32:
@@ -237,7 +233,10 @@ def kernel_route(dtype, what) -> str:
 
 # the dk/dv walk's split (flash_attention_sm90_f32.cu): kv tiles of 64 rows,
 # 16-row query steps; a part takes at least _MIN_CHUNK steps, and the launch
-# aims at _WAVES waves of two blocks an SM
+# aims at _WAVES waves of two blocks an SM. That is the residency of the 4-warp
+# blocks at head_dim 64 and 128; at 192 one 8-warp block fills an SM, so the
+# same chunk gives 2 * _WAVES waves there (more parts and merge traffic than
+# one block an SM would need; the split was not retimed at 192)
 _F32_RES, _F32_STEP, _MIN_CHUNK, _WAVES = 64, 16, 32, 3
 
 
@@ -262,7 +261,8 @@ def dkv_split(B, T, S, N, K, causal, window, sms) -> Tuple[int, int]:
     ``N // K`` query heads times its visible 16-row query tiles; the walk is
     cut into parts of ``chunk`` steps so that the launch fills about three
     waves of two blocks an SM (the causal mask leaves the first tile's walk
-    the longest), and every part of a tile cut in more than one takes a
+    the longest; at head_dim 192, one block an SM, about six waves), and
+    every part of a tile cut in more than one takes a
     workspace slot of [B, K, 2, 64, H] fp32 partial sums."""
     totals = [(N // K) * dkv_walk(T, S, causal, window, t)[1] for t in range(-(-S // _F32_RES))]
     chunk = max(_MIN_CHUNK, -(-B * K * sum(totals) // (_WAVES * 2 * sms)))
@@ -470,10 +470,9 @@ def dot_product_attention(query, key, value, *, attention_mask=None, segment_ids
     absolute position of query row 0 over a KV cache (the dispatcher of
     ``paddlenlp_tpu/ops/flash_attention.py:72``). Calls the JAX dispatcher
     would send to Pallas (no mask, no offset, ``T == S``) run the flash
-    kernels (on the card: bf16 at head_dim 64, 128 or 192, fp32 at 64 or
-    128, :data:`HEAD_DIMS`); the rest run :func:`dot_product_attention_dense`.
-    The options outside the port's slice, and fp32 at head_dim 192 on the
-    card, raise ``NotImplementedError``."""
+    kernels (on the card: bf16 and fp32 at head_dim 64, 128 or 192,
+    :data:`HEAD_DIMS`); the rest run :func:`dot_product_attention_dense`.
+    The options outside the port's slice raise ``NotImplementedError``."""
     asked = {"bias": bias is not None, "use_alibi": use_alibi, "dropout_rate": dropout_rate != 0.0,
              "positions": positions is not None, "causal": not causal}
     for opt, on in asked.items():

@@ -29,7 +29,7 @@ A heterogeneous stack (dense first layers) is unrolled (``layers_{i}``), as
 the configuration forces; a scanned one takes every layer as layer 0 does,
 as the JAX module parses no index from ``layers``. There is no kernel here:
 attention goes through the dispatcher (``ops/flash_attention.py``), whose
-bf16 flash kernels take head_dim 192.
+bf16 and fp32 flash kernels take head_dim 192.
 """
 
 from __future__ import annotations

@@ -461,28 +461,33 @@ def test_flash_kernels_match_plain(dev, dtype, T, N, K, H, causal, window, segme
     _flash_matches_plain(dev, dtype, T, N, K, H, causal, window, segments)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("T,N,K,H,causal,window,segments", [
     (333, 2, 2, 192, True, 100, True),     # group 1, window + segments: DeepSeek-V2's MLA head dim
     (4095, 16, 16, 192, True, None, False),  # DeepSeek-V2-Lite's 16 heads, T not a multiple of the tile
     (200, 6, 1, 192, False, None, False),  # group 6, full attention
 ])
-def test_flash_kernels_match_plain_at_head_dim_192(dev, T, N, K, H, causal, window, segments):
-    """bf16 at head_dim 192 (q and k at qk_nope 128 + qk_rope 64, v padded
-    up to them) runs the three Hopper kernels' ``<192>`` tile plans."""
-    _flash_matches_plain(dev, torch.bfloat16, T, N, K, H, causal, window, segments)
+def test_flash_kernels_match_plain_at_head_dim_192(dev, dtype, T, N, K, H, causal, window, segments):
+    """Head_dim 192 (q and k at qk_nope 128 + qk_rope 64, v padded up to
+    them): bf16 runs the three Hopper kernels' ``<192>`` tile plans
+    (``LAUNCHES_SM90``), fp32 the 3xTF32 kernels' ``<192>`` plans, the head
+    dim split over warp pairs (``LAUNCHES_SM90_F32``)."""
+    _flash_matches_plain(dev, dtype, T, N, K, H, causal, window, segments)
 
 
-def test_flash_f32_route_refuses_head_dim_192(dev):
-    """The fp32 route has no head_dim 192 build: each wrapper raises
-    ``NotImplementedError`` naming its ROADMAP item, and nothing launches or
-    runs in its place."""
-    q, k, v, do, _ = _flash_case(dev, torch.float32, 1, 64, 2, 2, 192, False)
-    lse = torch.zeros(1, 2, 64, device=dev)
+def test_flash_f32_route_refuses_head_dims_96_and_256(dev):
+    """The fp32 route is built for head_dim 64, 128 and 192: each wrapper
+    refuses 96 and 256 with ``ValueError``, and nothing launches or runs in
+    its place."""
     before = dict(fa.LAUNCHES)
-    for call in (lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, lse),
-                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
-            call()
+    for H in (96, 256):
+        q, k, v, do, _ = _flash_case(dev, torch.float32, 1, 64, 2, 2, H, False)
+        lse = torch.zeros(1, 2, 64, device=dev)
+        for call in (lambda: fa.flash_attention_fwd(q, k, v),
+                     lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, lse),
+                     lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, lse)):
+            with pytest.raises(ValueError, match="head_dim"):
+                call()
     assert fa.LAUNCHES == before
 
 
@@ -792,6 +797,39 @@ def test_deepseek_bf16_step_takes_the_sm90_route_at_head_dim_192(dev):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
     assert {n: fa.LAUNCHES_SM90[n] - sm90[n] for n in sm90} == {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
     assert np.isfinite(out["loss"].item()) and np.isfinite(out["grad_norm"].item()) and out["grad_norm"].item() > 0
+
+
+def test_deepseek_fp32_step_takes_the_sm90_f32_route_at_head_dim_192(dev):
+    """The same tiny DeepSeek-V2 computing in fp32 (the Trainer's default):
+    one forward and backward through the kernels launches each flash kernel
+    once a layer, all on the fp32 Hopper route at head_dim 192, and its loss
+    and every gradient leaf equal the same step through the plain versions
+    on the card at the fp32 gates (loss rel 1e-5, each leaf's worst element
+    within 1e-4 of its largest), the routing replayed from the plain step's
+    (``chip_smoke.PinnedRouting``)."""
+    import chip_smoke as cs
+    from paddlenlp_tpu_torch.ops.cross_entropy import causal_lm_loss
+    from paddlenlp_tpu_torch.transformers import DeepseekV2Config, DeepseekV2ForCausalLM, moe_layers
+    from paddlenlp_tpu_torch.transformers.llama import modeling
+
+    cfg = DeepseekV2Config(vocab_size=256, hidden_size=256, intermediate_size=384, moe_intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=4, kv_lora_rank=64, q_lora_rank=None,
+                           qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=4,
+                           n_shared_experts=1, num_experts_per_tok=2, first_k_dense_replace=1)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 96))).to(dev)
+    recorded = cs.PinnedRouting(moe_layers)
+    with recorded:
+        plain = cs._grad_step(torch, fa, modeling, cfg, DeepseekV2ForCausalLM, causal_lm_loss, ids, 0, "float32",
+                              True)
+    with cs.PinnedRouting(moe_layers, replay=recorded):
+        kern = cs._grad_step(torch, fa, modeling, cfg, DeepseekV2ForCausalLM, causal_lm_loss, ids, 0, "float32",
+                             False)
+    each = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+    assert plain[2] == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert kern[2] == kern[4] == each and kern[3] == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}, kern[2:]
+    errs = cs._step_errors(kern, plain)
+    assert np.isfinite(kern[0]) and errs["loss_rel_err"] <= 1e-5, errs
+    assert errs["leaf_max"]["rel_err"] <= 1e-4, errs
 
 
 def _to(tree, device):

@@ -279,6 +279,15 @@ def test_bf16_tensor_core_roundings_fit_the_chip_gate(segments, window, heads):
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
 
 
+def _score_mm(mm, a, b):
+    """A score product a [.., T, H] @ b [.., H, S] of the fp32 kernels: over
+    all H dims at head_dim 64 and 128; at 192 each warp of a pair sums its
+    96 dims, and the pair adds the two partial tiles."""
+    if a.shape[-1] == 192:
+        return mm(a[..., :96], b[..., :96, :]) + mm(a[..., 96:], b[..., 96:, :])
+    return mm(a, b)
+
+
 def _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms):
     """The fp32 backward of ``flash_attention_sm90_f32.cu`` step by step in
     torch: every operand of the five products split as the kernels split it
@@ -288,8 +297,10 @@ def _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms
     order, a fresh product a step; dk/dv walk each 64-row kv tile's (query
     head, 16-row query tile) pairs in order (``dkv_walk``), cut into parts of
     ``dkv_split``'s chunk on a card of ``sms`` multiprocessors, each part's
-    sum taken step by step and the parts added in order. (What the tensor
-    core does inside one ``mma`` is not emulated.)"""
+    sum taken step by step and the parts added in order. At head_dim 192
+    the score products' inner sums are taken in two halves of 96 dims (the
+    two warps of a pair), which are then added (``_score_mm``). (What the
+    tensor core does inside one ``mma`` is not emulated.)"""
     B, T, N, H = q.shape
     S, K = k.shape[1], k.shape[2]
     g = N // K
@@ -301,10 +312,10 @@ def _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms
     qf, dof = (x.reshape(B, T, K, g, H).permute(0, 2, 3, 1, 4) for x in (q, do))  # [B, K, g, T, H]
     kf, vf = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, S, H]
     valid = fa._visible(T, S, causal, window, seg, q.device)[:, None, None]
-    s = mm(qf, kf.transpose(-1, -2))
+    s = _score_mm(mm, qf, kf.transpose(-1, -2))
     p = torch.where(valid, torch.exp2(s * (scale * log2e) - lse.reshape(B, K, g, T, 1) * log2e),
                     torch.zeros_like(s))
-    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta.reshape(B, K, g, T, 1)) * scale
+    ds = p * (_score_mm(mm, dof, vf.transpose(-1, -2)) - delta.reshape(B, K, g, T, 1)) * scale
     dq = torch.zeros(B, K, g, T, H)
     for c0 in range(0, S, 16):
         dq = dq + mm(ds[..., c0:c0 + 16], kf[..., c0:c0 + 16, :])
@@ -334,7 +345,8 @@ def _f32_fwd_emulation(q, k, v, seg, causal, window, passes):
     steps in order, each taking the new row max m, rescaling l and O by
     exp2(m_old - m), and adding p = exp2(s - m) and a fresh product P V to
     them. out = O / max(l, 1e-37), lse = m ln 2 + log(max(l, 1e-37)), with
-    NEG_INF for m on a row that sees no key. (The kernel's per-lane partial
+    NEG_INF for m on a row that sees no key. At head_dim 192, S's inner sum
+    in two halves added (``_score_mm``). (The kernel's per-lane partial
     sums of l, and what the tensor core does inside one ``mma``, are not
     emulated.)"""
     B, T, N, H = q.shape
@@ -348,7 +360,7 @@ def _f32_fwd_emulation(q, k, v, seg, causal, window, passes):
     qf = q.reshape(B, T, K, g, H).permute(0, 2, 3, 1, 4)  # [B, K, g, T, H]
     kf, vf = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, S, H]
     valid = fa._visible(T, S, causal, window, seg, q.device)[:, None, None]
-    s = torch.where(valid, mm(qf, kf.transpose(-1, -2)) * (scale * log2e), torch.tensor(fa.NEG_INF))
+    s = torch.where(valid, _score_mm(mm, qf, kf.transpose(-1, -2)) * (scale * log2e), torch.tensor(fa.NEG_INF))
     m = torch.full((B, K, g, T, 1), fa.NEG_INF)
     l, o = torch.zeros(B, K, g, T, 1), torch.zeros(B, K, g, T, H)
     for c0 in range(0, S, 16):
@@ -374,71 +386,82 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("causal,window,segments", [(True, None, False), (True, 120, True), (False, None, True)],
-                         ids=["causal", "window+segments", "full+segments"])
-def test_f32_tensor_core_products_fit_the_chip_gate(causal, window, segments, one_thread):
+# (causal, window, segments, (N, K, H)): group 3 at head_dim 64, and group 4
+# at DeepSeek-V2's 192, causal with segments
+F32_EMULATION_CASES = [(True, None, False, (6, 2, 64)), (True, 120, True, (6, 2, 64)), (False, None, True, (6, 2, 64)),
+                       (True, None, True, (4, 1, 192))]
+F32_EMULATION_IDS = ["causal", "window+segments", "full+segments", "h192-segments"]
+
+
+@pytest.mark.parametrize("causal,window,segments,heads", F32_EMULATION_CASES, ids=F32_EMULATION_IDS)
+def test_f32_tensor_core_products_fit_the_chip_gate(causal, window, segments, heads, one_thread):
     """The fp32 dq and dk/dv kernels' arithmetic (3xTF32 products in the
     kernels' tile order, dk/dv's walks cut into parts as on a 2-multiprocessor
-    card, so that T 200's tiles split) against the plain backward under
+    card, so that T 200's tiles split; at head_dim 192 the score products'
+    inner sums in two halves) against the plain backward under
     ``chip_smoke.py``'s fp32 gate (1e-4 of each tensor's largest element,
-    ``flash_worst``) at group 3, head_dim 64, T 200 (no multiple of 64): in
-    with the headroom printed, while one TF32 pass misses it."""
+    ``flash_worst``) at group 3, head_dim 64, and at group 4, head_dim 192,
+    T 200 (no multiple of 64): in with the headroom printed, while one TF32
+    pass misses it."""
     import chip_smoke
 
-    q, k, v, do, seg = (_t(x) for x in _inputs(1, 200, 6, 2, 64, segments, seed=8))
+    N, K, H = heads
+    q, k, v, do, seg = (_t(x) for x in _inputs(1, 200, N, K, H, segments, seed=8))
     out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
     delta = fa._delta(out, do)
     want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(q, k, v, do, lse, delta, seg, causal=causal,
                                                                      window=window)))
-    assert fa.dkv_split(1, 200, 200, 6, 2, causal, window, 2)[1] > 0  # some tile's walk is cut in parts
+    assert fa.dkv_split(1, 200, 200, N, K, causal, window, 2)[1] > 0  # some tile's walk is cut in parts
     worst = {}
     for passes in (3, 1):
         got = _f32_bwd_emulation(q, k, v, do, lse, delta, seg, causal, window, passes, sms=2)
         worst[passes] = chip_smoke.flash_worst(torch, got, want, "float32")
-        print(f"fp32 backward, {passes} TF32 pass(es):", {n: round(e["worst"], 4) for n, e in worst[passes].items()})
+        print(f"fp32 backward H {H}, {passes} TF32 pass(es):",
+              {n: round(e["worst"], 4) for n, e in worst[passes].items()})
     for name, e in worst[3].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
     assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]
 
 
-@pytest.mark.parametrize("causal,window,segments", [(True, None, False), (True, 120, True), (False, None, True)],
-                         ids=["causal", "window+segments", "full+segments"])
-def test_f32_forward_tensor_core_products_fit_the_chip_gate(causal, window, segments, one_thread):
+@pytest.mark.parametrize("causal,window,segments,heads", F32_EMULATION_CASES, ids=F32_EMULATION_IDS)
+def test_f32_forward_tensor_core_products_fit_the_chip_gate(causal, window, segments, heads, one_thread):
     """The fp32 forward kernel's arithmetic (3xTF32 products, the online
-    softmax over 16-column kv steps in order, ``_f32_fwd_emulation``) against
-    the plain forward under ``chip_smoke.py``'s fp32 gate (1e-4 of each
-    tensor's largest element, ``flash_worst``) on the backward test's cases
-    (group 3, head_dim 64, T 200): out and lse in with the headroom printed,
+    softmax over 16-column kv steps in order, at head_dim 192 S's inner sum
+    in two halves: ``_f32_fwd_emulation``) against the plain forward under
+    ``chip_smoke.py``'s fp32 gate (1e-4 of each tensor's largest element,
+    ``flash_worst``) on the backward test's cases (group 3, head_dim 64, and
+    group 4, head_dim 192, T 200): out and lse in with the headroom printed,
     while one TF32 pass misses it."""
     import chip_smoke
 
-    q, k, v, _do, seg = (_t(x) for x in _inputs(1, 200, 6, 2, 64, segments, seed=8))
+    N, K, H = heads
+    q, k, v, _do, seg = (_t(x) for x in _inputs(1, 200, N, K, H, segments, seed=8))
     out, lse = fa.flash_attention_fwd_ref(q, k, v, seg, causal=causal, window=window)
     worst = {}
     for passes in (3, 1):
         got = _f32_fwd_emulation(q, k, v, seg, causal, window, passes)
         worst[passes] = chip_smoke.flash_worst(torch, got, dict(out=out, lse=lse), "float32")
-        print(f"fp32 forward, {passes} TF32 pass(es):", {n: round(e["worst"], 4) for n, e in worst[passes].items()})
+        print(f"fp32 forward H {H}, {passes} TF32 pass(es):",
+              {n: round(e["worst"], 4) for n, e in worst[passes].items()})
     for name, e in worst[3].items():
         assert e["finite"] and e["worst"] <= 1.0, (name, e)
     assert max(e["worst"] for e in worst[1].values()) > 1.0, worst[1]
 
 
-def test_fp32_cuda_route_refuses_head_dim_192():
-    """The operand check of the CUDA wrappers alone (no card needed): bf16
-    takes head_dim 64, 128 and 192; fp32 refuses 192 with
-    ``NotImplementedError`` naming its ROADMAP item, and any other head dim
-    with ``ValueError``."""
-    for dtype, H in ((torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.float32, 64),
-                     (torch.float32, 128)):
-        q, k = torch.zeros(1, 8, 2, H, dtype=dtype), torch.zeros(1, 8, 2, H, dtype=dtype)
-        fa._check_cuda_operands("flash_attention_fwd", {"q": q, "k": k, "v": k}, q, k, None)
-    q = torch.zeros(1, 8, 2, 192)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
-        fa._check_cuda_operands("flash_attention_bwd_dq", {"q": q, "k": q, "v": q}, q, q, None)
-    q = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa._check_cuda_operands("flash_attention_fwd", {"q": q, "k": q, "v": q}, q, q, None)
+def test_cuda_routes_take_head_dims_64_128_and_192():
+    """The operand check of the CUDA wrappers alone (no card needed): both
+    routes (bf16 and fp32 operands) take head_dim 64, 128 and 192, and both
+    refuse 96 and 256 with ``ValueError`` naming the head dims they take."""
+    assert fa.HEAD_DIMS == {"sm90": (64, 128, 192), "sm90_f32": (64, 128, 192)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for H in (64, 128, 192):
+            q, k = torch.zeros(1, 8, 2, H, dtype=dtype), torch.zeros(1, 8, 2, H, dtype=dtype)
+            for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                fa._check_cuda_operands(name, {"q": q, "k": k, "v": k}, q, k, None)
+        for H in (96, 256):
+            q = torch.zeros(1, 8, 2, H, dtype=dtype)
+            with pytest.raises(ValueError, match=r"head_dim must be one of \(64, 128, 192\)"):
+                fa._check_cuda_operands("flash_attention_fwd", {"q": q, "k": q, "v": q}, q, q, None)
 
 
 def test_dkv_split_fills_the_card_and_sizes_the_workspace():

@@ -1,11 +1,14 @@
 """The ``deepseek`` phase of ``chip_smoke.py`` alone, on one CUDA card.
 
-Builds ``flash_attention_sm90.cu`` (printing each head dim's registers and
-spills from its ``-Xptxas -v`` log) and runs ``chip_smoke.phase_deepseek``
-(``generate`` at all 27 of DeepSeek-V2-Lite's layers, one MoE layer at full
-width, the bf16 flash kernels at head_dim 192, the Trainer step at 3 layers)
-with the same checks, printing its JSON lines: a shorter run for work on
-DeepSeek-V2. With ``--calibrate`` it runs, before the phase, the readings
+Builds both flash sources, ``flash_attention_sm90.cu`` (bf16) and
+``flash_attention_sm90_f32.cu`` (fp32), one ``nvcc`` each, started together
+(printing each ``<192>`` instantiation's registers and spills from its
+``-Xptxas -v`` log), and runs ``chip_smoke.phase_deepseek`` (``generate`` at
+all 27 of DeepSeek-V2-Lite's layers, one MoE layer at full width, the bf16
+and fp32 flash kernels at head_dim 192, the Trainer step at 3 layers at
+bf16 compute and at the default fp32, with the fp32 step checked against
+the plain one) with the same checks, printing its JSON lines: a shorter
+run for work on DeepSeek-V2. With ``--calibrate`` it runs, before the phase, the readings
 behind ``chip_smoke.DEEPSEEK_STEP_TOL``: the step's kernels-vs-plain and
 bf16-vs-fp32 distances (routing pinned to the plain step's) for seeds 0-3.
 From the root of a checkout:
@@ -19,6 +22,25 @@ import gc
 import os
 import re
 import sys
+from concurrent.futures import ThreadPoolExecutor
+
+FLASH = ("flash_attention_sm90", "flash_attention_sm90_f32")
+
+
+def usage_192(log):
+    """{kernel<192>: [registers, spill stores, spill loads]} from a ptxas report."""
+    usage, entry = {}, None
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_(?:fwd|bwd)\w+?)ILi(\d+)E", line)
+        if m:
+            entry = f"{m.group(1)}<{m.group(2)}>" if m.group(2) == "192" else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            usage[entry] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            usage[entry] = [int(m.group(1))] + usage.get(entry, [0, 0])[-2:]
+    return usage
 
 
 def calibrate(torch, cs, fa, modeling):
@@ -74,21 +96,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi(), flush=True)
-    build = _build.build("flash_attention_sm90")
-    usage = {}  # kernel<H> -> (registers, spill stores, spill loads), from the ptxas report
-    entry = None
-    for line in (build["log"] or "").splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_\w+_sm90)ILi(\d+)E", line)
-        if m:
-            entry = f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and entry:
-            usage[entry] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            usage[entry] = [int(m.group(1))] + usage.get(entry, [0, 0])[-2:]
-    cs.emit(dict(phase="build", source=_build.SOURCES["flash_attention_sm90"], seconds=build["seconds"],
-                 cached=build["cached"], registers_spill_stores_loads=usage))
+    with ThreadPoolExecutor(len(FLASH)) as pool:
+        builds = dict(zip(FLASH, pool.map(_build.build, FLASH)))
+    for stem, build in builds.items():
+        usage = usage_192(build["log"])  # kernel<192> -> (registers, spill stores, spill loads)
+        cs.emit(dict(phase="build", source=_build.SOURCES[stem], seconds=build["seconds"], cached=build["cached"],
+                     registers_spill_stores_loads=usage, spills=any(u[1] or u[2] for u in usage.values())))
     if args.calibrate:  # first: the phase stops at a failed gate
         calibrate(torch, cs, fa, modeling)
     cs.phase_deepseek(torch, fa, pa, modeling, args.seed)

@@ -2,7 +2,7 @@
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``:
 
-    python3 tools/flash_f32_compare.py [--root DIR ...] [--rounds 1] [--seed 0] [--no-time]
+    python3 tools/flash_f32_compare.py [--root DIR ...] [--rounds 1] [--seed 0] [--no-time] [--head-dim 192]
 
 Each root (default: this checkout) runs in a subprocess of its own, which
 imports that root's ``paddlenlp_tpu_torch``, builds its kernels (the build
@@ -25,7 +25,12 @@ forward under ``no_grad``, its backward through one kept graph). The roots run
 in turns, ``--rounds`` times over (A, B, B, A for two roots and two rounds),
 each printing one JSON line; the card's name and power limit come first.
 Compare two commits by giving the parent's ``git archive`` as the first root
-and this checkout as the second.
+and this checkout as the second. With ``--head-dim 192`` the small cases and
+the timed ones are at head_dim 192 (the ``<192>`` plans, the head dim split
+over warp pairs): the timed ones at DeepSeek-V2-Lite's step shape, q/k/v
+[1, 4096, 16, 192] causal, and T 4095 with segments (``chip_smoke``'s
+``deepseek fp32`` cases), so design variants (roots with an edited
+``flash_attention_sm90_f32.cu``) time in turns in one call.
 """
 
 import argparse
@@ -45,6 +50,12 @@ SMALL = [("causal H128 g6 T100", 2, 100, 12, 2, 128, True, None, False),
          ("causal H64 g1 T333 window+seg", 1, 333, 4, 4, 64, True, 100, True),
          ("full H128 g6 T300 seg", 1, 300, 12, 2, 128, False, None, True),
          ("causal H128 g6 T1000 window 0 (no row sees a key)", 1, 1000, 12, 2, 128, True, 0, False)]
+SMALL_192 = [("causal H192 g1 T333 window+seg", 1, 333, 2, 2, 192, True, 100, True),
+             ("full H192 g6 T200", 2, 200, 6, 1, 192, False, None, False),
+             ("causal H192 g16 T100", 1, 100, 16, 1, 192, True, None, False),
+             ("causal H192 g1 T1000 window 0 (no row sees a key)", 1, 1000, 4, 4, 192, True, 0, False)]
+# (name, B, T, N, K, H, segments): the timed cases at head_dim 192, causal, no window
+TIMED_192 = [("deepseek fp32", 1, 4096, 16, 16, 192, False), ("deepseek fp32 tail segments", 1, 4095, 16, 16, 192, True)]
 
 
 def load_chip_smoke():
@@ -92,7 +103,19 @@ def check_case(torch, cs, fa, q, k, v, do, seg, causal, window):
                                  and torch.equal(dk, dk2) and torch.equal(dv, dv2))), lse, delta
 
 
-def run_one(root, seed, timed):
+def timed_cases(torch, cs, head_dim, seed):
+    """(name, window, q, k, v, do, seg) of each timed case: the fp32 cases of
+    ``chip_smoke.FLASH_CASES`` at head_dim 128, ``TIMED_192`` at 192."""
+    if head_dim == 128:
+        for name, dtype, T, segments, window in cs.FLASH_CASES:
+            if dtype == "float32":
+                yield (name, window, *cs.flash_case(torch, dtype, T, segments, seed))
+    else:
+        for name, B, T, N, K, H, segments in TIMED_192:
+            yield (name, None, *_inputs(torch, B, T, N, K, H, segments, seed))
+
+
+def run_one(root, seed, timed, head_dim=128):
     """The checks and times on ``root``'s package: one JSON object."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -112,16 +135,13 @@ def run_one(root, seed, timed):
             builds[stem]["ptxas"] = [ln.strip() for ln in (b["log"] or "").splitlines()
                                      if re.search(r"registers|spill|Compiling entry", ln)]
     checks = []
-    for name, B, T, N, K, H, causal, window, segments in SMALL:
+    for name, B, T, N, K, H, causal, window, segments in SMALL if head_dim == 128 else SMALL_192:
         q, k, v, do, seg = _inputs(torch, B, T, N, K, H, segments, seed)
         res, _lse, _delta = check_case(torch, cs, fa, q, k, v, do, seg, causal, window)
         checks.append(dict(case=name, **res))
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     times = []
-    for name, dtype, T, segments, window in cs.FLASH_CASES:
-        if dtype != "float32":
-            continue
-        q, k, v, do, seg = cs.flash_case(torch, dtype, T, segments, seed)
+    for name, window, q, k, v, do, seg in timed_cases(torch, cs, head_dim, seed):
         res, lse, delta = check_case(torch, cs, fa, q, k, v, do, seg, True, window)
         checks.append(dict(case=name, **res))
         if not timed:
@@ -166,10 +186,12 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1, help="turns over the roots; odd turns run them in reverse")
     ap.add_argument("--no-time", action="store_true", help="only build and check")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--head-dim", type=int, choices=(128, 192), default=128,
+                    help="the head dim of the small and timed cases (192: DeepSeek-V2-Lite's step shape)")
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the subprocess of one root
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(run_one(args.one, args.seed, not args.no_time)), flush=True)
+        print(json.dumps(run_one(args.one, args.seed, not args.no_time, args.head_dim)), flush=True)
         return 0
     import torch
 
@@ -181,7 +203,8 @@ def main(argv=None) -> int:
     roots = args.root or [HERE]
     for turn in range(args.rounds):
         for root in roots if turn % 2 == 0 else roots[::-1]:
-            cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--seed", str(args.seed)]
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--seed", str(args.seed),
+                   "--head-dim", str(args.head_dim)]
             cmd += ["--no-time"] if args.no_time else []
             proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True)
             if proc.returncode != 0:

@@ -73,7 +73,7 @@ def ppo_round(torch, cs, pa, seed):
             trainer.rollout(prompts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    return cs.rollout_profile(prof, wall, pa.LAUNCHES - calls)
+    return cs.rollout_profile(torch, prof, wall, pa.LAUNCHES - calls)
 
 
 def run_one(root, seed, ppo, sweep):
